@@ -1,0 +1,19 @@
+"""ssspy_tpu_torch: blind source separation on PyTorch, with CUDA kernels for Hopper.
+
+The PyTorch counterpart of :mod:`ssspy_tpu`, carried slice by slice
+(ROADMAP.md). It imports torch and numpy, never JAX. Tensors are native
+complex (complex64 on the card); the hot-path kernels are written by hand
+in CUDA C++ for ``sm_90a`` (``ops/csrc``), built with ``nvcc`` on first
+use, and each has a plain PyTorch version that CPU tensors take.
+
+Ported so far: AuxIVA-IP1 (class API and :func:`fast.fast_auxiva`),
+STFT/iSTFT, projection back, minimal distortion principle and the
+waveform-to-waveform :func:`separate`.
+"""
+
+from . import algorithm, bss, fast, ops, special, transform, utils
+from .pipeline import separate
+
+__version__ = "0.1.0"
+
+__all__ = ["algorithm", "bss", "fast", "ops", "special", "transform", "utils", "separate"]

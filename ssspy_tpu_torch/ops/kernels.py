@@ -1,0 +1,251 @@
+"""The two hand-written CUDA kernels of the AuxIVA-IP1 step, with their plain versions.
+
+- :func:`weighted_covariance` — ``U[i,n] = mean_t phi[n,(i),t] x_it x_it^H``,
+  counterpart of ``ssspy_tpu.ops.pallas_kernels.weighted_covariance_sc``
+  (pallas_kernels.py:40-186); kernel ``csrc/weighted_covariance.cu``.
+- :func:`ip1_sweep` — the sequential IP1 source sweep, counterpart of
+  ``ssspy_tpu.ops.splitc.ip1_sweep_sc`` with ``csolve`` /
+  ``gauss_jordan_solve_nopivot`` (splitc.py:168-344); kernel
+  ``csrc/ip1_sweep.cu``.
+
+Each wrapper takes its plain PyTorch version for CPU tensors and launches
+its kernel for CUDA tensors, which must be complex64/float32 and
+contiguous; anything else raises. ``<wrapper>.launches`` counts kernel
+launches (never plain calls).
+"""
+
+import ctypes
+
+import torch
+
+from . import _build
+
+__all__ = [
+    "weighted_covariance",
+    "weighted_covariance_plain",
+    "ip1_sweep",
+    "ip1_sweep_plain",
+    "gauss_jordan_solve_nopivot",
+]
+
+# limits the kernels take, mirrored from csrc/*.cu
+_SMEM_LIMIT = 48 * 1024
+_WCOV_STRIDE = 128 + 1  # padded row of frames staged per pass
+_WCOV_MAX_ENTRIES = 1024 * 8
+_GJ_TINY = 1e-20
+
+_VOID, _INT, _FLOAT = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
+_SIGNATURES = {
+    "weighted_covariance": (
+        "weighted_covariance_launch",
+        [_VOID, _VOID, _VOID, _INT, _INT, _INT, _INT, _INT, _INT, _VOID],
+    ),
+    "ip1_sweep": (
+        "ip1_sweep_launch",
+        [_VOID, _VOID, _VOID, _INT, _INT, _INT, _FLOAT, _INT, _VOID],
+    ),
+}
+
+
+_entries = {}
+
+
+def _entry(name: str):
+    """``(library, typed C launch function)`` of kernel ``name``, built on first use."""
+    entry = _entries.get(name)
+    if entry is None:
+        lib = _build.load(name)
+        symbol, argtypes = _SIGNATURES[name]
+        fn = getattr(lib, symbol)
+        fn.argtypes = argtypes
+        fn.restype = ctypes.c_int
+        entry = _entries[name] = (lib, fn)
+    return entry
+
+
+def _on_cpu(*tensors) -> bool:
+    return all(t.device.type == "cpu" for t in tensors)
+
+
+def _require(cond: bool, message: str) -> None:
+    if not cond:
+        raise ValueError(message)
+
+
+def _check_cuda(name: str, *tensors) -> None:
+    device = tensors[0].device
+    _require(
+        device.type == "cuda" and all(t.device == device for t in tensors),
+        f"{name}: expected all CPU tensors (plain version) or all CUDA tensors on one "
+        f"device (kernel), got {[str(t.device) for t in tensors]}",
+    )
+
+
+def _stream(device: torch.device) -> int:
+    return torch.cuda.current_stream(device).cuda_stream
+
+
+# ---- weighted covariance --------------------------------------------------
+
+
+def weighted_covariance_plain(X: torch.Tensor, varphi: torch.Tensor) -> torch.Tensor:
+    """``U[i,n] = mean_t varphi[n,(i),t] x_it x_it^H`` by einsum.
+
+    ``X``: complex ``(M, I, T)``; ``varphi``: real ``(N, T)`` or per-bin
+    ``(N, I, T)``. Returns complex ``(I, N, M, M)``. The einsum of
+    ``_wcov_einsum`` (pallas_kernels.py:143-152) on native complex.
+    """
+    eq = "nit,pit,qit->inpq" if varphi.dim() == 3 else "nt,pit,qit->inpq"
+    return torch.einsum(eq, varphi.to(X.dtype), X, X.conj()) / X.shape[-1]
+
+
+def _check_weighted_covariance(X: torch.Tensor, varphi: torch.Tensor) -> None:
+    name = "weighted_covariance"
+    _require(X.dim() == 3, f"{name}: X must be (M, I, T), got {tuple(X.shape)}")
+    M, I, T = X.shape
+    _require(varphi.dim() in (2, 3), f"{name}: varphi must be (N, T) or (N, I, T)")
+    N = varphi.shape[0]
+    expected = (N, T) if varphi.dim() == 2 else (N, I, T)
+    _require(
+        tuple(varphi.shape) == expected,
+        f"{name}: varphi shape {tuple(varphi.shape)} does not match X {tuple(X.shape)}",
+    )
+    _require(X.dtype == torch.complex64, f"{name}: the kernel takes complex64 X, got {X.dtype}")
+    _require(
+        varphi.dtype == torch.float32, f"{name}: the kernel takes float32 varphi, got {varphi.dtype}"
+    )
+    _require(X.is_contiguous() and varphi.is_contiguous(), f"{name}: inputs must be contiguous")
+    _require(min(M, I, T, N) >= 1, f"{name}: empty input {tuple(X.shape)}, N={N}")
+    _require(
+        N * M * (M + 1) // 2 <= _WCOV_MAX_ENTRIES and (2 * M + N) * _WCOV_STRIDE * 4 <= _SMEM_LIMIT,
+        f"{name}: M={M}, N={N} exceeds what one block of the kernel holds",
+    )
+    _check_cuda(name, X, varphi)
+
+
+def weighted_covariance(X: torch.Tensor, varphi: torch.Tensor) -> torch.Tensor:
+    """Weighted covariance ``(I, N, M, M)``; kernel on CUDA, plain version on CPU.
+
+    ``X``: complex ``(M, I, T)``; ``varphi``: ``(N, T)`` scalar weights
+    (IVA) or ``(N, I, T)`` per-bin weights (ILRMA/FDICA/MNMF).
+    """
+    if _on_cpu(X, varphi):
+        return weighted_covariance_plain(X, varphi)
+    _check_weighted_covariance(X, varphi)
+    M, I, T = X.shape
+    N = varphi.shape[0]
+    lib, launch = _entry("weighted_covariance")
+    U = torch.empty((I, N, M, M), dtype=torch.complex64, device=X.device)
+    status = launch(
+        X.data_ptr(), varphi.data_ptr(), U.data_ptr(), M, N, I, T,
+        int(varphi.dim() == 3), X.device.index, _stream(X.device),
+    )
+    _build.check(lib, "weighted_covariance", status)
+    weighted_covariance.launches += 1
+    return U
+
+
+weighted_covariance.launches = 0
+
+
+# ---- IP1 sweep --------------------------------------------------------------
+
+
+def gauss_jordan_solve_nopivot(A: torch.Tensor, b: torch.Tensor, tiny: float = _GJ_TINY) -> torch.Tensor:
+    """Pivot-free complex Gauss-Jordan solve of ``A x = b``, batched.
+
+    ``A``: ``(..., n, n)``; ``b``: ``(..., n)``. A pivot with
+    ``|p| < tiny`` is floored to magnitude ``tiny`` keeping its phase (0
+    becomes ``tiny``), so a singular system gives large-but-finite values
+    instead of NaN — the rule of ``splitc.gauss_jordan_solve_nopivot``
+    (splitc.py:168-199) applied to the complex pivot. Same elimination,
+    same order, as ``csrc/ip1_sweep.cu``.
+    """
+    n = A.shape[-1]
+    M = torch.cat([A, b[..., None]], dim=-1)
+    for k in range(n):
+        pivot = M[..., k, k : k + 1]
+        mag = pivot.abs()
+        floored = torch.where(mag > 0, pivot / mag * tiny, torch.full_like(pivot, tiny))
+        pivot = torch.where(mag < tiny, floored, pivot)
+        pivot_row = M[..., k, :] / pivot
+        M = M - M[..., :, k, None] * pivot_row[..., None, :]
+        M[..., k, :] = pivot_row
+    return M[..., n]
+
+
+def ip1_sweep_plain(
+    W: torch.Tensor, U: torch.Tensor, eps: float = 1e-10, solve_impl: str = "lu"
+) -> torch.Tensor:
+    """Sequential IP1 sweep in plain PyTorch; returns the new ``W``.
+
+    ``W``: ``(I, N, M)``; ``U``: ``(I, N, M, M)``, Hermitian per source.
+    Each source solves ``(W U_n) w = e_n``, normalises by
+    ``sqrt(w^H U_n w)`` and keeps its row where ``w^H U_n w <= 0`` or NaN
+    (splitc.py:281-344). ``solve_impl``: ``"lu"`` (``torch.linalg.solve_ex``,
+    which returns non-finite values on a singular system for the freeze to
+    absorb where ``torch.linalg.solve`` would raise) or ``"gjnp"``
+    (:func:`gauss_jordan_solve_nopivot`, the kernel's exact elimination).
+    """
+    if solve_impl not in ("lu", "gjnp"):
+        raise ValueError(f"unknown solve_impl {solve_impl!r}; expected 'lu' or 'gjnp'")
+    n_bins, n_sources, n_channels = W.shape
+    W = W.clone()
+    eye = torch.eye(n_sources, n_channels, dtype=W.dtype, device=W.device)
+    for n in range(n_sources):
+        U_n = U[:, n]
+        A = W @ U_n
+        b = eye[n].expand(n_bins, n_channels)
+        if solve_impl == "lu":
+            w = torch.linalg.solve_ex(A, b)[0]
+        else:
+            w = gauss_jordan_solve_nopivot(A, b)
+        z = (U_n @ w[..., None])[..., 0]
+        wUw = (w.real * z.real + w.imag * z.imag).sum(-1)
+        denom = torch.clamp(torch.sqrt(torch.clamp(wUw, min=0.0)), min=eps)
+        valid = (wUw > 0.0)[:, None]
+        W[:, n] = torch.where(valid, w.conj() / denom[:, None], W[:, n])
+    return W
+
+
+def _check_ip1_sweep(W: torch.Tensor, U: torch.Tensor) -> None:
+    name = "ip1_sweep"
+    _require(W.dim() == 3, f"{name}: W must be (I, N, M), got {tuple(W.shape)}")
+    I, N, M = W.shape
+    _require(N == M and N >= 1, f"{name}: W must be square per bin, got {tuple(W.shape)}")
+    _require(
+        tuple(U.shape) == (I, N, M, M),
+        f"{name}: U shape {tuple(U.shape)} does not match W {tuple(W.shape)}",
+    )
+    _require(
+        W.dtype == torch.complex64 and U.dtype == torch.complex64,
+        f"{name}: the kernel takes complex64, got {W.dtype}, {U.dtype}",
+    )
+    _require(W.is_contiguous() and U.is_contiguous(), f"{name}: inputs must be contiguous")
+    _require(I >= 1, f"{name}: no bins")
+    L = M + 1
+    _require(
+        (N * M * M + N * M + M * L + L + 2 * M) * 8 <= _SMEM_LIMIT,
+        f"{name}: N=M={M} exceeds what one block of the kernel holds in shared memory",
+    )
+    _check_cuda(name, W, U)
+
+
+def ip1_sweep(W: torch.Tensor, U: torch.Tensor, eps: float = 1e-10) -> torch.Tensor:
+    """IP1 sweep; kernel on CUDA, :func:`ip1_sweep_plain` (``"lu"``) on CPU."""
+    if _on_cpu(W, U):
+        return ip1_sweep_plain(W, U, eps)
+    _check_ip1_sweep(W, U)
+    I, N, M = W.shape
+    lib, launch = _entry("ip1_sweep")
+    W_out = torch.empty_like(W)
+    status = launch(
+        W.data_ptr(), U.data_ptr(), W_out.data_ptr(), I, N, M, float(eps),
+        W.device.index, _stream(W.device),
+    )
+    _build.check(lib, "ip1_sweep", status)
+    ip1_sweep.launches += 1
+    return W_out
+
+
+ip1_sweep.launches = 0

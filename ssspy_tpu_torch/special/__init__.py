@@ -1,0 +1,21 @@
+from .flooring import (
+    EPS,
+    F32_EPS,
+    choose_flooring_fn,
+    dtype_eps,
+    dtype_flooring,
+    identity,
+    max_flooring,
+    resolve_flooring_spec,
+)
+
+__all__ = [
+    "EPS",
+    "F32_EPS",
+    "choose_flooring_fn",
+    "dtype_eps",
+    "dtype_flooring",
+    "identity",
+    "max_flooring",
+    "resolve_flooring_spec",
+]

@@ -1,0 +1,4 @@
+from .convert import complex_to_planar, from_jax_state, planar_to_complex
+from .dataset import host_stft, make_mixture
+
+__all__ = ["complex_to_planar", "from_jax_state", "planar_to_complex", "host_stft", "make_mixture"]

@@ -1,0 +1,49 @@
+"""Bridge between the JAX package's arrays and the port's tensors.
+
+The JAX fast paths carry complex values as planar ``(2, ...)`` float32
+arrays (``[real, imag]``); its class API carries complex arrays. These
+helpers turn either into complex tensors on a chosen device and back, so
+both packages can be fed the same state. They take numpy arrays (a JAX
+array converts with ``np.asarray``) and import nothing from JAX.
+"""
+
+from typing import Dict
+
+import numpy as np
+import torch
+
+__all__ = ["planar_to_complex", "complex_to_planar", "from_jax_state"]
+
+
+def planar_to_complex(a, device=None) -> torch.Tensor:
+    """Planar ``(2, ...)`` real array -> complex tensor ``(...)`` on ``device``.
+
+    float32 planes give complex64, float64 planes complex128.
+    """
+    a = np.asarray(a)
+    if a.shape[:1] != (2,) or np.iscomplexobj(a):
+        raise ValueError(f"expected a real (2, ...) planar array, got {a.dtype} {a.shape}")
+    return torch.complex(torch.from_numpy(a[0].copy()), torch.from_numpy(a[1].copy())).to(device)
+
+
+def complex_to_planar(t: torch.Tensor) -> np.ndarray:
+    """Complex tensor ``(...)`` -> planar ``(2, ...)`` real numpy array on the host."""
+    t = t.detach().cpu()
+    return np.stack([t.real.numpy(), t.imag.numpy()], axis=0)
+
+
+def from_jax_state(state: Dict, device=None) -> Dict[str, torch.Tensor]:
+    """Convert a JAX class or fast-path state dict (e.g. ``{"X": Xs, "W": Ws}``).
+
+    Complex entries (class state) become complex tensors as they are;
+    real entries with a leading axis of 2 (fast-path planar state) go
+    through :func:`planar_to_complex`. Other real entries keep their dtype.
+    """
+    out = {}
+    for key, value in state.items():
+        a = np.asarray(value)
+        if np.iscomplexobj(a) or a.shape[:1] != (2,):
+            out[key] = torch.from_numpy(a.copy()).to(device)
+        else:
+            out[key] = planar_to_complex(a, device=device)
+    return out

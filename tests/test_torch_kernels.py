@@ -1,0 +1,241 @@
+"""ssspy_tpu_torch kernels: plain versions against the JAX package, dispatch and build.
+
+On the CPU the kernel wrappers take their plain PyTorch versions; these
+are checked against the JAX functions they port (the Pallas covariance
+in interpret mode and its einsum, the split-complex IP1 sweep with both
+solvers) on the same numpy inputs. The CUDA kernels themselves are
+compared with the plain versions on the card by tests/test_torch_cuda.py
+and by ``chip_smoke.py``.
+"""
+
+import os
+import stat
+import subprocess
+import sys
+
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from ssspy_tpu.ops.pallas_kernels import weighted_covariance_sc
+from ssspy_tpu.ops.splitc import ip1_sweep_sc
+from ssspy_tpu_torch.ops import _build
+from ssspy_tpu_torch.ops import kernels as K
+from ssspy_tpu_torch.utils import complex_to_planar, planar_to_complex
+
+torch.set_num_threads(1)
+
+REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+SHAPES = [(3, 17, 50, 3), (8, 16, 40, 8)]  # (M, I, T, N)
+
+
+def _planar(rng, shape):
+    return rng.standard_normal((2,) + shape).astype(np.float32)
+
+
+def _weights(rng, N, I, T, per_bin):
+    return (rng.random((N, I, T) if per_bin else (N, T)) + 0.1).astype(np.float32)
+
+
+def _rel_err(got, ref):
+    return np.abs(got - ref).max() / np.abs(ref).max()
+
+
+# ---- weighted covariance -----------------------------------------------------
+
+
+@pytest.mark.parametrize("per_bin", [False, True], ids=["scalar", "per_bin"])
+@pytest.mark.parametrize("shape", SHAPES)
+@pytest.mark.parametrize("impl", ["interpret", "einsum"])
+def test_weighted_covariance_plain_matches_jax(shape, per_bin, impl):
+    M, I, T, N = shape
+    rng = np.random.default_rng(0)
+    Xs = _planar(rng, (M, I, T))
+    phi = _weights(rng, N, I, T, per_bin)
+
+    Ur, Ui = weighted_covariance_sc(
+        jnp.asarray(Xs[0]), jnp.asarray(Xs[1]), jnp.asarray(phi), impl=impl
+    )
+    U = K.weighted_covariance_plain(planar_to_complex(Xs), torch.from_numpy(phi))
+
+    assert U.shape == (I, N, M, M) and U.dtype == torch.complex64
+    got = complex_to_planar(U)
+    np.testing.assert_allclose(got[0], np.asarray(Ur), atol=1e-5)
+    np.testing.assert_allclose(got[1], np.asarray(Ui), atol=1e-5)
+    # Hermitian per (bin, source)
+    np.testing.assert_allclose(U.numpy(), np.swapaxes(U.numpy(), -2, -1).conj(), atol=1e-5)
+
+
+@pytest.mark.parametrize("per_bin", [False, True], ids=["scalar", "per_bin"])
+def test_weighted_covariance_wrapper_takes_plain_on_cpu(per_bin):
+    rng = np.random.default_rng(1)
+    M, I, T, N = SHAPES[0]
+    X = planar_to_complex(_planar(rng, (M, I, T)))
+    phi = torch.from_numpy(_weights(rng, N, I, T, per_bin))
+    before = K.weighted_covariance.launches
+    torch.testing.assert_close(K.weighted_covariance(X, phi), K.weighted_covariance_plain(X, phi))
+    assert K.weighted_covariance.launches == before  # plain calls are not launches
+
+
+# ---- IP1 sweep ---------------------------------------------------------------
+
+
+def _sweep_inputs(rng, M, I, T):
+    """Near-identity W and Hermitian PSD U with bin 5 zeroed (a silent bin).
+
+    W stays near the identity, as on the IP trajectory (which starts at
+    W = I): pivot-free elimination is only as stable as its leading pivots.
+    """
+    Xs = _planar(rng, (M, I, T))
+    phi = _weights(rng, M, I, T, per_bin=False)
+    U = K.weighted_covariance_plain(planar_to_complex(Xs), torch.from_numpy(phi))
+    U[5] = 0
+    W = np.eye(M)[None] + 0.1 * (rng.standard_normal((I, M, M)) + 1j * rng.standard_normal((I, M, M)))
+    return torch.from_numpy(W.astype(np.complex64)), U
+
+
+@pytest.mark.parametrize("solve_impl", ["lu", "gjnp"])
+@pytest.mark.parametrize("shape", SHAPES)
+def test_ip1_sweep_plain_matches_jax(shape, solve_impl):
+    M, I, T, _ = shape
+    W, U = _sweep_inputs(np.random.default_rng(2), M, I, T)
+    Ws, Us = complex_to_planar(W), complex_to_planar(U)
+
+    Wr, Wi = ip1_sweep_sc(
+        jnp.asarray(Ws[0]), jnp.asarray(Ws[1]), jnp.asarray(Us[0]), jnp.asarray(Us[1]),
+        eps=1e-10, solve_impl=solve_impl,
+    )
+    got = K.ip1_sweep_plain(W, U, eps=1e-10, solve_impl=solve_impl)
+
+    ref = np.stack([np.asarray(Wr), np.asarray(Wi)])
+    assert _rel_err(complex_to_planar(got), ref) <= 1e-4
+    assert torch.isfinite(torch.view_as_real(got)).all()
+    # the zero bin: every row frozen, nothing NaN
+    torch.testing.assert_close(got[5], W[5], rtol=0, atol=0)
+
+
+def test_ip1_sweep_wrapper_takes_lu_on_cpu():
+    W, U = _sweep_inputs(np.random.default_rng(3), 3, 17, 50)
+    before = K.ip1_sweep.launches
+    torch.testing.assert_close(K.ip1_sweep(W, U), K.ip1_sweep_plain(W, U, solve_impl="lu"))
+    assert K.ip1_sweep.launches == before
+
+
+def test_gauss_jordan_nopivot_solves_and_floors_complex128():
+    rng = np.random.default_rng(4)
+    A = rng.standard_normal((6, 4, 4)) + 1j * rng.standard_normal((6, 4, 4)) + 4 * np.eye(4)
+    b = rng.standard_normal((6, 4)) + 1j * rng.standard_normal((6, 4))
+    x = K.gauss_jordan_solve_nopivot(torch.from_numpy(A), torch.from_numpy(b))
+    np.testing.assert_allclose(x.numpy(), np.linalg.solve(A, b[..., None])[..., 0], rtol=1e-10)
+    # a zero system gives large but finite values, never NaN
+    x0 = K.gauss_jordan_solve_nopivot(torch.zeros(2, 3, 3, dtype=torch.complex128), torch.from_numpy(b[:2, :3]))
+    assert torch.isfinite(torch.view_as_real(x0)).all() and x0.abs().max() > 1e15
+
+
+def test_ip1_sweep_plain_rejects_unknown_solver():
+    W, U = _sweep_inputs(np.random.default_rng(5), 3, 17, 50)
+    with pytest.raises(ValueError, match="solve_impl"):
+        K.ip1_sweep_plain(W, U, solve_impl="cholesky")
+
+
+# ---- dispatch: no silent fallback -------------------------------------------
+
+
+def test_cuda_tensor_without_a_card_raises():
+    if torch.cuda.is_available():
+        pytest.skip("a card is present; the kernel path is tested by the cuda tests")
+    rng = np.random.default_rng(6)
+    X = planar_to_complex(_planar(rng, (3, 17, 50)))
+    phi = torch.from_numpy(_weights(rng, 3, 17, 50, per_bin=False))
+    with pytest.raises((RuntimeError, AssertionError)):
+        K.weighted_covariance(X.to("cuda"), phi.to("cuda"))
+
+
+@pytest.mark.parametrize("wrapper", ["weighted_covariance", "ip1_sweep"])
+def test_non_cpu_tensor_goes_to_the_kernel_checks_not_the_plain_version(wrapper):
+    rng = np.random.default_rng(7)
+    if wrapper == "weighted_covariance":
+        args = (
+            planar_to_complex(_planar(rng, (3, 17, 50))),
+            torch.from_numpy(_weights(rng, 3, 17, 50, per_bin=False)),
+        )
+    else:
+        args = _sweep_inputs(rng, 3, 17, 50)
+    meta = [a.to("meta") for a in args]
+    with pytest.raises(ValueError, match="CUDA"):
+        getattr(K, wrapper)(*meta)
+    mixed = [args[0].to("meta"), args[1]]
+    with pytest.raises(ValueError, match="CUDA"):
+        getattr(K, wrapper)(*mixed)
+
+
+@pytest.mark.parametrize(
+    "X_dtype,phi_shape,message",
+    [
+        (torch.complex128, (3, 50), "complex64"),
+        (torch.complex64, (3, 49), "does not match"),
+        (torch.complex64, (3, 16, 50), "does not match"),
+    ],
+)
+def test_weighted_covariance_kernel_rejects_what_it_does_not_take(X_dtype, phi_shape, message):
+    X = torch.zeros((3, 17, 50), dtype=X_dtype, device="meta")
+    phi = torch.zeros(phi_shape, dtype=torch.float32, device="meta")
+    with pytest.raises(ValueError, match=message):
+        K.weighted_covariance(X, phi)
+
+
+def test_ip1_sweep_kernel_rejects_what_it_does_not_take():
+    W = torch.zeros((17, 3, 3), dtype=torch.complex64, device="meta")
+    U = torch.zeros((17, 3, 3, 3), dtype=torch.complex64, device="meta")
+    with pytest.raises(ValueError, match="square"):
+        K.ip1_sweep(torch.zeros((17, 2, 3), dtype=torch.complex64, device="meta"), U)
+    with pytest.raises(ValueError, match="contiguous"):
+        K.ip1_sweep(W.transpose(1, 2), U)
+    with pytest.raises(ValueError, match="shared memory"):
+        K.ip1_sweep(
+            torch.zeros((4, 32, 32), dtype=torch.complex64, device="meta"),
+            torch.zeros((4, 32, 32, 32), dtype=torch.complex64, device="meta"),
+        )
+
+
+# ---- build ---------------------------------------------------------------------
+
+
+def test_build_without_nvcc_raises_a_clear_error(monkeypatch, tmp_path):
+    monkeypatch.setenv("PATH", str(tmp_path))
+    monkeypatch.delenv("CUDA_HOME", raising=False)
+    monkeypatch.setattr(_build, "DEFAULT_CUDA_HOME", str(tmp_path / "no-cuda"))
+    monkeypatch.setattr(_build, "BUILD_DIR", str(tmp_path / "build"))
+    monkeypatch.setattr(_build, "_libs", {})
+    with pytest.raises(RuntimeError, match="nvcc not found"):
+        _build.load("weighted_covariance")
+
+
+def test_failed_build_raises_with_the_compiler_output(monkeypatch, tmp_path):
+    fake = tmp_path / "nvcc"
+    fake.write_text("#!/bin/sh\necho 'error: deliberately broken toolchain' >&2\nexit 2\n")
+    fake.chmod(fake.stat().st_mode | stat.S_IEXEC)
+    monkeypatch.setenv("PATH", str(tmp_path))
+    monkeypatch.setattr(_build, "BUILD_DIR", str(tmp_path / "build"))
+    monkeypatch.setattr(_build, "_libs", {})
+    with pytest.raises(RuntimeError, match="deliberately broken toolchain"):
+        _build.load("ip1_sweep")
+    assert not any(p.suffix == ".so" for p in (tmp_path / "build").iterdir())
+
+
+def test_every_kernel_source_exists_for_its_wrapper():
+    for name in K._SIGNATURES:
+        assert os.path.isfile(os.path.join(_build.SOURCE_DIR, f"{name}.cu"))
+
+
+def test_import_pulls_in_no_jax():
+    code = (
+        "import sys, ssspy_tpu_torch, ssspy_tpu_torch.bss.iva, ssspy_tpu_torch.fast, "
+        "ssspy_tpu_torch.pipeline, ssspy_tpu_torch.utils.convert\n"
+        "bad = sorted(m for m in sys.modules if m == 'jax' or m.startswith(('jax.', 'ssspy_tpu.')) "
+        "or m == 'ssspy_tpu')\n"
+        "assert not bad, bad\n"
+    )
+    env = {k: v for k, v in os.environ.items() if k != "PYTHONPATH"}
+    subprocess.run([sys.executable, "-c", code], cwd=REPO, env=env, check=True, timeout=120)
