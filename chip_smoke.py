@@ -1,15 +1,29 @@
 #!/usr/bin/env python3
 """Smoke run of the PyTorch + CUDA port (ssspy_tpu_torch) on one NVIDIA GPU.
 
-Builds the hand-written CUDA kernels from ``ssspy_tpu_torch/ops/csrc``,
-checks each against its plain PyTorch version at the main-path shapes,
-then drives the port's main path — AuxIVA-IP1 on the 8-channel, 10 s,
-16 kHz synthetic mixture (STFT 512/256: 257 bins x 626 frames), 100
-iterations, through ``AuxLaplaceIVA(spatial_algorithm="IP")``,
-``fast_auxiva(algorithm="IP1")`` and the waveform-to-waveform
-``separate`` — and holds its outputs against the same iterations run
-through the plain versions. Last, it times each kernel against its plain
-version and the main path's iterations per second.
+Builds the hand-written CUDA kernels from ``ssspy_tpu_torch/ops/csrc`` (one
+``nvcc`` per source, all started together) and checks each against its
+plain PyTorch version at the main-path shapes. Then it drives the port's
+paths on the 8-channel, 10 s, 16 kHz synthetic mixture (STFT 512/256: 257
+bins x 626 frames), 100 iterations each, through the entry points a user
+calls, on the default device:
+
+- AuxIVA-IP1: ``AuxLaplaceIVA(spatial_algorithm="IP")``,
+  ``fast_auxiva(algorithm="IP1")`` and the waveform-to-waveform ``separate``;
+- GaussILRMA-IP1 (``n_basis=8``): ``GaussILRMA(spatial_algorithm="IP")`` and
+  ``fast_gauss_ilrma(algorithm="IP1")``;
+- GaussILRMA-ISS1: ``GaussILRMA(spatial_algorithm="ISS1")``,
+  ``fast_gauss_ilrma(algorithm="ISS1")`` and ``separate`` with it;
+- AuxIVA-ISS1: ``AuxLaplaceIVA(spatial_algorithm="ISS1")`` and
+  ``fast_auxiva(algorithm="ISS1")``;
+- TILRMA and GGDILRMA, IP1 and ISS1, 10 iterations each.
+
+Every launch count is set to 0 just before a path and read just after it,
+and each path must have launched the kernels it runs (and no other). The
+outputs are held against the same iterations run through the plain
+versions on the card. Last, it times each kernel against its plain
+version, its bound and (where one exists) the one PyTorch call that
+computes the same function, and each path's iterations per second.
 
 Run from the repository root, with one CUDA device:
 
@@ -20,35 +34,45 @@ lines are the kernels' JSON summary, the card as ``nvidia-smi`` names it,
 and ``{"ok": true, "device": {...}}``. Imports nothing of JAX.
 """
 
+import contextlib
 import json
 import statistics
 import subprocess
 import sys
 import time
+from concurrent.futures import ThreadPoolExecutor
 
 import numpy as np
 import torch
 
 from ssspy_tpu_torch import separate as separate_waveform
-from ssspy_tpu_torch.algorithm import projection_back
-from ssspy_tpu_torch.bss.iva import AuxLaplaceIVA
-from ssspy_tpu_torch.fast import fast_auxiva
+from ssspy_tpu_torch.bss import GGDILRMA, AuxLaplaceIVA, GaussILRMA, TILRMA
+from ssspy_tpu_torch.fast import fast_auxiva, fast_gauss_ilrma
 from ssspy_tpu_torch.ops import _build
 from ssspy_tpu_torch.ops import kernels as K
-from ssspy_tpu_torch.ops.iva_steps import auxiva_ip1_step, iva_laplace_loss, separate
-from ssspy_tpu_torch.special.flooring import F32_EPS
-from ssspy_tpu_torch.transform import istft, stft
+from ssspy_tpu_torch.ops.ilrma_steps import ilrma_ip_step, ilrma_iss_step, ilrma_loss
+from ssspy_tpu_torch.ops.iva_steps import auxiva_ip1_step, auxiva_iss1_step, iva_laplace_loss, separate
+from ssspy_tpu_torch.transform import stft
 from ssspy_tpu_torch.utils.dataset import HOP, N_FFT, make_mixture
 
 N_ITER = 100
+N_ITER_MODELS = 10  # TILRMA / GGDILRMA
+N_BASIS = 8  # bench.py:42
 FAST_EPS = 1e-10  # fast_auxiva / auxiva_ip1_step default
+ILRMA_EPS = 1e-6  # the ILRMA steps' f32 floor
 WCOV_TOL = 1e-5  # both sides sum 626 f32 terms, in different orders
 SWEEP_TOL = 1e-4
+ISS1_TOL = 1e-4  # 626 f32 terms summed in different orders, over 8 sequential updates
 LOSS_TOL = 1e-3
 MIN_SI_SDR_DB = 30.0
 N_TIMED = 30  # timed runs per measurement, after warm-up
 SILENT_BINS = (0, 128)
 SPIN_CYCLES = 20_000_000  # ~10 ms of device spin ahead of a "queued" timing
+LONG_SHAPE = (8, 16, 4000)  # (N, I, T) whose bin exceeds shared memory: the streamed K2
+
+# the card's peaks for the bound: NVIDIA H100 SXM data sheet, at 700 W
+HBM_BYTES_PER_S = 3.35e12
+F32_FLOPS_PER_S = 67e12
 
 KERNELS = {
     "weighted_covariance": {
@@ -59,6 +83,16 @@ KERNELS = {
         "source": "ssspy_tpu_torch/ops/csrc/ip1_sweep.cu",
         "replaces": "ssspy_tpu/ops/splitc.py:281",
     },
+    "iss1_sweep": {
+        "source": "ssspy_tpu_torch/ops/csrc/iss1_sweep.cu",
+        "replaces": "ssspy_tpu/ops/pallas_kernels.py:773",
+    },
+}
+WRAPPERS = {name: getattr(K, name) for name in KERNELS}
+PLAIN = {
+    "weighted_covariance": K.weighted_covariance_plain,
+    "ip1_sweep": K.ip1_sweep_plain,  # "lu"
+    "iss1_sweep": K.iss1_sweep_plain,
 }
 
 
@@ -120,22 +154,151 @@ def median_ms(fn, queued: bool, n_runs: int = N_TIMED, n_warmup: int = 3) -> flo
     return statistics.median(times)
 
 
-def plain_iterations(X, n_iter, varphi_of, eps):
-    """The main-path iteration through the plain versions (LU solve)."""
-    W = torch.eye(X.shape[0], dtype=X.dtype, device=X.device).expand(X.shape[1], -1, -1).contiguous()
-    for _ in range(n_iter):
-        U = K.weighted_covariance_plain(X, varphi_of(separate(X, W)))
-        W = K.ip1_sweep_plain(W, U, eps, solve_impl="lu")
-    return W
+@contextlib.contextmanager
+def plain_versions():
+    """Route every step through the plain versions: the kernel wrappers are swapped out."""
+    for name, fn in PLAIN.items():
+        setattr(K, name, fn)
+    try:
+        yield
+    finally:
+        for name, fn in WRAPPERS.items():
+            setattr(K, name, fn)
+
+
+def counts() -> dict:
+    return {name: fn.launches for name, fn in WRAPPERS.items()}
+
+
+def drive(label: str, run, uses, totals: dict, least: int = N_ITER):
+    """Run ``run()`` with every launch count at 0; the kernels in ``uses`` must launch >= ``least`` times, the others never."""
+    torch.cuda.synchronize()
+    for fn in WRAPPERS.values():
+        fn.launches = 0
+    torch.cuda.reset_peak_memory_stats()
+    start = time.perf_counter()
+    out = run()
+    torch.cuda.synchronize()
+    seconds = time.perf_counter() - start
+    launches = counts()
+    say("path", path=repr(label), launches=launches, seconds=f"{seconds:.3f}",
+        peak_mib=f"{torch.cuda.max_memory_allocated() / 2**20:.1f}")
+    for name, count in launches.items():
+        if name in uses:
+            check(count >= least, f"{label}: launched {name} {count} times (< {least})")
+        else:
+            check(count == 0, f"{label}: launched {name} {count} times; the path does not run it")
+        totals[name] += count
+    return out
+
+
+def run_plain(run):
+    """``run()`` through the plain versions; no kernel may launch."""
+    before = counts()
+    with plain_versions():
+        out = run()
+    torch.cuda.synchronize()
+    check(counts() == before, "a kernel launched inside the plain-version run")
+    return out
+
+
+def first_divergence(loss, plain_loss, tol: float):
+    """First iteration whose loss differs from the plain run's by more than ``tol`` (relative)."""
+    for it, (a, b) in enumerate(zip(loss, plain_loss)):
+        if abs(a - b) > tol * abs(b):
+            return it
+    return None
+
+
+def hold(label: str, Y, Y_plain, loss, loss_plain, **extra) -> None:
+    """Gate a path's output against its plain twin: final loss and worst SI-SDR."""
+    rel = abs(loss - loss_plain) / abs(loss_plain)
+    sdr = min_si_sdr(Y, Y_plain)
+    say("path vs plain", path=repr(label), loss=loss, plain_loss=loss_plain, loss_rel_diff=rel,
+        min_si_sdr_db=sdr, **extra)
+    check(all_finite(Y), f"{label}: non-finite output")
+    check(rel <= LOSS_TOL, f"{label}: loss {loss} vs plain {loss_plain}")
+    check(sdr >= MIN_SI_SDR_DB, f"{label}: output vs plain {sdr:.2f} dB")
+
+
+def hold_class(label: str, method, Y, plain_method, Y_plain) -> None:
+    check(len(method.loss) == N_ITER + 1 and method.loss[-1] < method.loss[0],
+          f"{label}: class loss did not decrease: {method.loss[0]} -> {method.loss[-1]}")
+    hold(label, Y, Y_plain, method.loss[-1], plain_method.loss[-1], loss_first=method.loss[0],
+         first_divergent_iteration=first_divergence(method.loss, plain_method.loss, LOSS_TOL))
+
+
+# ---- the bound: least time on the card for the same work --------------------------------
+
+
+def bound_ms(n_bytes: float, flops: float):
+    """``(ms, "bytes" | "operations")``: the larger of bytes over HBM rate and flops over the f32 peak."""
+    t_bytes, t_ops = n_bytes / HBM_BYTES_PER_S * 1e3, flops / F32_FLOPS_PER_S * 1e3
+    return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
+
+
+def wcov_bound(M, I, T, N, per_bin):
+    # read X and phi once, write U once; per (bin, frame, pair p <= q) one
+    # complex product x_p conj(x_q) (6 flops), then per source one weighted
+    # complex accumulate (2 FMAs, 4 flops)
+    n_bytes = M * I * T * 8 + (N * I * T if per_bin else N * T) * 4 + I * N * M * M * 8
+    return bound_ms(n_bytes, I * T * (M * (M + 1) // 2) * (6 + 4 * N))
+
+
+def ip1_bound(I, N, M):
+    # read U and W, write W; per (bin, source): W U_n (8 M^3), complex LU
+    # (8 M^3 / 3), two triangular solves and U_n w (24 M^2), w^H z (8 M)
+    n_bytes = I * N * M * M * 8 + 2 * I * N * M * 8
+    return bound_ms(n_bytes, I * N * (8 * M**3 + 8 * M**3 / 3 + 24 * M * M + 8 * M))
+
+
+def iss1_bound(N, I, T, per_bin):
+    # read Y and phi, write Y; per (source n, row m, bin, frame): the
+    # weighted numerator (10 flops), the weighted denominator (2), the
+    # rank-one update (8)
+    n_bytes = 2 * N * I * T * 8 + (N * I * T if per_bin else N * T) * 4
+    return bound_ms(n_bytes, 20 * N * N * I * T)
+
+
+# ---- the paths' helpers ----------------------------------------------------------------
 
 
 def fast_varphi(Y):
+    """``fast_auxiva``'s Laplace weight ``(N, T)``."""
     return 1.0 / torch.clamp(torch.linalg.vector_norm(Y, dim=1), min=FAST_EPS)
 
 
-def class_varphi(Y):
-    # AuxLaplaceIVA: G'(r) / flooring(2r) with the complex64 "dtype" floor
-    return 2.0 / torch.clamp(2 * torch.linalg.vector_norm(Y, dim=1), min=F32_EPS)
+def chain(step, state, n_iter=N_ITER):
+    for _ in range(n_iter):
+        state = step(state)
+    return state
+
+
+def iterations_per_s(step, state) -> float:
+    """``N_ITER`` chained steps between two CUDA events, after one warm-up chain."""
+    chain(step, state)
+    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    torch.cuda.synchronize()
+    start.record()
+    chain(step, state)
+    end.record()
+    torch.cuda.synchronize()
+    return N_ITER / (start.elapsed_time(end) / 1e3)
+
+
+def profile(step, state, n_iter: int = 20):
+    """Device microseconds per step by kernel name, and device operations per step (``torch.profiler``)."""
+    chain(step, state, 2)
+    torch.cuda.synchronize()
+    with torch.profiler.profile(activities=[torch.profiler.ProfilerActivity.CUDA]) as prof:
+        chain(step, state, n_iter)
+        torch.cuda.synchronize()
+    per_kernel, n_ops = {}, 0
+    for event in prof.events():
+        if event.device_type == torch.autograd.DeviceType.CUDA:
+            per_kernel[event.name] = per_kernel.get(event.name, 0.0) + event.time_range.elapsed_us()
+            n_ops += 1
+    return {name: us / n_iter for name, us in per_kernel.items()}, n_ops / n_iter
 
 
 def main() -> None:
@@ -154,7 +317,7 @@ def main() -> None:
         ["nvidia-smi", "--query-gpu=driver_version", "--format=csv,noheader"],
         capture_output=True, text=True, timeout=60,
     ).stdout.strip()
-    nvcc =subprocess.run([_build.find_nvcc(), "--version"], capture_output=True, text=True, timeout=60)
+    nvcc = subprocess.run([_build.find_nvcc(), "--version"], capture_output=True, text=True, timeout=60)
     nvcc_version = nvcc.stdout.strip().splitlines()[-1] if nvcc.returncode == 0 else "unknown"
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
@@ -166,22 +329,19 @@ def main() -> None:
         cudnn_allow_tf32=torch.backends.cudnn.allow_tf32,
     )
 
-    # ---- 2. build -----------------------------------------------------------
+    # ---- 2. build: one nvcc per source, all started together --------------------
     start = time.perf_counter()
-    for name in KERNELS:
-        _build.load(name)
+    with ThreadPoolExecutor(max_workers=len(KERNELS)) as pool:
+        list(pool.map(_build.load, KERNELS))
     build_s = time.perf_counter() - start
-    ptxas = {
-        name: " | ".join(
+    say("build", seconds=f"{build_s:.3f}", **{f"{k}_seconds": f"{v['seconds']:.3f}" for k, v in _build.build_info.items()})
+    for name in KERNELS:
+        ptxas = " | ".join(
             line.split("ptxas info    : ")[-1].strip()
             for line in _build.build_info[name]["log"].splitlines()
             if "Used" in line or "spill" in line
         )
-        for name in KERNELS
-    }
-    say("build", seconds=f"{build_s:.3f}", **{f"{k}_seconds": f"{v['seconds']:.3f}" for k, v in _build.build_info.items()})
-    for name, info in ptxas.items():
-        say("build", kernel=name, ptxas=repr(info))
+        say("build", kernel=name, ptxas=repr(ptxas))
 
     # main-path input, made on the host from a seed and transformed on the card
     wave = torch.from_numpy(make_mixture(seed=0)).to(device=device, dtype=torch.float32)
@@ -227,113 +387,202 @@ def main() -> None:
     check(sweep_rel <= SWEEP_TOL and all_finite(W_new), f"ip1_sweep: rel err {sweep_rel}")
     errors["ip1_sweep"] = sweep_abs
 
-    # ---- 5. main path ----------------------------------------------------------
-    torch.cuda.synchronize()
-    K.weighted_covariance.launches = 0
-    K.ip1_sweep.launches = 0
-    iva = AuxLaplaceIVA(spatial_algorithm="IP")
-    Y_class = iva(X, n_iter=N_ITER)
-    Y_fast, W_fast = fast_auxiva(X, n_iter=N_ITER, algorithm="IP1")
-    y_wave = separate_waveform(wave, AuxLaplaceIVA(spatial_algorithm="IP"), n_iter=N_ITER,
-                               n_fft=N_FFT, hop_length=HOP)
-    torch.cuda.synchronize()
-    launches = {"weighted_covariance": K.weighted_covariance.launches, "ip1_sweep": K.ip1_sweep.launches}
-    say("main path", launches=launches, class_shape=tuple(Y_class.shape), wave_shape=tuple(y_wave.shape))
-    for name, count in launches.items():
-        check(count >= N_ITER, f"the main path launched {name} {count} times (< {N_ITER})")
+    # ---- 4b. K2 against its plain version ----------------------------------------
+    iss1_abs = 0.0
+    long_N, long_I, long_T = LONG_SHAPE
+    Y_long = torch.complex(*(torch.from_numpy(rng.standard_normal((long_N, long_I, long_T), dtype=np.float32))
+                             for _ in range(2))).to(device)
+    cases = [
+        ("scalar (N,T)", X, phi_scalar),
+        ("per-bin (N,I,T)", X, phi_bins),
+        ("long scalar (N,T)", Y_long, phi_scalar.new_tensor(rng.random((long_N, long_T), dtype=np.float32) + 0.1)),
+        ("long per-bin (N,I,T)", Y_long, phi_bins.new_tensor(rng.random(LONG_SHAPE, dtype=np.float32) + 0.1)),
+    ]
+    for label, Y_in, phi in cases:
+        N_, I_, T_ = Y_in.shape
+        silent = (0, I_ // 2)  # SILENT_BINS at the main-path shape
+        Y_in = Y_in.clone()
+        Y_in[:, list(silent)] = 0
+        resident = K.iss1_sweep_resident(N_, T_, phi.dim() == 3)
+        Y_new = K.iss1_sweep(Y_in, phi, eps=ILRMA_EPS)
+        Y_ref = K.iss1_sweep_plain(Y_in, phi, eps=ILRMA_EPS)
+        torch.cuda.synchronize()
+        zero = all(int(torch.count_nonzero(Y_new[:, i])) == 0 for i in silent)
+        abs_err = float((Y_new - Y_ref).abs().max())
+        rel_err = abs_err / float(Y_ref.abs().max())
+        say("K2 iss1_sweep", weights=repr(label), shape=(N_, I_, T_), variant="resident" if resident else "streamed",
+            silent_bins=silent, silent_zero=zero, max_abs_err=abs_err, rel_err=rel_err, tol=ISS1_TOL)
+        check(zero, f"iss1_sweep {label}: a silent (Y = 0) bin came back non-zero")
+        check(rel_err <= ISS1_TOL and all_finite(Y_new), f"iss1_sweep {label}: rel err {rel_err}")
+        check(resident == (T_ == T), f"iss1_sweep {label}: unexpected {'resident' if resident else 'streamed'} variant")
+        iss1_abs = max(iss1_abs, abs_err)
+    errors["iss1_sweep"] = iss1_abs
+
+    # ---- 5. main path: AuxIVA-IP1 -------------------------------------------------
+    totals = {name: 0 for name in KERNELS}
+
+    def auxiva_ip1():
+        iva = AuxLaplaceIVA(spatial_algorithm="IP")
+        Y_class = iva(X, n_iter=N_ITER)
+        Y_fast, W_fast = fast_auxiva(X, n_iter=N_ITER, algorithm="IP1")
+        y_wave = separate_waveform(wave, AuxLaplaceIVA(spatial_algorithm="IP"), n_iter=N_ITER,
+                                   n_fft=N_FFT, hop_length=HOP)
+        return iva, Y_class, Y_fast, W_fast, y_wave
+
+    iva, Y_class, Y_fast, W_fast, y_wave = drive(
+        "AuxIVA-IP1", auxiva_ip1, ("weighted_covariance", "ip1_sweep"), totals
+    )
     check(all_finite(Y_class, Y_fast, W_fast, y_wave), "non-finite main-path output")
     check(tuple(Y_class.shape) == tuple(Y_fast.shape) == (M, I, T), "separated spectrogram shape")
     check(tuple(y_wave.shape) == tuple(wave.shape), "separated waveform shape")
-    check(len(iva.loss) == N_ITER + 1 and iva.loss[-1] < iva.loss[0],
-          f"class loss did not decrease: {iva.loss[0]} -> {iva.loss[-1]}")
 
     # the same iterations through the plain versions, on the card
-    W_plain_class = plain_iterations(X, N_ITER, class_varphi, F32_EPS)
-    W_plain_fast = plain_iterations(X, N_ITER, fast_varphi, FAST_EPS)
-    loss_plain_class = float(iva_laplace_loss(X, W_plain_class))
-    loss_rel = abs(iva.loss[-1] - loss_plain_class) / abs(loss_plain_class)
-    Y_plain_class = separate(X, projection_back(W_plain_class, reference_id=0))
-    sdr_class = min_si_sdr(Y_class, Y_plain_class)
-    say("main path: AuxLaplaceIVA(IP)", loss_first=iva.loss[0], loss_last=iva.loss[-1],
-        plain_loss_last=loss_plain_class, loss_rel_diff=loss_rel, min_si_sdr_db=sdr_class)
-    check(loss_rel <= LOSS_TOL, f"class loss {iva.loss[-1]} vs plain {loss_plain_class}")
-    check(sdr_class >= MIN_SI_SDR_DB, f"class output vs plain: {sdr_class:.2f} dB")
-
-    W_plain_fast = W_plain_fast * torch.linalg.inv_ex(W_plain_fast)[0][:, 0, :, None]
-    loss_fast, loss_plain_fast = float(iva_laplace_loss(X, W_fast)), float(iva_laplace_loss(X, W_plain_fast))
-    fast_rel = abs(loss_fast - loss_plain_fast) / abs(loss_plain_fast)
-    sdr_fast = min_si_sdr(Y_fast, separate(X, W_plain_fast))
-    say("main path: fast_auxiva(IP1)", loss=loss_fast, plain_loss=loss_plain_fast,
-        loss_rel_diff=fast_rel, min_si_sdr_db=sdr_fast)
-    check(fast_rel <= LOSS_TOL, f"fast_auxiva loss {loss_fast} vs plain {loss_plain_fast}")
-    check(sdr_fast >= MIN_SI_SDR_DB, f"fast_auxiva output vs plain: {sdr_fast:.2f} dB")
-
-    y_plain = istft(Y_plain_class, n_fft=N_FFT, hop_length=HOP, length=wave.shape[-1])
-    sdr_wave = min_si_sdr(y_wave, y_plain)
-    say("main path: separate (waveform)", min_si_sdr_db=sdr_wave)
+    plain_iva, Y_class_plain, Y_fast_plain, W_fast_plain, y_wave_plain = run_plain(auxiva_ip1)
+    hold_class("AuxLaplaceIVA(IP)", iva, Y_class, plain_iva, Y_class_plain)
+    hold("fast_auxiva(IP1)", Y_fast, Y_fast_plain,
+         float(iva_laplace_loss(X, W_fast)), float(iva_laplace_loss(X, W_fast_plain)))
+    sdr_wave = min_si_sdr(y_wave, y_wave_plain)
+    say("path vs plain", path=repr("separate (waveform), AuxIVA-IP1"), min_si_sdr_db=sdr_wave)
     check(sdr_wave >= MIN_SI_SDR_DB, f"pipeline output vs plain: {sdr_wave:.2f} dB")
+
+    # ---- 5b. the slice: GaussILRMA-IP1, GaussILRMA-ISS1, AuxIVA-ISS1 ----------------
+
+    def gauss_ilrma(spatial):
+        """The class and the fast path, each from the NMF factors of ``default_rng(0)``."""
+        method = GaussILRMA(n_basis=N_BASIS, spatial_algorithm=spatial, rng=np.random.default_rng(0))
+        Y_class = method(X, n_iter=N_ITER)
+        fast = fast_gauss_ilrma(X, n_basis=N_BASIS, n_iter=N_ITER, rng=np.random.default_rng(0),
+                                algorithm="IP1" if spatial == "IP" else spatial)
+        return method, Y_class, fast
+
+    def fast_ilrma_loss(fast):
+        Y, (T_, V_), W = fast
+        return float(ilrma_loss(X, T_, V_, W=W) if W is not None else ilrma_loss(X, T_, V_, Y=Y))
+
+    for spatial, uses in (("IP", ("weighted_covariance", "ip1_sweep")), ("ISS1", ("iss1_sweep",))):
+        label = f"GaussILRMA-{'IP1' if spatial == 'IP' else spatial}"
+        method, Y_class, fast = drive(label, lambda: gauss_ilrma(spatial), uses, totals)
+        plain_method, Y_class_plain, fast_plain = run_plain(lambda: gauss_ilrma(spatial))
+        check(all_finite(Y_class, *fast[:1], *fast[1]), f"{label}: non-finite output")
+        hold_class(f"{label} class", method, Y_class, plain_method, Y_class_plain)
+        hold(f"{label} fast", fast[0], fast_plain[0], fast_ilrma_loss(fast), fast_ilrma_loss(fast_plain))
+
+    def ilrma_iss1_waveform():
+        method = GaussILRMA(n_basis=N_BASIS, spatial_algorithm="ISS1", rng=np.random.default_rng(0))
+        return separate_waveform(wave, method, n_iter=N_ITER, n_fft=N_FFT, hop_length=HOP)
+
+    y_ilrma = drive("separate (waveform), GaussILRMA-ISS1", ilrma_iss1_waveform, ("iss1_sweep",), totals)
+    y_ilrma_plain = run_plain(ilrma_iss1_waveform)
+    sdr = min_si_sdr(y_ilrma, y_ilrma_plain)
+    say("path vs plain", path=repr("separate (waveform), GaussILRMA-ISS1"), min_si_sdr_db=sdr)
+    check(all_finite(y_ilrma) and tuple(y_ilrma.shape) == tuple(wave.shape), "ILRMA waveform output")
+    check(sdr >= MIN_SI_SDR_DB, f"ILRMA pipeline output vs plain: {sdr:.2f} dB")
+
+    def auxiva_iss1():
+        method = AuxLaplaceIVA(spatial_algorithm="ISS1")
+        return method, method(X, n_iter=N_ITER), fast_auxiva(X, n_iter=N_ITER, algorithm="ISS1")[0]
+
+    method, Y_class, Y_fast = drive("AuxIVA-ISS1", auxiva_iss1, ("iss1_sweep",), totals)
+    plain_method, Y_class_plain, Y_fast_plain = run_plain(auxiva_iss1)
+    hold_class("AuxIVA-ISS1 class", method, Y_class, plain_method, Y_class_plain)
+    hold("AuxIVA-ISS1 fast", Y_fast, Y_fast_plain,
+         float(iva_laplace_loss(X, Y=Y_fast)), float(iva_laplace_loss(X, Y=Y_fast_plain)))
+
+    for cls, params in ((TILRMA, {"dof": 100}), (GGDILRMA, {"beta": 1.5})):
+        for spatial, uses in (("IP1", ("weighted_covariance", "ip1_sweep")), ("ISS1", ("iss1_sweep",))):
+            label = f"{cls.__name__}-{spatial}"
+            method = cls(n_basis=N_BASIS, spatial_algorithm=spatial, rng=np.random.default_rng(0), **params)
+            Y = drive(label, lambda: method(X, n_iter=N_ITER_MODELS), uses, totals, least=N_ITER_MODELS)
+            say("path", path=repr(label), loss_first=method.loss[0], loss_last=method.loss[-1])
+            check(all_finite(Y), f"{label}: non-finite output")
+            check(method.loss[-1] < method.loss[0], f"{label}: loss did not decrease")
 
     # ---- 6. times --------------------------------------------------------------
     U_main = K.weighted_covariance(X, phi_scalar)
+    phi_c, phi_bins_c, X_conj = phi_scalar.to(X.dtype), phi_bins.to(X.dtype), X.conj().resolve_conj()
     timed = {
         "weighted_covariance": (
+            "scalar (N,T)",
             lambda: K.weighted_covariance(X, phi_scalar),
             lambda: K.weighted_covariance_plain(X, phi_scalar),
+            lambda: torch.einsum("nt,pit,qit->inpq", phi_c, X, X_conj),
+            wcov_bound(M, I, T, M, per_bin=False),
+        ),
+        "weighted_covariance per-bin": (
+            "per-bin (N,I,T)",
+            lambda: K.weighted_covariance(X, phi_bins),
+            lambda: K.weighted_covariance_plain(X, phi_bins),
+            lambda: torch.einsum("nit,pit,qit->inpq", phi_bins_c, X, X_conj),
+            wcov_bound(M, I, T, M, per_bin=True),
         ),
         "ip1_sweep": (
+            "(I,N,M)",
             lambda: K.ip1_sweep(W_eye, U_main),
             lambda: K.ip1_sweep_plain(W_eye, U_main, solve_impl="lu"),
+            None,
+            ip1_bound(I, M, M),
+        ),
+        "iss1_sweep scalar": (
+            "scalar (N,T)",
+            lambda: K.iss1_sweep(X, phi_scalar, eps=ILRMA_EPS),
+            lambda: K.iss1_sweep_plain(X, phi_scalar, eps=ILRMA_EPS),
+            None,
+            iss1_bound(M, I, T, per_bin=False),
+        ),
+        "iss1_sweep": (
+            "per-bin (N,I,T)",
+            lambda: K.iss1_sweep(X, phi_bins, eps=ILRMA_EPS),
+            lambda: K.iss1_sweep_plain(X, phi_bins, eps=ILRMA_EPS),
+            None,
+            iss1_bound(M, I, T, per_bin=True),
         ),
     }
     timings = {}
-    for name, (kernel_fn, plain_fn) in timed.items():
+    for key, (weights, kernel_fn, plain_fn, library_fn, (bound, bound_by)) in timed.items():
         ms, plain_ms = median_ms(kernel_fn, queued=True), median_ms(plain_fn, queued=True)
         call_ms, plain_call_ms = median_ms(kernel_fn, queued=False), median_ms(plain_fn, queued=False)
-        timings[name] = (ms, plain_ms)
-        say("time", kernel=name, card=repr(card), device_ms=ms, plain_device_ms=plain_ms,
-            call_ms=call_ms, plain_call_ms=plain_call_ms, runs=N_TIMED, stat="median")
+        library_ms = median_ms(library_fn, queued=True) if library_fn is not None else None
+        timings[key] = {"ms": ms, "plain_ms": plain_ms, "bound_ms": bound, "bound_by": bound_by,
+                        "library_ms": library_ms}
+        say("time", kernel=repr(key), weights=repr(weights), card=repr(card), device_ms=ms,
+            plain_device_ms=plain_ms, call_ms=call_ms, plain_call_ms=plain_call_ms, library_device_ms=library_ms,
+            bound_ms=bound, bound_by=bound_by, bound_share=bound / ms, runs=N_TIMED, stat="median")
     gjnp_ms = median_ms(lambda: K.ip1_sweep_plain(W_eye, U_main, solve_impl="gjnp"), queued=True)
     say("time", kernel="ip1_sweep", card=repr(card), plain_gjnp_device_ms=gjnp_ms, runs=N_TIMED, stat="median")
+    Y_long_phi = cases[3][2]
+    long_ms = median_ms(lambda: K.iss1_sweep(Y_long, Y_long_phi, eps=ILRMA_EPS), queued=True)
+    say("time", kernel="iss1_sweep streamed", shape=LONG_SHAPE, card=repr(card), device_ms=long_ms,
+        bound_ms=iss1_bound(*LONG_SHAPE, per_bin=True)[0], runs=N_TIMED, stat="median")
 
-    def iterations(step):
-        W = W_eye
-        for _ in range(N_ITER):
-            W = step(W)
-        return W
+    # iterations per second of each path's fast-path step: plain, kernels, kernels, plain
+    T0 = torch.from_numpy(rng.random((M, I, N_BASIS), dtype=np.float32)).to(device)
+    V0 = torch.from_numpy(rng.random((M, N_BASIS, T), dtype=np.float32)).to(device)
+    steps = {
+        "AuxIVA-IP1": (lambda s: (auxiva_ip1_step(X, s[0]),), (W_eye,)),
+        "GaussILRMA-IP1": (lambda s: ilrma_ip_step(X, *s), (W_eye, T0, V0)),
+        "GaussILRMA-ISS1": (lambda s: ilrma_iss_step(*s), (X, T0, V0)),
+        "AuxIVA-ISS1": (lambda s: (auxiva_iss1_step(s[0]),), (X,)),
+    }
+    rates = {}
+    for label, (step, state) in steps.items():
+        with plain_versions():
+            plain_a = iterations_per_s(step, state)
+        kernel_a, kernel_b = iterations_per_s(step, state), iterations_per_s(step, state)
+        with plain_versions():
+            plain_b = iterations_per_s(step, state)
+        rates[label] = statistics.mean((kernel_a, kernel_b))
+        say("time", path=repr(f"{label} 8ch 10s, {N_ITER} chained fast-path steps"), card=repr(card),
+            kernels_iters_per_s=(kernel_a, kernel_b), plain_iters_per_s=(plain_a, plain_b))
 
-    def rate(step) -> float:
-        iterations(step)  # warm-up
-        start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
-        torch.cuda.synchronize()
-        start.record()
-        iterations(step)
-        end.record()
-        torch.cuda.synchronize()
-        return N_ITER / (start.elapsed_time(end) / 1e3)
-
-    kernel_rate = rate(lambda W: auxiva_ip1_step(X, W))
-    plain_rate = rate(lambda W: K.ip1_sweep_plain(
-        W, K.weighted_covariance_plain(X, fast_varphi(separate(X, W))), FAST_EPS, solve_impl="lu"))
-    say("time", path="AuxIVA-IP1 8ch 10s, 100 iterations (fast_auxiva step)", card=repr(card),
-        kernels_iters_per_s=kernel_rate, plain_iters_per_s=plain_rate)
-
-    # where the device time of one main-path iteration goes (torch.profiler)
-    n_profiled = 20
-    with torch.profiler.profile(activities=[torch.profiler.ProfilerActivity.CUDA]) as prof:
-        W = W_eye
-        for _ in range(n_profiled):
-            W = auxiva_ip1_step(X, W)
-        torch.cuda.synchronize()
-    per_kernel = {}
-    for event in prof.events():
-        if event.device_type == torch.autograd.DeviceType.CUDA:
-            per_kernel[event.name] = per_kernel.get(event.name, 0.0) + event.time_range.elapsed_us()
-    device_us = sum(per_kernel.values()) / n_profiled
-    check(device_us > 0, "the profiler saw no device time in the main-path iterations")
-    top = sorted(per_kernel.items(), key=lambda kv: -kv[1])[:6]
-    say("profile", card=repr(card), device_us_per_iter=device_us,
-        device_busy_share=device_us * 1e-6 * kernel_rate,
-        top=repr([(name[:48], round(us / n_profiled, 3)) for name, us in top]))
+    # where the device time of one iteration goes (torch.profiler)
+    for label, (step, state) in steps.items():
+        per_kernel, ops_per_iter = profile(step, state)
+        device_us = sum(per_kernel.values())
+        check(device_us > 0, f"the profiler saw no device time in the {label} iterations")
+        top = sorted(per_kernel.items(), key=lambda kv: -kv[1])[:6]
+        say("profile", path=repr(label), card=repr(card), device_us_per_iter=device_us,
+            device_ops_per_iter=ops_per_iter, device_busy_share=device_us * 1e-6 * rates[label],
+            top=repr([(name[:48], round(us, 3)) for name, us in top]))
 
     summary = [
         {
@@ -341,10 +590,9 @@ def main() -> None:
             "route": "cuda",
             "source": meta["source"],
             "replaces": meta["replaces"],
-            "launches": launches[name],
+            "launches": totals[name],
             "max_abs_err": errors[name],
-            "ms": timings[name][0],
-            "plain_ms": timings[name][1],
+            **timings[name],
         }
         for name, meta in KERNELS.items()
     ]

@@ -6,9 +6,12 @@ complex (complex64 on the card); the hot-path kernels are written by hand
 in CUDA C++ for ``sm_90a`` (``ops/csrc``), built with ``nvcc`` on first
 use, and each has a plain PyTorch version that CPU tensors take.
 
-Ported so far: AuxIVA-IP1 (class API and :func:`fast.fast_auxiva`),
-STFT/iSTFT, projection back, minimal distortion principle and the
-waveform-to-waveform :func:`separate`.
+Ported so far: AuxIVA with IP1 and ISS1 (class API and
+:func:`fast.fast_auxiva`); Gauss, t and GGD ILRMA with IP1 and ISS1 (class
+API and :func:`fast.fast_gauss_ilrma`, :func:`fast.fast_t_ilrma`,
+:func:`fast.fast_ggd_ilrma`); STFT/iSTFT, projection back, minimal
+distortion principle and the waveform-to-waveform :func:`separate`. Every
+entry point runs on the card unless the caller passes ``device="cpu"``.
 """
 
 from . import algorithm, bss, fast, ops, special, transform, utils

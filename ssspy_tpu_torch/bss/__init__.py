@@ -1,6 +1,19 @@
 """Separator classes ported so far (see ROADMAP.md, Queue 1)."""
 
-from . import iva
-from .base import IterativeMethodBase
+from . import ilrma, iva
+from .base import IterativeMethodBase, SeparatorBase
+from .ilrma import GaussILRMA, GGDILRMA, ILRMABase, TILRMA
+from .iva import AuxIVA, AuxLaplaceIVA
 
-__all__ = ["iva", "IterativeMethodBase"]
+__all__ = [
+    "ilrma",
+    "iva",
+    "IterativeMethodBase",
+    "SeparatorBase",
+    "AuxIVA",
+    "AuxLaplaceIVA",
+    "ILRMABase",
+    "GaussILRMA",
+    "TILRMA",
+    "GGDILRMA",
+]

@@ -19,13 +19,46 @@ from typing import Callable, List, Optional, Union
 
 import torch
 
-__all__ = ["IterativeMethodBase", "config_repr"]
+from ..algorithm import (
+    MINIMAL_DISTORTION_PRINCIPLE_KEYWORDS,
+    PROJECTION_BACK_KEYWORDS,
+    minimal_distortion_principle,
+    projection_back,
+)
+from ..ops.iva_steps import ls_demix, separate
+from ..special.flooring import resolve_flooring_spec
+from ..utils.device import DEFAULT_DEVICE, resolve_device
+
+__all__ = [
+    "IterativeMethodBase",
+    "SeparatorBase",
+    "config_repr",
+    "SPATIAL_ALGORITHMS",
+    "PORTED_SPATIAL_ALGORITHMS",
+    "check_spatial_algorithm",
+]
+
+SPATIAL_ALGORITHMS = ("IP", "IP1", "IP2", "ISS", "ISS1", "ISS2", "IPA")
+PORTED_SPATIAL_ALGORITHMS = ("IP", "IP1", "ISS", "ISS1")
+# these carry the separated spectrograms and no demixing filters
+DEMIX_FREE_ALGORITHMS = ("ISS", "ISS1", "ISS2", "IPA")
 
 
 def config_repr(obj, name: str, keys) -> str:
     """Render ``Name(key=value, ...)`` from instance attributes."""
     inner = ", ".join(f"{k}={getattr(obj, k)}" for k in keys)
     return f"{name}({inner})"
+
+
+def check_spatial_algorithm(spatial_algorithm: str, roadmap_items: str) -> None:
+    """Raise for an unknown spatial update, and for one not ported yet."""
+    if spatial_algorithm not in SPATIAL_ALGORITHMS:
+        raise ValueError(f"unsupported option: {spatial_algorithm}.")
+    if spatial_algorithm not in PORTED_SPATIAL_ALGORITHMS:
+        raise NotImplementedError(
+            f"spatial_algorithm={spatial_algorithm!r} is not ported to ssspy_tpu_torch yet "
+            f"(ROADMAP.md, Queue 1, {roadmap_items}); use one of {PORTED_SPATIAL_ALGORITHMS}."
+        )
 
 
 class IterativeMethodBase:
@@ -111,3 +144,126 @@ class IterativeMethodBase:
     def __call__(self, *args, n_iter: int = 100, initial_call: bool = True, **kwargs):
         """Iteratively apply the update (subclasses orchestrate around this)."""
         self._iterate(n_iter=n_iter, initial_call=initial_call)
+
+
+class SeparatorBase(IterativeMethodBase):
+    """What the frequency-domain separators (IVA, ILRMA) share.
+
+    The device they run on, the bound input and its warm start, and the
+    scale restoration after the loop. The state holds demixing filters
+    ``W`` (``demix_filter``; IP) or only the separated spectrograms ``Y``
+    (``demix_filter`` is ``None``; ISS). ``device``: the card by default;
+    ``"cpu"`` runs on the CPU, and without a card the default raises
+    (:func:`ssspy_tpu_torch.utils.device.resolve_device`). The input and
+    every warm-start tensor are moved there.
+    """
+
+    def __init__(
+        self,
+        flooring_fn: Union[str, Callable, None] = "dtype",
+        callbacks: Optional[Union[Callable, List[Callable]]] = None,
+        scale_restoration: Union[bool, str] = True,
+        record_loss: bool = True,
+        reference_id: int = 0,
+        device=DEFAULT_DEVICE,
+    ) -> None:
+        super().__init__(callbacks=callbacks, record_loss=record_loss)
+
+        self.flooring_fn = resolve_flooring_spec(flooring_fn)
+        self.input = None
+        self.scale_restoration = scale_restoration
+        self.reference_id = reference_id
+        self.device = resolve_device(device)
+
+    def __call__(self, input, n_iter: int = 100, initial_call: bool = True, **kwargs):
+        """Bind ``input``, reset from the warm-start ``kwargs``, iterate, restore the scale."""
+        self._bind_input(input)
+        self._reset(**kwargs)
+        self._state = self.init_state()
+        self._iterate(n_iter=n_iter, initial_call=initial_call)
+
+        if self.scale_restoration:
+            self.restore_scale()
+        if self.demix_filter is not None:
+            self.output = separate(self.input, self.demix_filter)
+        return self.output
+
+    @property
+    def _uses_demix_filter(self) -> bool:
+        return self.spatial_algorithm not in DEMIX_FREE_ALGORITHMS
+
+    def _bind_input(self, input) -> None:
+        """Keep a contiguous copy of the spectrogram on the separator's device."""
+        self.input = torch.as_tensor(input, device=self.device).clone(
+            memory_format=torch.contiguous_format
+        )
+
+    def _set_warm_start(self, kwargs) -> None:
+        """Set each keyword as an attribute, tensors moved to the input's device."""
+        if self.input is None:
+            raise RuntimeError("no input bound; call the separator with a spectrogram first.")
+        for key, value in kwargs.items():
+            if hasattr(value, "shape"):
+                value = torch.as_tensor(value, device=self.input.device)
+            setattr(self, key, value)
+
+    def _reset_demix_filter(self, kwargs) -> None:
+        """Initial ``demix_filter`` and ``output`` (ssspy_tpu/bss/iva.py:159-176).
+
+        The identity when there is none, or when a previous demix-free run
+        left ``None`` and this call gives no ``demix_filter=``; an explicit
+        ``demix_filter=None`` with ``output=`` is a demix-free warm start.
+        """
+        X = self.input
+        n_channels, n_bins, _ = X.shape
+        if getattr(self, "demix_filter", None) is None and "demix_filter" not in kwargs:
+            W = torch.eye(n_channels, dtype=X.dtype, device=X.device).expand(n_bins, -1, -1).clone()
+        elif self.demix_filter is None:
+            W = None
+        else:
+            W = self.demix_filter.to(dtype=X.dtype).contiguous().clone()
+        self.demix_filter = W
+        if W is not None:
+            self.output = separate(X, W)
+        elif not hasattr(self, "output"):
+            self.output = None
+        elif self.output is not None:
+            self.output = self.output.to(dtype=X.dtype).contiguous()
+
+    # ---- scale restoration -------------------------------------------------
+
+    def restore_scale(self) -> None:
+        scale_restoration = self.scale_restoration
+        if not scale_restoration:
+            raise RuntimeError("scale restoration is disabled on this instance.")
+
+        if type(scale_restoration) is bool:
+            scale_restoration = PROJECTION_BACK_KEYWORDS[0]
+
+        if scale_restoration in PROJECTION_BACK_KEYWORDS:
+            self.apply_projection_back()
+        elif scale_restoration in MINIMAL_DISTORTION_PRINCIPLE_KEYWORDS:
+            self.apply_minimal_distortion_principle()
+        else:
+            raise ValueError(f"{scale_restoration} is not supported for scale restoration.")
+
+    def apply_projection_back(self) -> None:
+        X = self.input
+        if self.demix_filter is None:
+            self.output = projection_back(self.output, reference=X, reference_id=self.reference_id)
+        else:
+            W_scaled = projection_back(self.demix_filter, reference_id=self.reference_id)
+            self.output, self.demix_filter = separate(X, W_scaled), W_scaled
+
+    def apply_minimal_distortion_principle(self) -> None:
+        X = self.input
+        if self.demix_filter is None:
+            self.output = minimal_distortion_principle(
+                self.output, reference=X, reference_id=self.reference_id
+            )
+        else:
+            Y_scaled = minimal_distortion_principle(
+                separate(X, self.demix_filter), reference=X, reference_id=self.reference_id
+            )
+            self.output = Y_scaled
+            self.demix_filter = ls_demix(Y_scaled, X)

@@ -1,0 +1,306 @@
+"""Independent low-rank matrix analysis (ILRMA): Gauss, Student's-t and GGD source models.
+
+Counterpart of :mod:`ssspy_tpu.bss.ilrma` (parity target
+ssspy/bss/ilrma.py) for the classes on the port's second slice:
+``ILRMABase``, ``GaussILRMA``, ``TILRMA`` and ``GGDILRMA`` with the NMF
+source model (MM or ME updates), spatial ``"IP"``/``"IP1"`` (demixing
+filters) or ``"ISS"``/``"ISS1"`` (demix-free), and power or
+projection-back normalization. One iteration is
+``source model -> spatial model -> normalization``; the spatial update
+goes through the kernel wrappers of :mod:`ssspy_tpu_torch.ops.kernels`
+(the weighted covariance with per-bin weights and the IP1 sweep, or the
+ISS1 sweep). The shared-basis partitioning, IP2, ISS2 and IPA are not
+ported yet (ROADMAP.md, Queue 1, items 3 and 5).
+"""
+
+from typing import Callable, List, Optional, Union
+
+import numpy as np
+import torch
+
+from ..ops import kernels
+from ..ops.ilrma_steps import ilrma_mm_core, ilrma_model_varphi, power
+from ..ops.iva_steps import clogabsdet, ls_demix
+from ..ops.iva_steps import separate as _separate
+from ..special.flooring import identity, sweep_eps
+from ..utils.device import DEFAULT_DEVICE
+from .base import SeparatorBase, check_spatial_algorithm, config_repr
+
+__all__ = ["ILRMABase", "GaussILRMA", "TILRMA", "GGDILRMA"]
+
+source_algorithms = ["MM", "ME"]
+
+
+class ILRMABase(SeparatorBase):
+    """Base class of ILRMA (parity: ssspy/bss/ilrma.py:32-580).
+
+    ``rng``: the ``np.random.Generator`` the NMF factors are drawn from, on
+    the host and in the JAX class's order (basis, then activation), then
+    moved to ``device``; a seeded run starts from the same factors in both
+    packages. Warm start through ``demix_filter=``, ``basis=`` and
+    ``activation=`` (and ``output=`` with ``demix_filter=None``).
+    """
+
+    _model = None  # "gauss", "t" or "ggd"
+
+    def __init__(
+        self,
+        n_basis: int,
+        spatial_algorithm: str = "IP",
+        source_algorithm: str = "MM",
+        domain: float = 2,
+        partitioning: bool = False,
+        flooring_fn: Union[str, Callable, None] = "dtype",
+        callbacks: Optional[Union[Callable, List[Callable]]] = None,
+        normalization: Optional[Union[bool, str]] = True,
+        scale_restoration: Union[bool, str] = True,
+        record_loss: bool = True,
+        reference_id: int = 0,
+        rng: Optional[np.random.Generator] = None,
+        device=DEFAULT_DEVICE,
+    ) -> None:
+        check_spatial_algorithm(spatial_algorithm, "items 3 and 5")
+        if source_algorithm not in source_algorithms:
+            raise ValueError(f"unsupported option: {source_algorithm}.")
+        if not 0 < domain <= 2:
+            raise ValueError("domain must lie in (0, 2].")
+        if source_algorithm == "ME" and domain != 2:
+            raise ValueError("the ME source update requires domain=2.")
+        if partitioning:
+            raise NotImplementedError(
+                "partitioning=True (the shared-basis latent model) is not ported to "
+                "ssspy_tpu_torch yet (ROADMAP.md, Queue 1, item 3)."
+            )
+        if normalization not in (True, False, None, "power", "projection_back"):
+            raise ValueError(f"Normalization {normalization} is not implemented.")
+        if reference_id is None and scale_restoration:
+            raise ValueError("scale_restoration=True needs a reference_id channel.")
+        super().__init__(
+            flooring_fn=flooring_fn,
+            callbacks=callbacks,
+            scale_restoration=scale_restoration,
+            record_loss=record_loss,
+            reference_id=reference_id,
+            device=device,
+        )
+
+        self.n_basis = n_basis
+        self.spatial_algorithm = spatial_algorithm
+        self.source_algorithm = source_algorithm
+        self.domain = domain
+        self.partitioning = partitioning
+        self.normalization = normalization
+        self.rng = np.random.default_rng() if rng is None else rng
+
+    def __repr__(self) -> str:
+        keys = ["n_basis", "spatial_algorithm", "source_algorithm", "domain", "partitioning"]
+        keys += ["normalization", "scale_restoration", "record_loss"]
+        if self.scale_restoration:
+            keys += ["reference_id"]
+        return config_repr(self, type(self).__name__, keys)
+
+    def _model_params(self) -> dict:
+        """``nu``/``beta``/``me`` of the source model, as ``ilrma_mm_core`` takes them."""
+        return {"me": self.source_algorithm == "ME"}
+
+    def _reset(self, **kwargs) -> None:
+        self._set_warm_start(kwargs)
+        n_channels, n_bins, n_frames = self.input.shape
+        self.n_sources, self.n_channels = n_channels, n_channels
+        self.n_bins, self.n_frames = n_bins, n_frames
+        self._reset_demix_filter(kwargs)
+        self._init_nmf()
+        if not self._uses_demix_filter:
+            self.demix_filter = None
+
+    def _init_nmf(self) -> None:
+        """Random NMF factors (host draws, JAX's order; ssspy_tpu/bss/ilrma.py:153-191).
+
+        Drawn only where no ``basis``/``activation`` is set yet, in the real
+        dtype of the input, on its device, then floored.
+        """
+        X = self.input
+        real = X.real.dtype
+        shapes = {
+            "basis": (self.n_sources, self.n_bins, self.n_basis),
+            "activation": (self.n_sources, self.n_basis, self.n_frames),
+        }
+        for name, shape in shapes.items():
+            if hasattr(self, name):
+                value = getattr(self, name).to(dtype=real).contiguous().clone()
+            else:
+                draw = torch.as_tensor(self.rng.random(shape), dtype=real, device=X.device)
+                value = self.flooring_fn(draw)
+            setattr(self, name, value)
+
+    def separate(self, input, demix_filter):
+        if demix_filter is None:
+            return None
+        return _separate(input, demix_filter)
+
+    def reconstruct_nmf(self, basis, activation):
+        return basis @ activation
+
+    # ---- state plumbing ----------------------------------------------------
+
+    def init_state(self):
+        state = {"X": self.input, "T": self.basis, "V": self.activation}
+        if self._uses_demix_filter:
+            state["W"] = self.demix_filter
+        else:
+            state["Y"] = self.output
+        return state
+
+    def commit_state(self, state) -> None:
+        self._state = state
+        self.basis, self.activation = state["T"], state["V"]
+        if self._uses_demix_filter:
+            self.demix_filter = state["W"]
+            self.output = _separate(state["X"], state["W"])
+        else:
+            self.output = state["Y"]
+
+    @staticmethod
+    def _current_Y(state) -> torch.Tensor:
+        return _separate(state["X"], state["W"]) if "W" in state else state["Y"]
+
+    # ---- one iteration -------------------------------------------------------
+
+    def make_step(self):
+        model, p, flooring_fn = self._model, self.domain, self.flooring_fn
+        params = self._model_params()
+        eps = sweep_eps(flooring_fn, self.input.dtype)
+        uses_demix_filter = self._uses_demix_filter
+        normalize = self._normalizer()
+
+        def step(state):
+            Y2 = power(self._current_Y(state))
+            # the class floors the factors with flooring_fn and not the model
+            # (ssspy_tpu/bss/ilrma.py:662-696)
+            T, V, R = ilrma_mm_core(
+                Y2, state["T"], state["V"], model=model, p=p,
+                floor=flooring_fn, floor_model=identity, **params,
+            )
+            varphi = ilrma_model_varphi(
+                model, Y2, R, p, params.get("nu"), params.get("beta"), flooring_fn
+            )
+            state = {**state, "T": T, "V": V}
+            if uses_demix_filter:
+                U = kernels.weighted_covariance(state["X"], varphi)
+                state["W"] = kernels.ip1_sweep(state["W"], U, eps=eps)
+            else:
+                state["Y"] = kernels.iss1_sweep(state["Y"], varphi, eps=eps)
+            return normalize(state)
+
+        return step
+
+    # ---- normalization (in-loop; parity: ssspy/bss/ilrma.py:333-514) -------
+
+    def _normalizer(self) -> Callable:
+        normalization = self.normalization
+        if not normalization:
+            return lambda state: state
+        if normalization is True or normalization == "power":
+            return self._normalize_by_power
+        return self._normalize_by_projection_back
+
+    def _normalize_by_power(self, state):
+        p = self.domain
+        psi = self.flooring_fn(torch.sqrt(torch.mean(power(self._current_Y(state)), dim=(-2, -1))))
+        state = {**state, "T": state["T"] / (psi[:, None, None] ** p)}
+        if "W" in state:
+            return {**state, "W": state["W"] / psi[None, :, None]}
+        return {**state, "Y": state["Y"] / psi[:, None, None]}
+
+    def _normalize_by_projection_back(self, state):
+        ref = self.reference_id
+        if "W" in state:
+            W = state["W"]
+            scale = torch.linalg.inv_ex(W)[0][:, ref, :]  # (I, N)
+            state = {**state, "W": W * scale[:, :, None]}
+        else:
+            X, Y = state["X"], state["Y"]
+            Yb, Xb = Y.transpose(0, 1), X.transpose(0, 1)  # (I, N, T), (I, M, T)
+            YH = Yb.transpose(-2, -1).conj()
+            scale = ((Xb @ YH) @ torch.linalg.inv_ex(Yb @ YH)[0])[:, ref, :]  # (I, N)
+            state = {**state, "Y": Y * scale.transpose(0, 1)[:, :, None]}
+        T = state["T"] * (scale.transpose(0, 1).abs() ** self.domain)[:, :, None]
+        return {**state, "T": T}
+
+    # ---- loss ----------------------------------------------------------------
+
+    def _loss_value(self, Y2, R) -> torch.Tensor:
+        """The per-(source, bin, frame) integrand of the negative log-likelihood."""
+        raise NotImplementedError
+
+    def make_loss(self):
+        value_of = self._loss_value
+
+        def loss(state):
+            if "W" in state:
+                Y, W = _separate(state["X"], state["W"]), state["W"]
+            else:
+                Y, W = state["Y"], ls_demix(state["Y"], state["X"])
+            value = value_of(power(Y), state["T"] @ state["V"])
+            return torch.sum(torch.sum(torch.mean(value, dim=-1), dim=0) - 2 * clogabsdet(W))
+
+        return loss
+
+
+class GaussILRMA(ILRMABase):
+    """ILRMA on a Gaussian source model (parity: ssspy/bss/ilrma.py:582-1989).
+
+    ``source_algorithm``: MM or ME (ME requires ``domain == 2``);
+    ``domain`` p in (0, 2]; ``normalization``: power | projection_back.
+    """
+
+    _model = "gauss"
+
+    def _loss_value(self, Y2, R):
+        p = self.domain
+        return Y2 / (R ** (2 / p)) + (2 / p) * torch.log(R)
+
+
+class TILRMA(ILRMABase):
+    """ILRMA on a Student's-t source model (parity: ssspy/bss/ilrma.py:1992-3334).
+
+    ``dof`` is the t-distribution's degrees of freedom.
+    """
+
+    _model = "t"
+
+    def __init__(self, n_basis: int, dof: float, spatial_algorithm: str = "IP", **kwargs) -> None:
+        super().__init__(n_basis, spatial_algorithm=spatial_algorithm, **kwargs)
+        self.dof = dof
+
+    def _model_params(self) -> dict:
+        return {"nu": self.dof, "me": self.source_algorithm == "ME"}
+
+    def _loss_value(self, Y2, R):
+        p, nu = self.domain, self.dof
+        return (1 + nu / 2) * torch.log(1 + (2 / nu) * Y2 / (R ** (2 / p))) + (2 / p) * torch.log(R)
+
+
+class GGDILRMA(ILRMABase):
+    """ILRMA on a generalized-Gaussian source model (parity: ssspy/bss/ilrma.py:3337-4410).
+
+    ``beta`` in (0, 2) is the GGD shape parameter; MM updates only.
+    """
+
+    _model = "ggd"
+
+    def __init__(self, n_basis: int, beta: float, spatial_algorithm: str = "IP", **kwargs) -> None:
+        if not 0 < beta < 2:
+            raise ValueError(f"Shape parameter {beta} should be chosen from (0, 2).")
+        if kwargs.get("source_algorithm", "MM") != "MM":
+            raise ValueError(f"unsupported option: {kwargs['source_algorithm']}.")
+        super().__init__(n_basis, spatial_algorithm=spatial_algorithm, **kwargs)
+        self.beta = beta
+
+    def _model_params(self) -> dict:
+        return {"beta": self.beta}
+
+    def _loss_value(self, Y2, R):
+        p, beta = self.domain, self.beta
+        return Y2 ** (beta / 2) / (R ** (beta / p)) + (2 / p) * torch.log(R)
+

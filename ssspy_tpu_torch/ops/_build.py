@@ -44,7 +44,9 @@ _libs: Dict[str, ctypes.CDLL] = {}
 # per kernel: seconds spent compiling in this process (0.0 when the library
 # was already built) and the compiler's output (ptxas register/spill report)
 build_info: Dict[str, dict] = {}
-_lock = threading.Lock()
+# one lock per kernel, so that threads build different kernels at once
+_locks: Dict[str, threading.Lock] = {}
+_locks_guard = threading.Lock()
 
 
 def find_nvcc() -> str:
@@ -100,8 +102,14 @@ def _compile(name: str, source: str) -> str:
 
 
 def load(name: str) -> ctypes.CDLL:
-    """Build (if needed) and load ``csrc/<name>.cu``; cached per process."""
-    with _lock:
+    """Build (if needed) and load ``csrc/<name>.cu``; cached per process.
+
+    Safe to call from several threads: each kernel has its own lock, so
+    different kernels compile in parallel.
+    """
+    with _locks_guard:
+        lock = _locks.setdefault(name, threading.Lock())
+    with lock:
         lib = _libs.get(name)
         if lib is None:
             source = os.path.join(SOURCE_DIR, f"{name}.cu")

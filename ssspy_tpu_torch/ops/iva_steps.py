@@ -1,23 +1,40 @@
-"""The AuxIVA-IP1 iteration and its loss on native complex tensors.
+"""The AuxIVA-IP1 and AuxIVA-ISS1 iterations and their loss on native complex tensors.
 
 Counterparts of the split-complex functions in ``ssspy_tpu/ops/splitc.py``;
 the port carries complex tensors, so the ``[real, imag]`` planes and the
-``_sc`` suffix are gone.
+``_sc`` suffix are gone. The kernels are looked up on
+:mod:`ssspy_tpu_torch.ops.kernels` at each call.
 """
+
+from typing import Optional
 
 import torch
 
-from .kernels import ip1_sweep, weighted_covariance
+from . import kernels
 
-__all__ = ["separate", "auxiva_ip1_step", "clogabsdet", "iva_laplace_loss"]
+__all__ = [
+    "separate",
+    "auxiva_ip1_step",
+    "auxiva_iss1_step",
+    "clogabsdet",
+    "ls_demix",
+    "iva_laplace_loss",
+]
 
 
 def separate(X: torch.Tensor, W: torch.Tensor) -> torch.Tensor:
     """Per-bin demixing ``y_i = W_i x_i``: ``(I,N,M) x (M,I,T) -> (N,I,T)``.
 
-    Counterpart of ``splitc._csep`` (splitc.py:242-253).
+    Counterpart of ``splitc._csep`` (splitc.py:242-253). The einsum is a
+    product batched over bins, whose ``(N, I, T)`` view is permuted; the
+    copy makes it contiguous, as the ISS1 kernel takes it.
     """
-    return torch.einsum("inm,mit->nit", W, X)
+    return torch.einsum("inm,mit->nit", W, X).contiguous()
+
+
+def _laplace_varphi(Y: torch.Tensor, eps: float) -> torch.Tensor:
+    """Laplace weight ``1 / max(||y_n(., t)||, eps)`` with the norm over bins: ``(N, T)``."""
+    return 1.0 / torch.clamp(torch.linalg.vector_norm(Y, dim=1), min=eps)
 
 
 def auxiva_ip1_step(X: torch.Tensor, W: torch.Tensor, eps: float = 1e-10) -> torch.Tensor:
@@ -28,10 +45,18 @@ def auxiva_ip1_step(X: torch.Tensor, W: torch.Tensor, eps: float = 1e-10) -> tor
     the weighted covariance, then the IP1 sweep. Counterpart of
     ``splitc.auxiva_ip1_step_sc`` (splitc.py:256-278).
     """
-    Y = separate(X, W)
-    varphi = 1.0 / torch.clamp(torch.linalg.vector_norm(Y, dim=1), min=eps)  # (N, T)
-    U = weighted_covariance(X, varphi)
-    return ip1_sweep(W, U, eps=eps)
+    U = kernels.weighted_covariance(X, _laplace_varphi(separate(X, W), eps))
+    return kernels.ip1_sweep(W, U, eps=eps)
+
+
+def auxiva_iss1_step(Y: torch.Tensor, eps: float = 1e-10) -> torch.Tensor:
+    """One AuxIVA-ISS1 iteration on the separated spectrograms ``(N, I, T)``.
+
+    ISS carries no demixing matrix: the Laplace weight ``(N, T)``, then the
+    ISS1 sweep. Counterpart of ``splitc.auxiva_iss1_step_sc``
+    (splitc.py:401-411).
+    """
+    return kernels.iss1_sweep(Y, _laplace_varphi(Y, eps), eps=eps)
 
 
 def clogabsdet(W: torch.Tensor) -> torch.Tensor:
@@ -45,12 +70,32 @@ def clogabsdet(W: torch.Tensor) -> torch.Tensor:
     return torch.linalg.slogdet(W)[1]
 
 
-def iva_laplace_loss(X: torch.Tensor, W: torch.Tensor) -> torch.Tensor:
-    """AuxLaplaceIVA negative log-likelihood of the demixing filters ``W``.
+def ls_demix(Y: torch.Tensor, X: torch.Tensor) -> torch.Tensor:
+    """Least-squares demixing filter ``W = Y X^H (X X^H)^{-1}`` per bin: ``(I, N, M)``.
 
-    ``sum_n mean_t 2 ||y_n(., t)|| - 2 sum_i log|det W_i|``, a 0-dim tensor
-    on the input's device. Counterpart of ``splitc.iva_laplace_loss_sc``
-    with ``Ws`` (splitc.py:4190-4207).
+    Recovers the implicit demixing matrix of a demix-free (ISS) state.
+    Counterpart of ``splitc.ls_demix_sc`` (splitc.py:4170-4187); the
+    inverse is ``inv_ex``, so a singular bin gives non-finite values
+    instead of an exception.
     """
-    G = 2 * torch.linalg.vector_norm(separate(X, W), dim=1)  # (N, T)
+    Xb = X.transpose(0, 1)  # (I, M, T)
+    XH = Xb.transpose(-2, -1).conj()
+    return Y.transpose(0, 1) @ XH @ torch.linalg.inv_ex(Xb @ XH)[0]
+
+
+def iva_laplace_loss(
+    X: torch.Tensor, W: Optional[torch.Tensor] = None, Y: Optional[torch.Tensor] = None
+) -> torch.Tensor:
+    """AuxLaplaceIVA negative log-likelihood, a 0-dim tensor on the input's device.
+
+    ``sum_n mean_t 2 ||y_n(., t)|| - 2 sum_i log|det W_i|``. Pass ``W`` for
+    the demix-filter state (IP) or ``Y`` for the demix-free state (ISS),
+    whose ``W`` is recovered by :func:`ls_demix`. Counterpart of
+    ``splitc.iva_laplace_loss_sc`` (splitc.py:4190-4207).
+    """
+    if W is not None:
+        Y = separate(X, W)
+    else:
+        W = ls_demix(Y, X)
+    G = 2 * torch.linalg.vector_norm(Y, dim=1)  # (N, T)
     return G.mean(dim=-1).sum() - 2 * clogabsdet(W).sum()

@@ -1,4 +1,4 @@
-"""The two hand-written CUDA kernels of the AuxIVA-IP1 step, with their plain versions.
+"""The hand-written CUDA kernels of the IVA and ILRMA steps, with their plain versions.
 
 - :func:`weighted_covariance` — ``U[i,n] = mean_t phi[n,(i),t] x_it x_it^H``,
   counterpart of ``ssspy_tpu.ops.pallas_kernels.weighted_covariance_sc``
@@ -7,6 +7,10 @@
   ``ssspy_tpu.ops.splitc.ip1_sweep_sc`` with ``csolve`` /
   ``gauss_jordan_solve_nopivot`` (splitc.py:168-344); kernel
   ``csrc/ip1_sweep.cu``.
+- :func:`iss1_sweep` — the sequential ISS1 source-steering sweep,
+  counterpart of ``ssspy_tpu.ops.pallas_kernels.iss1_sweep_pallas`` and
+  ``ssspy_tpu.ops.splitc.iss1_sweep_sc`` (pallas_kernels.py:729-808,
+  splitc.py:347-398); kernel ``csrc/iss1_sweep.cu``.
 
 Each wrapper takes its plain PyTorch version for CPU tensors and launches
 its kernel for CUDA tensors, which must be complex64/float32 and
@@ -26,6 +30,9 @@ __all__ = [
     "ip1_sweep",
     "ip1_sweep_plain",
     "gauss_jordan_solve_nopivot",
+    "iss1_sweep",
+    "iss1_sweep_plain",
+    "iss1_sweep_resident",
 ]
 
 # limits the kernels take, mirrored from csrc/*.cu
@@ -33,6 +40,9 @@ _SMEM_LIMIT = 48 * 1024
 _WCOV_STRIDE = 128 + 1  # padded row of frames staged per pass
 _WCOV_MAX_ENTRIES = 1024 * 8
 _GJ_TINY = 1e-20
+_ISS1_MAX_SOURCES = 16
+_ISS1_HEADER_BYTES = 16 * 8 + 16 * 3 * 16 * 4  # v and the reduction table
+_SMEM_BLOCK_MAX = 232448  # 227 KB of dynamic shared memory per block on sm_90
 
 _VOID, _INT, _FLOAT = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
 _SIGNATURES = {
@@ -43,6 +53,10 @@ _SIGNATURES = {
     "ip1_sweep": (
         "ip1_sweep_launch",
         [_VOID, _VOID, _VOID, _INT, _INT, _INT, _FLOAT, _INT, _VOID],
+    ),
+    "iss1_sweep": (
+        "iss1_sweep_launch",
+        [_VOID, _VOID, _VOID, _INT, _INT, _INT, _INT, _INT, _FLOAT, _INT, _VOID],
     ),
 }
 
@@ -249,3 +263,85 @@ def ip1_sweep(W: torch.Tensor, U: torch.Tensor, eps: float = 1e-10) -> torch.Ten
 
 
 ip1_sweep.launches = 0
+
+
+# ---- ISS1 sweep -------------------------------------------------------------
+
+
+def iss1_sweep_plain(Y: torch.Tensor, varphi: torch.Tensor, eps: float = 1e-10) -> torch.Tensor:
+    """Sequential ISS1 sweep in plain PyTorch; returns the new ``Y``.
+
+    ``Y``: complex ``(N, I, T)``; ``varphi``: real ``(N, T)`` (IVA) or
+    per-bin ``(N, I, T)`` (ILRMA). For each source n in order,
+    ``v[m] = mean_t phi_m y_m conj(y_n) / denom[m]`` with
+    ``denom[m] = max(mean_t phi_m |y_n|^2, eps)``, ``v[n] = 1 - 1/sqrt(denom[n])``,
+    then ``Y -= v y_n`` with the ``y_n`` of before the update; later sources
+    see the updated ``Y``. The loop of splitc.py:376-398 on native complex.
+    """
+    if varphi.dim() == 2:
+        varphi = varphi[:, None, :]
+    for n in range(Y.shape[0]):
+        Y_n = Y[n]  # (I, T)
+        num = torch.mean(varphi * (Y * Y_n.conj()), dim=-1)  # (N, I)
+        denom = torch.clamp(torch.mean(varphi * (Y_n.real**2 + Y_n.imag**2), dim=-1), min=eps)
+        v = num / denom
+        v[n] = 1 - 1 / torch.sqrt(denom[n])
+        Y = Y - v[:, :, None] * Y_n
+    return Y
+
+
+def iss1_sweep_resident(n_sources: int, n_frames: int, per_bin: bool) -> bool:
+    """Whether the kernel keeps a bin in shared memory (else it streams it).
+
+    The resident variant holds the bin's Y (``N * T`` complex64) and, for
+    per-bin weights, its weights (``N * T`` float32) in one block's
+    dynamic shared memory; the streamed variant keeps Y in device memory
+    and takes any ``T`` (csrc/iss1_sweep.cu).
+    """
+    per_frame = 8 + (4 if per_bin else 0)
+    return _ISS1_HEADER_BYTES + n_sources * n_frames * per_frame <= _SMEM_BLOCK_MAX
+
+
+def _check_iss1_sweep(Y: torch.Tensor, varphi: torch.Tensor) -> None:
+    name = "iss1_sweep"
+    _require(Y.dim() == 3, f"{name}: Y must be (N, I, T), got {tuple(Y.shape)}")
+    N, I, T = Y.shape
+    _require(varphi.dim() in (2, 3), f"{name}: varphi must be (N, T) or (N, I, T)")
+    expected = (N, T) if varphi.dim() == 2 else (N, I, T)
+    _require(
+        tuple(varphi.shape) == expected,
+        f"{name}: varphi shape {tuple(varphi.shape)} does not match Y {tuple(Y.shape)}",
+    )
+    _require(Y.dtype == torch.complex64, f"{name}: the kernel takes complex64 Y, got {Y.dtype}")
+    _require(
+        varphi.dtype == torch.float32, f"{name}: the kernel takes float32 varphi, got {varphi.dtype}"
+    )
+    _require(Y.is_contiguous() and varphi.is_contiguous(), f"{name}: inputs must be contiguous")
+    _require(min(N, I, T) >= 1, f"{name}: empty input {tuple(Y.shape)}")
+    _require(N <= _ISS1_MAX_SOURCES, f"{name}: N={N} sources exceeds the kernel's {_ISS1_MAX_SOURCES}")
+    _check_cuda(name, Y, varphi)
+
+
+def iss1_sweep(Y: torch.Tensor, varphi: torch.Tensor, eps: float = 1e-10) -> torch.Tensor:
+    """ISS1 sweep; kernel on CUDA, :func:`iss1_sweep_plain` on CPU.
+
+    ``Y``: complex ``(N, I, T)``; ``varphi``: ``(N, T)`` (IVA) or
+    ``(N, I, T)`` (ILRMA). Returns the new ``Y``.
+    """
+    if _on_cpu(Y, varphi):
+        return iss1_sweep_plain(Y, varphi, eps)
+    _check_iss1_sweep(Y, varphi)
+    N, I, T = Y.shape
+    per_bin = varphi.dim() == 3
+    lib, launch = _entry("iss1_sweep")
+    Y_out = torch.empty_like(Y)
+    status = launch(
+        Y.data_ptr(), varphi.data_ptr(), Y_out.data_ptr(), N, I, T, int(per_bin),
+        int(iss1_sweep_resident(N, T, per_bin)), float(eps), Y.device.index, _stream(Y.device),
+    )
+    _build.check(lib, "iss1_sweep", status)
+    iss1_sweep.launches += 1
+    return Y_out
+
+
+iss1_sweep.launches = 0

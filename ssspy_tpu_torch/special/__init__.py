@@ -7,6 +7,7 @@ from .flooring import (
     identity,
     max_flooring,
     resolve_flooring_spec,
+    sweep_eps,
 )
 
 __all__ = [
@@ -18,4 +19,5 @@ __all__ = [
     "identity",
     "max_flooring",
     "resolve_flooring_spec",
+    "sweep_eps",
 ]

@@ -28,6 +28,7 @@ __all__ = [
     "dtype_flooring",
     "resolve_flooring_spec",
     "choose_flooring_fn",
+    "sweep_eps",
 ]
 
 
@@ -101,3 +102,26 @@ def choose_flooring_fn(
     if not callable(flooring_fn):
         raise TypeError("flooring_fn must be callable.")
     return flooring_fn
+
+
+def sweep_eps(flooring_fn: Callable, dtype: torch.dtype) -> float:
+    """The ``eps`` of ``max(., eps)`` that ``flooring_fn`` applies.
+
+    The IP1 and ISS1 sweep kernels floor their denominators with a
+    max-type eps (``update_by_ip1`` / ``update_by_iss1``'s ``flooring_fn``,
+    ssspy_tpu/bss/_update_spatial_model.py:46-79, :158-187), so a
+    separator's flooring function must be one of those; ``dtype`` is the
+    operand dtype that :func:`dtype_flooring` reads.
+    """
+    if flooring_fn is dtype_flooring:
+        return dtype_eps(dtype)
+    if isinstance(flooring_fn, functools.partial) and flooring_fn.func is max_flooring:
+        return flooring_fn.keywords.get("eps", EPS)
+    if flooring_fn is max_flooring:
+        return EPS
+    if flooring_fn is identity:
+        return 0.0
+    raise NotImplementedError(
+        "the IP1 and ISS1 sweeps floor with max(., eps): flooring_fn must be "
+        "'dtype', 'f32', 'f64', None, max_flooring or a functools.partial of it"
+    )

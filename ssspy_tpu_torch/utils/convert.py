@@ -32,18 +32,33 @@ def complex_to_planar(t: torch.Tensor) -> np.ndarray:
     return np.stack([t.real.numpy(), t.imag.numpy()], axis=0)
 
 
+# the state keys of the JAX classes and fast paths, by kind
+_COMPLEX_KEYS = ("X", "W", "Y")  # spectrograms and demixing filters
+_REAL_KEYS = ("T", "V", "Z")  # NMF basis, activation and latent
+
+
 def from_jax_state(state: Dict, device=None) -> Dict[str, torch.Tensor]:
     """Convert a JAX class or fast-path state dict (e.g. ``{"X": Xs, "W": Ws}``).
 
-    Complex entries (class state) become complex tensors as they are;
-    real entries with a leading axis of 2 (fast-path planar state) go
-    through :func:`planar_to_complex`. Other real entries keep their dtype.
+    The kind of each entry is decided by its key, never by its shape:
+    ``X``, ``W`` and ``Y`` are complex and arrive either complex (class
+    state) or planar ``(2, ...)`` real (fast-path state, through
+    :func:`planar_to_complex`); ``T``, ``V`` and ``Z`` are real and keep
+    their dtype, whatever their leading axis. Any other key raises.
     """
     out = {}
     for key, value in state.items():
         a = np.asarray(value)
-        if np.iscomplexobj(a) or a.shape[:1] != (2,):
+        if key in _COMPLEX_KEYS:
+            out[key] = (
+                torch.from_numpy(a.copy()).to(device) if np.iscomplexobj(a) else planar_to_complex(a, device)
+            )
+        elif key in _REAL_KEYS:
+            if np.iscomplexobj(a):
+                raise ValueError(f"state entry {key!r} must be real, got {a.dtype}")
             out[key] = torch.from_numpy(a.copy()).to(device)
         else:
-            out[key] = planar_to_complex(a, device=device)
+            raise ValueError(
+                f"unknown state key {key!r}; expected one of {_COMPLEX_KEYS + _REAL_KEYS}"
+            )
     return out

@@ -68,7 +68,31 @@ def test_ip1_sweep_kernel_matches_its_exact_twin(cuda_device):
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("per_bin", [False, True], ids=["scalar", "per_bin"])
+@pytest.mark.parametrize("shape", [(8, 257, 626), (8, 16, 4000)], ids=["main_path", "streamed"])
+def test_iss1_sweep_kernel_matches_plain(cuda_device, shape, per_bin):
+    rng = np.random.default_rng(10)
+    N, I, T = shape
+    Y = _complex(rng, (N, I, T), cuda_device)
+    Y[:, [0, 5]] = 0  # silent bins
+    phi_shape = (N, I, T) if per_bin else (N, T)
+    phi = torch.from_numpy(rng.random(phi_shape, dtype=np.float32) + 0.1).to(cuda_device)
+    assert K.iss1_sweep_resident(N, T, per_bin) == (T == 626)
+    before = K.iss1_sweep.launches
+    got = K.iss1_sweep(Y, phi, eps=1e-6)
+    ref = K.iss1_sweep_plain(Y, phi, eps=1e-6)
+    torch.cuda.synchronize()
+    assert K.iss1_sweep.launches == before + 1
+    assert torch.isfinite(torch.view_as_real(got)).all()
+    assert torch.equal(got[:, [0, 5]], Y[:, [0, 5]])
+    # both sides sum T f32 terms in different orders over N sequential updates
+    assert (got - ref).abs().max() / ref.abs().max() <= 1e-4
+
+
+@pytest.mark.cuda
 def test_kernels_reject_a_wrong_dtype_on_the_card(cuda_device):
     X = torch.zeros((3, 5, 7), dtype=torch.complex128, device=cuda_device)
     with pytest.raises(ValueError, match="complex64"):
         K.weighted_covariance(X, torch.ones((3, 7), device=cuda_device))
+    with pytest.raises(ValueError, match="complex64"):
+        K.iss1_sweep(X, torch.ones((3, 7), device=cuda_device))

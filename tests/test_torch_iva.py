@@ -1,11 +1,12 @@
-"""ssspy_tpu_torch AuxIVA-IP1 slice against the JAX package and the regression fixture.
+"""ssspy_tpu_torch AuxIVA (IP1, ISS1) against the JAX package and the regression fixtures.
 
-Same numpy inputs through the JAX function and its port: the f32 step
-and loss, the complex128 class on ``tests/regression/fixtures`` (the
+Same numpy inputs through the JAX function and its port: the f32 steps
+and losses, the complex128 class on ``tests/regression/fixtures`` (the
 reference's own 1e-7 tolerance), ``fast_auxiva``, the iteration driver's
-callbacks / loss trace / warm start, STFT/iSTFT, scale restoration and
-the waveform pipeline. All on the CPU, where the kernel wrappers take
-their plain versions.
+callbacks / loss trace / warm start, STFT/iSTFT, scale restoration, the
+waveform pipeline, the default device and the JAX-state bridge. All on
+the CPU (``device="cpu"``), where the kernel wrappers take their plain
+versions.
 """
 
 import os
@@ -20,14 +21,19 @@ from ssspy_tpu.algorithm import minimal_distortion_principle as jax_mdp
 from ssspy_tpu.algorithm import projection_back as jax_projection_back
 from ssspy_tpu.bss.iva import AuxIVA as JaxAuxIVA
 from ssspy_tpu.fast import fast_auxiva as jax_fast_auxiva
-from ssspy_tpu.ops.splitc import auxiva_ip1_step_sc, clogabsdet_sc, iva_laplace_loss_sc
+from ssspy_tpu.ops.splitc import (
+    auxiva_ip1_step_sc,
+    auxiva_iss1_step_sc,
+    clogabsdet_sc,
+    iva_laplace_loss_sc,
+)
 from ssspy_tpu.transform import istft as jax_istft
 from ssspy_tpu.transform import stft as jax_stft
 from ssspy_tpu_torch import separate as torch_separate
 from ssspy_tpu_torch.algorithm import minimal_distortion_principle, projection_back
 from ssspy_tpu_torch.bss.iva import AuxIVA, AuxLaplaceIVA
 from ssspy_tpu_torch.fast import fast_auxiva
-from ssspy_tpu_torch.ops import auxiva_ip1_step, clogabsdet, iva_laplace_loss
+from ssspy_tpu_torch.ops import auxiva_ip1_step, auxiva_iss1_step, clogabsdet, iva_laplace_loss
 from ssspy_tpu_torch.transform import istft, stft
 from ssspy_tpu_torch.utils import (
     complex_to_planar,
@@ -70,15 +76,22 @@ def _torch_d_contrast(y):
     return 2 * torch.ones_like(y)
 
 
-def _jax_class(**kwargs):
+def _jax_class(spatial_algorithm="IP1", **kwargs):
     return JaxAuxIVA(
-        spatial_algorithm="IP1", contrast_fn=_jax_contrast, d_contrast_fn=_jax_d_contrast, **kwargs
+        spatial_algorithm=spatial_algorithm,
+        contrast_fn=_jax_contrast,
+        d_contrast_fn=_jax_d_contrast,
+        **kwargs,
     )
 
 
-def _torch_class(**kwargs):
+def _torch_class(spatial_algorithm="IP1", **kwargs):
     return AuxIVA(
-        spatial_algorithm="IP1", contrast_fn=_torch_contrast, d_contrast_fn=_torch_d_contrast, **kwargs
+        spatial_algorithm=spatial_algorithm,
+        contrast_fn=_torch_contrast,
+        d_contrast_fn=_torch_d_contrast,
+        device="cpu",
+        **kwargs,
     )
 
 
@@ -112,6 +125,30 @@ def test_auxiva_ip1_step_and_loss_match_jax_f32(n_channels, covariance_impl):
     assert np.abs(logdet - logdet_ref).max() <= 1e-3 * np.abs(logdet_ref).max()
 
 
+@pytest.mark.parametrize("n_channels", [3, 8])
+def test_auxiva_iss1_step_and_loss_match_jax_f32(n_channels):
+    X = _spectrogram(n_channels=n_channels, n_frames=40, seed=20 + n_channels)
+    rng = np.random.default_rng(21)
+    W = np.eye(n_channels)[None] + 0.1 * (
+        rng.standard_normal((33, n_channels, n_channels))
+        + 1j * rng.standard_normal((33, n_channels, n_channels))
+    )
+    Y = np.einsum("inm,mit->nit", W, X)
+    Xs, Ys = (np.stack([a.real, a.imag]).astype(np.float32) for a in (X, Y))
+
+    ref = np.asarray(auxiva_iss1_step_sc(jnp.asarray(Ys)))
+    state = from_jax_state({"X": Xs, "Y": Ys})
+    Y_new = auxiva_iss1_step(state["Y"])
+    assert Y_new.dtype == torch.complex64
+    assert _rel_err(complex_to_planar(Y_new), ref) <= 1e-4
+
+    # the Y-state loss recovers W by least squares (and squares it into its
+    # Gram matrix on the JAX side: ~1e-3 relative in f32)
+    loss_ref = float(iva_laplace_loss_sc(jnp.asarray(Xs), Ys=jnp.asarray(ref)))
+    loss = float(iva_laplace_loss(state["X"], Y=Y_new))
+    assert abs(loss - loss_ref) <= 1e-3 * abs(loss_ref)
+
+
 # ---- the class (complex128) ----------------------------------------------------
 
 
@@ -122,15 +159,12 @@ def _si_sdr_db(est, ref):
     return 10 * np.log10(np.real(np.vdot(alpha * ref, alpha * ref) / np.vdot(err, err)))
 
 
-@pytest.mark.parametrize("spatial_algorithm", ["IP", "IP1"])
+@pytest.mark.parametrize("spatial_algorithm", ["IP", "IP1", "ISS", "ISS1"])
 def test_auxiva_class_matches_regression_fixture(spatial_algorithm):
     X = np.load(os.path.join(FIXTURES, "input.npz"))["spectrogram"]
-    target = np.load(os.path.join(FIXTURES, "auxiva_ip1.npz"))["target"]
-    iva = AuxIVA(
-        spatial_algorithm=spatial_algorithm,
-        contrast_fn=_torch_contrast,
-        d_contrast_fn=_torch_d_contrast,
-    )
+    fixture = "auxiva_iss1" if spatial_algorithm.startswith("ISS") else "auxiva_ip1"
+    target = np.load(os.path.join(FIXTURES, f"{fixture}.npz"))["target"]
+    iva = _torch_class(spatial_algorithm)
     Y = iva(torch.from_numpy(X.copy()), n_iter=10)
     assert Y.dtype == torch.complex128 and Y.shape == target.shape
     np.testing.assert_allclose(Y.numpy(), target, atol=1e-7)
@@ -141,9 +175,10 @@ def test_auxiva_class_matches_regression_fixture(spatial_algorithm):
 
 def test_aux_laplace_iva_is_the_laplace_auxiva():
     X = torch.from_numpy(_spectrogram(seed=3))
-    Y_laplace = AuxLaplaceIVA(spatial_algorithm="IP")(X, n_iter=5)
-    Y_generic = _torch_class()(X, n_iter=5)
-    torch.testing.assert_close(Y_laplace, Y_generic, rtol=0, atol=0)
+    for algorithm in ("IP", "ISS1"):
+        Y_laplace = AuxLaplaceIVA(spatial_algorithm=algorithm, device="cpu")(X, n_iter=5)
+        Y_generic = _torch_class(algorithm)(X, n_iter=5)
+        torch.testing.assert_close(Y_laplace, Y_generic, rtol=0, atol=0)
 
 
 def test_callbacks_and_loss_trace_match_jax():
@@ -235,18 +270,44 @@ def test_projection_back_and_mdp_match_jax(reference_id):
         np.testing.assert_allclose(got.numpy(), np.asarray(ref), rtol=1e-10, atol=1e-12)
 
 
-@pytest.mark.parametrize("algorithm", ["IP2", "ISS", "ISS1", "ISS2", "IPA"])
+@pytest.mark.parametrize("algorithm", ["IP2", "ISS2", "IPA"])
 def test_unported_spatial_algorithms_raise(algorithm):
     with pytest.raises(NotImplementedError, match="ROADMAP"):
-        AuxLaplaceIVA(spatial_algorithm=algorithm)
+        AuxLaplaceIVA(spatial_algorithm=algorithm, device="cpu")
     with pytest.raises(NotImplementedError, match="ROADMAP"):
-        fast_auxiva(np.zeros((2, 3, 4), np.complex64), algorithm=algorithm if algorithm != "ISS" else "ISS1")
+        fast_auxiva(np.zeros((2, 3, 4), np.complex64), algorithm=algorithm, device="cpu")
 
 
 def test_flooring_without_a_max_eps_is_refused():
     iva = _torch_class(flooring_fn=lambda x: x + 1e-6)
     with pytest.raises(NotImplementedError, match="max"):
         iva(torch.from_numpy(_spectrogram(seed=12)), n_iter=1)
+
+
+@pytest.mark.parametrize("scale_restoration", ["MDP", "projection_back"])
+def test_iss1_scale_restoration_matches_jax(scale_restoration):
+    X = _spectrogram(seed=10)
+    jax_iva = _jax_class("ISS1", scale_restoration=scale_restoration)
+    torch_iva = _torch_class("ISS1", scale_restoration=scale_restoration)
+    Y_jax = np.asarray(jax_iva(X.copy(), n_iter=3))
+    Y_torch = torch_iva(torch.from_numpy(X.copy()), n_iter=3)
+    assert torch_iva.demix_filter is None
+    np.testing.assert_allclose(Y_torch.numpy(), Y_jax, atol=1e-9)
+    np.testing.assert_allclose(torch_iva.loss, jax_iva.loss, rtol=1e-9)
+
+
+def test_iss1_warm_start_and_callbacks_match_jax():
+    X = _spectrogram(seed=23)
+    rng = np.random.default_rng(24)
+    W0 = np.eye(3)[None] + 0.1 * (rng.standard_normal((33, 3, 3)) + 1j * rng.standard_normal((33, 3, 3)))
+    seen_jax, seen_torch = [], []
+    jax_iva = _jax_class("ISS1", callbacks=lambda m: seen_jax.append(len(m.loss)))
+    torch_iva = _torch_class("ISS1", callbacks=lambda m: seen_torch.append(len(m.loss)))
+    Y_jax = np.asarray(jax_iva(X.copy(), n_iter=3, demix_filter=W0))
+    Y_torch = torch_iva(torch.from_numpy(X.copy()), n_iter=3, demix_filter=W0)
+    assert seen_torch == seen_jax == [1, 2, 3, 4]
+    np.testing.assert_allclose(Y_torch.numpy(), Y_jax, atol=1e-9)
+    np.testing.assert_allclose(torch_iva.loss, jax_iva.loss, rtol=1e-9)
 
 
 # ---- fast_auxiva ---------------------------------------------------------------
@@ -257,10 +318,39 @@ def test_fast_auxiva_matches_jax(scale_restoration):
     X = _spectrogram(n_channels=3, n_fft=64, n_frames=40, seed=13)
     assert X.shape == (3, 33, 40)
     Y_jax, W_jax = jax_fast_auxiva(X, n_iter=5, scale_restoration=scale_restoration)
-    Y, W = fast_auxiva(X, n_iter=5, scale_restoration=scale_restoration)
+    Y, W = fast_auxiva(X, n_iter=5, scale_restoration=scale_restoration, device="cpu")
     assert Y.dtype == torch.complex64 and Y.shape == X.shape and W.shape == (33, 3, 3)
     assert _rel_err(W.numpy(), W_jax) <= 1e-3
     assert _rel_err(Y.numpy(), Y_jax) <= 1e-3
+
+
+def test_fast_auxiva_iss1_matches_jax():
+    X = _spectrogram(n_channels=3, n_fft=64, n_frames=40, seed=25)
+    Y_jax, W_jax = jax_fast_auxiva(X, n_iter=5, algorithm="ISS1")
+    Y, W = fast_auxiva(X, n_iter=5, algorithm="ISS1", device="cpu")
+    assert W is None and W_jax is None
+    assert Y.dtype == torch.complex64 and Y.shape == X.shape
+    assert _rel_err(Y.numpy(), Y_jax) <= 1e-3
+
+
+# ---- the card is the default device ---------------------------------------------
+
+
+def test_entry_points_run_on_the_card_unless_asked_for_the_cpu():
+    X = np.zeros((2, 3, 4), np.complex64)
+    entry_points = [
+        lambda: AuxLaplaceIVA(),
+        lambda: fast_auxiva(X, n_iter=1),
+        lambda: fast_auxiva(X, n_iter=1, algorithm="ISS1"),
+        lambda: torch_separate(np.zeros((2, 64)), AuxLaplaceIVA(device="cpu"), n_iter=1, n_fft=16),
+    ]
+    if torch.cuda.is_available():
+        assert AuxLaplaceIVA().device.type == "cuda"
+    else:
+        for call in entry_points:
+            with pytest.raises(RuntimeError, match="device='cpu'"):
+                call()
+    assert AuxLaplaceIVA(device="cpu").device == torch.device("cpu")
 
 
 # ---- STFT / iSTFT and the pipeline ------------------------------------------
@@ -295,7 +385,13 @@ def test_stft_matches_the_host_stft_of_the_main_path():
 
 def test_pipeline_separate_returns_waveforms():
     x = make_mixture(n_channels=2, duration_s=0.25, seed=15).astype(np.float32)
-    y = torch_separate(torch.from_numpy(x), AuxLaplaceIVA(spatial_algorithm="IP"), n_iter=3, n_fft=256)
+    y = torch_separate(
+        torch.from_numpy(x),
+        AuxLaplaceIVA(spatial_algorithm="IP", device="cpu"),
+        n_iter=3,
+        n_fft=256,
+        device="cpu",
+    )
     assert y.shape == x.shape and y.dtype == torch.float32
     assert torch.isfinite(y).all()
 
@@ -331,3 +427,25 @@ def test_flooring_matches_jax(spec, dtype):
     assert choose_flooring_fn("self", method=Method()) is floor
     assert choose_flooring_fn(floor) is floor
     np.testing.assert_array_equal(choose_flooring_fn(None)(torch.from_numpy(x)).numpy(), x)
+
+
+def test_from_jax_state_decides_by_key_not_by_shape():
+    """A 2-source ILRMA state: real NMF factors with a leading axis of 2 stay real."""
+    rng = np.random.default_rng(26)
+    Xs = rng.standard_normal((2, 2, 5, 7)).astype(np.float32)  # planar (M=2, I, T)
+    Ws = rng.standard_normal((2, 5, 2, 2)).astype(np.float32)
+    T = rng.random((2, 5, 3)).astype(np.float32)  # (N=2, I, K)
+    V = rng.random((2, 3, 7))  # (N=2, K, T), float64
+    state = from_jax_state({"X": Xs, "W": Ws, "T": T, "V": V})
+    assert state["X"].dtype == torch.complex64 and state["X"].shape == (2, 5, 7)
+    assert state["W"].dtype == torch.complex64 and state["W"].shape == (5, 2, 2)
+    assert state["T"].dtype == torch.float32 and state["T"].shape == (2, 5, 3)
+    assert state["V"].dtype == torch.float64 and state["V"].shape == (2, 3, 7)
+    np.testing.assert_array_equal(state["T"].numpy(), T)
+    # a complex class state passes as it is
+    Y = Xs[0] + 1j * Xs[1]
+    torch.testing.assert_close(from_jax_state({"Y": Y})["Y"], torch.from_numpy(Y))
+    with pytest.raises(ValueError, match="unknown state key"):
+        from_jax_state({"U": T})
+    with pytest.raises(ValueError, match="must be real"):
+        from_jax_state({"T": T + 0j})

@@ -3,7 +3,8 @@
 On the CPU the kernel wrappers take their plain PyTorch versions; these
 are checked against the JAX functions they port (the Pallas covariance
 in interpret mode and its einsum, the split-complex IP1 sweep with both
-solvers) on the same numpy inputs. The CUDA kernels themselves are
+solvers, the ISS1 sweep in its XLA form and its Pallas body in interpret
+mode) on the same numpy inputs. The CUDA kernels themselves are
 compared with the plain versions on the card by tests/test_torch_cuda.py
 and by ``chip_smoke.py``.
 """
@@ -19,7 +20,7 @@ import pytest
 import torch
 
 from ssspy_tpu.ops.pallas_kernels import weighted_covariance_sc
-from ssspy_tpu.ops.splitc import ip1_sweep_sc
+from ssspy_tpu.ops.splitc import ip1_sweep_sc, iss1_sweep_sc
 from ssspy_tpu_torch.ops import _build
 from ssspy_tpu_torch.ops import kernels as K
 from ssspy_tpu_torch.utils import complex_to_planar, planar_to_complex
@@ -139,6 +140,91 @@ def test_ip1_sweep_plain_rejects_unknown_solver():
         K.ip1_sweep_plain(W, U, solve_impl="cholesky")
 
 
+# ---- ISS1 sweep --------------------------------------------------------------
+
+
+def _iss1_inputs(rng, N, I, T, per_bin):
+    """Y with bin 3 zeroed (a silent bin) and positive weights ``(N, T)`` or ``(N, I, T)``."""
+    Ys = _planar(rng, (N, I, T))
+    Ys[:, :, 3] = 0
+    return Ys, _weights(rng, N, I, T, per_bin)
+
+
+@pytest.mark.parametrize("per_bin", [False, True], ids=["scalar", "per_bin"])
+@pytest.mark.parametrize("shape", [(3, 17, 50), (8, 16, 40)])  # (N, I, T)
+@pytest.mark.parametrize("impl", ["xla", "interpret"])
+def test_iss1_sweep_plain_matches_jax(shape, per_bin, impl):
+    N, I, T = shape
+    Ys, phi = _iss1_inputs(np.random.default_rng(20), N, I, T, per_bin)
+    # the JAX sweep takes the IVA weights broadcastable, as (N, 1, T)
+    phi_jax = phi if per_bin else phi[:, None, :]
+    Yr, Yi = iss1_sweep_sc(
+        jnp.asarray(Ys[0]), jnp.asarray(Ys[1]), jnp.asarray(phi_jax), eps=1e-6, impl=impl
+    )
+    got = K.iss1_sweep_plain(planar_to_complex(Ys), torch.from_numpy(phi), eps=1e-6)
+
+    assert got.shape == (N, I, T) and got.dtype == torch.complex64
+    assert _rel_err(complex_to_planar(got), np.stack([np.asarray(Yr), np.asarray(Yi)])) <= 1e-5
+    # the silent bin stays zero and finite
+    assert torch.isfinite(torch.view_as_real(got)).all()
+    assert torch.count_nonzero(got[:, 3]) == 0
+
+
+@pytest.mark.parametrize("per_bin", [False, True], ids=["scalar", "per_bin"])
+def test_iss1_sweep_wrapper_takes_plain_on_cpu(per_bin):
+    Ys, phi = _iss1_inputs(np.random.default_rng(21), 3, 17, 50, per_bin)
+    Y, phi = planar_to_complex(Ys), torch.from_numpy(phi)
+    before = K.iss1_sweep.launches
+    torch.testing.assert_close(K.iss1_sweep(Y, phi, eps=1e-6), K.iss1_sweep_plain(Y, phi, eps=1e-6))
+    assert K.iss1_sweep.launches == before
+
+
+def test_iss1_sweep_plain_is_the_sequential_rank_one_update_complex128():
+    """Source by source against a numpy loop over bins, in complex128."""
+    rng = np.random.default_rng(22)
+    N, I, T = 3, 5, 30
+    Y0 = rng.standard_normal((N, I, T)) + 1j * rng.standard_normal((N, I, T))
+    phi = rng.random((N, I, T)) + 0.1
+    Y = Y0.copy()
+    for n in range(N):
+        y_n = Y[n].copy()
+        for i in range(I):
+            denom = np.maximum(np.mean(phi[:, i] * np.abs(y_n[i]) ** 2, axis=-1), 1e-10)
+            v = np.mean(phi[:, i] * Y[:, i] * y_n[i].conj(), axis=-1) / denom
+            v[n] = 1 - 1 / np.sqrt(denom[n])
+            Y[:, i] -= v[:, None] * y_n[i]
+    got = K.iss1_sweep_plain(torch.from_numpy(Y0), torch.from_numpy(phi))
+    np.testing.assert_allclose(got.numpy(), Y, rtol=1e-12, atol=1e-12)
+
+
+def test_iss1_sweep_kernel_rejects_what_it_does_not_take():
+    Y = torch.zeros((3, 17, 50), dtype=torch.complex64, device="meta")
+    phi = torch.zeros((3, 50), dtype=torch.float32, device="meta")
+    with pytest.raises(ValueError, match="complex64"):
+        K.iss1_sweep(Y.to(torch.complex128), phi)
+    with pytest.raises(ValueError, match="float32"):
+        K.iss1_sweep(Y, phi.to(torch.float64))
+    with pytest.raises(ValueError, match="does not match"):
+        K.iss1_sweep(Y, torch.zeros((3, 16, 50), dtype=torch.float32, device="meta"))
+    with pytest.raises(ValueError, match="contiguous"):
+        K.iss1_sweep(Y.transpose(1, 2), torch.zeros((3, 17), dtype=torch.float32, device="meta"))
+    with pytest.raises(ValueError, match="sources"):
+        K.iss1_sweep(
+            torch.zeros((17, 2, 5), dtype=torch.complex64, device="meta"),
+            torch.zeros((17, 5), dtype=torch.float32, device="meta"),
+        )
+
+
+def test_iss1_sweep_keeps_a_bin_resident_while_it_fits():
+    # main path: 8 x 626 frames with per-bin weights is 60 KB of the 227 KB;
+    # 3,200 bytes of header, then 12 bytes (per-bin) or 8 per source and frame
+    assert K.iss1_sweep_resident(8, 626, per_bin=True)
+    assert K.iss1_sweep_resident(8, 2388, per_bin=True)
+    assert not K.iss1_sweep_resident(8, 2389, per_bin=True)
+    assert K.iss1_sweep_resident(8, 3582, per_bin=False)
+    assert not K.iss1_sweep_resident(8, 3583, per_bin=False)
+
+
 # ---- dispatch: no silent fallback -------------------------------------------
 
 
@@ -150,18 +236,20 @@ def test_cuda_tensor_without_a_card_raises():
     phi = torch.from_numpy(_weights(rng, 3, 17, 50, per_bin=False))
     with pytest.raises((RuntimeError, AssertionError)):
         K.weighted_covariance(X.to("cuda"), phi.to("cuda"))
+    with pytest.raises((RuntimeError, AssertionError)):
+        K.iss1_sweep(X.to("cuda"), phi.to("cuda"))
 
 
-@pytest.mark.parametrize("wrapper", ["weighted_covariance", "ip1_sweep"])
+@pytest.mark.parametrize("wrapper", ["weighted_covariance", "ip1_sweep", "iss1_sweep"])
 def test_non_cpu_tensor_goes_to_the_kernel_checks_not_the_plain_version(wrapper):
     rng = np.random.default_rng(7)
-    if wrapper == "weighted_covariance":
+    if wrapper == "ip1_sweep":
+        args = _sweep_inputs(rng, 3, 17, 50)
+    else:
         args = (
             planar_to_complex(_planar(rng, (3, 17, 50))),
             torch.from_numpy(_weights(rng, 3, 17, 50, per_bin=False)),
         )
-    else:
-        args = _sweep_inputs(rng, 3, 17, 50)
     meta = [a.to("meta") for a in args]
     with pytest.raises(ValueError, match="CUDA"):
         getattr(K, wrapper)(*meta)
@@ -225,7 +313,9 @@ def test_failed_build_raises_with_the_compiler_output(monkeypatch, tmp_path):
 
 
 def test_every_kernel_source_exists_for_its_wrapper():
+    assert set(K._SIGNATURES) == {"weighted_covariance", "ip1_sweep", "iss1_sweep"}
     for name in K._SIGNATURES:
+        assert hasattr(getattr(K, name), "launches")
         assert os.path.isfile(os.path.join(_build.SOURCE_DIR, f"{name}.cu"))
 
 
