@@ -16,7 +16,20 @@ calls, on the default device:
   ``fast_gauss_ilrma(algorithm="ISS1")`` and ``separate`` with it;
 - AuxIVA-ISS1: ``AuxLaplaceIVA(spatial_algorithm="ISS1")`` and
   ``fast_auxiva(algorithm="ISS1")``;
-- TILRMA and GGDILRMA, IP1 and ISS1, 10 iterations each.
+- TILRMA and GGDILRMA, IP1 and ISS1, 10 iterations each;
+- the prox family: ``PDSIVA()`` and ``fast_pds_iva`` on the spectrogram
+  divided by its largest magnitude (bench.py:413); ``ADMMIVA()`` and
+  ``fast_admm_iva``, ``HVA()`` and ``fast_hva``, and ``MaskingADMMHVA()``
+  (10 iterations) on it divided by its spectral norm
+  (``normalize_by_spectral_norm``, the scaling tests/test_fast_fidelity.py:314-318
+  gives ADMM). Each launches the Jacobi eigh K7 once per iteration (the
+  ADMM paths on the stacked left and right Grams, ``B = 2I``) and no
+  other kernel, and must stay finite. HVA's step also runs on the unscaled
+  spectrogram, as bench.py:277-290 feeds it: its raw filter grows by
+  orders of magnitude per iteration there and leaves f32 within a few
+  iterations, in the JAX package's f32 step too (tests/test_hard_fidelity.py:27-32
+  records the same growth); the iteration at which it does is printed, and
+  must be the same through the kernel and through the plain version.
 
 Every launch count is set to 0 just before a path and read just after it,
 and each path must have launched the kernels it runs (and no other). The
@@ -35,6 +48,7 @@ and ``{"ok": true, "device": {...}}``. Imports nothing of JAX.
 """
 
 import contextlib
+import functools
 import json
 import statistics
 import subprocess
@@ -46,10 +60,11 @@ import numpy as np
 import torch
 
 from ssspy_tpu_torch import separate as separate_waveform
-from ssspy_tpu_torch.bss import GGDILRMA, AuxLaplaceIVA, GaussILRMA, TILRMA
-from ssspy_tpu_torch.fast import fast_auxiva, fast_gauss_ilrma
+from ssspy_tpu_torch.bss import ADMMIVA, GGDILRMA, HVA, PDSIVA, AuxLaplaceIVA, GaussILRMA, MaskingADMMHVA, TILRMA
+from ssspy_tpu_torch.fast import fast_admm_iva, fast_auxiva, fast_gauss_ilrma, fast_hva, fast_pds_iva
 from ssspy_tpu_torch.ops import _build
 from ssspy_tpu_torch.ops import kernels as K
+from ssspy_tpu_torch.ops import prox_steps
 from ssspy_tpu_torch.ops.ilrma_steps import ilrma_ip_step, ilrma_iss_step, ilrma_loss
 from ssspy_tpu_torch.ops.iva_steps import auxiva_ip1_step, auxiva_iss1_step, iva_laplace_loss, separate
 from ssspy_tpu_torch.transform import stft
@@ -69,6 +84,10 @@ N_TIMED = 30  # timed runs per measurement, after warm-up
 SILENT_BINS = (0, 128)
 SPIN_CYCLES = 20_000_000  # ~10 ms of device spin ahead of a "queued" timing
 LONG_SHAPE = (8, 16, 4000)  # (N, I, T) whose bin exceeds shared memory: the streamed K2
+EIGH_TOL = 1e-5  # the same 90 rounds in the same order on both sides; f32 rounding may differ
+PROX_TOL = 1e-5
+JACOBI_SIZES = (2, 3, 7, 16, 32)
+N_ITER_MASKING_ADMM = 10
 
 # the card's peaks for the bound: NVIDIA H100 SXM data sheet, at 700 W
 HBM_BYTES_PER_S = 3.35e12
@@ -87,12 +106,17 @@ KERNELS = {
         "source": "ssspy_tpu_torch/ops/csrc/iss1_sweep.cu",
         "replaces": "ssspy_tpu/ops/pallas_kernels.py:773",
     },
+    "jacobi_eigh": {
+        "source": "ssspy_tpu_torch/ops/csrc/jacobi_eigh.cu",
+        "replaces": "ssspy_tpu/ops/pallas_kernels.py:894",
+    },
 }
 WRAPPERS = {name: getattr(K, name) for name in KERNELS}
 PLAIN = {
     "weighted_covariance": K.weighted_covariance_plain,
     "ip1_sweep": K.ip1_sweep_plain,  # "lu"
     "iss1_sweep": K.iss1_sweep_plain,
+    "jacobi_eigh": K.jacobi_eigh_plain,
 }
 
 
@@ -170,8 +194,9 @@ def counts() -> dict:
     return {name: fn.launches for name, fn in WRAPPERS.items()}
 
 
-def drive(label: str, run, uses, totals: dict, least: int = N_ITER):
-    """Run ``run()`` with every launch count at 0; the kernels in ``uses`` must launch >= ``least`` times, the others never."""
+def drive(label: str, run, uses, totals: dict, least: int = N_ITER, exact: bool = False):
+    """Run ``run()`` with every launch count at 0; the kernels in ``uses`` must launch >= ``least`` times
+    (exactly ``least`` with ``exact``), the others never."""
     torch.cuda.synchronize()
     for fn in WRAPPERS.values():
         fn.launches = 0
@@ -185,7 +210,8 @@ def drive(label: str, run, uses, totals: dict, least: int = N_ITER):
         peak_mib=f"{torch.cuda.max_memory_allocated() / 2**20:.1f}")
     for name, count in launches.items():
         if name in uses:
-            check(count >= least, f"{label}: launched {name} {count} times (< {least})")
+            check(count == least if exact else count >= least,
+                  f"{label}: launched {name} {count} times ({'!=' if exact else '<'} {least})")
         else:
             check(count == 0, f"{label}: launched {name} {count} times; the path does not run it")
         totals[name] += count
@@ -260,6 +286,16 @@ def iss1_bound(N, I, T, per_bin):
     return bound_ms(n_bytes, 20 * N * N * I * T)
 
 
+def jacobi_bound(B, n, sweeps=None):
+    # read A, write lambda and V; per round the row pass of A, the column
+    # pass of A and the column pass of V, 3 n^2 flops each, over
+    # sweeps x rounds(n) rounds (the 2n divisions and square roots of the
+    # rotations are not counted)
+    sweeps = K.jacobi_sweeps(n) if sweeps is None else sweeps
+    n_bytes = B * (2 * n * n + n) * 4
+    return bound_ms(n_bytes, B * 9 * n * n * sweeps * len(K.round_pairs(n)))
+
+
 # ---- the paths' helpers ----------------------------------------------------------------
 
 
@@ -284,6 +320,62 @@ def iterations_per_s(step, state) -> float:
     end.record()
     torch.cuda.synchronize()
     return N_ITER / (start.elapsed_time(end) / 1e3)
+
+
+@contextlib.contextmanager
+def recording_jacobi(inputs: list, keep: bool = False):
+    """Record the batch (or, with ``keep``, a copy) of every eigh the prox steps hand to K7.
+
+    The recorder sits in front of ``prox_steps.symm_eigh``, which hands its
+    input to ``K.jacobi_eigh`` as ``(B, n, n)``; the wrapper itself stays in
+    place, so its launches count as ever.
+    """
+    symm_eigh = prox_steps.symm_eigh
+
+    def recorder(S):
+        A = S.reshape(-1, S.shape[-1], S.shape[-1])
+        inputs.append(A.contiguous().clone() if keep else A.shape[0])
+        return symm_eigh(S)
+
+    prox_steps.symm_eigh = recorder
+    try:
+        yield
+    finally:
+        prox_steps.symm_eigh = symm_eigh
+
+
+def hold_trace(label: str, Y, Y_plain, loss, loss_plain) -> None:
+    """Gate a path whose loss is not monotone (PDS/ADMM): every iteration's loss within LOSS_TOL of the plain run's."""
+    check(len(loss) == len(loss_plain), f"{label}: {len(loss)} vs {len(loss_plain)} losses")
+    diverged = [it for it, (a, b) in enumerate(zip(loss, loss_plain)) if not (a == b or abs(a - b) <= LOSS_TOL * abs(b))]
+    finite = [(a, b) for a, b in zip(loss, loss_plain) if np.isfinite(a) and np.isfinite(b)]
+    worst = max(abs(a - b) / abs(b) for a, b in finite)
+    sdr = min_si_sdr(Y, Y_plain)
+    say("path vs plain", path=repr(label), loss_first=loss[0], loss_last=loss[-1], plain_loss_last=loss_plain[-1],
+        worst_loss_rel_diff=worst, non_finite_losses=len(loss) - len(finite), diverged_iterations=diverged[:5],
+        min_si_sdr_db=sdr)
+    check(all_finite(Y), f"{label}: non-finite output")
+    check(not diverged, f"{label}: loss left the {LOSS_TOL} band at iterations {diverged[:5]}")
+    check(sdr >= MIN_SI_SDR_DB, f"{label}: output vs plain {sdr:.2f} dB")
+
+
+def hold_sdr(label: str, Y, Y_plain) -> None:
+    """Gate a path without a loss (the masking paths): finite output, worst SI-SDR against the plain run."""
+    sdr = min_si_sdr(Y, Y_plain)
+    say("path vs plain", path=repr(label), min_si_sdr_db=sdr)
+    check(all_finite(Y), f"{label}: non-finite output")
+    check(sdr >= MIN_SI_SDR_DB, f"{label}: output vs plain {sdr:.2f} dB")
+
+
+def eigh_errors(A, lamb, V, lamb_ref):
+    """Eigenvalue error against the plain version, reconstruction and orthogonality, relative to max |lambda|."""
+    scale = float(lamb_ref.abs().max()) or 1.0
+    eye = torch.eye(A.shape[-1], device=A.device)
+    return (
+        float((lamb - lamb_ref).abs().max()) / scale,
+        float(((V * lamb[:, None, :]) @ V.transpose(-1, -2) - A).abs().max()) / scale,
+        float((V.transpose(-1, -2) @ V - eye).abs().max()),
+    )
 
 
 def profile(step, state, n_iter: int = 20):
@@ -418,6 +510,57 @@ def main() -> None:
         iss1_abs = max(iss1_abs, abs_err)
     errors["iss1_sweep"] = iss1_abs
 
+    # ---- 4c. K7 against its plain version -----------------------------------------
+    # the eigh inputs of the second iteration of PDSIVA (the right Grams) and
+    # ADMMIVA (the right and left Grams, stacked), on their scaled mixtures
+    X_pds = (X / X.abs().max()).contiguous()
+    X_admm = ADMMIVA().normalize_by_spectral_norm(X).contiguous()  # through K7
+    Y_zero = torch.zeros_like(X_pds)
+    F_zero = torch.zeros_like(W_eye)
+    quad_inv = prox_steps.admm_quad_inv(X_admm)
+    pds_inputs, admm_inputs = [], []
+    with recording_jacobi(pds_inputs, keep=True):
+        W_1, Y_1 = prox_steps.pds_iva_step(X_pds, W_eye, Y_zero)
+        prox_steps.pds_iva_step(X_pds, W_1, Y_1)
+    with recording_jacobi(admm_inputs, keep=True):
+        admm_1 = prox_steps.admm_iva_step(X_admm, F_zero, Y_zero, F_zero, Y_zero, quad_inv=quad_inv)
+        prox_steps.admm_iva_step(X_admm, *admm_1[1:], quad_inv=quad_inv)
+    A_pds, A_admm = pds_inputs[1], admm_inputs[1]
+    check(tuple(A_pds.shape) == (I, 2 * M, 2 * M) and tuple(A_admm.shape) == (2 * I, 2 * M, 2 * M),
+          f"K7 inputs {tuple(A_pds.shape)}, {tuple(A_admm.shape)}")
+    eigh_cases = [("PDSIVA right Grams", A_pds), ("ADMMIVA stacked Grams", A_admm)]
+    for n in JACOBI_SIZES:
+        A_rand = torch.from_numpy(rng.standard_normal((I, n, n), dtype=np.float32)).to(device)
+        eigh_cases.append((f"random n={n}", (A_rand + A_rand.transpose(-1, -2)).contiguous()))
+    eigh_abs = 0.0
+    for label, A in eigh_cases:
+        lamb, V = K.jacobi_eigh(A)
+        lamb_ref, _ = K.jacobi_eigh_plain(A)
+        torch.cuda.synchronize()
+        lamb_err, recon_err, ortho_err = eigh_errors(A, lamb, V, lamb_ref)
+        abs_err = float((lamb - lamb_ref).abs().max())
+        say("K7 jacobi_eigh", input=repr(label), shape=tuple(A.shape), max_abs_err=abs_err, lamb_rel_err=lamb_err,
+            recon_rel_err=recon_err, ortho_err=ortho_err, tol=EIGH_TOL)
+        check(all_finite(lamb, V) and bool((torch.diff(lamb, dim=-1) >= 0).all()), f"jacobi_eigh {label}: order")
+        check(max(lamb_err, recon_err, ortho_err) <= EIGH_TOL, f"jacobi_eigh {label}: errors {lamb_err}, {recon_err}, {ortho_err}")
+        eigh_abs = max(eigh_abs, abs_err)
+    lamb, V = K.jacobi_eigh(torch.zeros_like(A_pds))
+    torch.cuda.synchronize()
+    identity = bool(torch.equal(V, torch.eye(2 * M, device=device).expand_as(V))) and not bool(lamb.any())
+    say("K7 jacobi_eigh", input=repr("all zero"), shape=tuple(A_pds.shape), identity=identity)
+    check(identity, "jacobi_eigh of a zero batch is not (0, I)")
+    errors["jacobi_eigh"] = eigh_abs
+    # the log-det prox through the kernel and through the plain version: a
+    # spectral function, blind to the eigh's order within a tied pair
+    G_pds = W_1 - torch.einsum("nit,mit->inm", Y_1, X_pds.conj())
+    for lift_null in (False, True):
+        got = prox_steps.prox_neg_logdet(G_pds, lift_null=lift_null)
+        with plain_versions():
+            ref = prox_steps.prox_neg_logdet(G_pds, lift_null=lift_null)
+        prox_rel = float((got - ref).abs().max() / ref.abs().max())
+        say("K7 prox_neg_logdet", lift_null=lift_null, shape=tuple(G_pds.shape), rel_err=prox_rel, tol=PROX_TOL)
+        check(prox_rel <= PROX_TOL and all_finite(got), f"prox_neg_logdet lift_null={lift_null}: rel err {prox_rel}")
+
     # ---- 5. main path: AuxIVA-IP1 -------------------------------------------------
     totals = {name: 0 for name in KERNELS}
 
@@ -497,6 +640,60 @@ def main() -> None:
             check(all_finite(Y), f"{label}: non-finite output")
             check(method.loss[-1] < method.loss[0], f"{label}: loss did not decrease")
 
+    # ---- 5c. the prox family: PDSIVA, HVA, ADMMIVA, MaskingADMMHVA ---------------------
+    batches = []
+
+    def prox_path(label, run, n_calls, n_iter, batch):
+        """``run()`` through ``drive``: K7 exactly once per iteration of each of its ``n_calls`` entry points, on ``batch`` matrices."""
+        batches.clear()
+        with recording_jacobi(batches):
+            out = drive(label, run, ("jacobi_eigh",), totals, least=n_calls * n_iter, exact=True)
+        check(set(batches) == {batch}, f"{label}: K7 batches {sorted(set(batches))}, expected {batch}")
+        return out
+
+    def class_and_fast(cls, fast, X_in):
+        method = cls()
+        return method, method(X_in, n_iter=N_ITER), fast(X_in, n_iter=N_ITER)
+
+    for label, cls, fast, X_in, batch in (
+        ("PDSIVA", PDSIVA, fast_pds_iva, X_pds, I),
+        ("ADMMIVA", ADMMIVA, fast_admm_iva, X_admm, 2 * I),
+    ):
+        run = functools.partial(class_and_fast, cls, fast, X_in)
+        method, Y_class, (Y_fast, W_fast) = prox_path(label, run, 2, N_ITER, batch)
+        plain_method, Y_class_plain, (Y_fast_plain, W_fast_plain) = run_plain(run)
+        hold_trace(f"{label} class", Y_class, Y_class_plain, method.loss, plain_method.loss)
+        hold(f"{label} fast", Y_fast, Y_fast_plain, float(prox_steps.prox_iva_loss(X_in, W_fast)),
+             float(prox_steps.prox_iva_loss(X_in, W_fast_plain)))
+
+    def hva():
+        return HVA()(X_admm, n_iter=N_ITER), fast_hva(X_admm, n_iter=N_ITER)[0]
+
+    hva_out = prox_path("HVA", hva, 2, N_ITER, I)
+    hva_plain = run_plain(hva)
+    hold_sdr("HVA class", hva_out[0], hva_plain[0])
+    hold_sdr("HVA fast", hva_out[1], hva_plain[1])
+
+    def hva_unscaled_overflow():
+        """The first iteration of HVA's step on the unscaled spectrogram whose filters are not finite (None: none)."""
+        W, Y = W_eye, Y_zero
+        for it in range(1, N_ITER + 1):
+            W, Y = prox_steps.hva_pds_step(X, W, Y)
+            if not all_finite(W):
+                return it
+        return None
+
+    overflow, overflow_plain = hva_unscaled_overflow(), run_plain(hva_unscaled_overflow)
+    say("path", path=repr("HVA step, unscaled spectrogram"), first_non_finite_iteration=overflow,
+        plain_first_non_finite_iteration=overflow_plain, max_abs_input=float(X.abs().max()))
+    check(overflow == overflow_plain, "HVA unscaled: the kernel and the plain version leave f32 at other iterations")
+
+    def masking_admm_hva():
+        return MaskingADMMHVA()(X_admm, n_iter=N_ITER_MASKING_ADMM)
+
+    Y_mah = prox_path("MaskingADMMHVA", masking_admm_hva, 1, N_ITER_MASKING_ADMM, 2 * I)
+    hold_sdr("MaskingADMMHVA class", Y_mah, run_plain(masking_admm_hva))
+
     # ---- 6. times --------------------------------------------------------------
     U_main = K.weighted_covariance(X, phi_scalar)
     phi_c, phi_bins_c, X_conj = phi_scalar.to(X.dtype), phi_bins.to(X.dtype), X.conj().resolve_conj()
@@ -536,6 +733,20 @@ def main() -> None:
             None,
             iss1_bound(M, I, T, per_bin=True),
         ),
+        "jacobi_eigh": (
+            "PDS right Grams (257,16,16)",
+            lambda: K.jacobi_eigh(A_pds),
+            lambda: K.jacobi_eigh_plain(A_pds),
+            lambda: torch.linalg.eigh(A_pds),
+            jacobi_bound(*A_pds.shape[:2]),
+        ),
+        "jacobi_eigh ADMM": (
+            "ADMM stacked Grams (514,16,16)",
+            lambda: K.jacobi_eigh(A_admm),
+            lambda: K.jacobi_eigh_plain(A_admm),
+            lambda: torch.linalg.eigh(A_admm),
+            jacobi_bound(*A_admm.shape[:2]),
+        ),
     }
     timings = {}
     for key, (weights, kernel_fn, plain_fn, library_fn, (bound, bound_by)) in timed.items():
@@ -562,6 +773,11 @@ def main() -> None:
         "GaussILRMA-IP1": (lambda s: ilrma_ip_step(X, *s), (W_eye, T0, V0)),
         "GaussILRMA-ISS1": (lambda s: ilrma_iss_step(*s), (X, T0, V0)),
         "AuxIVA-ISS1": (lambda s: (auxiva_iss1_step(s[0]),), (X,)),
+        "PDSIVA": (lambda s: prox_steps.pds_iva_step(X_pds, *s), (W_eye, Y_zero)),
+        "HVA": (lambda s: prox_steps.hva_pds_step(X_admm, *s), (W_eye, Y_zero)),
+        # the state is (W, V, Vt, Y, Yt); the step reads all but W
+        "ADMMIVA": (lambda s: prox_steps.admm_iva_step(X_admm, *s[1:], quad_inv=quad_inv),
+                    (F_zero, F_zero, Y_zero, F_zero, Y_zero)),
     }
     rates = {}
     for label, (step, state) in steps.items():

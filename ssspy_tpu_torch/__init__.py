@@ -9,14 +9,17 @@ use, and each has a plain PyTorch version that CPU tensors take.
 Ported so far: AuxIVA with IP1 and ISS1 (class API and
 :func:`fast.fast_auxiva`); Gauss, t and GGD ILRMA with IP1 and ISS1 (class
 API and :func:`fast.fast_gauss_ilrma`, :func:`fast.fast_t_ilrma`,
-:func:`fast.fast_ggd_ilrma`); STFT/iSTFT, projection back, minimal
+:func:`fast.fast_ggd_ilrma`); the proximal-splitting family PDSIVA,
+HVA and ADMMIVA (class API, the PDS/ADMM base classes and
+:func:`fast.fast_pds_iva`, :func:`fast.fast_hva`,
+:func:`fast.fast_admm_iva`); STFT/iSTFT, projection back, minimal
 distortion principle and the waveform-to-waveform :func:`separate`. Every
 entry point runs on the card unless the caller passes ``device="cpu"``.
 """
 
-from . import algorithm, bss, fast, ops, special, transform, utils
+from . import algorithm, bss, fast, linalg, ops, special, transform, utils
 from .pipeline import separate
 
 __version__ = "0.1.0"
 
-__all__ = ["algorithm", "bss", "fast", "ops", "special", "transform", "utils", "separate"]
+__all__ = ["algorithm", "bss", "fast", "linalg", "ops", "special", "transform", "utils", "separate"]

@@ -1,13 +1,21 @@
 """Separator classes ported so far (see ROADMAP.md, Queue 1)."""
 
-from . import ilrma, iva
+from . import admmbss, hva, ilrma, iva, pdsbss, proxbss
+from .admmbss import ADMMBSS, MaskingADMMBSS
 from .base import IterativeMethodBase, SeparatorBase
+from .hva import HVA, MaskingADMMHVA, MaskingPDSHVA
 from .ilrma import GaussILRMA, GGDILRMA, ILRMABase, TILRMA
-from .iva import AuxIVA, AuxLaplaceIVA
+from .iva import ADMMIVA, PDSIVA, AuxIVA, AuxLaplaceIVA
+from .pdsbss import MaskingPDSBSS, PDSBSS
+from .proxbss import ProxBSSBase
 
 __all__ = [
+    "admmbss",
+    "hva",
     "ilrma",
     "iva",
+    "pdsbss",
+    "proxbss",
     "IterativeMethodBase",
     "SeparatorBase",
     "AuxIVA",
@@ -16,4 +24,14 @@ __all__ = [
     "GaussILRMA",
     "TILRMA",
     "GGDILRMA",
+    "ProxBSSBase",
+    "PDSBSS",
+    "MaskingPDSBSS",
+    "ADMMBSS",
+    "MaskingADMMBSS",
+    "PDSIVA",
+    "ADMMIVA",
+    "MaskingPDSHVA",
+    "MaskingADMMHVA",
+    "HVA",
 ]

@@ -4,9 +4,10 @@ Counterpart of :mod:`ssspy_tpu.bss.iva` (parity target ssspy/bss/iva.py)
 for the classes ported so far: ``IVABase``, ``AuxIVABase``, ``AuxIVA``
 with ``spatial_algorithm="IP"``/``"IP1"`` (demixing filters) and
 ``"ISS"``/``"ISS1"`` (demix-free: the state is the separated
-spectrogram), and ``AuxLaplaceIVA``. The separator runs on its
-``device`` (the card by default); its step goes through the same kernel
-wrappers as :func:`ssspy_tpu_torch.fast.fast_auxiva` (``ops.kernels``).
+spectrogram), ``AuxLaplaceIVA``, and the proximal-splitting factories
+``PDSIVA`` and ``ADMMIVA``. The separator runs on its ``device`` (the card
+by default); its step goes through the same kernel wrappers as the
+``fast_*`` entry points of :mod:`ssspy_tpu_torch.fast` (``ops.kernels``).
 """
 
 from typing import Callable, List, Optional, Union
@@ -18,9 +19,12 @@ from ..ops.iva_steps import ls_demix
 from ..ops.iva_steps import separate as _separate
 from ..special.flooring import sweep_eps
 from ..utils.device import DEFAULT_DEVICE
+from .admmbss import ADMMBSS
 from .base import SeparatorBase, check_spatial_algorithm, config_repr
+from .pdsbss import PDSBSS
+from .proxbss import iva_prox_defaults
 
-__all__ = ["IVABase", "AuxIVABase", "AuxIVA", "AuxLaplaceIVA"]
+__all__ = ["IVABase", "AuxIVABase", "AuxIVA", "AuxLaplaceIVA", "PDSIVA", "ADMMIVA"]
 
 
 def _laplace_contrast(y: torch.Tensor) -> torch.Tensor:
@@ -253,3 +257,82 @@ class AuxLaplaceIVA(AuxIVA):
             reference_id=reference_id,
             device=device,
         )
+
+
+class PDSIVA:
+    """IVA by primal-dual splitting (parity: ssspy/bss/iva.py:2217-2277).
+
+    A :class:`~ssspy_tpu_torch.bss.pdsbss.PDSBSS` with the L21 contrast
+    (the norm over bins) and its group shrinkage as defaults, which run
+    :func:`ssspy_tpu_torch.ops.prox_steps.pds_iva_step`. A factory, as in
+    the JAX package (ssspy_tpu/bss/iva.py:1123-1160).
+    """
+
+    def __new__(
+        cls,
+        mu1: float = 1,
+        mu2: float = 1,
+        alpha: float = None,
+        relaxation: float = 1,
+        contrast_fn: Callable = None,
+        prox_penalty: Callable = None,
+        callbacks: Optional[Union[Callable, List[Callable]]] = None,
+        scale_restoration: Union[bool, str] = True,
+        record_loss: bool = True,
+        reference_id: int = 0,
+        device=DEFAULT_DEVICE,
+    ):
+        contrast_fn, prox_penalty, penalty_fn = iva_prox_defaults(contrast_fn, prox_penalty)
+        method = PDSBSS(
+            mu1=mu1,
+            mu2=mu2,
+            alpha=alpha,
+            relaxation=relaxation,
+            penalty_fn=penalty_fn,
+            prox_penalty=prox_penalty,
+            callbacks=callbacks,
+            scale_restoration=scale_restoration,
+            record_loss=record_loss,
+            reference_id=reference_id,
+            device=device,
+        )
+        method.contrast_fn = contrast_fn
+        return method
+
+
+class ADMMIVA:
+    """IVA by ADMM (parity: ssspy/bss/iva.py:2280-2338).
+
+    An :class:`~ssspy_tpu_torch.bss.admmbss.ADMMBSS` with the defaults of
+    :class:`PDSIVA`, which run
+    :func:`ssspy_tpu_torch.ops.prox_steps.admm_iva_step`.
+    """
+
+    def __new__(
+        cls,
+        rho: float = 1,
+        alpha: float = None,
+        relaxation: float = 1,
+        contrast_fn: Callable = None,
+        prox_penalty: Callable = None,
+        callbacks: Optional[Union[Callable, List[Callable]]] = None,
+        scale_restoration: Union[bool, str] = True,
+        record_loss: bool = True,
+        reference_id: int = 0,
+        device=DEFAULT_DEVICE,
+    ):
+        contrast_fn, prox_penalty, penalty_fn = iva_prox_defaults(contrast_fn, prox_penalty)
+        method = ADMMBSS(
+            rho=rho,
+            alpha=alpha,
+            relaxation=relaxation,
+            penalty_fn=penalty_fn,
+            prox_penalty=prox_penalty,
+            callbacks=callbacks,
+            scale_restoration=scale_restoration,
+            record_loss=record_loss,
+            reference_id=reference_id,
+            device=device,
+        )
+        method.contrast_fn = contrast_fn
+        return method

@@ -9,6 +9,7 @@ on complex64 tensors through the hand-written kernels
 
 >>> Y, W = fast_auxiva(spectrogram, n_iter=100)                   # (N,I,T), (I,N,M)
 >>> Y, (T, V), W = fast_gauss_ilrma(spectrogram, n_basis=8, n_iter=100)
+>>> Y, W = fast_pds_iva(spectrogram / abs(spectrogram).max(), n_iter=100)
 """
 
 from typing import Optional, Tuple
@@ -19,9 +20,18 @@ import torch
 from .algorithm import projection_back
 from .ops.ilrma_steps import ilrma_ip_step, ilrma_iss_step
 from .ops.iva_steps import auxiva_ip1_step, auxiva_iss1_step, separate
+from .ops.prox_steps import admm_iva_step, admm_quad_inv, hva_pds_step, pds_iva_step
 from .utils.device import DEFAULT_DEVICE, resolve_device
 
-__all__ = ["fast_auxiva", "fast_gauss_ilrma", "fast_t_ilrma", "fast_ggd_ilrma"]
+__all__ = [
+    "fast_auxiva",
+    "fast_gauss_ilrma",
+    "fast_t_ilrma",
+    "fast_ggd_ilrma",
+    "fast_pds_iva",
+    "fast_admm_iva",
+    "fast_hva",
+]
 
 _ALGORITHMS = ("IP1", "IP2", "ISS1", "ISS2", "IPA")
 _PORTED_ALGORITHMS = ("IP1", "ISS1")
@@ -47,9 +57,10 @@ def _identity_filters(X: torch.Tensor) -> torch.Tensor:
     return torch.eye(n_channels, dtype=X.dtype, device=X.device).expand(n_bins, -1, -1).contiguous()
 
 
-def _restore_filters(X, W, reference_id):
-    """Rescale each filter row by ``W^{-1}`` at ``reference_id`` (fast.py:122-126)."""
-    W = W * torch.linalg.inv_ex(W)[0][:, reference_id, :, None]
+def _restored(X, W, scale_restoration, reference_id):
+    """``(separated, W)``; with ``scale_restoration`` each filter row is first rescaled by ``W^{-1}`` at ``reference_id`` (fast.py:122-126)."""
+    if scale_restoration:
+        W = W * torch.linalg.inv_ex(W)[0][:, reference_id, :, None]
     return separate(X, W), W
 
 
@@ -79,9 +90,7 @@ def fast_auxiva(
         W = _identity_filters(X)
         for _ in range(n_iter):
             W = auxiva_ip1_step(X, W)
-        if scale_restoration:
-            return _restore_filters(X, W, reference_id)
-        return separate(X, W), W
+        return _restored(X, W, scale_restoration, reference_id)
 
     Y = X
     for _ in range(n_iter):
@@ -112,10 +121,7 @@ def _fast_ilrma(
         W = _identity_filters(X)
         for _ in range(n_iter):
             W, T, V = ilrma_ip_step(X, W, T, V, **model)
-        if scale_restoration:
-            Y, W = _restore_filters(X, W, reference_id)
-        else:
-            Y = separate(X, W)
+        Y, W = _restored(X, W, scale_restoration, reference_id)
         return Y, (T, V), W
 
     Y = X
@@ -205,3 +211,86 @@ def fast_ggd_ilrma(
         "fast_ggd_ilrma", spectrogram, n_basis, n_iter, algorithm, scale_restoration,
         reference_id, rng, device, model="ggd", shape=float(beta),
     )
+
+
+def fast_pds_iva(
+    spectrogram,
+    n_iter: int = 100,
+    mu1: float = 1.0,
+    mu2: float = 1.0,
+    relaxation: float = 1.0,
+    scale_restoration: bool = True,
+    reference_id: int = 0,
+    device=DEFAULT_DEVICE,
+) -> Tuple[torch.Tensor, torch.Tensor]:
+    """PDSIVA (primal-dual splitting, L21 penalty) in complex64 (fast.py:1176-1217).
+
+    From ``W = I`` and a zero dual, ``n_iter`` steps of
+    :func:`~ssspy_tpu_torch.ops.prox_steps.pds_iva_step`, whose log-det
+    prox runs the Jacobi kernel once per step. Returns
+    ``(separated (N, I, T), demix_filter (I, N, M))`` on ``device``, the
+    filters rescaled by ``W^{-1}`` at ``reference_id`` when
+    ``scale_restoration``.
+    """
+    X = _spectrogram(spectrogram, device)
+    W, Y = _identity_filters(X), torch.zeros_like(X)
+    for _ in range(n_iter):
+        W, Y = pds_iva_step(X, W, Y, mu1=mu1, mu2=mu2, relaxation=relaxation)
+    return _restored(X, W, scale_restoration, reference_id)
+
+
+def fast_admm_iva(
+    spectrogram,
+    n_iter: int = 100,
+    rho: float = 1.0,
+    relaxation: float = 1.0,
+    scale_restoration: bool = True,
+    reference_id: int = 0,
+    device=DEFAULT_DEVICE,
+) -> Tuple[torch.Tensor, torch.Tensor]:
+    """ADMMIVA (two auxiliary/dual pairs, L21 penalty) in complex64 (fast.py:1220-1273).
+
+    ``(X X^H + I)^{-1}`` is taken once, then ``n_iter`` steps of
+    :func:`~ssspy_tpu_torch.ops.prox_steps.admm_iva_step` from zero
+    auxiliaries and duals; every step, the last included, is the same call,
+    and the filters are the last step's ``W``. Returns
+    ``(separated, demix_filter)`` as :func:`fast_pds_iva` does.
+    """
+    if n_iter < 1:
+        raise ValueError("n_iter must be at least 1.")
+    X = _spectrogram(spectrogram, device)
+    n_channels, n_bins, _ = X.shape
+    quad_inv = admm_quad_inv(X)
+    V = Y = torch.zeros((n_bins, n_channels, n_channels), dtype=X.dtype, device=X.device)
+    Vt = Yt = torch.zeros_like(X)
+    for _ in range(n_iter):
+        W, V, Vt, Y, Yt = admm_iva_step(X, V, Vt, Y, Yt, rho=rho, relaxation=relaxation, quad_inv=quad_inv)
+    return _restored(X, W, scale_restoration, reference_id)
+
+
+def fast_hva(
+    spectrogram,
+    n_iter: int = 100,
+    mu1: float = 1.0,
+    mu2: float = 1.0,
+    relaxation: float = 1.0,
+    attenuation: Optional[float] = None,
+    mask_iter: int = 1,
+    scale_restoration: bool = True,
+    reference_id: int = 0,
+    device=DEFAULT_DEVICE,
+) -> Tuple[torch.Tensor, torch.Tensor]:
+    """HVA (masking primal-dual splitting) in complex64 (fast.py:1276-1335).
+
+    ``n_iter`` steps of :func:`~ssspy_tpu_torch.ops.prox_steps.hva_pds_step`
+    (harmonic mask floored at ``1e-10``, ``attenuation`` ``1 / N`` by
+    default) from ``W = I`` and a zero dual. Returns
+    ``(separated, demix_filter)`` as :func:`fast_pds_iva` does.
+    """
+    X = _spectrogram(spectrogram, device)
+    W, Y = _identity_filters(X), torch.zeros_like(X)
+    for _ in range(n_iter):
+        W, Y = hva_pds_step(
+            X, W, Y, mu1=mu1, mu2=mu2, relaxation=relaxation, attenuation=attenuation, mask_iter=mask_iter
+        )
+    return _restored(X, W, scale_restoration, reference_id)

@@ -1,4 +1,4 @@
-"""The hand-written CUDA kernels of the IVA and ILRMA steps, with their plain versions.
+"""The hand-written CUDA kernels of the IVA, ILRMA and prox-family steps, with their plain versions.
 
 - :func:`weighted_covariance` — ``U[i,n] = mean_t phi[n,(i),t] x_it x_it^H``,
   counterpart of ``ssspy_tpu.ops.pallas_kernels.weighted_covariance_sc``
@@ -11,6 +11,11 @@
   counterpart of ``ssspy_tpu.ops.pallas_kernels.iss1_sweep_pallas`` and
   ``ssspy_tpu.ops.splitc.iss1_sweep_sc`` (pallas_kernels.py:729-808,
   splitc.py:347-398); kernel ``csrc/iss1_sweep.cu``.
+- :func:`jacobi_eigh` — batched real symmetric eigh by fixed-sweep
+  round-robin Jacobi, counterpart of
+  ``ssspy_tpu.ops.pallas_kernels.jacobi_eigh_lanes`` and
+  ``ssspy_tpu.ops.jacobi.jacobi_eigh`` (pallas_kernels.py:811-943,
+  jacobi.py:25-181); kernel ``csrc/jacobi_eigh.cu``.
 
 Each wrapper takes its plain PyTorch version for CPU tensors and launches
 its kernel for CUDA tensors, which must be complex64/float32 and
@@ -19,6 +24,8 @@ launches (never plain calls).
 """
 
 import ctypes
+import functools
+from typing import Optional, Tuple
 
 import torch
 
@@ -33,6 +40,11 @@ __all__ = [
     "iss1_sweep",
     "iss1_sweep_plain",
     "iss1_sweep_resident",
+    "round_pairs",
+    "partner_table",
+    "jacobi_sweeps",
+    "jacobi_eigh",
+    "jacobi_eigh_plain",
 ]
 
 # limits the kernels take, mirrored from csrc/*.cu
@@ -57,6 +69,10 @@ _SIGNATURES = {
     "iss1_sweep": (
         "iss1_sweep_launch",
         [_VOID, _VOID, _VOID, _INT, _INT, _INT, _INT, _INT, _FLOAT, _INT, _VOID],
+    ),
+    "jacobi_eigh": (
+        "jacobi_eigh_launch",
+        [_VOID, _VOID, _VOID, _VOID, _INT, _INT, _INT, _INT, _FLOAT, _INT, _VOID],
     ),
 }
 
@@ -345,3 +361,157 @@ def iss1_sweep(Y: torch.Tensor, varphi: torch.Tensor, eps: float = 1e-10) -> tor
 
 
 iss1_sweep.launches = 0
+
+
+# ---- batched symmetric eigh (round-robin Jacobi) ------------------------------
+
+_JACOBI_MAX_N = 32  # n * n threads, one per entry, in one block of at most 1024
+
+
+@functools.lru_cache(maxsize=None)
+def round_pairs(n: int) -> Tuple[Tuple[Tuple[int, int], ...], ...]:
+    """Round-robin tournament pairings of ``n`` indices: rounds of disjoint ``(p, q)``, ``p < q``.
+
+    One cycle of rounds covers every off-diagonal position once; odd ``n``
+    adds a virtual player ``n``, whose partner sits the round out (the
+    bye). The schedule of ``ssspy_tpu.ops.jacobi._round_pairs``
+    (jacobi.py:25-44), which the Pallas kernel and the XLA form share.
+    """
+    players = list(range(n)) + ([n] if n % 2 == 1 else [])
+    m = len(players)
+    rounds = []
+    arr = players[:]
+    for _ in range(m - 1):
+        pairs = []
+        for k in range(m // 2):
+            p, q = arr[k], arr[m - 1 - k]
+            if p < n and q < n:
+                pairs.append((min(p, q), max(p, q)))
+        rounds.append(tuple(pairs))
+        arr = [arr[0]] + [arr[-1]] + arr[1:-1]
+    return tuple(rounds)
+
+
+_partner_tables = {}
+
+
+def partner_table(n: int, device=None) -> torch.Tensor:
+    """``(n_rounds, n)`` int32 partner of each index per round of :func:`round_pairs`; cached per ``(n, device)``.
+
+    An index without a pair (the bye of odd ``n``) is its own partner. The
+    plain version and the kernel both read this table, so they rotate in
+    the same order.
+    """
+    device = torch.device("cpu") if device is None else torch.device(device)
+    key = (n, device)
+    table = _partner_tables.get(key)
+    if table is None:
+        rows = []
+        for pairs in round_pairs(n):
+            partner = list(range(n))
+            for p, q in pairs:
+                partner[p], partner[q] = q, p
+            rows.append(partner)
+        table = _partner_tables[key] = torch.tensor(rows, dtype=torch.int32, device=device)
+    return table
+
+
+def jacobi_sweeps(n: int) -> int:
+    """Default sweep count: 6 through ``n = 32``, 8 above (jacobi.py:107-109)."""
+    return 6 if n <= 32 else 8
+
+
+def _jacobi_rotation(A, partner, index, tiny):
+    """Per-index ``(c, s')`` of one round: ``row_i <- c row_i + s' row_partner(i)``.
+
+    For the pair ``(p, q)``: ``tau = (a_qq - a_pp) / (2 a_pq)`` with the
+    symmetrised ``a_pq``, ``t = sgn(tau) / (|tau| + sqrt(1 + tau^2))``
+    (``sgn(0) = +1``), ``t = 0`` where ``|a_pq| < tiny``, ``c = 1/sqrt(1+t^2)``,
+    ``s = t c``; index ``p`` takes ``-s`` and ``q`` takes ``+s``
+    (pallas_kernels.py:848-867). The bye keeps ``c = 1``, ``s' = 0``.
+    """
+    p_idx, q_idx = torch.minimum(index, partner), torch.maximum(index, partner)
+    diag = A.diagonal(dim1=-2, dim2=-1)
+    app, aqq = diag[:, p_idx], diag[:, q_idx]
+    apq = (A[:, p_idx, q_idx] + A[:, q_idx, p_idx]) * 0.5
+    small = (apq.abs() < tiny) | (p_idx == q_idx)
+    tau = (aqq - app) / (2 * torch.where(small, torch.full_like(apq, tiny), apq))
+    sgn = torch.where(tau >= 0, 1.0, -1.0).to(A.dtype)
+    t = sgn / (tau.abs() + torch.sqrt(1 + tau * tau))
+    t = torch.where(small, torch.zeros_like(t), t)
+    c = 1.0 / torch.sqrt(1 + t * t)
+    s = t * c
+    return c, torch.where(index == p_idx, -s, s)
+
+
+def jacobi_eigh_plain(
+    A: torch.Tensor, sweeps: Optional[int] = None, tiny: float = 1e-30
+) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Eigendecomposition of real symmetric ``(B, n, n)`` matrices by round-robin Jacobi.
+
+    Returns ``(lamb (B, n) ascending, V (B, n, n))`` with orthonormal
+    columns, ``A V = V diag(lamb)``. Each of ``sweeps x rounds(n)`` rounds
+    applies its disjoint rotations as two elementwise passes against the
+    partner-permuted copy (rows, then columns), and V takes the column
+    pass: the lanes form of the Pallas kernel (pallas_kernels.py:842-891),
+    the arithmetic of ``csrc/jacobi_eigh.cu``. A is read as given (the
+    symmetrised off-diagonal pair drives each rotation). The sort is
+    stable; NaN sorts last.
+    """
+    n = A.shape[-1]
+    sweeps = jacobi_sweeps(n) if sweeps is None else sweeps
+    table = partner_table(n, A.device).long()
+    index = torch.arange(n, device=A.device)
+    V = torch.eye(n, dtype=A.dtype, device=A.device).expand(A.shape).clone()
+    for _ in range(sweeps):
+        for partner in table:
+            c, s = _jacobi_rotation(A, partner, index, tiny)
+            A = c[:, :, None] * A + s[:, :, None] * A[:, partner, :]
+            A = c[:, None, :] * A + s[:, None, :] * A[:, :, partner]
+            V = c[:, None, :] * V + s[:, None, :] * V[:, :, partner]
+    lamb, order = torch.sort(A.diagonal(dim1=-2, dim2=-1), dim=-1, stable=True)
+    return lamb, torch.gather(V, -1, order[:, None, :].expand(V.shape))
+
+
+def _check_jacobi_eigh(A: torch.Tensor) -> None:
+    name = "jacobi_eigh"
+    _require(A.dim() == 3, f"{name}: A must be (B, n, n), got {tuple(A.shape)}")
+    B, n, n2 = A.shape
+    _require(n == n2, f"{name}: A must be square, got {tuple(A.shape)}")
+    _require(
+        2 <= n <= _JACOBI_MAX_N, f"{name}: the kernel takes 2 <= n <= {_JACOBI_MAX_N}, got n={n}"
+    )
+    _require(A.dtype == torch.float32, f"{name}: the kernel takes float32 A, got {A.dtype}")
+    _require(A.is_contiguous(), f"{name}: A must be contiguous")
+    _require(B >= 1, f"{name}: empty batch")
+    _check_cuda(name, A)
+
+
+def jacobi_eigh(
+    A: torch.Tensor, sweeps: Optional[int] = None, tiny: float = 1e-30
+) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Batched symmetric eigh ``(B, n, n) -> (lamb (B, n), V (B, n, n))``; kernel on CUDA, plain on CPU.
+
+    Ascending eigenvalues, orthonormal columns; the iteration of
+    :func:`jacobi_eigh_plain`, ``sweeps`` defaulting to
+    :func:`jacobi_sweeps`. The kernel takes float32, ``2 <= n <= 32``.
+    """
+    if _on_cpu(A):
+        return jacobi_eigh_plain(A, sweeps, tiny)
+    _check_jacobi_eigh(A)
+    B, n, _ = A.shape
+    sweeps = jacobi_sweeps(n) if sweeps is None else int(sweeps)
+    table = partner_table(n, A.device)
+    lib, launch = _entry("jacobi_eigh")
+    lamb = torch.empty((B, n), dtype=A.dtype, device=A.device)
+    V = torch.empty_like(A)
+    status = launch(
+        A.data_ptr(), table.data_ptr(), lamb.data_ptr(), V.data_ptr(), B, n, table.shape[0],
+        sweeps, float(tiny), A.device.index, _stream(A.device),
+    )
+    _build.check(lib, "jacobi_eigh", status)
+    jacobi_eigh.launches += 1
+    return lamb, V
+
+
+jacobi_eigh.launches = 0

@@ -33,7 +33,12 @@ def complex_to_planar(t: torch.Tensor) -> np.ndarray:
 
 
 # the state keys of the JAX classes and fast paths, by kind
-_COMPLEX_KEYS = ("X", "W", "Y")  # spectrograms and demixing filters
+_COMPLEX_KEYS = (
+    "X", "W", "Y",  # spectrograms and demixing filters
+    "dual",  # PDS dual
+    "V1", "V2", "Y1", "Y2", "quad_inv",  # ADMM fast-path auxiliaries, duals, (X X^H + I)^-1
+    "auxiliary1", "auxiliary2", "dual1", "dual2",  # ADMM class auxiliaries and duals
+)
 _REAL_KEYS = ("T", "V", "Z")  # NMF basis, activation and latent
 
 
@@ -41,7 +46,9 @@ def from_jax_state(state: Dict, device=None) -> Dict[str, torch.Tensor]:
     """Convert a JAX class or fast-path state dict (e.g. ``{"X": Xs, "W": Ws}``).
 
     The kind of each entry is decided by its key, never by its shape:
-    ``X``, ``W`` and ``Y`` are complex and arrive either complex (class
+    ``X``, ``W``, ``Y`` and the prox family's ``dual``, ``V1``, ``V2``,
+    ``Y1``, ``Y2``, ``quad_inv``, ``auxiliary1``, ``auxiliary2``,
+    ``dual1`` and ``dual2`` are complex and arrive either complex (class
     state) or planar ``(2, ...)`` real (fast-path state, through
     :func:`planar_to_complex`); ``T``, ``V`` and ``Z`` are real and keep
     their dtype, whatever their leading axis. Any other key raises.

@@ -96,3 +96,47 @@ def test_kernels_reject_a_wrong_dtype_on_the_card(cuda_device):
         K.weighted_covariance(X, torch.ones((3, 7), device=cuda_device))
     with pytest.raises(ValueError, match="complex64"):
         K.iss1_sweep(X, torch.ones((3, 7), device=cuda_device))
+
+
+def _symmetric(rng, B, n, device):
+    A = rng.standard_normal((B, n, n), dtype=np.float32)
+    return torch.from_numpy(A + A.swapaxes(-1, -2)).to(device)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize(
+    "shape", [(257, 16, 16), (514, 16, 16), (40, 3, 3), (40, 7, 7), (20, 32, 32)],
+    ids=["pds", "admm", "n3", "n7", "n32"],
+)
+def test_jacobi_eigh_kernel_matches_plain(cuda_device, shape):
+    rng = np.random.default_rng(11)
+    A = _symmetric(rng, *shape[:2], cuda_device)
+    before = K.jacobi_eigh.launches
+    lamb, V = K.jacobi_eigh(A)
+    lamb_ref, _ = K.jacobi_eigh_plain(A)
+    torch.cuda.synchronize()
+    assert K.jacobi_eigh.launches == before + 1
+    scale = lamb_ref.abs().max()
+    # the same rounds; compare eigenvalues, the reconstruction and V^T V, never raw columns
+    assert (lamb - lamb_ref).abs().max() <= 1e-5 * scale
+    assert (torch.diff(lamb, dim=-1) >= 0).all()
+    recon = (V * lamb[:, None, :]) @ V.transpose(-1, -2)
+    assert (recon - A).abs().max() <= 1e-5 * scale
+    eye = torch.eye(shape[-1], device=cuda_device)
+    assert (V.transpose(-1, -2) @ V - eye).abs().max() <= 1e-5
+
+
+@pytest.mark.cuda
+def test_jacobi_eigh_kernel_zero_batch_gives_the_identity(cuda_device):
+    lamb, V = K.jacobi_eigh(torch.zeros((9, 16, 16), device=cuda_device))
+    torch.cuda.synchronize()
+    assert torch.equal(lamb, torch.zeros_like(lamb))
+    assert torch.equal(V, torch.eye(16, device=cuda_device).expand(9, 16, 16))
+
+
+@pytest.mark.cuda
+def test_jacobi_eigh_kernel_rejects_what_it_does_not_take(cuda_device):
+    with pytest.raises(ValueError, match="float32"):
+        K.jacobi_eigh(torch.zeros((4, 8, 8), dtype=torch.float64, device=cuda_device))
+    with pytest.raises(ValueError, match="2 <= n <= 32"):
+        K.jacobi_eigh(torch.zeros((4, 33, 33), device=cuda_device))
