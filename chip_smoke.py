@@ -17,14 +17,19 @@ calls, on the default device:
 - AuxIVA-ISS1: ``AuxLaplaceIVA(spatial_algorithm="ISS1")`` and
   ``fast_auxiva(algorithm="ISS1")``;
 - TILRMA and GGDILRMA, IP1 and ISS1, 10 iterations each;
-- the prox family: ``PDSIVA()`` and ``fast_pds_iva`` on the spectrogram
-  divided by its largest magnitude (bench.py:413); ``ADMMIVA()`` and
+- the prox family: ``PDSIVA()`` and ``fast_pds_iva``, ``ADMMIVA()`` and
   ``fast_admm_iva``, ``HVA()`` and ``fast_hva``, and ``MaskingADMMHVA()``
-  (10 iterations) on it divided by its spectral norm
-  (``normalize_by_spectral_norm``, the scaling tests/test_fast_fidelity.py:314-318
-  gives ADMM). Each launches the Jacobi eigh K7 once per iteration (the
-  ADMM paths on the stacked left and right Grams, ``B = 2I``) and no
-  other kernel, and must stay finite. HVA's step also runs on the unscaled
+  (10 iterations), all on the spectrogram divided by its spectral norm,
+  scaled from a host copy by ``normalize_by_spectral_norm`` on the card
+  (one K7 launch; the scaling tests/test_fast_fidelity.py:314-318 gives
+  ADMM). There ``mu1 mu2 max_i ||X_i||^2 <= 1``, the PDS step-size
+  condition; on the spectrogram over its largest magnitude (bench.py:413)
+  it is broken by orders of magnitude and PDSIVA's loss climbs, in the
+  JAX package too (tests/test_torch_prox.py). Each path launches the
+  Jacobi eigh K7 once per iteration (the ADMM paths on the stacked left
+  and right Grams, ``B = 2I``) and no other kernel, must stay finite, and
+  the PDSIVA and ADMMIVA classes' loss must end below where it started.
+  HVA's step also runs on the unscaled
   spectrogram, as bench.py:277-290 feeds it: its raw filter grows by
   orders of magnitude per iteration there and leaves f32 within a few
   iterations, in the JAX package's f32 step too (tests/test_hard_fidelity.py:27-32
@@ -345,7 +350,8 @@ def recording_jacobi(inputs: list, keep: bool = False):
 
 
 def hold_trace(label: str, Y, Y_plain, loss, loss_plain) -> None:
-    """Gate a path whose loss is not monotone (PDS/ADMM): every iteration's loss within LOSS_TOL of the plain run's."""
+    """Gate a path whose loss is not monotone (PDS/ADMM): every iteration's loss within LOSS_TOL of the plain run's,
+    and the last one below the first."""
     check(len(loss) == len(loss_plain), f"{label}: {len(loss)} vs {len(loss_plain)} losses")
     diverged = [it for it, (a, b) in enumerate(zip(loss, loss_plain)) if not (a == b or abs(a - b) <= LOSS_TOL * abs(b))]
     finite = [(a, b) for a, b in zip(loss, loss_plain) if np.isfinite(a) and np.isfinite(b)]
@@ -356,6 +362,7 @@ def hold_trace(label: str, Y, Y_plain, loss, loss_plain) -> None:
         min_si_sdr_db=sdr)
     check(all_finite(Y), f"{label}: non-finite output")
     check(not diverged, f"{label}: loss left the {LOSS_TOL} band at iterations {diverged[:5]}")
+    check(np.isfinite(loss[-1]) and loss[-1] < loss[0], f"{label}: loss did not fall: {loss[0]} -> {loss[-1]}")
     check(sdr >= MIN_SI_SDR_DB, f"{label}: output vs plain {sdr:.2f} dB")
 
 
@@ -510,21 +517,41 @@ def main() -> None:
         iss1_abs = max(iss1_abs, abs_err)
     errors["iss1_sweep"] = iss1_abs
 
-    # ---- 4c. K7 against its plain version -----------------------------------------
+    # ---- 4c. the prox family's input, scaled on the card -------------------------------
+    # a user's host spectrogram over its spectral norm: the entry point moves
+    # it to the card and reads each bin's norm through one K7 launch
+    totals = {name: 0 for name in KERNELS}
+    X_host = X.cpu().numpy()
+
+    def spectral_scaling():
+        return PDSIVA().normalize_by_spectral_norm(X_host)
+
+    X_prox = drive("normalize_by_spectral_norm (host spectrogram)", spectral_scaling, ("jacobi_eigh",), totals,
+                   least=1, exact=True)
+    X_prox_plain = run_plain(spectral_scaling)
+    bin_norm = float(torch.linalg.matrix_norm(X_prox.permute(1, 0, 2), ord=2).max())
+    scaling_rel = float((X_prox - X_prox_plain).abs().max() / X_prox_plain.abs().max())
+    # mu1 mu2 max_i ||X_i||^2 at mu1 = mu2 = 1, which PDS needs <= 1, on bench.py:413's scaling
+    max_magnitude_condition = float(torch.linalg.matrix_norm((X / X.abs().max()).permute(1, 0, 2), ord=2).max()) ** 2
+    say("path vs plain", path=repr("normalize_by_spectral_norm (host spectrogram)"), device=X_prox.device,
+        max_bin_norm=bin_norm, rel_err=scaling_rel, tol=PROX_TOL,
+        max_magnitude_scaling_step_condition=max_magnitude_condition)
+    check(X_prox.is_cuda and tuple(X_prox.shape) == (M, I, T) and all_finite(X_prox), "spectral scaling output")
+    check(abs(bin_norm - 1) <= PROX_TOL and scaling_rel <= PROX_TOL, f"spectral scaling: {bin_norm}, {scaling_rel}")
+
+    # ---- 4d. K7 against its plain version -----------------------------------------
     # the eigh inputs of the second iteration of PDSIVA (the right Grams) and
-    # ADMMIVA (the right and left Grams, stacked), on their scaled mixtures
-    X_pds = (X / X.abs().max()).contiguous()
-    X_admm = ADMMIVA().normalize_by_spectral_norm(X).contiguous()  # through K7
-    Y_zero = torch.zeros_like(X_pds)
+    # ADMMIVA (the right and left Grams, stacked)
+    Y_zero = torch.zeros_like(X_prox)
     F_zero = torch.zeros_like(W_eye)
-    quad_inv = prox_steps.admm_quad_inv(X_admm)
+    quad_inv = prox_steps.admm_quad_inv(X_prox)
     pds_inputs, admm_inputs = [], []
     with recording_jacobi(pds_inputs, keep=True):
-        W_1, Y_1 = prox_steps.pds_iva_step(X_pds, W_eye, Y_zero)
-        prox_steps.pds_iva_step(X_pds, W_1, Y_1)
+        W_1, Y_1 = prox_steps.pds_iva_step(X_prox, W_eye, Y_zero)
+        prox_steps.pds_iva_step(X_prox, W_1, Y_1)
     with recording_jacobi(admm_inputs, keep=True):
-        admm_1 = prox_steps.admm_iva_step(X_admm, F_zero, Y_zero, F_zero, Y_zero, quad_inv=quad_inv)
-        prox_steps.admm_iva_step(X_admm, *admm_1[1:], quad_inv=quad_inv)
+        admm_1 = prox_steps.admm_iva_step(X_prox, F_zero, Y_zero, F_zero, Y_zero, quad_inv=quad_inv)
+        prox_steps.admm_iva_step(X_prox, *admm_1[1:], quad_inv=quad_inv)
     A_pds, A_admm = pds_inputs[1], admm_inputs[1]
     check(tuple(A_pds.shape) == (I, 2 * M, 2 * M) and tuple(A_admm.shape) == (2 * I, 2 * M, 2 * M),
           f"K7 inputs {tuple(A_pds.shape)}, {tuple(A_admm.shape)}")
@@ -552,7 +579,7 @@ def main() -> None:
     errors["jacobi_eigh"] = eigh_abs
     # the log-det prox through the kernel and through the plain version: a
     # spectral function, blind to the eigh's order within a tied pair
-    G_pds = W_1 - torch.einsum("nit,mit->inm", Y_1, X_pds.conj())
+    G_pds = W_1 - torch.einsum("nit,mit->inm", Y_1, X_prox.conj())
     for lift_null in (False, True):
         got = prox_steps.prox_neg_logdet(G_pds, lift_null=lift_null)
         with plain_versions():
@@ -562,7 +589,6 @@ def main() -> None:
         check(prox_rel <= PROX_TOL and all_finite(got), f"prox_neg_logdet lift_null={lift_null}: rel err {prox_rel}")
 
     # ---- 5. main path: AuxIVA-IP1 -------------------------------------------------
-    totals = {name: 0 for name in KERNELS}
 
     def auxiva_ip1():
         iva = AuxLaplaceIVA(spatial_algorithm="IP")
@@ -655,19 +681,16 @@ def main() -> None:
         method = cls()
         return method, method(X_in, n_iter=N_ITER), fast(X_in, n_iter=N_ITER)
 
-    for label, cls, fast, X_in, batch in (
-        ("PDSIVA", PDSIVA, fast_pds_iva, X_pds, I),
-        ("ADMMIVA", ADMMIVA, fast_admm_iva, X_admm, 2 * I),
-    ):
-        run = functools.partial(class_and_fast, cls, fast, X_in)
+    for label, cls, fast, batch in (("PDSIVA", PDSIVA, fast_pds_iva, I), ("ADMMIVA", ADMMIVA, fast_admm_iva, 2 * I)):
+        run = functools.partial(class_and_fast, cls, fast, X_prox)
         method, Y_class, (Y_fast, W_fast) = prox_path(label, run, 2, N_ITER, batch)
         plain_method, Y_class_plain, (Y_fast_plain, W_fast_plain) = run_plain(run)
         hold_trace(f"{label} class", Y_class, Y_class_plain, method.loss, plain_method.loss)
-        hold(f"{label} fast", Y_fast, Y_fast_plain, float(prox_steps.prox_iva_loss(X_in, W_fast)),
-             float(prox_steps.prox_iva_loss(X_in, W_fast_plain)))
+        hold(f"{label} fast", Y_fast, Y_fast_plain, float(prox_steps.prox_iva_loss(X_prox, W_fast)),
+             float(prox_steps.prox_iva_loss(X_prox, W_fast_plain)))
 
     def hva():
-        return HVA()(X_admm, n_iter=N_ITER), fast_hva(X_admm, n_iter=N_ITER)[0]
+        return HVA()(X_prox, n_iter=N_ITER), fast_hva(X_prox, n_iter=N_ITER)[0]
 
     hva_out = prox_path("HVA", hva, 2, N_ITER, I)
     hva_plain = run_plain(hva)
@@ -689,7 +712,7 @@ def main() -> None:
     check(overflow == overflow_plain, "HVA unscaled: the kernel and the plain version leave f32 at other iterations")
 
     def masking_admm_hva():
-        return MaskingADMMHVA()(X_admm, n_iter=N_ITER_MASKING_ADMM)
+        return MaskingADMMHVA()(X_prox, n_iter=N_ITER_MASKING_ADMM)
 
     Y_mah = prox_path("MaskingADMMHVA", masking_admm_hva, 1, N_ITER_MASKING_ADMM, 2 * I)
     hold_sdr("MaskingADMMHVA class", Y_mah, run_plain(masking_admm_hva))
@@ -773,10 +796,10 @@ def main() -> None:
         "GaussILRMA-IP1": (lambda s: ilrma_ip_step(X, *s), (W_eye, T0, V0)),
         "GaussILRMA-ISS1": (lambda s: ilrma_iss_step(*s), (X, T0, V0)),
         "AuxIVA-ISS1": (lambda s: (auxiva_iss1_step(s[0]),), (X,)),
-        "PDSIVA": (lambda s: prox_steps.pds_iva_step(X_pds, *s), (W_eye, Y_zero)),
-        "HVA": (lambda s: prox_steps.hva_pds_step(X_admm, *s), (W_eye, Y_zero)),
+        "PDSIVA": (lambda s: prox_steps.pds_iva_step(X_prox, *s), (W_eye, Y_zero)),
+        "HVA": (lambda s: prox_steps.hva_pds_step(X_prox, *s), (W_eye, Y_zero)),
         # the state is (W, V, Vt, Y, Yt); the step reads all but W
-        "ADMMIVA": (lambda s: prox_steps.admm_iva_step(X_admm, *s[1:], quad_inv=quad_inv),
+        "ADMMIVA": (lambda s: prox_steps.admm_iva_step(X_prox, *s[1:], quad_inv=quad_inv),
                     (F_zero, F_zero, Y_zero, F_zero, Y_zero)),
     }
     rates = {}

@@ -174,11 +174,12 @@ class ProxBSSBase(SeparatorBase):
         ``X / (sqrt(n_penalties) max_i ||X_i||_2)``, the spectral norm of each
         bin's ``(M, T)`` block read from the largest eigenvalue of
         ``X_i X_i^H`` through :func:`~ssspy_tpu_torch.ops.prox_steps.herm_eigh_embed`
-        (the Jacobi kernel in float32), not from an SVD.
+        (the Jacobi kernel in float32), not from an SVD. The input moves to
+        the separator's device first, as the separator's own input does.
         """
         if n_penalties is None:
             n_penalties = self.n_penalties
-        X = torch.as_tensor(input)
+        X = torch.as_tensor(input, device=self.device)
         lamb = herm_eigh_embed(torch.einsum("mit,pit->imp", X, X.conj()))[0]
         norm = torch.sqrt(torch.clamp(lamb[..., -1].max(), min=0))
         return X / (float(n_penalties) ** 0.5 * norm).to(X.dtype)

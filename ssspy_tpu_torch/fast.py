@@ -9,7 +9,8 @@ on complex64 tensors through the hand-written kernels
 
 >>> Y, W = fast_auxiva(spectrogram, n_iter=100)                   # (N,I,T), (I,N,M)
 >>> Y, (T, V), W = fast_gauss_ilrma(spectrogram, n_basis=8, n_iter=100)
->>> Y, W = fast_pds_iva(spectrogram / abs(spectrogram).max(), n_iter=100)
+>>> from ssspy_tpu_torch.bss import PDSIVA
+>>> Y, W = fast_pds_iva(PDSIVA().normalize_by_spectral_norm(spectrogram), n_iter=100)
 """
 
 from typing import Optional, Tuple

@@ -330,31 +330,25 @@ def admm_step(
     spectrogram_prox: Callable[[torch.Tensor], torch.Tensor],
     rho: float = 1.0,
     relaxation: float = 1.0,
-    quad_inv: Optional[torch.Tensor] = None,
+    *,
+    quad_inv: torch.Tensor,
 ):
     """One ADMM iteration; returns ``(W, V, Vt, Y, Yt)``.
 
     ``V``/``Y``: filter-shaped auxiliary and dual ``(I, N, M)``;
     ``Vt``/``Yt``: spectrogram-shaped ``(N, I, T)``, or ``(Q, N, I, T)``
     with one pair per penalty. ``W = (Q X X^H + I)^{-1} (V - Y + (X^H
-    sum_q (Vt_q - Yt_q))^T)`` (``quad_inv`` from :func:`admm_quad_inv`, or a
-    ``solve_ex`` per call), the relaxed ``U``, ``V = prox_neglogdet(U + Y,
+    sum_q (Vt_q - Yt_q))^T)`` (``quad_inv`` from :func:`admm_quad_inv`,
+    taken once per run), the relaxed ``U``, ``V = prox_neglogdet(U + Y,
     1/rho)`` with the null lift, ``Vt = spectrogram_prox(Ut + Yt)``, and
     the dual ascent (ssspy_tpu/bss/admmbss.py:287-324;
     splitc.py:3679-3748).
     """
     VT = Vt - Yt
-    n_penalties = 1
     if VT.dim() == 4:
-        n_penalties, VT = VT.shape[0], VT.sum(dim=0)
+        VT = VT.sum(dim=0)
     XVY = torch.einsum("mit,nit->imn", X.conj(), VT)
-    B = V - Y + XVY.transpose(-2, -1)
-    if quad_inv is None:
-        XX = torch.einsum("mit,pit->imp", X.conj(), X)
-        E = torch.eye(X.shape[0], dtype=X.dtype, device=X.device)
-        W = torch.linalg.solve_ex(n_penalties * XX + E, B)[0]
-    else:
-        W = quad_inv @ B
+    W = quad_inv @ (V - Y + XVY.transpose(-2, -1))
     XW = separate(X, W)
 
     if relaxation == 1:
@@ -375,14 +369,15 @@ def admm_iva_step(
     Yt: torch.Tensor,
     rho: float = 1.0,
     relaxation: float = 1.0,
-    quad_inv: Optional[torch.Tensor] = None,
+    *,
+    quad_inv: torch.Tensor,
 ):
     """One ADMMIVA iteration (L21 penalty over bins); returns ``(W, V, Vt, Y, Yt)``.
 
     Counterpart of ``splitc.admm_iva_step_sc`` (splitc.py:3679-3748).
     """
     return admm_step(
-        X, V, Vt, Y, Yt, lambda Z: prox_l21(Z, step_size=1 / rho), rho, relaxation, quad_inv
+        X, V, Vt, Y, Yt, lambda Z: prox_l21(Z, step_size=1 / rho), rho, relaxation, quad_inv=quad_inv
     )
 
 
@@ -397,8 +392,9 @@ def hva_admm_step(
     attenuation: Optional[float] = None,
     mask_iter: int = 1,
     eps: float = 1e-10,
-    quad_inv: Optional[torch.Tensor] = None,
     n_real: Optional[int] = None,
+    *,
+    quad_inv: torch.Tensor,
 ):
     """One MaskingADMMHVA iteration: ``Vt = mask(Z) Z`` with :func:`harmonic_mask`.
 
@@ -410,4 +406,4 @@ def hva_admm_step(
     def spectrogram_prox(Z):
         return harmonic_mask(Z, attenuation, mask_iter=mask_iter, eps=eps, n_real=n_real) * Z
 
-    return admm_step(X, V, Vt, Y, Yt, spectrogram_prox, rho, relaxation, quad_inv)
+    return admm_step(X, V, Vt, Y, Yt, spectrogram_prox, rho, relaxation, quad_inv=quad_inv)

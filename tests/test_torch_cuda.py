@@ -140,3 +140,19 @@ def test_jacobi_eigh_kernel_rejects_what_it_does_not_take(cuda_device):
         K.jacobi_eigh(torch.zeros((4, 8, 8), dtype=torch.float64, device=cuda_device))
     with pytest.raises(ValueError, match="2 <= n <= 32"):
         K.jacobi_eigh(torch.zeros((4, 33, 33), device=cuda_device))
+
+
+@pytest.mark.cuda
+def test_normalize_by_spectral_norm_runs_on_the_card(cuda_device):
+    """A numpy spectrogram is scaled on the card, through one K7 launch, as the separator's own input is."""
+    from ssspy_tpu_torch.bss import PDSIVA
+
+    rng = np.random.default_rng(12)
+    X = (rng.standard_normal((4, 33, 50)) + 1j * rng.standard_normal((4, 33, 50))).astype(np.complex64)
+    before = K.jacobi_eigh.launches
+    out = PDSIVA().normalize_by_spectral_norm(X)
+    torch.cuda.synchronize()
+    assert out.device.type == "cuda" and out.dtype == torch.complex64
+    assert K.jacobi_eigh.launches == before + 1
+    norm = torch.linalg.matrix_norm(out.permute(1, 0, 2), ord=2).max()
+    assert abs(float(norm) - 1) <= 1e-5
