@@ -17,6 +17,16 @@ calls, on the default device:
 - AuxIVA-ISS1: ``AuxLaplaceIVA(spatial_algorithm="ISS1")`` and
   ``fast_auxiva(algorithm="ISS1")``;
 - TILRMA and GGDILRMA, IP1 and ISS1, 10 iterations each;
+- AuxIVA-IPA and GaussILRMA-IPA (``n_basis=8``, MM):
+  ``fast_auxiva(algorithm="IPA")`` and ``fast_gauss_ilrma(algorithm="IPA")``,
+  100 iterations each, whose congruence sweep launches the weighted
+  covariance K1 once, and the Jacobi eigh K7 (the 14 x 14 embedded LQPQM
+  pencil) and the congruence round K6 once per source, per iteration; and
+  the classes ``AuxLaplaceIVA(spatial_algorithm="IPA")`` (100 iterations at
+  its float32 floor, 10 at ``flooring_fn="f64"``) and
+  ``GaussILRMA(spatial_algorithm="IPA")`` (10). The IPA paths are gated on
+  their loss, not on an SI-SDR against the plain run: see the comment at
+  their phase;
 - the prox family: ``PDSIVA()`` and ``fast_pds_iva``, ``ADMMIVA()`` and
   ``fast_admm_iva``, ``HVA()`` and ``fast_hva``, and ``MaskingADMMHVA()``
   (10 iterations), all on the spectrogram divided by its spectral norm,
@@ -71,7 +81,13 @@ from ssspy_tpu_torch.ops import _build
 from ssspy_tpu_torch.ops import kernels as K
 from ssspy_tpu_torch.ops import prox_steps
 from ssspy_tpu_torch.ops.ilrma_steps import ilrma_ip_step, ilrma_iss_step, ilrma_loss
-from ssspy_tpu_torch.ops.iva_steps import auxiva_ip1_step, auxiva_iss1_step, iva_laplace_loss, separate
+from ssspy_tpu_torch.ops.iva_steps import (
+    auxiva_ip1_step,
+    auxiva_ipa_step,
+    auxiva_iss1_step,
+    iva_laplace_loss,
+    separate,
+)
 from ssspy_tpu_torch.transform import stft
 from ssspy_tpu_torch.utils.dataset import HOP, N_FFT, make_mixture
 
@@ -93,6 +109,11 @@ EIGH_TOL = 1e-5  # the same 90 rounds in the same order on both sides; f32 round
 PROX_TOL = 1e-5
 JACOBI_SIZES = (2, 3, 7, 16, 32)
 N_ITER_MASKING_ADMM = 10
+N_ITER_IPA_CLASSES = 10
+N_ITER_IPA_PLAIN_RATE = 10  # the plain Jacobi eigh takes ~30 ms, eight times per IPA iteration
+IPA_TOL = 1e-5  # 8-term f32 complex sums, in another order on each side
+IPA_PERTURBATION = 1e-7  # relative noise on the control run's input: one f32 ulp
+IPA_VS_ISS1_TOL = 1e-2  # how far IPA's final loss may stay above ISS1's (same model, same start, 100 iterations)
 
 # the card's peaks for the bound: NVIDIA H100 SXM data sheet, at 700 W
 HBM_BYTES_PER_S = 3.35e12
@@ -115,6 +136,10 @@ KERNELS = {
         "source": "ssspy_tpu_torch/ops/csrc/jacobi_eigh.cu",
         "replaces": "ssspy_tpu/ops/pallas_kernels.py:894",
     },
+    "ipa_congruence": {
+        "source": "ssspy_tpu_torch/ops/csrc/ipa_congruence.cu",
+        "replaces": "ssspy_tpu/ops/pallas_kernels.py:462",
+    },
 }
 WRAPPERS = {name: getattr(K, name) for name in KERNELS}
 PLAIN = {
@@ -122,6 +147,7 @@ PLAIN = {
     "ip1_sweep": K.ip1_sweep_plain,  # "lu"
     "iss1_sweep": K.iss1_sweep_plain,
     "jacobi_eigh": K.jacobi_eigh_plain,
+    "ipa_congruence": K.ipa_congruence_plain,
 }
 
 
@@ -201,7 +227,8 @@ def counts() -> dict:
 
 def drive(label: str, run, uses, totals: dict, least: int = N_ITER, exact: bool = False):
     """Run ``run()`` with every launch count at 0; the kernels in ``uses`` must launch >= ``least`` times
-    (exactly ``least`` with ``exact``), the others never."""
+    (exactly ``least`` with ``exact``), the others never. ``uses`` may map each kernel to its own ``least``."""
+    uses = uses if isinstance(uses, dict) else {name: least for name in uses}
     torch.cuda.synchronize()
     for fn in WRAPPERS.values():
         fn.launches = 0
@@ -215,8 +242,8 @@ def drive(label: str, run, uses, totals: dict, least: int = N_ITER, exact: bool 
         peak_mib=f"{torch.cuda.max_memory_allocated() / 2**20:.1f}")
     for name, count in launches.items():
         if name in uses:
-            check(count == least if exact else count >= least,
-                  f"{label}: launched {name} {count} times ({'!=' if exact else '<'} {least})")
+            check(count == uses[name] if exact else count >= uses[name],
+                  f"{label}: launched {name} {count} times ({'!=' if exact else '<'} {uses[name]})")
         else:
             check(count == 0, f"{label}: launched {name} {count} times; the path does not run it")
         totals[name] += count
@@ -301,6 +328,13 @@ def jacobi_bound(B, n, sweeps=None):
     return bound_ms(n_bytes, B * 9 * n * n * sweeps * len(K.round_pairs(n)))
 
 
+def congruence_bound(I, S, N):
+    # read T, U and G, write U and G; 2S + 1 complex N x N products of
+    # 8 N^3 flops each
+    n_bytes = I * N * N * 8 * (2 * S + 3)
+    return bound_ms(n_bytes, I * 8 * N**3 * (2 * S + 1))
+
+
 # ---- the paths' helpers ----------------------------------------------------------------
 
 
@@ -315,16 +349,16 @@ def chain(step, state, n_iter=N_ITER):
     return state
 
 
-def iterations_per_s(step, state) -> float:
-    """``N_ITER`` chained steps between two CUDA events, after one warm-up chain."""
-    chain(step, state)
+def iterations_per_s(step, state, n_iter: int = N_ITER) -> float:
+    """``n_iter`` chained steps between two CUDA events, after one warm-up chain."""
+    chain(step, state, n_iter)
     start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
     torch.cuda.synchronize()
     start.record()
-    chain(step, state)
+    chain(step, state, n_iter)
     end.record()
     torch.cuda.synchronize()
-    return N_ITER / (start.elapsed_time(end) / 1e3)
+    return n_iter / (start.elapsed_time(end) / 1e3)
 
 
 @contextlib.contextmanager
@@ -347,6 +381,27 @@ def recording_jacobi(inputs: list, keep: bool = False):
         yield
     finally:
         prox_steps.symm_eigh = symm_eigh
+
+
+@contextlib.contextmanager
+def recording_congruence(inputs: list):
+    """Record ``(T, U, G)`` of every congruence round of a sweep that runs through the plain versions.
+
+    Only for use inside :func:`plain_versions`: the recorder takes the
+    place of ``K.ipa_congruence`` and answers with the plain version, so no
+    kernel launches and no count moves.
+    """
+    inner = K.ipa_congruence
+
+    def recorder(T, U, G):
+        inputs.append((T.clone(), U.clone(), G.clone()))
+        return K.ipa_congruence_plain(T, U, G)
+
+    K.ipa_congruence = recorder
+    try:
+        yield
+    finally:
+        K.ipa_congruence = inner
 
 
 def hold_trace(label: str, Y, Y_plain, loss, loss_plain) -> None:
@@ -555,7 +610,12 @@ def main() -> None:
     A_pds, A_admm = pds_inputs[1], admm_inputs[1]
     check(tuple(A_pds.shape) == (I, 2 * M, 2 * M) and tuple(A_admm.shape) == (2 * I, 2 * M, 2 * M),
           f"K7 inputs {tuple(A_pds.shape)}, {tuple(A_admm.shape)}")
-    eigh_cases = [("PDSIVA right Grams", A_pds), ("ADMMIVA stacked Grams", A_admm)]
+    ipa_inputs = []
+    with recording_jacobi(ipa_inputs, keep=True):
+        auxiva_ipa_step(X)
+    A_ipa = ipa_inputs[-1]  # the last source's embedded LQPQM pencil
+    check(len(ipa_inputs) == M and tuple(A_ipa.shape) == (I, 2 * (M - 1), 2 * (M - 1)), f"IPA pencils {tuple(A_ipa.shape)}")
+    eigh_cases = [("PDSIVA right Grams", A_pds), ("ADMMIVA stacked Grams", A_admm), ("IPA pencil", A_ipa)]
     for n in JACOBI_SIZES:
         A_rand = torch.from_numpy(rng.standard_normal((I, n, n), dtype=np.float32)).to(device)
         eigh_cases.append((f"random n={n}", (A_rand + A_rand.transpose(-1, -2)).contiguous()))
@@ -587,6 +647,39 @@ def main() -> None:
         prox_rel = float((got - ref).abs().max() / ref.abs().max())
         say("K7 prox_neg_logdet", lift_null=lift_null, shape=tuple(G_pds.shape), rel_err=prox_rel, tol=PROX_TOL)
         check(prox_rel <= PROX_TOL and all_finite(got), f"prox_neg_logdet lift_null={lift_null}: rel err {prox_rel}")
+
+    # ---- 4e. K6 against its plain version ------------------------------------------
+    # random input; the T, U and G of a real sweep's rounds (recorded through
+    # the plain versions); and a batch with two all-zero bins
+    def random_complex(shape):
+        planes = rng.standard_normal((2, *shape), dtype=np.float32)
+        return torch.complex(torch.from_numpy(planes[0]), torch.from_numpy(planes[1])).to(device)
+
+    T_rand, U_rand, G_rand = random_complex((I, M, M)), random_complex((I, M, M, M)), random_complex((I, M, M))
+    rounds = []
+    with plain_versions(), recording_congruence(rounds):
+        auxiva_ipa_step(X)
+    check(len(rounds) == M and tuple(rounds[-1][1].shape) == (I, M, M, M), f"recorded {len(rounds)} congruence rounds")
+    U_silent = U_rand.clone()
+    U_silent[list(SILENT_BINS)] = 0
+    congruence_cases = [("random", (T_rand, U_rand, G_rand)), ("sweep, first round", rounds[0]),
+                        ("sweep, last round", rounds[-1]), ("two zero bins", (rounds[-1][0], U_silent, G_rand))]
+    congruence_abs = 0.0
+    for label, (T_in, U_in, G_in) in congruence_cases:
+        U_new, G_new = K.ipa_congruence(T_in, U_in, G_in)
+        U_ref, G_ref = K.ipa_congruence_plain(T_in, U_in, G_in)
+        torch.cuda.synchronize()
+        abs_err = max(float((U_new - U_ref).abs().max()), float((G_new - G_ref).abs().max()))
+        rel_err = max(float((U_new - U_ref).abs().max() / U_ref.abs().max()),
+                      float((G_new - G_ref).abs().max() / G_ref.abs().max()))
+        silent_zero = all(int(torch.count_nonzero(U_new[i])) == 0 for i in SILENT_BINS) if label == "two zero bins" else None
+        say("K6 ipa_congruence", input=repr(label), shape=(I, M, M, M), max_abs_err=abs_err, rel_err=rel_err,
+            tol=IPA_TOL, max_abs_T=float(T_in.abs().max()), silent_zero=silent_zero)
+        check(all_finite(U_new, G_new) and rel_err <= IPA_TOL, f"ipa_congruence {label}: rel err {rel_err}")
+        check(silent_zero is not False, "ipa_congruence: a zero bin of U came back non-zero")
+        congruence_abs = max(congruence_abs, abs_err)
+    errors["ipa_congruence"] = congruence_abs
+    T_sweep, U_sweep, G_sweep = rounds[-1]
 
     # ---- 5. main path: AuxIVA-IP1 -------------------------------------------------
 
@@ -665,6 +758,101 @@ def main() -> None:
             say("path", path=repr(label), loss_first=method.loss[0], loss_last=method.loss[-1])
             check(all_finite(Y), f"{label}: non-finite output")
             check(method.loss[-1] < method.loss[0], f"{label}: loss did not decrease")
+
+    # ---- 5b'. the IPA slice: AuxIVA-IPA and GaussILRMA-IPA ------------------------------
+    # per iteration K1 once (the full stack), K7 and K6 once per source. Each
+    # fast path runs twice: as a user calls it, and without scale restoration
+    # (projection back changes the loss's scale), whose loss is compared; the
+    # plain twin and the control run only the latter.
+    #
+    # The float32 sweep is not held to an SI-SDR against its plain twin: where
+    # the one Newton trip leaves the secular root next to the pole, the step
+    # divides by a difference of a few ulps, and one sweep turns a relative
+    # 1e-7 in its input into an output that agrees to a few dB, while the
+    # loss moves by 1e-4. So the control below runs the kernels on the input
+    # times (1 + 1e-7 noise) and prints both SI-SDRs side by side; what is
+    # gated is the loss: it falls, it ends within LOSS_TOL of the plain run's,
+    # and no higher (by more than IPA_VS_ISS1_TOL) than where ISS1 takes the
+    # same model from the same start.
+    ipa_uses = {"weighted_covariance": 2 * N_ITER, "jacobi_eigh": 2 * M * N_ITER, "ipa_congruence": 2 * M * N_ITER}
+    noise = torch.from_numpy(np.random.default_rng(1).standard_normal((M, I, T)).astype(np.float32)).to(device)
+    X_perturbed = X * (1 + IPA_PERTURBATION * noise)
+
+    # one sweep through the kernels on the input and on the perturbed input,
+    # beside the same for ISS1: how much one step amplifies one f32 ulp
+    T_ilrma = torch.from_numpy(np.random.default_rng(0).random((M, I, N_BASIS), dtype=np.float32)).to(device)
+    V_ilrma = torch.from_numpy(np.random.default_rng(2).random((M, N_BASIS, T), dtype=np.float32)).to(device)
+    one_sweep = {
+        "AuxIVA-ISS1": lambda Y: auxiva_iss1_step(Y),
+        "AuxIVA-IPA": lambda Y: auxiva_ipa_step(Y),
+        "AuxIVA-IPA, newton_iter=3": lambda Y: auxiva_ipa_step(Y, newton_iter=3),
+        "GaussILRMA-ISS1": lambda Y: ilrma_iss_step(Y, T_ilrma, V_ilrma)[0],
+        "GaussILRMA-IPA": lambda Y: ilrma_iss_step(Y, T_ilrma, V_ilrma, spatial="IPA")[0],
+    }
+    for label, sweep in one_sweep.items():
+        Y_one, Y_one_perturbed = sweep(X), sweep(X_perturbed)
+        say("sensitivity", step=repr(label), sweeps=1, input_perturbation=IPA_PERTURBATION,
+            min_si_sdr_db_vs_perturbed_input=min_si_sdr(Y_one, Y_one_perturbed),
+            rel_diff=float((Y_one - Y_one_perturbed).abs().max() / Y_one.abs().max()), max_abs_output=float(Y_one.abs().max()))
+        check(all_finite(Y_one, Y_one_perturbed), f"{label}: non-finite sweep")
+
+    def hold_ipa(label, Y, raw, raw_plain, raw_perturbed, loss_of, loss_start, loss_iss1):
+        loss, loss_plain, loss_perturbed = loss_of(raw), loss_of(raw_plain), loss_of(raw_perturbed)
+        rel = abs(loss - loss_plain) / abs(loss_plain)
+        say("path vs plain", path=repr(label), loss_first=loss_start, loss=loss, plain_loss=loss_plain,
+            loss_rel_diff=rel, perturbed_input_loss=loss_perturbed, iss1_loss=loss_iss1,
+            loss_rel_diff_to_iss1=abs(loss - loss_iss1) / abs(loss_iss1),
+            min_si_sdr_db_vs_plain=min_si_sdr(raw[0], raw_plain[0]),
+            min_si_sdr_db_vs_perturbed_input=min_si_sdr(raw[0], raw_perturbed[0]), input_perturbation=IPA_PERTURBATION)
+        check(all_finite(Y, raw[0]) and tuple(Y.shape) == (M, I, T), f"{label}: non-finite output")
+        check(loss < loss_start, f"{label}: loss did not fall: {loss_start} -> {loss}")
+        check(rel <= LOSS_TOL, f"{label}: loss {loss} vs plain {loss_plain}")
+        check(loss <= loss_iss1 + IPA_VS_ISS1_TOL * abs(loss_iss1), f"{label}: loss {loss} above ISS1's {loss_iss1}")
+
+    def auxiva_ipa(X_in=X, restored=True):
+        """``(as a user calls it, or None; without scale restoration)``."""
+        return (fast_auxiva(X_in, n_iter=N_ITER, algorithm="IPA") if restored else None,
+                fast_auxiva(X_in, n_iter=N_ITER, algorithm="IPA", scale_restoration=False))
+
+    def iva_loss_of(out):
+        return float(iva_laplace_loss(X, Y=out[0]))
+
+    restored, raw = drive("AuxIVA-IPA", auxiva_ipa, ipa_uses, totals)
+    _, raw_plain = run_plain(lambda: auxiva_ipa(restored=False))
+    iss1_raw = fast_auxiva(X, n_iter=N_ITER, algorithm="ISS1", scale_restoration=False)
+    hold_ipa("AuxIVA-IPA fast", restored[0], raw, raw_plain, auxiva_ipa(X_perturbed, restored=False)[1],
+             iva_loss_of, float(iva_laplace_loss(X, Y=X)), iva_loss_of(iss1_raw))
+
+    def gauss_ilrma_ipa(X_in=X, restored=True, algorithm="IPA"):
+        kw = dict(n_basis=N_BASIS, n_iter=N_ITER, algorithm=algorithm)
+        return (fast_gauss_ilrma(X_in, rng=np.random.default_rng(0), **kw) if restored else None,
+                fast_gauss_ilrma(X_in, rng=np.random.default_rng(0), scale_restoration=False, **kw))
+
+    restored, raw = drive("GaussILRMA-IPA", gauss_ilrma_ipa, ipa_uses, totals)
+    _, raw_plain = run_plain(lambda: gauss_ilrma_ipa(restored=False))
+    draws = np.random.default_rng(0)  # the factors fast_gauss_ilrma starts from
+    T_start = torch.from_numpy(draws.random((M, I, N_BASIS)).astype(np.float32)).to(device)
+    V_start = torch.from_numpy(draws.random((M, N_BASIS, T)).astype(np.float32)).to(device)
+    check(all_finite(*raw[1]) and raw[2] is None, "GaussILRMA-IPA: non-finite factors")
+    hold_ipa("GaussILRMA-IPA fast", restored[0], raw, raw_plain, gauss_ilrma_ipa(X_perturbed, restored=False)[1],
+             fast_ilrma_loss, float(ilrma_loss(X, T_start, V_start, Y=X)),
+             fast_ilrma_loss(gauss_ilrma_ipa(restored=False, algorithm="ISS1")[1]))
+
+    # the classes. AuxLaplaceIVA floors at 1e-6 in complex64 ("dtype"), where the
+    # secular mask drops terms that matter and the loss swings far above its
+    # start for some twenty iterations before it converges: that one runs
+    # N_ITER, and the 1e-10 floor of fast_auxiva ("f64") runs beside it
+    for label, method, n_iter in (
+        ("AuxLaplaceIVA(IPA, flooring_fn='f64')", AuxLaplaceIVA(spatial_algorithm="IPA", flooring_fn="f64"), N_ITER_IPA_CLASSES),
+        ("AuxLaplaceIVA(IPA)", AuxLaplaceIVA(spatial_algorithm="IPA"), N_ITER),
+        ("GaussILRMA(IPA)", GaussILRMA(n_basis=N_BASIS, spatial_algorithm="IPA", rng=np.random.default_rng(0)), N_ITER_IPA_CLASSES),
+    ):
+        uses = {"weighted_covariance": n_iter, "jacobi_eigh": M * n_iter, "ipa_congruence": M * n_iter}
+        Y = drive(label, lambda: method(X, n_iter=n_iter), uses, totals)
+        say("path", path=repr(label), iterations=n_iter, loss_first=method.loss[0],
+            loss_after_10=method.loss[N_ITER_IPA_CLASSES], loss_max=max(method.loss), loss_last=method.loss[-1])
+        check(all_finite(Y) and method.demix_filter is None, f"{label}: non-finite output")
+        check(method.loss[-1] < method.loss[0], f"{label}: loss did not decrease")
 
     # ---- 5c. the prox family: PDSIVA, HVA, ADMMIVA, MaskingADMMHVA ---------------------
     batches = []
@@ -770,6 +958,22 @@ def main() -> None:
             lambda: torch.linalg.eigh(A_admm),
             jacobi_bound(*A_admm.shape[:2]),
         ),
+        "jacobi_eigh IPA": (
+            "IPA pencil (257,14,14)",
+            lambda: K.jacobi_eigh(A_ipa),
+            lambda: K.jacobi_eigh_plain(A_ipa),
+            lambda: torch.linalg.eigh(A_ipa),
+            jacobi_bound(*A_ipa.shape[:2]),
+        ),
+        "ipa_congruence": (
+            "a sweep's last round (257,8,8,8)",
+            lambda: K.ipa_congruence(T_sweep, U_sweep, G_sweep),
+            lambda: K.ipa_congruence_plain(T_sweep, U_sweep, G_sweep),
+            # the same three products as torch.matmul calls
+            lambda: (torch.matmul(torch.matmul(T_sweep[:, None], U_sweep), T_sweep.mH[:, None]),
+                     torch.matmul(T_sweep, G_sweep)),
+            congruence_bound(I, M, M),
+        ),
     }
     timings = {}
     for key, (weights, kernel_fn, plain_fn, library_fn, (bound, bound_by)) in timed.items():
@@ -796,6 +1000,8 @@ def main() -> None:
         "GaussILRMA-IP1": (lambda s: ilrma_ip_step(X, *s), (W_eye, T0, V0)),
         "GaussILRMA-ISS1": (lambda s: ilrma_iss_step(*s), (X, T0, V0)),
         "AuxIVA-ISS1": (lambda s: (auxiva_iss1_step(s[0]),), (X,)),
+        "AuxIVA-IPA": (lambda s: (auxiva_ipa_step(s[0]),), (X,)),
+        "GaussILRMA-IPA": (lambda s: ilrma_iss_step(*s, spatial="IPA"), (X, T0, V0)),
         "PDSIVA": (lambda s: prox_steps.pds_iva_step(X_prox, *s), (W_eye, Y_zero)),
         "HVA": (lambda s: prox_steps.hva_pds_step(X_prox, *s), (W_eye, Y_zero)),
         # the state is (W, V, Vt, Y, Yt); the step reads all but W
@@ -804,14 +1010,15 @@ def main() -> None:
     }
     rates = {}
     for label, (step, state) in steps.items():
+        n_plain = N_ITER_IPA_PLAIN_RATE if label.endswith("IPA") else N_ITER
         with plain_versions():
-            plain_a = iterations_per_s(step, state)
+            plain_a = iterations_per_s(step, state, n_plain)
         kernel_a, kernel_b = iterations_per_s(step, state), iterations_per_s(step, state)
         with plain_versions():
-            plain_b = iterations_per_s(step, state)
+            plain_b = iterations_per_s(step, state, n_plain)
         rates[label] = statistics.mean((kernel_a, kernel_b))
         say("time", path=repr(f"{label} 8ch 10s, {N_ITER} chained fast-path steps"), card=repr(card),
-            kernels_iters_per_s=(kernel_a, kernel_b), plain_iters_per_s=(plain_a, plain_b))
+            kernels_iters_per_s=(kernel_a, kernel_b), plain_iters_per_s=(plain_a, plain_b), plain_steps=n_plain)
 
     # where the device time of one iteration goes (torch.profiler)
     for label, (step, state) in steps.items():
@@ -819,8 +1026,12 @@ def main() -> None:
         device_us = sum(per_kernel.values())
         check(device_us > 0, f"the profiler saw no device time in the {label} iterations")
         top = sorted(per_kernel.items(), key=lambda kv: -kv[1])[:6]
+        # the share of each hand-written kernel (their names end in _kernel, as in csrc/*.cu)
+        shares = {name: sum(us for kernel, us in per_kernel.items() if f"{name}_kernel" in kernel) / device_us
+                  for name in KERNELS}
         say("profile", path=repr(label), card=repr(card), device_us_per_iter=device_us,
             device_ops_per_iter=ops_per_iter, device_busy_share=device_us * 1e-6 * rates[label],
+            kernel_shares=repr({name: round(share, 4) for name, share in shares.items() if share}),
             top=repr([(name[:48], round(us, 3)) for name, us in top]))
 
     summary = [

@@ -36,10 +36,11 @@ __all__ = [
     "SPATIAL_ALGORITHMS",
     "PORTED_SPATIAL_ALGORITHMS",
     "check_spatial_algorithm",
+    "ipa_keywords",
 ]
 
 SPATIAL_ALGORITHMS = ("IP", "IP1", "IP2", "ISS", "ISS1", "ISS2", "IPA")
-PORTED_SPATIAL_ALGORITHMS = ("IP", "IP1", "ISS", "ISS1")
+PORTED_SPATIAL_ALGORITHMS = ("IP", "IP1", "ISS", "ISS1", "IPA")
 # these carry the separated spectrograms and no demixing filters
 DEMIX_FREE_ALGORITHMS = ("ISS", "ISS1", "ISS2", "IPA")
 
@@ -50,15 +51,32 @@ def config_repr(obj, name: str, keys) -> str:
     return f"{name}({inner})"
 
 
-def check_spatial_algorithm(spatial_algorithm: str, roadmap_items: str) -> None:
-    """Raise for an unknown spatial update, and for one not ported yet."""
+def check_spatial_algorithm(spatial_algorithm: str) -> None:
+    """Raise for an unknown spatial update, and for one not ported yet (IP2, ISS2)."""
     if spatial_algorithm not in SPATIAL_ALGORITHMS:
         raise ValueError(f"unsupported option: {spatial_algorithm}.")
     if spatial_algorithm not in PORTED_SPATIAL_ALGORITHMS:
         raise NotImplementedError(
             f"spatial_algorithm={spatial_algorithm!r} is not ported to ssspy_tpu_torch yet "
-            f"(ROADMAP.md, Queue 1, {roadmap_items}); use one of {PORTED_SPATIAL_ALGORITHMS}."
+            f"(ROADMAP.md, Queue 1, item 5); use one of {PORTED_SPATIAL_ALGORITHMS}."
         )
+
+
+IPA_DEFAULTS = {"lqpqm_normalization": True, "newton_iter": 1}
+
+
+def ipa_keywords(spatial_algorithm: str, kwargs: dict) -> dict:
+    """The IPA keywords of a separator: ``lqpqm_normalization`` and ``newton_iter``, with their defaults.
+
+    They exist only with ``spatial_algorithm="IPA"``; any other keyword,
+    and either of them without IPA, raises
+    (ssspy_tpu/bss/iva.py:893-905, ssspy_tpu/bss/ilrma.py:816-828).
+    """
+    valid = IPA_DEFAULTS if spatial_algorithm == "IPA" else {}
+    invalid = set(kwargs) - set(valid)
+    if invalid:
+        raise ValueError(f"Invalid keywords {invalid} are given.")
+    return {**valid, **kwargs}
 
 
 class IterativeMethodBase:
@@ -152,7 +170,7 @@ class SeparatorBase(IterativeMethodBase):
     The device they run on, the bound input and its warm start, and the
     scale restoration after the loop. The state holds demixing filters
     ``W`` (``demix_filter``; IP) or only the separated spectrograms ``Y``
-    (``demix_filter`` is ``None``; ISS). ``device``: the card by default;
+    (``demix_filter`` is ``None``; ISS, IPA). ``device``: the card by default;
     ``"cpu"`` runs on the CPU, and without a card the default raises
     (:func:`ssspy_tpu_torch.utils.device.resolve_device`). The input and
     every warm-start tensor are moved there.

@@ -1,16 +1,16 @@
 """Independent low-rank matrix analysis (ILRMA): Gauss, Student's-t and GGD source models.
 
 Counterpart of :mod:`ssspy_tpu.bss.ilrma` (parity target
-ssspy/bss/ilrma.py) for the classes on the port's second slice:
-``ILRMABase``, ``GaussILRMA``, ``TILRMA`` and ``GGDILRMA`` with the NMF
-source model (MM or ME updates), spatial ``"IP"``/``"IP1"`` (demixing
-filters) or ``"ISS"``/``"ISS1"`` (demix-free), and power or
-projection-back normalization. One iteration is
+ssspy/bss/ilrma.py) for ``ILRMABase``, ``GaussILRMA``, ``TILRMA`` and ``GGDILRMA`` with the NMF
+source model (MM or ME updates, optionally the shared-basis
+``partitioning``), spatial ``"IP"``/``"IP1"`` (demixing filters),
+``"ISS"``/``"ISS1"`` or, for ``GaussILRMA``, ``"IPA"`` (demix-free), and
+power or projection-back normalization. One iteration is
 ``source model -> spatial model -> normalization``; the spatial update
 goes through the kernel wrappers of :mod:`ssspy_tpu_torch.ops.kernels`
-(the weighted covariance with per-bin weights and the IP1 sweep, or the
-ISS1 sweep). The shared-basis partitioning, IP2, ISS2 and IPA are not
-ported yet (ROADMAP.md, Queue 1, items 3 and 5).
+(the weighted covariance with per-bin weights and the IP1 sweep, the
+ISS1 sweep, or the IPA sweep of :mod:`ssspy_tpu_torch.ops.ipa_steps`).
+IP2 and ISS2 are not ported yet (ROADMAP.md, Queue 1, item 5).
 """
 
 from typing import Callable, List, Optional, Union
@@ -19,12 +19,20 @@ import numpy as np
 import torch
 
 from ..ops import kernels
-from ..ops.ilrma_steps import ilrma_mm_core, ilrma_model_varphi, power
+from ..ops.ilrma_steps import (
+    ilrma_mm_core,
+    ilrma_mm_core_partitioning,
+    ilrma_model_varphi,
+    power,
+    power_normalize_partitioning,
+    reconstruct_nmf,
+)
+from ..ops.ipa_steps import ipa_sweep
 from ..ops.iva_steps import clogabsdet, ls_demix
 from ..ops.iva_steps import separate as _separate
 from ..special.flooring import identity, sweep_eps
 from ..utils.device import DEFAULT_DEVICE
-from .base import SeparatorBase, check_spatial_algorithm, config_repr
+from .base import SeparatorBase, check_spatial_algorithm, config_repr, ipa_keywords
 
 __all__ = ["ILRMABase", "GaussILRMA", "TILRMA", "GGDILRMA"]
 
@@ -38,7 +46,11 @@ class ILRMABase(SeparatorBase):
     the host and in the JAX class's order (basis, then activation), then
     moved to ``device``; a seeded run starts from the same factors in both
     packages. Warm start through ``demix_filter=``, ``basis=`` and
-    ``activation=`` (and ``output=`` with ``demix_filter=None``).
+    ``activation=`` (and ``output=`` with ``demix_filter=None``). With
+    ``partitioning`` the sources share one basis ``(I, K)`` and one
+    activation ``(K, T)`` through the latent ``(N, K)`` (drawn first,
+    normalized over sources; warm start ``latent=``), and only power
+    normalization applies.
     """
 
     _model = None  # "gauss", "t" or "ggd"
@@ -58,21 +70,22 @@ class ILRMABase(SeparatorBase):
         reference_id: int = 0,
         rng: Optional[np.random.Generator] = None,
         device=DEFAULT_DEVICE,
+        **kwargs,
     ) -> None:
-        check_spatial_algorithm(spatial_algorithm, "items 3 and 5")
+        check_spatial_algorithm(spatial_algorithm)
+        if spatial_algorithm == "IPA" and self._model != "gauss":
+            raise ValueError(f"{type(self).__name__} has no IPA spatial update; choose IP/ISS variants.")
+        ipa = ipa_keywords(spatial_algorithm, kwargs)
         if source_algorithm not in source_algorithms:
             raise ValueError(f"unsupported option: {source_algorithm}.")
         if not 0 < domain <= 2:
             raise ValueError("domain must lie in (0, 2].")
         if source_algorithm == "ME" and domain != 2:
             raise ValueError("the ME source update requires domain=2.")
-        if partitioning:
-            raise NotImplementedError(
-                "partitioning=True (the shared-basis latent model) is not ported to "
-                "ssspy_tpu_torch yet (ROADMAP.md, Queue 1, item 3)."
-            )
         if normalization not in (True, False, None, "power", "projection_back"):
             raise ValueError(f"Normalization {normalization} is not implemented.")
+        if partitioning and normalization == "projection_back":
+            raise ValueError("projection-back normalization is incompatible with partitioning.")
         if reference_id is None and scale_restoration:
             raise ValueError("scale_restoration=True needs a reference_id channel.")
         super().__init__(
@@ -91,6 +104,8 @@ class ILRMABase(SeparatorBase):
         self.partitioning = partitioning
         self.normalization = normalization
         self.rng = np.random.default_rng() if rng is None else rng
+        for key, value in ipa.items():
+            setattr(self, key, value)
 
     def __repr__(self) -> str:
         keys = ["n_basis", "spatial_algorithm", "source_algorithm", "domain", "partitioning"]
@@ -116,21 +131,32 @@ class ILRMABase(SeparatorBase):
     def _init_nmf(self) -> None:
         """Random NMF factors (host draws, JAX's order; ssspy_tpu/bss/ilrma.py:153-191).
 
-        Drawn only where no ``basis``/``activation`` is set yet, in the real
-        dtype of the input, on its device, then floored.
+        Drawn only where no ``basis``/``activation`` (``latent``) is set yet,
+        in the real dtype of the input, on its device, then floored. With
+        ``partitioning`` the latent comes first, divided by its sum over
+        sources before the floor.
         """
         X = self.input
         real = X.real.dtype
-        shapes = {
-            "basis": (self.n_sources, self.n_bins, self.n_basis),
-            "activation": (self.n_sources, self.n_basis, self.n_frames),
-        }
+        if self.partitioning:
+            shapes = {
+                "latent": (self.n_sources, self.n_basis),
+                "basis": (self.n_bins, self.n_basis),
+                "activation": (self.n_basis, self.n_frames),
+            }
+        else:
+            shapes = {
+                "basis": (self.n_sources, self.n_bins, self.n_basis),
+                "activation": (self.n_sources, self.n_basis, self.n_frames),
+            }
         for name, shape in shapes.items():
             if hasattr(self, name):
                 value = getattr(self, name).to(dtype=real).contiguous().clone()
             else:
-                draw = torch.as_tensor(self.rng.random(shape), dtype=real, device=X.device)
-                value = self.flooring_fn(draw)
+                draw = self.rng.random(shape)
+                if name == "latent":
+                    draw = draw / draw.sum(axis=0)
+                value = self.flooring_fn(torch.as_tensor(draw, dtype=real, device=X.device))
             setattr(self, name, value)
 
     def separate(self, input, demix_filter):
@@ -138,13 +164,15 @@ class ILRMABase(SeparatorBase):
             return None
         return _separate(input, demix_filter)
 
-    def reconstruct_nmf(self, basis, activation):
-        return basis @ activation
+    def reconstruct_nmf(self, basis, activation, latent=None):
+        return reconstruct_nmf(basis, activation, latent)
 
     # ---- state plumbing ----------------------------------------------------
 
     def init_state(self):
         state = {"X": self.input, "T": self.basis, "V": self.activation}
+        if self.partitioning:
+            state["Z"] = self.latent
         if self._uses_demix_filter:
             state["W"] = self.demix_filter
         else:
@@ -154,6 +182,8 @@ class ILRMABase(SeparatorBase):
     def commit_state(self, state) -> None:
         self._state = state
         self.basis, self.activation = state["T"], state["V"]
+        if self.partitioning:
+            self.latent = state["Z"]
         if self._uses_demix_filter:
             self.demix_filter = state["W"]
             self.output = _separate(state["X"], state["W"])
@@ -170,24 +200,29 @@ class ILRMABase(SeparatorBase):
         model, p, flooring_fn = self._model, self.domain, self.flooring_fn
         params = self._model_params()
         eps = sweep_eps(flooring_fn, self.input.dtype)
-        uses_demix_filter = self._uses_demix_filter
+        uses_demix_filter, uses_ipa = self._uses_demix_filter, self.spatial_algorithm == "IPA"
+        ipa = {key: getattr(self, key) for key in ("lqpqm_normalization", "newton_iter")} if uses_ipa else {}
         normalize = self._normalizer()
 
         def step(state):
             Y2 = power(self._current_Y(state))
             # the class floors the factors with flooring_fn and not the model
-            # (ssspy_tpu/bss/ilrma.py:662-696)
-            T, V, R = ilrma_mm_core(
-                Y2, state["T"], state["V"], model=model, p=p,
-                floor=flooring_fn, floor_model=identity, **params,
-            )
+            # (ssspy_tpu/bss/ilrma.py:650-696)
+            kw = dict(model=model, p=p, floor=flooring_fn, floor_model=identity, **params)
+            if "Z" in state:
+                T, V, Z, R = ilrma_mm_core_partitioning(Y2, state["T"], state["V"], state["Z"], **kw)
+                state = {**state, "T": T, "V": V, "Z": Z}
+            else:
+                T, V, R = ilrma_mm_core(Y2, state["T"], state["V"], **kw)
+                state = {**state, "T": T, "V": V}
             varphi = ilrma_model_varphi(
                 model, Y2, R, p, params.get("nu"), params.get("beta"), flooring_fn
             )
-            state = {**state, "T": T, "V": V}
             if uses_demix_filter:
                 U = kernels.weighted_covariance(state["X"], varphi)
                 state["W"] = kernels.ip1_sweep(state["W"], U, eps=eps)
+            elif uses_ipa:
+                state["Y"] = ipa_sweep(state["Y"], varphi, eps=eps, **ipa)
             else:
                 state["Y"] = kernels.iss1_sweep(state["Y"], varphi, eps=eps)
             return normalize(state)
@@ -207,7 +242,11 @@ class ILRMABase(SeparatorBase):
     def _normalize_by_power(self, state):
         p = self.domain
         psi = self.flooring_fn(torch.sqrt(torch.mean(power(self._current_Y(state)), dim=(-2, -1))))
-        state = {**state, "T": state["T"] / (psi[:, None, None] ** p)}
+        if "Z" in state:
+            T, Z = power_normalize_partitioning(psi, state["T"], state["Z"], p)
+            state = {**state, "T": T, "Z": Z}
+        else:
+            state = {**state, "T": state["T"] / (psi[:, None, None] ** p)}
         if "W" in state:
             return {**state, "W": state["W"] / psi[None, :, None]}
         return {**state, "Y": state["Y"] / psi[:, None, None]}
@@ -241,7 +280,7 @@ class ILRMABase(SeparatorBase):
                 Y, W = _separate(state["X"], state["W"]), state["W"]
             else:
                 Y, W = state["Y"], ls_demix(state["Y"], state["X"])
-            value = value_of(power(Y), state["T"] @ state["V"])
+            value = value_of(power(Y), reconstruct_nmf(state["T"], state["V"], state.get("Z")))
             return torch.sum(torch.sum(torch.mean(value, dim=-1), dim=0) - 2 * clogabsdet(W))
 
         return loss
@@ -251,7 +290,10 @@ class GaussILRMA(ILRMABase):
     """ILRMA on a Gaussian source model (parity: ssspy/bss/ilrma.py:582-1989).
 
     ``source_algorithm``: MM or ME (ME requires ``domain == 2``);
-    ``domain`` p in (0, 2]; ``normalization``: power | projection_back.
+    ``domain`` p in (0, 2]; ``partitioning`` enables the shared-basis latent
+    model; ``normalization``: power | projection_back. With
+    ``spatial_algorithm="IPA"`` it takes the keywords ``lqpqm_normalization``
+    (default True) and ``newton_iter`` (default 1).
     """
 
     _model = "gauss"
@@ -264,7 +306,8 @@ class GaussILRMA(ILRMABase):
 class TILRMA(ILRMABase):
     """ILRMA on a Student's-t source model (parity: ssspy/bss/ilrma.py:1992-3334).
 
-    ``dof`` is the t-distribution's degrees of freedom.
+    ``dof`` is the t-distribution's degrees of freedom. It has no IPA
+    spatial update (``ValueError``).
     """
 
     _model = "t"
@@ -284,7 +327,8 @@ class TILRMA(ILRMABase):
 class GGDILRMA(ILRMABase):
     """ILRMA on a generalized-Gaussian source model (parity: ssspy/bss/ilrma.py:3337-4410).
 
-    ``beta`` in (0, 2) is the GGD shape parameter; MM updates only.
+    ``beta`` in (0, 2) is the GGD shape parameter; MM updates only, and no
+    IPA spatial update (``ValueError``).
     """
 
     _model = "ggd"

@@ -1,9 +1,9 @@
-"""Independent vector analysis (IVA): the auxiliary-function IP/IP1 and ISS/ISS1 family.
+"""Independent vector analysis (IVA): the auxiliary-function IP/IP1, ISS/ISS1 and IPA family.
 
 Counterpart of :mod:`ssspy_tpu.bss.iva` (parity target ssspy/bss/iva.py)
 for the classes ported so far: ``IVABase``, ``AuxIVABase``, ``AuxIVA``
-with ``spatial_algorithm="IP"``/``"IP1"`` (demixing filters) and
-``"ISS"``/``"ISS1"`` (demix-free: the state is the separated
+with ``spatial_algorithm="IP"``/``"IP1"`` (demixing filters),
+``"ISS"``/``"ISS1"`` and ``"IPA"`` (demix-free: the state is the separated
 spectrogram), ``AuxLaplaceIVA``, and the proximal-splitting factories
 ``PDSIVA`` and ``ADMMIVA``. The separator runs on its ``device`` (the card
 by default); its step goes through the same kernel wrappers as the
@@ -15,12 +15,13 @@ from typing import Callable, List, Optional, Union
 import torch
 
 from ..ops import kernels
+from ..ops.ipa_steps import ipa_sweep
 from ..ops.iva_steps import ls_demix
 from ..ops.iva_steps import separate as _separate
 from ..special.flooring import sweep_eps
 from ..utils.device import DEFAULT_DEVICE
 from .admmbss import ADMMBSS
-from .base import SeparatorBase, check_spatial_algorithm, config_repr
+from .base import SeparatorBase, check_spatial_algorithm, config_repr, ipa_keywords
 from .pdsbss import PDSBSS
 from .proxbss import iva_prox_defaults
 
@@ -142,9 +143,12 @@ class AuxIVA(AuxIVABase):
     sweep. ``"ISS"``/``"ISS1"``: the state is the separated spectrogram
     ``Y``; each step computes the same weight from ``Y`` and runs the ISS1
     sweep, the loss recovers ``W`` by least squares, and projection back
-    rescales ``Y`` against the mixture. All through the kernel wrappers of
-    :mod:`ssspy_tpu_torch.ops.kernels`. IP2, ISS2 and IPA are not ported
-    yet (ROADMAP.md, Queue 1, item 5).
+    rescales ``Y`` against the mixture. ``"IPA"``: demix-free as well, the
+    sweep of :func:`ssspy_tpu_torch.ops.ipa_steps.ipa_sweep`, with the
+    keywords ``lqpqm_normalization`` (default True) and ``newton_iter``
+    (default 1), which no other spatial algorithm takes. All through the
+    kernel wrappers of :mod:`ssspy_tpu_torch.ops.kernels`. IP2 and ISS2 are
+    not ported yet (ROADMAP.md, Queue 1, item 5).
     """
 
     def __init__(
@@ -158,8 +162,10 @@ class AuxIVA(AuxIVABase):
         record_loss: bool = True,
         reference_id: int = 0,
         device=DEFAULT_DEVICE,
+        **kwargs,
     ) -> None:
-        check_spatial_algorithm(spatial_algorithm, "item 5")
+        check_spatial_algorithm(spatial_algorithm)
+        ipa = ipa_keywords(spatial_algorithm, kwargs)
         super().__init__(
             contrast_fn=contrast_fn,
             d_contrast_fn=d_contrast_fn,
@@ -171,6 +177,8 @@ class AuxIVA(AuxIVABase):
             device=device,
         )
         self.spatial_algorithm = spatial_algorithm
+        for key, value in ipa.items():
+            setattr(self, key, value)
 
     def __repr__(self) -> str:
         keys = ["spatial_algorithm", "scale_restoration", "record_loss"]
@@ -211,6 +219,16 @@ class AuxIVA(AuxIVABase):
                 U = kernels.weighted_covariance(X, varphi_of(_separate(X, W)))
                 return {**state, "W": kernels.ip1_sweep(W, U, eps=eps)}
 
+        elif self.spatial_algorithm == "IPA":
+            lqpqm_normalization, newton_iter = self.lqpqm_normalization, self.newton_iter
+
+            def step(state):
+                Y = state["Y"]
+                Y = ipa_sweep(
+                    Y, varphi_of(Y), eps=eps, lqpqm_normalization=lqpqm_normalization, newton_iter=newton_iter
+                )
+                return {**state, "Y": Y}
+
         else:
 
             def step(state):
@@ -245,6 +263,7 @@ class AuxLaplaceIVA(AuxIVA):
         record_loss: bool = True,
         reference_id: int = 0,
         device=DEFAULT_DEVICE,
+        **kwargs,
     ) -> None:
         super().__init__(
             spatial_algorithm=spatial_algorithm,
@@ -256,6 +275,7 @@ class AuxLaplaceIVA(AuxIVA):
             record_loss=record_loss,
             reference_id=reference_id,
             device=device,
+            **kwargs,
         )
 
 

@@ -20,7 +20,7 @@ import torch
 
 from .algorithm import projection_back
 from .ops.ilrma_steps import ilrma_ip_step, ilrma_iss_step
-from .ops.iva_steps import auxiva_ip1_step, auxiva_iss1_step, separate
+from .ops.iva_steps import auxiva_ip1_step, auxiva_ipa_step, auxiva_iss1_step, separate
 from .ops.prox_steps import admm_iva_step, admm_quad_inv, hva_pds_step, pds_iva_step
 from .utils.device import DEFAULT_DEVICE, resolve_device
 
@@ -35,17 +35,20 @@ __all__ = [
 ]
 
 _ALGORITHMS = ("IP1", "IP2", "ISS1", "ISS2", "IPA")
-_PORTED_ALGORITHMS = ("IP1", "ISS1")
+_PORTED_ALGORITHMS = ("IP1", "ISS1", "IPA")
 
 
-def _check_algorithm(name: str, algorithm: str) -> None:
+def _check_algorithm(name: str, algorithm: str, ported=_PORTED_ALGORITHMS) -> None:
+    """Raise for an unknown ``algorithm``, for IP2 and ISS2 (not ported yet) and for one that ``name`` does not have."""
     if algorithm not in _ALGORITHMS:
         raise ValueError(f"unsupported option: {algorithm}.")
     if algorithm not in _PORTED_ALGORITHMS:
         raise NotImplementedError(
             f"{name}(algorithm={algorithm!r}) is not ported to ssspy_tpu_torch yet "
-            f"(ROADMAP.md, Queue 1, items 3 and 5); use one of {_PORTED_ALGORITHMS}."
+            f"(ROADMAP.md, Queue 1, item 5); use one of {ported}."
         )
+    if algorithm not in ported:
+        raise ValueError(f"{name} has no {algorithm} spatial update; use one of {ported}.")
 
 
 def _spectrogram(spectrogram, device) -> torch.Tensor:
@@ -76,12 +79,12 @@ def fast_auxiva(
     """AuxLaplaceIVA in complex64 (counterpart of ``ssspy_tpu.fast.fast_auxiva``, fast.py:96-132).
 
     ``spectrogram``: complex ``(n_channels, n_bins, n_frames)``, a tensor
-    or an array. ``algorithm``: ``"IP1"`` (demixing filters) or ``"ISS1"``
-    (demix-free). ``device``: the card by default; ``"cpu"`` runs on the
-    CPU. Every iteration floors with ``eps=1e-10``, as the JAX fast path
-    does. With ``scale_restoration``, IP1 rescales each filter row by
-    ``W^{-1}`` at ``reference_id`` and ISS1 projects ``Y`` back onto that
-    channel of the mixture (fast.py:60-72). Returns
+    or an array. ``algorithm``: ``"IP1"`` (demixing filters), ``"ISS1"`` or
+    ``"IPA"`` (demix-free). ``device``: the card by default; ``"cpu"`` runs
+    on the CPU. Every iteration floors with ``eps=1e-10``, as the JAX fast
+    path does. With ``scale_restoration``, IP1 rescales each filter row by
+    ``W^{-1}`` at ``reference_id`` and ISS1 and IPA project ``Y`` back onto
+    that channel of the mixture (fast.py:60-72). Returns
     ``(separated (N, I, T), demix_filter (I, N, M) or None)``.
     """
     _check_algorithm("fast_auxiva", algorithm)
@@ -93,9 +96,10 @@ def fast_auxiva(
             W = auxiva_ip1_step(X, W)
         return _restored(X, W, scale_restoration, reference_id)
 
+    step = auxiva_ipa_step if algorithm == "IPA" else auxiva_iss1_step
     Y = X
     for _ in range(n_iter):
-        Y = auxiva_iss1_step(Y)
+        Y = step(Y)
     if scale_restoration:
         Y = projection_back(Y, reference=X, reference_id=reference_id)
     return Y, None
@@ -103,34 +107,42 @@ def fast_auxiva(
 
 def _fast_ilrma(
     name, spectrogram, n_basis, n_iter, algorithm, scale_restoration, reference_id, rng, device,
-    **model,
+    partitioning=False, **model,
 ):
-    """The loop shared by the ILRMA fast paths (fast.py:196-325).
+    """The loop shared by the ILRMA fast paths (fast.py:196-483).
 
     Draws ``T0``, then ``V0``, as ``rng.random(...).astype(float32)``, as the
-    JAX package does, then iterates :func:`ilrma_ip_step` or
-    :func:`ilrma_iss_step` with their f32 ``eps = 1e-6``.
+    JAX package does; with ``partitioning`` the latent ``Z0`` (divided by
+    its sum over sources) comes first and all three are floored at 1e-10
+    (fast.py:402-406). Then it iterates :func:`ilrma_ip_step` or
+    :func:`ilrma_iss_step` (ISS1, IPA) with their f32 ``eps = 1e-6``; the
+    factors come back as ``(T, V)`` or ``(T, V, Z)``.
     """
-    _check_algorithm(name, algorithm)
+    _check_algorithm(name, algorithm, _PORTED_ALGORITHMS if model["model"] == "gauss" else ("IP1", "ISS1"))
     X = _spectrogram(spectrogram, device)
     n_channels, n_bins, n_frames = X.shape
     rng = np.random.default_rng() if rng is None else rng
-    T = torch.from_numpy(rng.random((n_channels, n_bins, n_basis)).astype(np.float32)).to(X.device)
-    V = torch.from_numpy(rng.random((n_channels, n_basis, n_frames)).astype(np.float32)).to(X.device)
+    if partitioning:
+        Z0 = rng.random((n_channels, n_basis))
+        draws = [rng.random((n_bins, n_basis)), rng.random((n_basis, n_frames)), Z0 / Z0.sum(axis=0)]
+        draws = [np.maximum(draw, 1e-10) for draw in draws]
+    else:
+        draws = [rng.random((n_channels, n_bins, n_basis)), rng.random((n_channels, n_basis, n_frames))]
+    factors = tuple(torch.from_numpy(draw.astype(np.float32)).to(X.device) for draw in draws)
 
     if algorithm == "IP1":
         W = _identity_filters(X)
         for _ in range(n_iter):
-            W, T, V = ilrma_ip_step(X, W, T, V, **model)
+            W, *factors = ilrma_ip_step(X, W, *factors, **model)
         Y, W = _restored(X, W, scale_restoration, reference_id)
-        return Y, (T, V), W
+        return Y, tuple(factors), W
 
     Y = X
     for _ in range(n_iter):
-        Y, T, V = ilrma_iss_step(Y, T, V, **model)
+        Y, *factors = ilrma_iss_step(Y, *factors, spatial=algorithm, **model)
     if scale_restoration:
         Y = projection_back(Y, reference=X, reference_id=reference_id)
-    return Y, (T, V), None
+    return Y, tuple(factors), None
 
 
 def fast_gauss_ilrma(
@@ -147,21 +159,18 @@ def fast_gauss_ilrma(
 ):
     """GaussILRMA (MM/ME, power normalization) in complex64 (fast.py:196-259).
 
-    ``algorithm``: ``"IP1"`` or ``"ISS1"``; ``source_algorithm``: MM or ME.
-    ``rng`` draws the NMF factors. Returns
-    ``(separated, (basis, activation), demix_filter or None)``, tensors on
-    ``device``. ``partitioning=True`` waits for ROADMAP.md, Queue 1, item 3.
+    ``algorithm``: ``"IP1"``, ``"ISS1"`` or ``"IPA"``; ``source_algorithm``:
+    MM or ME. ``rng`` draws the NMF factors. ``partitioning=True`` selects
+    the shared-basis latent model (fast.py:390-455). Returns
+    ``(separated, (basis, activation), demix_filter or None)``, with
+    ``(basis, activation, latent)`` under ``partitioning``, tensors on
+    ``device``.
     """
     if source_algorithm not in ("MM", "ME"):
         raise ValueError(f"unsupported option: {source_algorithm}.")
-    if partitioning:
-        raise NotImplementedError(
-            "fast_gauss_ilrma(partitioning=True) is not ported to ssspy_tpu_torch yet "
-            "(ROADMAP.md, Queue 1, item 3)."
-        )
     return _fast_ilrma(
         "fast_gauss_ilrma", spectrogram, n_basis, n_iter, algorithm, scale_restoration,
-        reference_id, rng, device, model="gauss", me=source_algorithm == "ME",
+        reference_id, rng, device, partitioning=partitioning, model="gauss", me=source_algorithm == "ME",
     )
 
 

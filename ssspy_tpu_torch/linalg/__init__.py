@@ -1,5 +1,6 @@
-"""Linear-algebra helpers of the port: the proximal operators of the prox family."""
+"""Linear-algebra helpers of the port: the proximal operators of the prox family and IPA's LQPQM solver."""
 
-from . import prox
+from . import lqpqm, prox
+from .lqpqm import lqpqm2
 
-__all__ = ["prox"]
+__all__ = ["lqpqm", "lqpqm2", "prox"]

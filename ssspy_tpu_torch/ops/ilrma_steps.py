@@ -1,18 +1,22 @@
-"""The ILRMA iterations (Gauss, t and GGD source models; IP1 and ISS1) and their loss.
+"""The ILRMA iterations (Gauss, t and GGD source models; IP1, ISS1 and IPA) and their loss.
 
 Counterparts of the generic ILRMA engine in ``ssspy_tpu/ops/splitc.py``
-(splitc.py:414-449, :477-520, :589-628, :673-693, :712-803, :4210-4261)
+(splitc.py:414-449, :477-520, :589-693, :712-803, :2267-2328, :4210-4261)
 on native complex tensors. The NMF products ``T @ V`` and the
 multiplicative-update contractions are plain matrix products, as in the
 JAX package, where they stay outside any Pallas kernel. The spatial update
 goes through the kernels of :mod:`ssspy_tpu_torch.ops.kernels`: the
 weighted covariance with per-bin weights ``(N, I, T)`` and the IP1 sweep,
-or the ISS1 sweep.
+the ISS1 sweep, or the IPA sweep of :mod:`ssspy_tpu_torch.ops.ipa_steps`
+(Gauss only).
 
 ``model`` is ``"gauss"``, ``"t"`` (``dof`` = nu) or ``"ggd"`` (``shape`` =
 beta); ``p`` is the domain parameter; ``me=True`` selects the ME source
-update (Gauss and t, ``p == 2``). The shared-basis partitioning (``Z``),
-IP2, ISS2 and IPA are not ported yet (ROADMAP.md, Queue 1, items 3 and 5).
+update (Gauss and t, ``p == 2``). With a latent ``Z (N, K)`` the sources
+share one basis ``T (I, K)`` and one activation ``V (K, T)`` (the
+partitioned model, ``r_nit = sum_k z_nk t_ik v_kt``), and each step also
+returns the new ``Z``. IP2 and ISS2 are not ported yet (ROADMAP.md, Queue
+1, item 5).
 """
 
 from typing import Callable, Optional, Tuple
@@ -20,17 +24,22 @@ from typing import Callable, Optional, Tuple
 import torch
 
 from . import kernels
+from .ipa_steps import ipa_sweep
 from .iva_steps import clogabsdet, ls_demix, separate
 
 __all__ = [
     "power",
     "ilrma_model_weights",
     "ilrma_model_varphi",
+    "reconstruct_nmf",
     "ilrma_mm_core",
+    "ilrma_mm_core_partitioning",
+    "power_normalize_partitioning",
     "ilrma_ip_step",
     "ilrma_iss_step",
     "gauss_ilrma_ip1_step",
     "gauss_ilrma_iss1_step",
+    "gauss_ilrma_ipa_step",
     "ilrma_loss",
 ]
 
@@ -122,24 +131,97 @@ def ilrma_mm_core(
     return T, V, floor_model(T @ V)
 
 
-def _check_ported(Z, spatial: Optional[str], ported: Optional[str]) -> None:
-    """Raise for the options of the JAX engine that the port does not run yet."""
-    if Z is not None:
-        raise NotImplementedError(
-            "the shared-basis partitioning (Z) is not ported to ssspy_tpu_torch yet "
-            "(ROADMAP.md, Queue 1, item 3)."
-        )
-    if spatial != ported:
+def reconstruct_nmf(T: torch.Tensor, V: torch.Tensor, Z: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """NMF power model ``(N, I, T)``: ``T @ V`` per source, or ``sum_k z_nk t_ik v_kt`` with a latent ``Z``."""
+    if Z is None:
+        return T @ V
+    return torch.einsum("nk,ik,kt->nit", Z, T, V)
+
+
+def ilrma_mm_core_partitioning(
+    Y2: torch.Tensor,
+    T: torch.Tensor,
+    V: torch.Tensor,
+    Z: torch.Tensor,
+    *,
+    model: str,
+    p: float,
+    floor: Callable,
+    floor_model: Callable,
+    nu=None,
+    beta=None,
+    me: bool = False,
+) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor, torch.Tensor]:
+    """Latent, basis, then activation update of the shared-basis model; returns ``(T, V, Z, R)``.
+
+    ``Z``: latent ``(N, K)``, renormalized over sources after its update and
+    not floored; ``T``: basis ``(I, K)``; ``V``: activation ``(K, T)``.
+    ``floor`` and ``floor_model`` as in :func:`ilrma_mm_core`. Counterpart
+    of ``splitc._ilrma_mm_core_partitioning`` (splitc.py:631-662) and of the
+    class's ``_update_latent`` / ``_update_basis`` / ``_update_activation``
+    (ssspy_tpu/bss/ilrma.py:650-696).
+    """
+
+    def weights(T, V, Z):
+        R = floor_model(reconstruct_nmf(T, V, Z))
+        w, ex, fac = ilrma_model_weights(model, Y2, R, p, nu, beta, me)
+        return fac * w, 1 / R, ex
+
+    w, r_inv, ex = weights(T, V, Z)
+    Z = (torch.einsum("ik,kt,nit->nk", T, V, w) / torch.einsum("ik,kt,nit->nk", T, V, r_inv)) ** ex * Z
+    Z = Z / Z.sum(dim=0)
+
+    w, r_inv, ex = weights(T, V, Z)
+    T = floor((torch.einsum("nk,kt,nit->ik", Z, V, w) / torch.einsum("nk,kt,nit->ik", Z, V, r_inv)) ** ex * T)
+
+    w, r_inv, ex = weights(T, V, Z)
+    V = floor((torch.einsum("nk,ik,nit->kt", Z, T, w) / torch.einsum("nk,ik,nit->kt", Z, T, r_inv)) ** ex * V)
+
+    return T, V, Z, floor_model(reconstruct_nmf(T, V, Z))
+
+
+def power_normalize_partitioning(psi: torch.Tensor, T: torch.Tensor, Z: torch.Tensor, p: float):
+    """Power normalization of the shared-basis factors; returns ``(T, Z)`` (splitc.py:665-670)."""
+    Z_psi = Z / (psi[:, None] ** p)
+    scale = Z_psi.sum(dim=0)  # (K,)
+    return T * scale, Z_psi / scale
+
+
+_UNPORTED_SPATIAL = ("IP2", "ISS2")
+
+
+def _check_ported(spatial: str, ported: str) -> None:
+    """Raise for the spatial updates of the JAX engine that the port does not run yet."""
+    if spatial in _UNPORTED_SPATIAL:
         raise NotImplementedError(
             f"spatial={spatial!r} is not ported to ssspy_tpu_torch yet "
-            f"(ROADMAP.md, Queue 1, items 3 and 5); use {ported!r}."
+            f"(ROADMAP.md, Queue 1, item 5); use {ported!r}."
         )
+    if spatial != ported:
+        raise ValueError(f"unsupported option: {spatial}.")
 
 
-def _power_normalize(Y: torch.Tensor, T: torch.Tensor, p: float, eps: float):
-    """``psi_n = max(sqrt(mean |y_n|^2), eps)`` and ``T / psi^p`` (splitc.py:753-758)."""
+def _source_model(Y2, T, V, Z, *, model, p, eps, dof, shape, me):
+    """The fast paths' source-model update, every floor ``max(., eps)``: ``(T, V, Z, varphi)``."""
+    floor = _max_floor(eps)
+    kw = dict(model=model, p=p, floor=floor, floor_model=floor, nu=dof, beta=shape, me=me)
+    if Z is None:
+        T, V, R = ilrma_mm_core(Y2, T, V, **kw)
+    else:
+        T, V, Z, R = ilrma_mm_core_partitioning(Y2, T, V, Z, **kw)
+    return T, V, Z, ilrma_model_varphi(model, Y2, R, p, dof, shape, floor)
+
+
+def _power_normalize(Y: torch.Tensor, T: torch.Tensor, Z, p: float, eps: float):
+    """``psi_n = max(sqrt(mean |y_n|^2), eps)`` and the factors that absorb it: ``(psi, T, Z)`` (splitc.py:753-760)."""
     psi = torch.clamp(torch.sqrt(torch.mean(power(Y), dim=(-2, -1))), min=eps)  # (N,)
-    return psi, T / (psi[:, None, None] ** p)
+    if Z is None:
+        return psi, T / (psi[:, None, None] ** p), None
+    return (psi, *power_normalize_partitioning(psi, T, Z, p))
+
+
+def _factors(T, V, Z):
+    return (T, V) if Z is None else (T, V, Z)
 
 
 def ilrma_ip_step(
@@ -147,7 +229,7 @@ def ilrma_ip_step(
     W: torch.Tensor,
     T: torch.Tensor,
     V: torch.Tensor,
-    Z=None,
+    Z: Optional[torch.Tensor] = None,
     model: str = "gauss",
     spatial: str = "IP1",
     domain: float = 2.0,
@@ -156,31 +238,27 @@ def ilrma_ip_step(
     shape: Optional[float] = None,
     me: bool = False,
 ):
-    """One ILRMA MM/ME + IP1 iteration; returns ``(W, T, V)``.
+    """One ILRMA MM/ME + IP1 iteration; returns ``(W, T, V)``, or ``(W, T, V, Z)`` with a latent ``Z``.
 
     ``X``: mixture ``(M, I, T)``; ``W``: demixing filters ``(I, N, M)``.
     Source model, per-bin weights, the weighted covariance and the IP1
-    sweep, then power normalization of ``W`` and ``T``. Counterpart of
-    ``splitc.ilrma_ip_step_sc`` with ``spatial="IP1"`` and no ``Z``
-    (splitc.py:712-760); ``Z`` and ``spatial="IP2"`` raise.
+    sweep, then power normalization of ``W`` and the factors. Counterpart
+    of ``splitc.ilrma_ip_step_sc`` with ``spatial="IP1"``
+    (splitc.py:712-760); ``spatial="IP2"`` raises.
     """
-    _check_ported(Z, spatial, "IP1")
-    p, floor = domain, _max_floor(eps)
+    _check_ported(spatial, "IP1")
     Y2 = power(separate(X, W))
-    T, V, R = ilrma_mm_core(
-        Y2, T, V, model=model, p=p, floor=floor, floor_model=floor, nu=dof, beta=shape, me=me
-    )
-    varphi = ilrma_model_varphi(model, Y2, R, p, dof, shape, floor)
+    T, V, Z, varphi = _source_model(Y2, T, V, Z, model=model, p=domain, eps=eps, dof=dof, shape=shape, me=me)
     W = kernels.ip1_sweep(W, kernels.weighted_covariance(X, varphi), eps=eps)
-    psi, T = _power_normalize(separate(X, W), T, p, eps)
-    return W / psi[None, :, None], T, V
+    psi, T, Z = _power_normalize(separate(X, W), T, Z, domain, eps)
+    return (W / psi[None, :, None], *_factors(T, V, Z))
 
 
 def ilrma_iss_step(
     Y: torch.Tensor,
     T: torch.Tensor,
     V: torch.Tensor,
-    Z=None,
+    Z: Optional[torch.Tensor] = None,
     model: str = "gauss",
     spatial: str = "ISS1",
     domain: float = 2.0,
@@ -188,24 +266,32 @@ def ilrma_iss_step(
     dof: Optional[float] = None,
     shape: Optional[float] = None,
     me: bool = False,
+    lqpqm_normalization: bool = True,
+    newton_iter: int = 1,
 ):
-    """One ILRMA MM/ME + ISS1 iteration on the separated spectrograms; returns ``(Y, T, V)``.
+    """One demix-free ILRMA MM/ME iteration on the separated spectrograms; returns ``(Y, T, V[, Z])``.
 
-    Demix-free twin of :func:`ilrma_ip_step`: the ISS1 sweep with per-bin
-    weights, then power normalization of ``Y`` and ``T``. Counterpart of
-    ``splitc.ilrma_iss_step_sc`` with ``spatial="ISS1"`` and no ``Z``
-    (splitc.py:763-803); ``Z`` and ``spatial="ISS2"`` raise.
+    Twin of :func:`ilrma_ip_step` without demixing filters: the ISS1 sweep
+    with per-bin weights (``spatial="ISS1"``) or, on the Gauss model, the
+    IPA sweep (``spatial="IPA"``, with its ``lqpqm_normalization`` and
+    ``newton_iter``), then power normalization of ``Y`` and the factors.
+    Counterpart of ``splitc.ilrma_iss_step_sc`` (splitc.py:763-803) and
+    ``splitc.gauss_ilrma_ipa_step_sc`` (splitc.py:2267-2328);
+    ``spatial="ISS2"`` raises.
     """
-    _check_ported(Z, spatial, "ISS1")
-    p, floor = domain, _max_floor(eps)
+    if spatial == "IPA":
+        if model != "gauss":
+            raise ValueError("only the Gauss source model has an IPA spatial update.")
+    else:
+        _check_ported(spatial, "ISS1")
     Y2 = power(Y)
-    T, V, R = ilrma_mm_core(
-        Y2, T, V, model=model, p=p, floor=floor, floor_model=floor, nu=dof, beta=shape, me=me
-    )
-    varphi = ilrma_model_varphi(model, Y2, R, p, dof, shape, floor)
-    Y = kernels.iss1_sweep(Y, varphi, eps=eps)
-    psi, T = _power_normalize(Y, T, p, eps)
-    return Y / psi[:, None, None], T, V
+    T, V, Z, varphi = _source_model(Y2, T, V, Z, model=model, p=domain, eps=eps, dof=dof, shape=shape, me=me)
+    if spatial == "IPA":
+        Y = ipa_sweep(Y, varphi, eps=eps, lqpqm_normalization=lqpqm_normalization, newton_iter=newton_iter)
+    else:
+        Y = kernels.iss1_sweep(Y, varphi, eps=eps)
+    psi, T, Z = _power_normalize(Y, T, Z, domain, eps)
+    return (Y / psi[:, None, None], *_factors(T, V, Z))
 
 
 def gauss_ilrma_ip1_step(X, W, T, V, domain: float = 2.0, eps: float = 1e-6):
@@ -227,6 +313,21 @@ def gauss_ilrma_iss1_step(Y, T, V, domain: float = 2.0, eps: float = 1e-6):
     return ilrma_iss_step(Y, T, V, model="gauss", domain=domain, eps=eps)
 
 
+def gauss_ilrma_ipa_step(
+    Y, T, V, Z=None, domain: float = 2.0, eps: float = 1e-6, lqpqm_normalization: bool = True,
+    newton_iter: int = 1, me: bool = False,
+):
+    """One GaussILRMA MM/ME + IPA iteration; returns ``(Y, T, V[, Z])``.
+
+    Counterpart of ``splitc.gauss_ilrma_ipa_step_sc`` (splitc.py:2267-2328),
+    the Gauss IPA case of :func:`ilrma_iss_step`.
+    """
+    return ilrma_iss_step(
+        Y, T, V, Z, model="gauss", spatial="IPA", domain=domain, eps=eps, me=me,
+        lqpqm_normalization=lqpqm_normalization, newton_iter=newton_iter,
+    )
+
+
 def ilrma_loss(
     X: torch.Tensor,
     T: torch.Tensor,
@@ -243,7 +344,7 @@ def ilrma_loss(
     """ILRMA negative log-likelihood, a 0-dim tensor on the input's device.
 
     ``sum_i [sum_n mean_t value_nit - 2 log|det W_i|]`` with the model
-    ``R = max(T V, eps)`` and, per source model,
+    ``R = max(T V, eps)`` (``sum_k z t v`` with a latent ``Z``) and, per source model,
 
     - gauss: ``|y|^2 / R^{2/p} + (2/p) log R``
     - t:     ``(1 + nu/2) log(1 + (2/nu) |y|^2 / R^{2/p}) + (2/p) log R``
@@ -251,16 +352,15 @@ def ilrma_loss(
 
     Pass ``W`` for the demix-filter state (IP) or ``Y`` for the demix-free
     state (ISS), whose ``W`` is recovered by least squares. Counterpart of
-    ``splitc.ilrma_loss_sc`` (splitc.py:4210-4261); ``Z`` raises.
+    ``splitc.ilrma_loss_sc`` (splitc.py:4210-4261).
     """
-    _check_ported(Z, None, None)
     p = domain
     if W is not None:
         Y = separate(X, W)
     else:
         W = ls_demix(Y, X)
     Y2 = power(Y)
-    R = torch.clamp(T @ V, min=eps)
+    R = torch.clamp(reconstruct_nmf(T, V, Z), min=eps)
     log_term = (2 / p) * torch.log(R)
     if model == "gauss":
         value = Y2 / (R ** (2 / p)) + log_term

@@ -1,4 +1,4 @@
-"""The AuxIVA-IP1 and AuxIVA-ISS1 iterations and their loss on native complex tensors.
+"""The AuxIVA-IP1, AuxIVA-ISS1 and AuxIVA-IPA iterations and their loss on native complex tensors.
 
 Counterparts of the split-complex functions in ``ssspy_tpu/ops/splitc.py``;
 the port carries complex tensors, so the ``[real, imag]`` planes and the
@@ -16,6 +16,7 @@ __all__ = [
     "separate",
     "auxiva_ip1_step",
     "auxiva_iss1_step",
+    "auxiva_ipa_step",
     "clogabsdet",
     "ls_demix",
     "iva_laplace_loss",
@@ -57,6 +58,23 @@ def auxiva_iss1_step(Y: torch.Tensor, eps: float = 1e-10) -> torch.Tensor:
     (splitc.py:401-411).
     """
     return kernels.iss1_sweep(Y, _laplace_varphi(Y, eps), eps=eps)
+
+
+def auxiva_ipa_step(
+    Y: torch.Tensor, eps: float = 1e-10, lqpqm_normalization: bool = True, newton_iter: int = 1
+) -> torch.Tensor:
+    """One AuxIVA-IPA iteration on the separated spectrograms ``(N, I, T)``.
+
+    Demix-free, as ISS: the Laplace weight ``(N, T)``, then the IPA sweep
+    (:func:`ssspy_tpu_torch.ops.ipa_steps.ipa_sweep`: the congruence sweep
+    in complex64, the reference's data flow in complex128). Counterpart of
+    ``splitc.auxiva_ipa_step_sc`` (splitc.py:2235-2264).
+    """
+    from .ipa_steps import ipa_sweep  # ipa_steps imports prox_steps, which imports this module
+
+    return ipa_sweep(
+        Y, _laplace_varphi(Y, eps), eps=eps, lqpqm_normalization=lqpqm_normalization, newton_iter=newton_iter
+    )
 
 
 def clogabsdet(W: torch.Tensor) -> torch.Tensor:

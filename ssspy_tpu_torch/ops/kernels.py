@@ -1,4 +1,4 @@
-"""The hand-written CUDA kernels of the IVA, ILRMA and prox-family steps, with their plain versions.
+"""The hand-written CUDA kernels of the IVA, ILRMA, IPA and prox-family steps, with their plain versions.
 
 - :func:`weighted_covariance` — ``U[i,n] = mean_t phi[n,(i),t] x_it x_it^H``,
   counterpart of ``ssspy_tpu.ops.pallas_kernels.weighted_covariance_sc``
@@ -16,6 +16,10 @@
   ``ssspy_tpu.ops.pallas_kernels.jacobi_eigh_lanes`` and
   ``ssspy_tpu.ops.jacobi.jacobi_eigh`` (pallas_kernels.py:811-943,
   jacobi.py:25-181); kernel ``csrc/jacobi_eigh.cu``.
+- :func:`ipa_congruence` — one round of the IPA congruence sweep,
+  ``U[s] <- T U[s] T^H`` for every source and ``G <- T G`` per bin,
+  counterpart of ``ssspy_tpu.ops.pallas_kernels.ipa_congruence_lanes``
+  (pallas_kernels.py:417-496); kernel ``csrc/ipa_congruence.cu``.
 
 Each wrapper takes its plain PyTorch version for CPU tensors and launches
 its kernel for CUDA tensors, which must be complex64/float32 and
@@ -45,6 +49,8 @@ __all__ = [
     "jacobi_sweeps",
     "jacobi_eigh",
     "jacobi_eigh_plain",
+    "ipa_congruence",
+    "ipa_congruence_plain",
 ]
 
 # limits the kernels take, mirrored from csrc/*.cu
@@ -73,6 +79,10 @@ _SIGNATURES = {
     "jacobi_eigh": (
         "jacobi_eigh_launch",
         [_VOID, _VOID, _VOID, _VOID, _INT, _INT, _INT, _INT, _FLOAT, _INT, _VOID],
+    ),
+    "ipa_congruence": (
+        "ipa_congruence_launch",
+        [_VOID, _VOID, _VOID, _VOID, _VOID, _INT, _INT, _INT, _INT, _VOID],
     ),
 }
 
@@ -515,3 +525,74 @@ def jacobi_eigh(
 
 
 jacobi_eigh.launches = 0
+
+
+# ---- IPA congruence round -----------------------------------------------------
+
+_IPA_MAX_N = 16  # sources and channels per bin, mirrored from csrc/ipa_congruence.cu
+
+
+def ipa_congruence_plain(
+    T: torch.Tensor, U: torch.Tensor, G: torch.Tensor
+) -> Tuple[torch.Tensor, torch.Tensor]:
+    """``(T U[s] T^H for every s, T G)`` per bin, by einsum on native complex.
+
+    ``T``, ``G``: ``(I, N, N)``; ``U``: ``(I, S, N, N)``. The products of
+    the XLA congruence engine (splitc.py:2101-2120) in their order:
+    ``T U[s]`` first, then its product with ``T^H``. Nothing is hermitized.
+    """
+    TU = torch.einsum("inm,ismp->isnp", T, U)
+    return torch.einsum("isnp,iqp->isnq", TU, T.conj()), torch.einsum("inm,imp->inp", T, G)
+
+
+def _check_ipa_congruence(T: torch.Tensor, U: torch.Tensor, G: torch.Tensor) -> None:
+    name = "ipa_congruence"
+    _require(T.dim() == 3 and T.shape[-1] == T.shape[-2], f"{name}: T must be (I, N, N), got {tuple(T.shape)}")
+    I, N, _ = T.shape
+    _require(U.dim() == 4, f"{name}: U must be (I, S, N, N), got {tuple(U.shape)}")
+    S = U.shape[1]
+    _require(
+        tuple(U.shape) == (I, S, N, N) and tuple(G.shape) == (I, N, N),
+        f"{name}: U {tuple(U.shape)} and G {tuple(G.shape)} do not match T {tuple(T.shape)}",
+    )
+    _require(
+        T.dtype == U.dtype == G.dtype == torch.complex64,
+        f"{name}: the kernel takes complex64, got {T.dtype}, {U.dtype}, {G.dtype}",
+    )
+    _require(
+        T.is_contiguous() and U.is_contiguous() and G.is_contiguous(), f"{name}: inputs must be contiguous"
+    )
+    _require(I >= 1, f"{name}: no bins")
+    _require(
+        1 <= N <= _IPA_MAX_N and 1 <= S <= _IPA_MAX_N,
+        f"{name}: the kernel takes N, S <= {_IPA_MAX_N}, got N={N}, S={S}",
+    )
+    _check_cuda(name, T, U, G)
+
+
+def ipa_congruence(
+    T: torch.Tensor, U: torch.Tensor, G: torch.Tensor
+) -> Tuple[torch.Tensor, torch.Tensor]:
+    """One IPA congruence round ``(U', G')``; kernel on CUDA, :func:`ipa_congruence_plain` on CPU.
+
+    ``U'[i, s] = T[i] U[i, s] T[i]^H`` and ``G'[i] = T[i] G[i]`` for a
+    general ``T``: ``T``, ``G`` complex ``(I, N, N)``, ``U`` complex
+    ``(I, S, N, N)``. The result is not hermitized. The kernel takes
+    complex64 and ``N, S <= 16``.
+    """
+    if _on_cpu(T, U, G):
+        return ipa_congruence_plain(T, U, G)
+    _check_ipa_congruence(T, U, G)
+    I, S, N, _ = U.shape
+    lib, launch = _entry("ipa_congruence")
+    U_out, G_out = torch.empty_like(U), torch.empty_like(G)
+    status = launch(
+        T.data_ptr(), U.data_ptr(), G.data_ptr(), U_out.data_ptr(), G_out.data_ptr(), I, S, N,
+        T.device.index, _stream(T.device),
+    )
+    _build.check(lib, "ipa_congruence", status)
+    ipa_congruence.launches += 1
+    return U_out, G_out
+
+
+ipa_congruence.launches = 0

@@ -9,6 +9,7 @@ from .flooring import (
     resolve_flooring_spec,
     sweep_eps,
 )
+from .psd import to_psd
 
 __all__ = [
     "EPS",
@@ -20,4 +21,5 @@ __all__ = [
     "max_flooring",
     "resolve_flooring_spec",
     "sweep_eps",
+    "to_psd",
 ]

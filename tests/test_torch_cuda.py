@@ -156,3 +156,54 @@ def test_normalize_by_spectral_norm_runs_on_the_card(cuda_device):
     assert K.jacobi_eigh.launches == before + 1
     norm = torch.linalg.matrix_norm(out.permute(1, 0, 2), ord=2).max()
     assert abs(float(norm) - 1) <= 1e-5
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("shape", [(257, 8, 8), (40, 3, 5), (9, 16, 16), (33, 2, 2)], ids=["main_path", "s3_n5", "s16_n16", "s2_n2"])
+def test_ipa_congruence_kernel_matches_plain(cuda_device, shape):
+    rng = np.random.default_rng(13)
+    I, S, N = shape
+    T, U, G = _complex(rng, (I, N, N), cuda_device), _complex(rng, (I, S, N, N), cuda_device), _complex(rng, (I, N, N), cuda_device)
+    U[[0, I // 2]] = 0  # silent bins
+    before = K.ipa_congruence.launches
+    U_new, G_new = K.ipa_congruence(T, U, G)
+    U_ref, G_ref = K.ipa_congruence_plain(T, U, G)
+    torch.cuda.synchronize()
+    assert K.ipa_congruence.launches == before + 1
+    assert torch.isfinite(torch.view_as_real(U_new)).all() and torch.isfinite(torch.view_as_real(G_new)).all()
+    assert not U_new[[0, I // 2]].any()
+    # N-term f32 complex sums, in another order on each side
+    assert (U_new - U_ref).abs().max() <= 1e-5 * U_ref.abs().max()
+    assert (G_new - G_ref).abs().max() <= 1e-5 * G_ref.abs().max()
+
+
+@pytest.mark.cuda
+def test_ipa_congruence_kernel_rejects_what_it_does_not_take(cuda_device):
+    T = torch.zeros((4, 3, 3), dtype=torch.complex64, device=cuda_device)
+    U = torch.zeros((4, 2, 3, 3), dtype=torch.complex64, device=cuda_device)
+    with pytest.raises(ValueError, match="complex64"):
+        K.ipa_congruence(T.to(torch.complex128), U.to(torch.complex128), T.to(torch.complex128))
+    with pytest.raises(ValueError, match="contiguous"):
+        K.ipa_congruence(T.mT, U, T)
+    with pytest.raises(ValueError, match="all CUDA tensors"):
+        K.ipa_congruence(T, U.cpu(), T)
+
+
+@pytest.mark.cuda
+def test_fast_auxiva_ipa_runs_through_the_kernels(cuda_device):
+    """Five iterations of ``fast_auxiva(algorithm="IPA")`` on the card: K1 once, K7 and K6 once per source, per iteration."""
+    from ssspy_tpu_torch.fast import fast_auxiva
+    from ssspy_tpu_torch.ops.iva_steps import iva_laplace_loss
+
+    rng = np.random.default_rng(14)
+    X = (rng.standard_normal((4, 65, 120)) + 1j * rng.standard_normal((4, 65, 120))).astype(np.complex64)
+    X[1] += 0.5 * X[0]
+    before = {name: getattr(K, name).launches for name in ("weighted_covariance", "jacobi_eigh", "ipa_congruence")}
+    Y, W = fast_auxiva(X, n_iter=5, algorithm="IPA", scale_restoration=False)
+    torch.cuda.synchronize()
+    after = {name: getattr(K, name).launches - count for name, count in before.items()}
+    assert after == {"weighted_covariance": 5, "jacobi_eigh": 20, "ipa_congruence": 20}
+    assert W is None and Y.device.type == "cuda" and Y.dtype == torch.complex64
+    assert torch.isfinite(torch.view_as_real(Y)).all()
+    Xt = torch.from_numpy(X).to(cuda_device)
+    assert float(iva_laplace_loss(Xt, Y=Y)) < float(iva_laplace_loss(Xt, Y=Xt))

@@ -292,22 +292,24 @@ def test_every_path_hands_the_kernels_what_they_take(monkeypatch):
 
 @pytest.mark.parametrize("algorithm", ["IP2", "ISS2", "IPA"])
 def test_unported_ilrma_options_raise(algorithm):
+    X, T, V = torch.zeros((2, 3, 4), dtype=torch.complex64), torch.ones((2, 3, 2)), torch.ones((2, 2, 4))
+    W = torch.eye(2, dtype=torch.complex64).expand(3, 2, 2)
+    if algorithm == "IPA":  # ported since, as the partitioning: Gauss only, and never with demixing filters
+        assert GaussILRMA(n_basis=2, spatial_algorithm="IPA", partitioning=True, device="cpu").partitioning
+        with pytest.raises(ValueError, match="no IPA"):
+            TILRMA(n_basis=2, dof=100, spatial_algorithm="IPA", device="cpu")
+        with pytest.raises(ValueError, match="unsupported option"):
+            ilrma_ip_step(X, W, T, V, spatial="IPA")
+        with pytest.raises(ValueError, match="Gauss"):
+            ilrma_iss_step(X, T, V, model="t", dof=100.0, spatial="IPA")
+        return
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         GaussILRMA(n_basis=2, spatial_algorithm=algorithm, device="cpu")
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         fast_gauss_ilrma(np.zeros((2, 3, 4), np.complex64), n_basis=2, algorithm=algorithm, device="cpu")
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        GaussILRMA(n_basis=2, partitioning=True, device="cpu")
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        fast_gauss_ilrma(np.zeros((2, 3, 4), np.complex64), n_basis=2, partitioning=True, device="cpu")
-    X, T, V = torch.zeros((2, 3, 4), dtype=torch.complex64), torch.ones((2, 3, 2)), torch.ones((2, 2, 4))
-    W, Z = torch.eye(2, dtype=torch.complex64).expand(3, 2, 2), torch.ones((2, 2))
     for call in (
         lambda: ilrma_ip_step(X, W, T, V, spatial=algorithm),
         lambda: ilrma_iss_step(X, T, V, spatial=algorithm),
-        lambda: ilrma_ip_step(X, W, T, V, Z=Z),
-        lambda: ilrma_iss_step(X, T, V, Z=Z),
-        lambda: ilrma_loss(X, T, V, Z=Z, W=W),
     ):
         with pytest.raises(NotImplementedError, match="ROADMAP"):
             call()

@@ -1,0 +1,627 @@
+"""ssspy_tpu_torch IPA (AuxIVA-IPA, GaussILRMA-IPA, the partitioned ILRMA) against the JAX package and the fixtures.
+
+Same numpy inputs through the JAX function and its port, module by module:
+the PSD projection and inverse, the LQPQM solvers, the congruence round
+(the Pallas kernel runs in interpret mode), the two sweeps, the steps, and
+the slice as a whole: the complex128 classes on
+``tests/regression/fixtures`` (the reference's own 1e-7 tolerance), the
+partitioned IP1/ISS1 classes against the JAX classes, and the complex64
+fast paths against ``ssspy_tpu.fast``. All on the CPU (``device="cpu"``),
+where the kernel wrappers take their plain versions.
+"""
+
+import functools
+import os
+
+import numpy as np
+import pytest
+import torch
+
+import jax
+import jax.numpy as jnp
+from ssspy_tpu.bss._update_spatial_model import _psd_inv as jax_psd_inv
+from ssspy_tpu.bss._update_spatial_model import update_by_ipa
+from ssspy_tpu.bss.ilrma import GaussILRMA as JaxGaussILRMA
+from ssspy_tpu.fast import fast_auxiva as jax_fast_auxiva
+from ssspy_tpu.fast import fast_gauss_ilrma as jax_fast_gauss_ilrma
+from ssspy_tpu.linalg import lqpqm as jax_lqpqm
+from ssspy_tpu.ops.pallas_kernels import ipa_congruence_lanes
+from ssspy_tpu.ops.splitc import auxiva_ipa_step_sc, gauss_ilrma_ipa_step_sc, ipa_sweep_sc, lqpqm2_sc
+from ssspy_tpu.special.psd import to_psd as jax_to_psd
+from ssspy_tpu_torch.bss import GGDILRMA, TILRMA, AuxIVA, AuxLaplaceIVA, GaussILRMA
+from ssspy_tpu_torch.fast import fast_auxiva, fast_gauss_ilrma, fast_ggd_ilrma, fast_t_ilrma
+from ssspy_tpu_torch.linalg import lqpqm
+from ssspy_tpu_torch.ops import (
+    auxiva_ipa_step,
+    gauss_ilrma_ipa_step,
+    ipa_congruence_plain,
+    ipa_sweep_congruence,
+    ipa_sweep_direct,
+)
+from ssspy_tpu_torch.ops import ipa_steps
+from ssspy_tpu_torch.ops import kernels as K
+from ssspy_tpu_torch.special.flooring import max_flooring
+from ssspy_tpu_torch.special.psd import psd_inv, to_psd
+from ssspy_tpu_torch.utils import complex_to_planar, from_jax_state, host_stft, make_mixture
+
+torch.set_num_threads(1)
+
+FIXTURES = os.path.join(os.path.dirname(os.path.abspath(__file__)), "regression", "fixtures")
+N_ITER = 10
+# what ipa_sweep_congruence computes, in the JAX package's words
+CONGRUENCE = dict(psd_impl="tikhonov", secular_impl="eigh", stats_impl="congruence", congruence_impl="interpret")
+# the same arithmetic as batched einsums, for the references that iterate a step (jitted: the eager sweep is slow)
+CONGRUENCE_XLA = {**CONGRUENCE, "congruence_impl": "xla"}
+
+
+def _rel_err(got, ref):
+    got, ref = np.asarray(got), np.asarray(ref)
+    return np.abs(got - ref).max() / np.abs(ref).max()
+
+
+def _crandn(rng, shape):
+    return rng.standard_normal(shape) + 1j * rng.standard_normal(shape)
+
+
+def _planes(a, dtype=np.float64):
+    return jnp.asarray(a.real.astype(dtype)), jnp.asarray(a.imag.astype(dtype))
+
+
+def _to_complex(pair):
+    return np.asarray(pair[0]) + 1j * np.asarray(pair[1])
+
+
+def _spectrogram(n_channels=3, n_fft=64, n_frames=40, seed=0):
+    """Small convolutive mixture STFT: (n_channels, n_fft//2 + 1, n_frames) complex128."""
+    n_samples = (n_frames - 1) * (n_fft // 2)
+    x = make_mixture(seed=seed, n_channels=n_channels, duration_s=n_samples / 16000)
+    return host_stft(x, n_fft=n_fft, hop=n_fft // 2)
+
+
+def _si_sdr_db(est, ref):
+    est, ref = np.asarray(est, np.complex128).ravel(), np.asarray(ref, np.complex128).ravel()
+    alpha = np.vdot(ref, est) / np.vdot(ref, ref)
+    return 10 * np.log10(np.real(np.vdot(alpha * ref, alpha * ref) / np.vdot(est - alpha * ref, est - alpha * ref)))
+
+
+# ---- PSD projection and inverse ---------------------------------------------------
+
+
+def _hermitian_batch(rng, shape, rank=None):
+    n = shape[-1]
+    A = _crandn(rng, shape[:-1] + (n if rank is None else rank,))
+    return A @ A.conj().swapaxes(-1, -2) / n + 0.01 * _crandn(rng, shape)  # slightly non-Hermitian, as a mean is
+
+
+def test_to_psd_and_psd_inv_match_jax():
+    rng = np.random.default_rng(0)
+    X = _hermitian_batch(rng, (7, 3, 4, 4), rank=2)  # rank-deficient: the floor acts
+    got = to_psd(torch.from_numpy(X)).numpy()
+    np.testing.assert_allclose(got, np.asarray(jax_to_psd(jnp.asarray(X))), atol=1e-10)
+    assert np.linalg.eigvalsh(got).min() >= 0.99e-10  # floored, up to rounding at the scale of lamb_max
+    floor = functools.partial(max_flooring, eps=1e-3)
+    np.testing.assert_allclose(
+        to_psd(torch.from_numpy(X), flooring_fn=floor).numpy(),
+        np.asarray(jax_to_psd(jnp.asarray(X), flooring_fn=lambda x: jnp.maximum(x, 1e-3))), atol=1e-10,
+    )
+    P = to_psd(torch.from_numpy(_hermitian_batch(rng, (7, 4, 4))))
+    np.testing.assert_allclose(psd_inv(P).numpy(), np.asarray(jax_psd_inv(jnp.asarray(P.numpy()))), atol=1e-10)
+    real = rng.standard_normal((5, 3, 3))
+    np.testing.assert_allclose(
+        to_psd(torch.from_numpy(real)).numpy(), np.asarray(jax_to_psd(jnp.asarray(real))), atol=1e-10
+    )
+
+
+def test_psd_relative_floor_and_the_complex64_route():
+    """``rel`` floors at ``rel lamb_max`` per matrix; complex64 goes through the embedded Jacobi eigh."""
+    rng = np.random.default_rng(1)
+    X = _hermitian_batch(rng, (6, 4, 4), rank=2)
+    X = (X + X.conj().swapaxes(-1, -2)) / 2
+    got = to_psd(torch.from_numpy(X), rel=1e-2).numpy()
+    lamb, top = np.linalg.eigvalsh(got), np.linalg.eigvalsh(X)[:, -1]
+    assert np.all(lamb[:, 0] >= 1e-2 * top * (1 - 1e-9))
+    calls = K.jacobi_eigh.launches
+    got32 = to_psd(torch.from_numpy(X.astype(np.complex64)), rel=1e-2)
+    assert got32.dtype == torch.complex64 and K.jacobi_eigh.launches == calls  # the plain Jacobi, on the CPU
+    assert _rel_err(got32.numpy(), got) <= 1e-5
+    inv32 = psd_inv(got32, rel=1e-2).numpy()
+    assert _rel_err(inv32, np.linalg.inv(got)) <= 1e-4
+    with pytest.raises(ValueError, match="complex64"):
+        to_psd(torch.zeros((2, 2), dtype=torch.float32))
+
+
+# ---- the LQPQM solvers -----------------------------------------------------------------
+
+
+def _lqpqm_problem(rng, n_bins=40, K_=5, n_singular=3):
+    M = _crandn(rng, (n_bins, K_, K_))
+    H = M @ M.conj().swapaxes(-1, -2) / K_
+    v = _crandn(rng, (n_bins, K_))
+    v[:n_singular] = 0
+    return H, v, rng.random(n_bins)
+
+
+@pytest.mark.parametrize("real_only", [False, True], ids=["complex", "real"])
+def test_cubic_root_finders_match_jax(real_only):
+    rng = np.random.default_rng(2)
+    A, B, C = (3 * rng.standard_normal(300) for _ in range(3))
+    A[:5], B[:5], C[:5] = 0.0, 0.0, rng.standard_normal(5)  # U == 0 and s == 0 branches
+    B[5:10], C[5:10] = 0.0, 0.0
+    name = "_find_largest_root_real" if real_only else "_find_largest_root"
+    ref = np.asarray(getattr(jax_lqpqm, name)(*map(jnp.asarray, (A, B, C))))
+    got = getattr(lqpqm, name)(*map(torch.from_numpy, (A, B, C))).numpy()
+    np.testing.assert_allclose(got, ref, atol=1e-9)
+
+
+@pytest.mark.parametrize("normalization", [True, False])
+def test_solve_equation_matches_jax(normalization):
+    rng = np.random.default_rng(3)
+    phi = np.sort(rng.random((50, 6)), axis=-1)
+    v, z = _crandn(rng, (50, 6)), rng.random(50)
+    v[:4] *= 1e-7  # every term under the mask floor
+    for root_finder in ("_find_largest_root", "_find_largest_root_real"):
+        ref = jax_lqpqm.solve_equation(
+            *map(jnp.asarray, (phi, v, z)), normalization=normalization, root_finder=getattr(jax_lqpqm, root_finder)
+        )
+        got = lqpqm.solve_equation(
+            *map(torch.from_numpy, (phi, v, z)), normalization=normalization, root_finder=getattr(lqpqm, root_finder)
+        )
+        np.testing.assert_allclose(got.numpy(), np.asarray(ref), atol=1e-9)
+
+
+def test_lqpqm2_matches_jax():
+    H, v, z = _lqpqm_problem(np.random.default_rng(4))
+    ref = np.asarray(jax_lqpqm.lqpqm2(*map(jnp.asarray, (H, v, z))))
+    got = lqpqm.lqpqm2(*map(torch.from_numpy, (H, v, z))).numpy()
+    np.testing.assert_allclose(got[3:], ref[3:], atol=1e-9)
+    # the singular branch: an eigenvector's phase is the library's, its norm is not
+    np.testing.assert_allclose(np.linalg.norm(got[:3], axis=-1), np.linalg.norm(ref[:3], axis=-1), atol=1e-9)
+    got_eq0 = lqpqm.lqpqm2(*map(torch.from_numpy, (H, v, z)), flooring_fn=None, singular_fn=None).numpy()
+    ref_eq0 = np.asarray(jax_lqpqm.lqpqm2(*map(jnp.asarray, (H, v, z)), flooring_fn=None, singular_fn=None))
+    np.testing.assert_allclose(got_eq0[3:], ref_eq0[3:], atol=1e-9)
+
+
+def test_solve_equation_stays_finite_on_degenerate_float32_coefficients():
+    """Every ``phi |v|^2`` under the mask: ``phi_max`` collapses to the floor, ``z / eps`` reaches 1e9 and the
+    raw cubic's ``A^3`` leaves float32; the rescaled root finders and the finite guard keep the root finite."""
+    phi = torch.tensor([[0.2, 0.5, 1.0]], dtype=torch.float32)
+    v = torch.full((1, 3), 1e-7, dtype=torch.float32)
+    z = torch.tensor([0.3], dtype=torch.float32)
+    for root_finder in (lqpqm._find_largest_root, lqpqm._find_largest_root_real):
+        lamb = lqpqm.solve_equation(phi, v, z, max_iter=3, root_finder=root_finder)
+        assert lamb.dtype == torch.float32 and torch.isfinite(lamb).all()
+        ref = jax_lqpqm.solve_equation(
+            jnp.asarray(phi.numpy()), jnp.asarray(v.numpy()), jnp.asarray(z.numpy()), max_iter=3
+        )
+        np.testing.assert_allclose(lamb.numpy(), np.asarray(ref), rtol=1e-5)
+    A = torch.tensor([-3e9], dtype=torch.float32)
+    assert torch.isfinite(lqpqm._find_largest_root_real(A, torch.tensor([6e9]), torch.tensor([-3e9]))).all()
+
+
+@pytest.mark.parametrize("dtype,tol", [(np.float64, 1e-9), (np.float32, 5e-4)], ids=["f64", "f32"])
+def test_sweep_lqpqm2_matches_jax(dtype, tol):
+    H, v, z = _lqpqm_problem(np.random.default_rng(5))
+    cdtype = np.complex128 if dtype == np.float64 else np.complex64
+    ref = _to_complex(lqpqm2_sc(*_planes(H, dtype), *_planes(v, dtype), jnp.asarray(z.astype(dtype)), secular_impl="eigh"))
+    got = ipa_steps.lqpqm2(
+        torch.from_numpy(H.astype(cdtype)), torch.from_numpy(v.astype(cdtype)), torch.from_numpy(z.astype(dtype))
+    )
+    assert got.dtype == (torch.complex128 if dtype == np.float64 else torch.complex64)
+    got = got.numpy()
+    assert np.abs(got[3:] - ref[3:]).max() <= tol * max(1.0, np.abs(ref[3:]).max())
+    np.testing.assert_allclose(np.linalg.norm(got[:3], axis=-1), np.linalg.norm(ref[:3], axis=-1), atol=10 * tol)
+
+
+# ---- the congruence round ----------------------------------------------------------------
+
+
+def test_ipa_congruence_plain_matches_the_pallas_kernel_and_the_einsums():
+    rng = np.random.default_rng(6)
+    I, S, N = 9, 3, 4
+    T, U, G = _crandn(rng, (I, N, N)), _crandn(rng, (I, S, N, N)), _crandn(rng, (I, N, N))
+
+    # float32 against the Pallas kernel in interpret mode, in its lane layout (bins last)
+    lanes = lambda a: [jnp.asarray(np.moveaxis(p, 0, -1).astype(np.float32)) for p in (a.real, a.imag)]
+    ULr, ULi, GLr, GLi = ipa_congruence_lanes(*lanes(T), *lanes(U), *lanes(G), impl="interpret")
+    U32, G32 = ipa_congruence_plain(*(torch.from_numpy(a.astype(np.complex64)) for a in (T, U, G)))
+    np.testing.assert_allclose(U32.numpy(), np.moveaxis(_to_complex((ULr, ULi)), -1, 0), atol=1e-5)
+    np.testing.assert_allclose(G32.numpy(), np.moveaxis(_to_complex((GLr, GLi)), -1, 0), atol=1e-5)
+
+    # float64 against the XLA engine's planar einsums (splitc.py:2101-2120)
+    Tr, Ti, Ur, Ui, Gr, Gi = T.real, T.imag, U.real, U.imag, G.real, G.imag
+    TUr = np.einsum("inm,ismp->isnp", Tr, Ur) - np.einsum("inm,ismp->isnp", Ti, Ui)
+    TUi = np.einsum("inm,ismp->isnp", Tr, Ui) + np.einsum("inm,ismp->isnp", Ti, Ur)
+    U_ref = (np.einsum("isnp,iqp->isnq", TUr, Tr) + np.einsum("isnp,iqp->isnq", TUi, Ti)) + 1j * (
+        np.einsum("isnp,iqp->isnq", TUi, Tr) - np.einsum("isnp,iqp->isnq", TUr, Ti)
+    )
+    G_ref = T @ G
+    U64, G64 = ipa_congruence_plain(*map(torch.from_numpy, (T, U, G)))
+    np.testing.assert_allclose(U64.numpy(), U_ref, atol=1e-12)
+    np.testing.assert_allclose(G64.numpy(), G_ref, atol=1e-12)
+    # the wrapper takes the plain version on the CPU and counts no launch
+    before = K.ipa_congruence.launches
+    assert torch.equal(K.ipa_congruence(*map(torch.from_numpy, (T, U, G)))[0], U64)
+    assert K.ipa_congruence.launches == before
+
+
+def test_ipa_congruence_kernel_checks():
+    """What the kernel's wrapper refuses, without a card: the checks run before the device's."""
+    T, U, G = torch.zeros((5, 4, 4), dtype=torch.complex64), torch.zeros((5, 3, 4, 4), dtype=torch.complex64), None
+    G = torch.zeros_like(T)
+    with pytest.raises(ValueError, match="all CUDA tensors"):
+        K._check_ipa_congruence(T, U, G)  # everything else passes; the CPU tensors are the last check
+    with pytest.raises(ValueError, match="complex64"):
+        K._check_ipa_congruence(T.to(torch.complex128), U, G)
+    with pytest.raises(ValueError, match="do not match"):
+        K._check_ipa_congruence(T, U[:, :, :3], G)
+    with pytest.raises(ValueError, match="contiguous"):
+        K._check_ipa_congruence(T.mT, U, G)
+    big = torch.zeros((2, 17, 17), dtype=torch.complex64)
+    with pytest.raises(ValueError, match="N, S <= 16"):
+        K._check_ipa_congruence(big, torch.zeros((2, 3, 17, 17), dtype=torch.complex64), big)
+
+
+# ---- the sweeps ----------------------------------------------------------------------------
+
+
+def _sweep_sc(Y, varphi, dtype=np.float64, **kwargs):
+    """``ipa_sweep_sc`` on the planes of ``Y``, jitted (the eager sweep is slow), back as a complex array."""
+    sweep = jax.jit(lambda Yr, Yi, vp: ipa_sweep_sc(Yr, Yi, vp, **kwargs))
+    return _to_complex(sweep(*_planes(Y, dtype), jnp.asarray(varphi.astype(dtype))))
+
+
+def _sweep_input(rng, per_bin, N=4, I=9, T=40):
+    Y = _crandn(rng, (N, I, T))
+    return Y, 0.5 + rng.random((N, I, T) if per_bin else (N, T))
+
+
+@pytest.mark.parametrize("per_bin", [False, True], ids=["scalar", "per_bin"])
+def test_ipa_sweep_direct_matches_update_by_ipa(per_bin):
+    Y, varphi = _sweep_input(np.random.default_rng(7), per_bin)
+    full = varphi if per_bin else np.broadcast_to(varphi[:, None, :], Y.shape)
+    ref = np.asarray(jax.jit(update_by_ipa)(jnp.asarray(Y), jnp.asarray(full)))
+    got = ipa_sweep_direct(torch.from_numpy(Y), torch.from_numpy(varphi))
+    np.testing.assert_allclose(got.numpy(), ref, atol=1e-9)
+    other = jax.jit(lambda Y, varphi: update_by_ipa(Y, varphi, normalization=False, max_iter=3))
+    ref2 = np.asarray(other(jnp.asarray(Y), jnp.asarray(full)))
+    got2 = ipa_sweep_direct(torch.from_numpy(Y), torch.from_numpy(varphi), lqpqm_normalization=False, newton_iter=3)
+    np.testing.assert_allclose(got2.numpy(), ref2, atol=1e-9)
+
+
+@pytest.mark.parametrize("per_bin", [False, True], ids=["scalar", "per_bin"])
+def test_ipa_sweep_congruence_matches_jax(per_bin):
+    Y, varphi = _sweep_input(np.random.default_rng(8), per_bin)
+    ref = _sweep_sc(Y, varphi, **CONGRUENCE)
+    got = ipa_sweep_congruence(torch.from_numpy(Y), torch.from_numpy(varphi))
+    np.testing.assert_allclose(got.numpy(), ref, atol=1e-9)
+
+    # float32 at its own floor (1e-6, what the ILRMA steps pass)
+    ref32 = _sweep_sc(Y, varphi, np.float32, eps=1e-6, **CONGRUENCE)
+    got32 = ipa_sweep_congruence(
+        torch.from_numpy(Y.astype(np.complex64)), torch.from_numpy(varphi.astype(np.float32)), eps=1e-6
+    )
+    assert got32.dtype == torch.complex64 and got32.is_contiguous()
+    assert _rel_err(got32.numpy(), ref32) <= 1e-4
+
+
+def test_ipa_sweep_congruence_agrees_with_the_direct_sweep_under_one_ridge():
+    """The reassociation alone: the direct data flow with the congruence sweep's ridge gives the same update."""
+    Y, varphi = _sweep_input(np.random.default_rng(9), per_bin=True)
+    ref = _sweep_sc(Y, varphi, psd_impl="tikhonov", secular_impl="eigh", stats_impl="direct", rel=1e-6)
+    got = ipa_sweep_congruence(torch.from_numpy(Y), torch.from_numpy(varphi), rel=1e-6)
+    np.testing.assert_allclose(got.numpy(), ref, atol=1e-9)
+
+
+def test_zero_bins_stay_zero_through_the_congruence_sweep():
+    """A bin of zeros (a padded or silent bin) comes back finite and exactly zero, in complex64."""
+    rng = np.random.default_rng(10)
+    for (N, I, T), eps in (((3, 17, 30), 1e-10), ((8, 9, 40), 1e-10), ((8, 9, 40), 1e-6)):
+        Y = _crandn(rng, (N, I, T)).astype(np.complex64)
+        Y[:, -4:] = 0
+        for shape in ((N, T), (N, I, T)):
+            varphi = torch.from_numpy((0.5 + rng.random(shape)).astype(np.float32))
+            out = ipa_sweep_congruence(torch.from_numpy(Y), varphi, eps=eps)
+            assert torch.isfinite(torch.view_as_real(out)).all()
+            assert float(out[:, -4:].abs().max()) == 0.0
+            assert float(out[:, :-4].abs().min()) > 0.0
+
+
+def test_ipa_sweep_routes_by_dtype(monkeypatch):
+    seen = []
+    monkeypatch.setattr(ipa_steps, "ipa_sweep_direct", lambda Y, *a: seen.append("direct") or Y)
+    monkeypatch.setattr(ipa_steps, "ipa_sweep_congruence", lambda Y, *a: seen.append("congruence") or Y)
+    Y = torch.zeros((2, 3, 4), dtype=torch.complex128)
+    ipa_steps.ipa_sweep(Y, torch.ones((2, 4), dtype=torch.float64))
+    ipa_steps.ipa_sweep(Y.to(torch.complex64), torch.ones((2, 4)))
+    assert seen == ["direct", "congruence"]
+    with pytest.raises(ValueError, match="complex128 or complex64"):
+        ipa_steps.ipa_sweep(torch.zeros((2, 3, 4)), torch.ones((2, 4)))
+
+
+def test_complex64_paths_hand_the_kernels_what_they_take(monkeypatch):
+    """The IPA paths pass K1's, K6's and K7's own argument checks (dtype, shape, contiguity).
+
+    On the CPU the wrappers take their plain versions before any check, so
+    here each wrapper runs its kernel's checks (all but the device) first.
+    """
+    monkeypatch.setattr(K, "_check_cuda", lambda name, *tensors: None)
+    checked = {}
+    for name, check, plain in (
+        ("weighted_covariance", K._check_weighted_covariance, K.weighted_covariance_plain),
+        ("ipa_congruence", K._check_ipa_congruence, K.ipa_congruence_plain),
+        ("jacobi_eigh", K._check_jacobi_eigh, K.jacobi_eigh_plain),
+    ):
+
+        def checking(*args, _name=name, _check=check, _plain=plain):
+            _check(*args)
+            checked[_name] = checked.get(_name, 0) + 1
+            return _plain(*args)
+
+        monkeypatch.setattr(K, name, checking)
+
+    X = _spectrogram(seed=11).astype(np.complex64)
+    Xt, rng = torch.from_numpy(X), np.random.default_rng
+    AuxLaplaceIVA(spatial_algorithm="IPA", device="cpu")(Xt, n_iter=2)
+    fast_auxiva(X, n_iter=2, algorithm="IPA", device="cpu")
+    for kw in ({}, {"source_algorithm": "ME"}, {"partitioning": True}):
+        GaussILRMA(n_basis=2, spatial_algorithm="IPA", device="cpu", rng=rng(12), **kw)(Xt, n_iter=2)
+        fast_gauss_ilrma(X, n_basis=2, n_iter=2, algorithm="IPA", rng=rng(13), device="cpu", **kw)
+    n_sweeps = 2 * 8
+    assert checked == {"weighted_covariance": n_sweeps, "ipa_congruence": 3 * n_sweeps, "jacobi_eigh": 3 * n_sweeps}
+
+
+# ---- the steps, float32 ------------------------------------------------------------------------
+
+
+def _f32_state(n_channels=3, seed=14, partitioning=False):
+    X = _spectrogram(n_channels=n_channels, seed=seed)
+    N, I, T = X.shape
+    rng = np.random.default_rng(seed + 1)
+    W = np.eye(N)[None] + 0.1 * _crandn(rng, (I, N, N))
+    Ys = np.stack(_planes(np.einsum("inm,mit->nit", W, X), np.float32))
+    if partitioning:
+        Z0 = rng.random((N, 2))
+        factors = (rng.random((I, 2)), rng.random((2, T)), Z0 / Z0.sum(axis=0))
+    else:
+        factors = (rng.random((N, I, 2)), rng.random((N, 2, T)))
+    return Ys, tuple(f.astype(np.float32) for f in factors)
+
+
+def test_auxiva_ipa_step_matches_jax_f32():
+    Ys, _ = _f32_state(seed=16)
+    ref, got = jnp.asarray(Ys), from_jax_state({"Y": Ys})["Y"]
+    step_sc = jax.jit(lambda Y: auxiva_ipa_step_sc(Y, eps=1e-6, **CONGRUENCE_XLA))
+    for _ in range(N_ITER):
+        ref = step_sc(ref)
+        got = auxiva_ipa_step(got, eps=1e-6)
+    assert got.dtype == torch.complex64
+    assert _rel_err(complex_to_planar(got), ref) <= 1e-3
+
+
+@pytest.mark.parametrize(
+    "me,partitioning", [(False, False), (True, False), (False, True), (True, True)],
+    ids=["MM", "ME", "MM_partitioning", "ME_partitioning"],
+)
+def test_gauss_ilrma_ipa_step_matches_jax_f32(me, partitioning):
+    """Ten float32 steps, 1e-3 relative.
+
+    The two packages round differently (LAPACK's eigh there, the Jacobi
+    iteration here), and IPA amplifies that wherever the one Newton trip
+    leaves the secular root within a few float32 ulps of the pole
+    ``phi_max``: the step ``(lamb I - H)^{-1} H v`` then divides by a
+    difference that is mostly rounding. The partitioned start, whose
+    sources are nearly exchangeable, sits in that regime for most seeds
+    (two float32 runs of either package then agree to no more than a few
+    per cent, against 2e-4 here), so its seed is one that stays clear of it.
+    """
+    Ys, factors = _f32_state(seed=46 if partitioning else 18, partitioning=partitioning)
+    names = ("T", "V", "Z")[: len(factors)]
+    ref = (jnp.asarray(Ys), *map(jnp.asarray, factors))
+    state = from_jax_state({"Y": Ys, **dict(zip(names, factors))})
+    got = (state["Y"], *(state[k] for k in names))
+    step_sc = jax.jit(lambda Y, T, V, Z=None: gauss_ilrma_ipa_step_sc(Y, T, V, Z=Z, me=me, **CONGRUENCE_XLA))
+    for _ in range(N_ITER):
+        ref = step_sc(*ref)
+        got = gauss_ilrma_ipa_step(*got, me=me)
+    assert len(got) == len(ref) == 1 + len(factors)
+    assert _rel_err(complex_to_planar(got[0]), ref[0]) <= 1e-3
+    for g, r in zip(got[1:], ref[1:]):
+        assert g.dtype == torch.float32 and _rel_err(g.numpy(), r) <= 1e-3
+
+
+def test_from_jax_state_carries_a_partitioned_state():
+    """A partitioned ILRMA state crosses as it is: ``T (I, K)``, ``V (K, T)`` and ``Z (N, K)`` stay real, whatever their leading axis."""
+    Ys, (T0, V0, Z0) = _f32_state(n_channels=2, seed=20, partitioning=True)
+    assert Z0.shape == (2, 2) and V0.shape[0] == 2  # leading axes of 2, which a shape rule would read as planar
+    state = from_jax_state({"Y": Ys, "T": T0, "V": V0, "Z": Z0})
+    assert state["Y"].dtype == torch.complex64 and state["Y"].shape == Ys.shape[1:]
+    for key, ref in (("T", T0), ("V", V0), ("Z", Z0)):
+        assert state[key].dtype == torch.float32 and np.array_equal(state[key].numpy(), ref)
+    Y, T, V, Z = gauss_ilrma_ipa_step(state["Y"], state["T"], state["V"], state["Z"])
+    assert (T.shape, V.shape, Z.shape) == (T0.shape, V0.shape, Z0.shape)
+    np.testing.assert_allclose(Z.sum(dim=0).numpy(), 1.0, rtol=1e-5)
+
+
+# ---- the slice as a whole: the classes on the fixtures (complex128) ------------------------------
+
+
+def _nmf_init(n_sources, n_bins, n_frames, n_basis=2, seed=5):
+    """The warm start of tests/regression/test_regression.py:_nmf_init."""
+    rng = np.random.default_rng(seed)
+    return {"basis": rng.random((n_sources, n_bins, n_basis)), "activation": rng.random((n_sources, n_basis, n_frames))}
+
+
+def _nmf_part_init(n_sources, n_bins, n_frames, n_basis=2, seed=5):
+    """The warm start of tests/regression/test_regression.py:_nmf_part_init."""
+    rng = np.random.default_rng(seed)
+    Z = rng.random((n_sources, n_basis))
+    return {"latent": Z / Z.sum(axis=0), "basis": rng.random((n_bins, n_basis)), "activation": rng.random((n_basis, n_frames))}
+
+
+def _fixture(name):
+    X = np.load(os.path.join(FIXTURES, "input.npz"))["spectrogram"]
+    return X, np.load(os.path.join(FIXTURES, f"{name}.npz"))["target"]
+
+
+def test_auxiva_ipa_class_matches_regression_fixture():
+    X, target = _fixture("auxiva_ipa")
+    iva = AuxIVA(
+        spatial_algorithm="IPA", device="cpu",
+        contrast_fn=lambda y: 2 * torch.linalg.vector_norm(y, dim=1), d_contrast_fn=lambda y: 2 * torch.ones_like(y),
+    )
+    Y = iva(torch.from_numpy(X.copy()), n_iter=N_ITER)
+    assert Y.dtype == torch.complex128 and iva.demix_filter is None
+    np.testing.assert_allclose(Y.numpy(), target, atol=1e-7)
+    assert len(iva.loss) == N_ITER + 1 and iva.loss[-1] < iva.loss[0]
+    assert (iva.lqpqm_normalization, iva.newton_iter) == (True, 1)
+
+
+_ILRMA_FIXTURES = [
+    ("gauss_ilrma_ipa", {}, _nmf_init),
+    ("gauss_ilrma_ipa_me", {"source_algorithm": "ME"}, _nmf_init),
+    ("gauss_ilrma_ipa_partitioning", {"partitioning": True}, _nmf_part_init),
+    ("gauss_ilrma_ipa_partitioning_me", {"partitioning": True, "source_algorithm": "ME"}, _nmf_part_init),
+]
+
+
+@pytest.mark.parametrize("fixture,kwargs,init", _ILRMA_FIXTURES, ids=[c[0] for c in _ILRMA_FIXTURES])
+def test_gauss_ilrma_ipa_class_matches_regression_fixture(fixture, kwargs, init):
+    X, target = _fixture(fixture)
+    ilrma = GaussILRMA(n_basis=2, spatial_algorithm="IPA", device="cpu", **kwargs)
+    Y = ilrma(torch.from_numpy(X.copy()), n_iter=N_ITER, **init(*X.shape))
+    assert Y.dtype == torch.complex128 and ilrma.demix_filter is None
+    np.testing.assert_allclose(Y.numpy(), target, atol=1e-7)
+    assert len(ilrma.loss) == N_ITER + 1 and ilrma.loss[-1] < ilrma.loss[0]
+    if kwargs.get("partitioning"):
+        assert ilrma.latent.shape == (X.shape[0], 2) and ilrma.basis.shape == (X.shape[1], 2)
+        np.testing.assert_allclose(ilrma.latent.sum(dim=0).numpy(), 1.0, rtol=1e-12)
+
+
+@pytest.mark.parametrize("source", ["MM", "ME"])
+@pytest.mark.parametrize("spatial", ["IP1", "ISS1"])
+def test_partitioned_ilrma_class_matches_jax_class(spatial, source):
+    X = _spectrogram(seed=22)
+    common = dict(n_basis=2, spatial_algorithm=spatial, source_algorithm=source, partitioning=True)
+    jax_ilrma = JaxGaussILRMA(impl="complex", **common)
+    torch_ilrma = GaussILRMA(device="cpu", **common)
+    Y_jax = np.asarray(jax_ilrma(X.copy(), n_iter=3, **_nmf_part_init(*X.shape, seed=23)))
+    Y = torch_ilrma(torch.from_numpy(X.copy()), n_iter=3, **_nmf_part_init(*X.shape, seed=23))
+    np.testing.assert_allclose(Y.numpy(), Y_jax, atol=1e-9)
+    np.testing.assert_allclose(torch_ilrma.loss, jax_ilrma.loss, rtol=1e-9)
+    for name in ("basis", "activation", "latent"):
+        np.testing.assert_allclose(getattr(torch_ilrma, name).numpy(), np.asarray(getattr(jax_ilrma, name)), rtol=1e-8)
+
+
+def test_seeded_partitioned_init_draws_as_the_jax_class():
+    """Without a warm start both classes draw the latent, the basis, then the activation from the rng."""
+    X = _spectrogram(seed=24)
+    common = dict(n_basis=3, spatial_algorithm="IPA", partitioning=True)
+    Y_jax = np.asarray(JaxGaussILRMA(impl="complex", rng=np.random.default_rng(25), **common)(X.copy(), n_iter=2))
+    Y = GaussILRMA(device="cpu", rng=np.random.default_rng(25), **common)(torch.from_numpy(X.copy()), n_iter=2)
+    np.testing.assert_allclose(Y.numpy(), Y_jax, atol=1e-9)
+
+
+# ---- the slice as a whole: the complex64 fast paths ------------------------------------------------
+
+
+def test_fast_auxiva_ipa_matches_jax():
+    """20 iterations, SI-SDR of one output against the other >= 40 dB.
+
+    On the CPU ``ssspy_tpu.fast`` floors eigenvalues and recomputes the
+    statistics per source where the port runs the ridge and the congruence
+    sweep (what the JAX package runs on a float32 TPU), and both floor at
+    1e-10 in float32, where the iteration is sensitive to rounding near the
+    secular pole (see ``test_gauss_ilrma_ipa_step_matches_jax_f32``): over
+    seeds the agreement spreads from under 20 dB to 69 dB. This seed's is
+    69 dB; the ILRMA paths below, which floor at 1e-6, hold 49 dB or more
+    on every seed tried.
+    """
+    X = _spectrogram(n_channels=3, seed=62)
+    Y_jax, W_jax = jax_fast_auxiva(X, n_iter=20, algorithm="IPA")
+    Y, W = fast_auxiva(X, n_iter=20, algorithm="IPA", device="cpu")
+    assert W is None and W_jax is None
+    assert Y.dtype == torch.complex64 and Y.shape == X.shape
+    assert min(_si_sdr_db(Y[n].numpy(), Y_jax[n]) for n in range(3)) >= 40.0
+
+
+@pytest.mark.parametrize(
+    "kwargs", [{}, {"source_algorithm": "ME"}, {"partitioning": True}, {"partitioning": True, "source_algorithm": "ME"}],
+    ids=["MM", "ME", "MM_partitioning", "ME_partitioning"],
+)
+def test_fast_gauss_ilrma_ipa_matches_jax(kwargs):
+    X = _spectrogram(n_channels=3, seed=62)
+    common = dict(n_basis=2, n_iter=20, algorithm="IPA", **kwargs)
+    Y_jax, factors_jax, W_jax = jax_fast_gauss_ilrma(X, rng=np.random.default_rng(29), **common)
+    Y, factors, W = fast_gauss_ilrma(X, rng=np.random.default_rng(29), device="cpu", **common)
+    assert W is None and W_jax is None and Y.dtype == torch.complex64
+    assert len(factors) == len(factors_jax) == (3 if kwargs.get("partitioning") else 2)
+    assert min(_si_sdr_db(Y[n].numpy(), Y_jax[n]) for n in range(3)) >= 40.0
+    for got, ref in zip(factors, factors_jax):  # the factors follow the other regularization more loosely
+        assert got.shape == ref.shape and _rel_err(got.numpy(), ref) <= 1e-1
+
+
+@pytest.mark.parametrize("algorithm", ["IP1", "ISS1"])
+def test_fast_gauss_ilrma_partitioning_matches_jax(algorithm):
+    X = _spectrogram(n_channels=3, seed=30)
+    common = dict(n_basis=2, n_iter=5, algorithm=algorithm, partitioning=True)
+    Y_jax, factors_jax, W_jax = jax_fast_gauss_ilrma(X, rng=np.random.default_rng(31), **common)
+    Y, factors, W = fast_gauss_ilrma(X, rng=np.random.default_rng(31), device="cpu", **common)
+    assert _rel_err(Y.numpy(), Y_jax) <= 1e-3
+    assert (W is None) == (W_jax is None) == (algorithm == "ISS1")
+    for got, ref in zip(factors, factors_jax):
+        assert got.shape == ref.shape and _rel_err(got.numpy(), ref) <= 1e-3
+
+
+# ---- what IPA does not go with, and what is still not ported ----------------------------------------
+
+
+def test_ipa_options_that_do_not_exist_raise():
+    X = np.zeros((2, 3, 4), np.complex64)
+    with pytest.raises(ValueError, match="no IPA"):
+        TILRMA(n_basis=2, dof=100, spatial_algorithm="IPA", device="cpu")
+    with pytest.raises(ValueError, match="no IPA"):
+        GGDILRMA(n_basis=2, beta=1.5, spatial_algorithm="IPA", device="cpu")
+    with pytest.raises(ValueError, match="no IPA"):
+        fast_t_ilrma(X, n_basis=2, dof=100, algorithm="IPA", device="cpu")
+    with pytest.raises(ValueError, match="no IPA"):
+        fast_ggd_ilrma(X, n_basis=2, beta=1.5, algorithm="IPA", device="cpu")
+    # the IPA keywords belong to IPA alone, and no other keyword passes
+    with pytest.raises(ValueError, match="Invalid keywords"):
+        GaussILRMA(n_basis=2, spatial_algorithm="IP", newton_iter=2, device="cpu")
+    with pytest.raises(ValueError, match="Invalid keywords"):
+        AuxLaplaceIVA(spatial_algorithm="ISS1", lqpqm_normalization=False, device="cpu")
+    with pytest.raises(ValueError, match="Invalid keywords"):
+        GaussILRMA(n_basis=2, spatial_algorithm="IPA", newton_trips=2, device="cpu")
+    ilrma = GaussILRMA(n_basis=2, spatial_algorithm="IPA", newton_iter=3, lqpqm_normalization=False, device="cpu")
+    assert (ilrma.newton_iter, ilrma.lqpqm_normalization) == (3, False)
+    with pytest.raises(ValueError, match="incompatible with partitioning"):
+        GaussILRMA(n_basis=2, partitioning=True, normalization="projection_back", device="cpu")
+
+
+@pytest.mark.parametrize("algorithm", ["IP2", "ISS2"])
+def test_ip2_and_iss2_still_raise(algorithm):
+    X = np.zeros((2, 3, 4), np.complex64)
+    for call in (
+        lambda: AuxLaplaceIVA(spatial_algorithm=algorithm, device="cpu"),
+        lambda: GaussILRMA(n_basis=2, spatial_algorithm=algorithm, device="cpu"),
+        lambda: fast_auxiva(X, algorithm=algorithm, device="cpu"),
+        lambda: fast_gauss_ilrma(X, n_basis=2, algorithm=algorithm, partitioning=True, device="cpu"),
+    ):
+        with pytest.raises(NotImplementedError, match="item 5"):
+            call()
+
+
+def test_ipa_entry_points_run_on_the_card_unless_asked_for_the_cpu():
+    X = np.zeros((2, 3, 4), np.complex64)
+    entry_points = [
+        lambda: AuxLaplaceIVA(spatial_algorithm="IPA"),
+        lambda: GaussILRMA(n_basis=2, spatial_algorithm="IPA", partitioning=True),
+        lambda: fast_auxiva(X, n_iter=1, algorithm="IPA"),
+        lambda: fast_gauss_ilrma(X, n_basis=2, n_iter=1, algorithm="IPA"),
+    ]
+    if torch.cuda.is_available():
+        assert AuxLaplaceIVA(spatial_algorithm="IPA").device.type == "cuda"
+    else:
+        for call in entry_points:
+            with pytest.raises(RuntimeError, match="device='cpu'"):
+                call()

@@ -272,6 +272,11 @@ def test_projection_back_and_mdp_match_jax(reference_id):
 
 @pytest.mark.parametrize("algorithm", ["IP2", "ISS2", "IPA"])
 def test_unported_spatial_algorithms_raise(algorithm):
+    if algorithm == "IPA":  # ported since: it constructs, and its keywords belong to it alone
+        assert AuxLaplaceIVA(spatial_algorithm="IPA", device="cpu", newton_iter=2).newton_iter == 2
+        with pytest.raises(ValueError, match="Invalid keywords"):
+            AuxLaplaceIVA(spatial_algorithm="IP", device="cpu", newton_iter=2)
+        return
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         AuxLaplaceIVA(spatial_algorithm=algorithm, device="cpu")
     with pytest.raises(NotImplementedError, match="ROADMAP"):

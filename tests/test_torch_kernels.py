@@ -313,7 +313,7 @@ def test_failed_build_raises_with_the_compiler_output(monkeypatch, tmp_path):
 
 
 def test_every_kernel_source_exists_for_its_wrapper():
-    assert set(K._SIGNATURES) == {"weighted_covariance", "ip1_sweep", "iss1_sweep", "jacobi_eigh"}
+    assert set(K._SIGNATURES) == {"weighted_covariance", "ip1_sweep", "iss1_sweep", "jacobi_eigh", "ipa_congruence"}
     for name in K._SIGNATURES:
         assert hasattr(getattr(K, name), "launches")
         assert os.path.isfile(os.path.join(_build.SOURCE_DIR, f"{name}.cu"))
@@ -323,7 +323,8 @@ def test_import_pulls_in_no_jax():
     code = (
         "import sys, ssspy_tpu_torch, ssspy_tpu_torch.bss.iva, ssspy_tpu_torch.fast, "
         "ssspy_tpu_torch.pipeline, ssspy_tpu_torch.utils.convert, ssspy_tpu_torch.bss.hva, "
-        "ssspy_tpu_torch.ops.prox_steps, ssspy_tpu_torch.linalg.prox\n"
+        "ssspy_tpu_torch.ops.prox_steps, ssspy_tpu_torch.linalg.prox, ssspy_tpu_torch.ops.ipa_steps, "
+        "ssspy_tpu_torch.linalg.lqpqm, ssspy_tpu_torch.special.psd\n"
         "bad = sorted(m for m in sys.modules if m == 'jax' or m.startswith(('jax.', 'ssspy_tpu.')) "
         "or m == 'ssspy_tpu')\n"
         "assert not bad, bad\n"
