@@ -44,7 +44,14 @@ calls, on the default device:
   orders of magnitude per iteration there and leaves f32 within a few
   iterations, in the JAX package's f32 step too (tests/test_hard_fidelity.py:27-32
   records the same growth); the iteration at which it does is printed, and
-  must be the same through the kernel and through the plain version.
+  must be the same through the kernel and through the plain version;
+- dense GaussMNMF (``n_basis=8``, 8 sources): ``GaussMNMF`` and
+  ``fast_gauss_mnmf_dense``, 100 iterations each, on the float32 route:
+  the fused model pass K5 three times and the Jacobi eigh K7 (the
+  geometric mean's 16 x 16 embedding, ``B = 2,056``) once per iteration;
+  and 10 iterations of ``gauss_mnmf_step(psd_impl="eigh")`` with its loss,
+  the unfused route: the inverse sandwich K4 three times per iteration and
+  K7 on every PSD projection, ``B = 160,882`` for each model.
 
 Every launch count is set to 0 just before a path and read just after it,
 and each path must have launched the kernels it runs (and no other). The
@@ -75,12 +82,36 @@ import numpy as np
 import torch
 
 from ssspy_tpu_torch import separate as separate_waveform
-from ssspy_tpu_torch.bss import ADMMIVA, GGDILRMA, HVA, PDSIVA, AuxLaplaceIVA, GaussILRMA, MaskingADMMHVA, TILRMA
-from ssspy_tpu_torch.fast import fast_admm_iva, fast_auxiva, fast_gauss_ilrma, fast_hva, fast_pds_iva
+from ssspy_tpu_torch.bss import (
+    ADMMIVA,
+    GGDILRMA,
+    HVA,
+    PDSIVA,
+    AuxLaplaceIVA,
+    GaussILRMA,
+    GaussMNMF,
+    MaskingADMMHVA,
+    TILRMA,
+)
+from ssspy_tpu_torch.fast import (
+    fast_admm_iva,
+    fast_auxiva,
+    fast_gauss_ilrma,
+    fast_gauss_mnmf_dense,
+    fast_hva,
+    fast_pds_iva,
+)
 from ssspy_tpu_torch.ops import _build
 from ssspy_tpu_torch.ops import kernels as K
 from ssspy_tpu_torch.ops import prox_steps
 from ssspy_tpu_torch.ops.ilrma_steps import ilrma_ip_step, ilrma_iss_step, ilrma_loss
+from ssspy_tpu_torch.ops.mnmf_steps import (
+    gauss_mnmf_loss,
+    gauss_mnmf_step,
+    instant_covariance,
+    psd_project,
+    wiener_separate,
+)
 from ssspy_tpu_torch.ops.iva_steps import (
     auxiva_ip1_step,
     auxiva_ipa_step,
@@ -114,6 +145,12 @@ N_ITER_IPA_PLAIN_RATE = 10  # the plain Jacobi eigh takes ~30 ms, eight times pe
 IPA_TOL = 1e-5  # 8-term f32 complex sums, in another order on each side
 IPA_PERTURBATION = 1e-7  # relative noise on the control run's input: one f32 ulp
 IPA_VS_ISS1_TOL = 1e-2  # how far IPA's final loss may stay above ISS1's (same model, same start, 100 iterations)
+MNMF_EPS = 1e-10  # the dense-MNMF step's floor and ridge, class and fast path
+INV_SANDWICH_TOL = 1e-5  # the same elimination on both sides, sums in another order
+MODEL_TRACES_TOL = 2e-4  # relative to max, the JAX package's own tolerance for this pass (tests/ops/test_pallas_kernels.py:101-105)
+N_ITER_MNMF_EIGH = 10  # the eigh route: K7 on 160,882 matrices four times per iteration, its plain twin ~1 s each
+N_ITER_MNMF_PLAIN_RATE = 10  # the plain fused pass takes tens of ms, three times per iteration
+N_ITER_MNMF_EIGH_RATE = 2
 
 # the card's peaks for the bound: NVIDIA H100 SXM data sheet, at 700 W
 HBM_BYTES_PER_S = 3.35e12
@@ -140,6 +177,14 @@ KERNELS = {
         "source": "ssspy_tpu_torch/ops/csrc/ipa_congruence.cu",
         "replaces": "ssspy_tpu/ops/pallas_kernels.py:462",
     },
+    "inv_sandwich": {
+        "source": "ssspy_tpu_torch/ops/csrc/inv_sandwich.cu",
+        "replaces": "ssspy_tpu/ops/pallas_kernels.py:349",
+    },
+    "model_traces": {
+        "source": "ssspy_tpu_torch/ops/csrc/mnmf_model_traces.cu",
+        "replaces": "ssspy_tpu/ops/pallas_kernels.py:607",
+    },
 }
 WRAPPERS = {name: getattr(K, name) for name in KERNELS}
 PLAIN = {
@@ -148,6 +193,8 @@ PLAIN = {
     "iss1_sweep": K.iss1_sweep_plain,
     "jacobi_eigh": K.jacobi_eigh_plain,
     "ipa_congruence": K.ipa_congruence_plain,
+    "inv_sandwich": K.inv_sandwich_plain,
+    "model_traces": K.model_traces_plain,
 }
 
 
@@ -335,6 +382,20 @@ def congruence_bound(I, S, N):
     return bound_ms(n_bytes, I * 8 * N**3 * (2 * S + 1))
 
 
+def inv_sandwich_bound(B, m):
+    # read R and C, write R^-1 and S; the elimination updates every entry of
+    # [R | I] at each of m steps (16 m^3 flops), the two products 8 m^3 each
+    return bound_ms(4 * B * m * m * 8, 32 * B * m**3)
+
+
+def model_traces_bound(N, I, T, m):
+    # read XX, Lamb and H, write t1, t2, P and Q; per (bin, frame): the model
+    # 4 N m^2, the elimination 16 m^3, two products 16 m^3, two traces
+    # 8 N m^2, the P and Q sums 8 N m^2 (bound_ms counts each once)
+    n_bytes = I * T * m * m * 8 + 3 * N * I * T * 4 + 3 * N * I * m * m * 8
+    return bound_ms(n_bytes, I * T * (20 * N * m * m + 32 * m**3))
+
+
 # ---- the paths' helpers ----------------------------------------------------------------
 
 
@@ -421,6 +482,27 @@ def hold_trace(label: str, Y, Y_plain, loss, loss_plain) -> None:
     check(sdr >= MIN_SI_SDR_DB, f"{label}: output vs plain {sdr:.2f} dB")
 
 
+def relative_error(got, ref) -> float:
+    return float((got - ref).abs().max() / ref.abs().max())
+
+
+def library_inv_sandwich(R, C):
+    """K4's function in PyTorch calls: ``inv_ex`` and two ``matmul`` (the library yardstick)."""
+    R_inv = torch.linalg.inv_ex(R)[0]
+    return R_inv, (R_inv @ C) @ R_inv
+
+
+def library_model_traces(Lamb, H, XX, eps):
+    """K5's function as ``model_traces_plain`` composes it, with ``inv_ex`` for the Gauss-Jordan (the library yardstick)."""
+    Hh = (H + H.mH) / 2
+    Lc = Lamb.to(H.dtype)
+    R = torch.einsum("nit,nipq->itpq", Lc, Hh)
+    R_inv = torch.linalg.inv_ex((R + R.mH) / 2 + eps * torch.eye(R.shape[-1], dtype=R.dtype, device=R.device))[0]
+    Mm = (R_inv @ XX) @ R_inv
+    return (torch.einsum("itab,niba->nit", Mm, Hh).real, torch.einsum("itab,niba->nit", R_inv, Hh).real,
+            torch.einsum("nit,itpq->nipq", Lc, R_inv), torch.einsum("nit,itpq->nipq", Lc, Mm))
+
+
 def hold_sdr(label: str, Y, Y_plain) -> None:
     """Gate a path without a loss (the masking paths): finite output, worst SI-SDR against the plain run."""
     sdr = min_si_sdr(Y, Y_plain)
@@ -440,19 +522,27 @@ def eigh_errors(A, lamb, V, lamb_ref):
     )
 
 
-def profile(step, state, n_iter: int = 20):
-    """Device microseconds per step by kernel name, and device operations per step (``torch.profiler``)."""
+def profile(step, state, n_iter: int = 20, attempts: int = 3):
+    """Device microseconds per step by kernel name, and device operations per step (``torch.profiler``).
+
+    The CUPTI trace of a short session now and then comes back without a device event, so a session
+    that saw none is repeated, up to ``attempts`` times. Returns the attempts taken; the dicts are
+    empty when every session came back empty.
+    """
     chain(step, state, 2)
     torch.cuda.synchronize()
-    with torch.profiler.profile(activities=[torch.profiler.ProfilerActivity.CUDA]) as prof:
-        chain(step, state, n_iter)
-        torch.cuda.synchronize()
-    per_kernel, n_ops = {}, 0
-    for event in prof.events():
-        if event.device_type == torch.autograd.DeviceType.CUDA:
-            per_kernel[event.name] = per_kernel.get(event.name, 0.0) + event.time_range.elapsed_us()
-            n_ops += 1
-    return {name: us / n_iter for name, us in per_kernel.items()}, n_ops / n_iter
+    for attempt in range(1, attempts + 1):
+        with torch.profiler.profile(activities=[torch.profiler.ProfilerActivity.CUDA]) as prof:
+            chain(step, state, n_iter)
+            torch.cuda.synchronize()
+        per_kernel, n_ops = {}, 0
+        for event in prof.events():
+            if event.device_type == torch.autograd.DeviceType.CUDA:
+                per_kernel[event.name] = per_kernel.get(event.name, 0.0) + event.time_range.elapsed_us()
+                n_ops += 1
+        if per_kernel:
+            break
+    return {name: us / n_iter for name, us in per_kernel.items()}, n_ops / n_iter, attempt
 
 
 def main() -> None:
@@ -486,13 +576,13 @@ def main() -> None:
     # ---- 2. build: one nvcc per source, all started together --------------------
     start = time.perf_counter()
     with ThreadPoolExecutor(max_workers=len(KERNELS)) as pool:
-        list(pool.map(_build.load, KERNELS))
+        list(pool.map(_build.load, map(K.source_of, KERNELS)))
     build_s = time.perf_counter() - start
     say("build", seconds=f"{build_s:.3f}", **{f"{k}_seconds": f"{v['seconds']:.3f}" for k, v in _build.build_info.items()})
     for name in KERNELS:
         ptxas = " | ".join(
             line.split("ptxas info    : ")[-1].strip()
-            for line in _build.build_info[name]["log"].splitlines()
+            for line in _build.build_info[K.source_of(name)]["log"].splitlines()
             if "Used" in line or "spill" in line
         )
         say("build", kernel=name, ptxas=repr(ptxas))
@@ -680,6 +770,80 @@ def main() -> None:
         congruence_abs = max(congruence_abs, abs_err)
     errors["ipa_congruence"] = congruence_abs
     T_sweep, U_sweep, G_sweep = rounds[-1]
+
+    # ---- 4f. K4 and K5 against their plain versions -----------------------------------
+    # the dense-MNMF model after two fused iterations of fast_gauss_mnmf_dense
+    # (I T = 160,882 systems of 8 x 8) with the mixture's instant covariances;
+    # and an edge batch: two all-zero XX bins, one bin of tiny Lamb and, for K4,
+    # one all-zero R bin, whose pivots all take the 1e-20 floor
+    XX_main = instant_covariance(X, eps=MNMF_EPS)
+    _, (T_mnmf, V_mnmf, H_mnmf) = fast_gauss_mnmf_dense(X, n_basis=N_BASIS, n_iter=2, rng=np.random.default_rng(0))
+    Lamb_main = (T_mnmf @ V_mnmf).contiguous()
+
+    def ridge_model(Lamb):
+        return psd_project(torch.einsum("nit,nipq->itpq", Lamb.to(X.dtype), H_mnmf), MNMF_EPS, "ridge").contiguous()
+
+    R_main = ridge_model(Lamb_main)
+    check(tuple(XX_main.shape) == tuple(R_main.shape) == (I, T, M, M), f"dense-MNMF model {tuple(R_main.shape)}")
+    tiny_bin, zero_R_bin = 64, SILENT_BINS[0]
+    XX_edge = XX_main.clone()
+    XX_edge[list(SILENT_BINS)] = 0
+    Lamb_edge = Lamb_main.clone()
+    Lamb_edge[:, tiny_bin] = 1e-30
+    R_edge = ridge_model(Lamb_edge)
+    R_edge[zero_R_bin] = 0
+    regular = [i for i in range(I) if i not in SILENT_BINS and i != tiny_bin]
+    floor_inverse = 1 / torch.tensor(1e-20, dtype=torch.float32)
+
+    sandwich_abs = 0.0
+    for label, R_in, C_in in (("model after 2 iterations", R_main, XX_main),
+                              ("two zero XX bins, a tiny-Lamb bin, a zero R bin", R_edge, XX_edge)):
+        R_inv, S = K.inv_sandwich(R_in, C_in)
+        R_inv_ref, S_ref = K.inv_sandwich_plain(R_in, C_in)
+        torch.cuda.synchronize()
+        edge = label.startswith("two")
+        bins = regular if edge else list(range(I))
+        errs = (relative_error(R_inv[bins], R_inv_ref[bins]), relative_error(S[bins], S_ref[bins]))
+        fields = {}
+        if edge:
+            fields = dict(
+                tiny_bin_rel_err=(relative_error(R_inv[tiny_bin], R_inv_ref[tiny_bin]), relative_error(S[tiny_bin], S_ref[tiny_bin])),
+                zero_XX_bins_S_zero=not bool(S[list(SILENT_BINS)].any()),
+                zero_R_bin_floor=bool(torch.equal(R_inv[zero_R_bin], R_inv_ref[zero_R_bin]))
+                and bool(torch.equal(R_inv[zero_R_bin][0], floor_inverse * torch.eye(M, dtype=X.dtype, device=device))),
+            )
+        say("K4 inv_sandwich", input=repr(label), shape=tuple(R_in.shape), rel_err=errs, tol=INV_SANDWICH_TOL,
+            max_abs_R_inv=float(R_inv_ref[bins].abs().max()), **fields)
+        check(all_finite(R_inv, S), f"inv_sandwich {label}: non-finite output")
+        check(max(errs) <= INV_SANDWICH_TOL, f"inv_sandwich {label}: rel err {errs}")
+        check(all(v is True or max(v) <= INV_SANDWICH_TOL for v in fields.values()), f"inv_sandwich {label}: {fields}")
+        if not edge:
+            sandwich_abs = max(float((R_inv - R_inv_ref).abs().max()), float((S - S_ref).abs().max()))
+    errors["inv_sandwich"] = sandwich_abs
+
+    traces_abs = 0.0
+    for label, Lamb_in, XX_in in (("model after 2 iterations", Lamb_main, XX_main),
+                                  ("two zero XX bins, a tiny-Lamb bin", Lamb_edge, XX_edge)):
+        out = K.model_traces(Lamb_in, H_mnmf, XX_in, MNMF_EPS)
+        ref = K.model_traces_plain(Lamb_in, H_mnmf, XX_in, MNMF_EPS)
+        torch.cuda.synchronize()
+        edge = label.startswith("two")
+        bins = regular if edge else list(range(I))
+        errs = [relative_error(o[:, bins], r[:, bins]) for o, r in zip(out, ref)]
+        fields = {}
+        if edge:
+            fields = dict(
+                tiny_bin_rel_err=[relative_error(o[:, tiny_bin], r[:, tiny_bin]) for o, r in zip(out, ref)],
+                zero_XX_bins_t1_Q_zero=not (bool(out[0][:, list(SILENT_BINS)].any()) or bool(out[3][:, list(SILENT_BINS)].any())),
+            )
+        say("K5 model_traces", input=repr(label), shape=(M, I, T, M), rel_err_t1_t2_P_Q=errs, tol=MODEL_TRACES_TOL,
+            **fields)
+        check(all_finite(*out), f"model_traces {label}: non-finite output")
+        check(max(errs) <= MODEL_TRACES_TOL, f"model_traces {label}: rel err {errs}")
+        check(all(v is True or max(v) <= MODEL_TRACES_TOL for v in fields.values()), f"model_traces {label}: {fields}")
+        if not edge:
+            traces_abs = max(float((o - r).abs().max()) for o, r in zip(out, ref))
+    errors["model_traces"] = traces_abs
 
     # ---- 5. main path: AuxIVA-IP1 -------------------------------------------------
 
@@ -905,6 +1069,74 @@ def main() -> None:
     Y_mah = prox_path("MaskingADMMHVA", masking_admm_hva, 1, N_ITER_MASKING_ADMM, 2 * I)
     hold_sdr("MaskingADMMHVA class", Y_mah, run_plain(masking_admm_hva))
 
+    # ---- 5d. dense GaussMNMF: the fused route (K5, K7) and the eigh route (K4, K7) -------
+    # per iteration K5 three times and K7 once (the geometric mean, B = N I);
+    # each path beside its plain twin, and a control run of the kernels on the
+    # input times (1 + 1e-7 noise), printed before the gates
+    mnmf_uses = {"model_traces": 3 * N_ITER, "jacobi_eigh": N_ITER}
+
+    def mnmf_class(X_in=X):
+        method = GaussMNMF(n_basis=N_BASIS, rng=np.random.default_rng(0))
+        return method, method(X_in, n_iter=N_ITER)
+
+    batches.clear()
+    with recording_jacobi(batches):
+        method, Y_class = drive("GaussMNMF", mnmf_class, mnmf_uses, totals, exact=True)
+    check(set(batches) == {M * I}, f"GaussMNMF: K7 batches {sorted(set(batches))}, expected {M * I}")
+    plain_method, Y_class_plain = run_plain(mnmf_class)
+    control_method, Y_class_control = mnmf_class(X_perturbed)
+    say("sensitivity", path=repr("GaussMNMF class"), iterations=N_ITER, input_perturbation=IPA_PERTURBATION,
+        min_si_sdr_db_vs_perturbed_input=min_si_sdr(Y_class, Y_class_control), loss=method.loss[-1],
+        perturbed_input_loss=control_method.loss[-1])
+    hold_class("GaussMNMF class", method, Y_class, plain_method, Y_class_plain)
+
+    draws = np.random.default_rng(0)  # the factors fast_gauss_mnmf_dense starts from
+    T_start, V_start = (torch.from_numpy(np.maximum(draws.random(shape), 1e-10).astype(np.float32)).to(device)
+                        for shape in ((M, I, N_BASIS), (M, N_BASIS, T)))
+    H_start = (torch.eye(M, dtype=X.dtype, device=device) / M).expand(M, I, M, M).contiguous()
+
+    def mnmf_fast(X_in=X):
+        return fast_gauss_mnmf_dense(X_in, n_basis=N_BASIS, n_iter=N_ITER, rng=np.random.default_rng(0))
+
+    def mnmf_loss_of(factors, XX_in=XX_main, **kw):
+        return float(gauss_mnmf_loss(XX_in, *factors, eps=MNMF_EPS, **kw))
+
+    Y_fast, factors = drive("fast_gauss_mnmf_dense", mnmf_fast, mnmf_uses, totals, exact=True)
+    Y_fast_plain, factors_plain = run_plain(mnmf_fast)
+    Y_fast_control, factors_control = mnmf_fast(X_perturbed)
+    mnmf_loss_start = mnmf_loss_of((T_start, V_start, H_start))
+    say("sensitivity", path=repr("fast_gauss_mnmf_dense"), iterations=N_ITER, input_perturbation=IPA_PERTURBATION,
+        min_si_sdr_db_vs_perturbed_input=min_si_sdr(Y_fast, Y_fast_control), loss=mnmf_loss_of(factors),
+        perturbed_input_loss=mnmf_loss_of(factors_control))
+    hold("fast_gauss_mnmf_dense", Y_fast, Y_fast_plain, mnmf_loss_of(factors), mnmf_loss_of(factors_plain),
+         loss_first=mnmf_loss_start)
+    check(mnmf_loss_of(factors) < mnmf_loss_start, "fast_gauss_mnmf_dense: loss did not fall")
+
+    # the eigh model in float32: unfused, K4 three times per iteration; K7 on
+    # the instant covariances and on each model R (B = I T = 160,882), on P,
+    # HQH, the geometric mean and H (B = N I), and on the loss's model
+    def mnmf_eigh():
+        XX_e = instant_covariance(X, eps=MNMF_EPS, psd_impl="eigh")
+        factors = (T_start, V_start, H_start)
+        losses = [gauss_mnmf_loss(XX_e, *factors, eps=MNMF_EPS, psd_impl="eigh")]
+        for _ in range(N_ITER_MNMF_EIGH):
+            factors = gauss_mnmf_step(XX_e, *factors, eps=MNMF_EPS, psd_impl="eigh")
+            losses.append(gauss_mnmf_loss(XX_e, *factors, eps=MNMF_EPS, psd_impl="eigh"))
+        return wiener_separate(X, factors[0] @ factors[1], factors[2]), torch.stack(losses).tolist()
+
+    eigh_uses = {"inv_sandwich": 3 * N_ITER_MNMF_EIGH, "jacobi_eigh": 1 + 7 * N_ITER_MNMF_EIGH + N_ITER_MNMF_EIGH + 1}
+    batches.clear()
+    with recording_jacobi(batches):
+        Y_eigh, loss_eigh = drive("GaussMNMF step, eigh model", mnmf_eigh, eigh_uses, totals, exact=True)
+    check(set(batches) == {I * T, M * I}, f"eigh model: K7 batches {sorted(set(batches))}, expected {I * T} and {M * I}")
+    start = time.perf_counter()
+    Y_eigh_plain, loss_eigh_plain = run_plain(mnmf_eigh)
+    say("path", path=repr("GaussMNMF step, eigh model, plain versions"), iterations=N_ITER_MNMF_EIGH,
+        seconds=f"{time.perf_counter() - start:.3f}")
+    hold("GaussMNMF step, eigh model", Y_eigh, Y_eigh_plain, loss_eigh[-1], loss_eigh_plain[-1],
+         loss_first=loss_eigh[0], first_divergent_iteration=first_divergence(loss_eigh, loss_eigh_plain, LOSS_TOL))
+    check(loss_eigh[-1] < loss_eigh[0], f"eigh model: loss did not fall: {loss_eigh[0]} -> {loss_eigh[-1]}")
+
     # ---- 6. times --------------------------------------------------------------
     U_main = K.weighted_covariance(X, phi_scalar)
     phi_c, phi_bins_c, X_conj = phi_scalar.to(X.dtype), phi_bins.to(X.dtype), X.conj().resolve_conj()
@@ -965,6 +1197,20 @@ def main() -> None:
             lambda: torch.linalg.eigh(A_ipa),
             jacobi_bound(*A_ipa.shape[:2]),
         ),
+        "inv_sandwich": (
+            "dense-MNMF model after 2 iterations (160882,8,8)",
+            lambda: K.inv_sandwich(R_main, XX_main),
+            lambda: K.inv_sandwich_plain(R_main, XX_main),
+            lambda: library_inv_sandwich(R_main, XX_main),
+            inv_sandwich_bound(I * T, M),
+        ),
+        "model_traces": (
+            "dense-MNMF model after 2 iterations (8,257,626,8)",
+            lambda: K.model_traces(Lamb_main, H_mnmf, XX_main, MNMF_EPS),
+            lambda: K.model_traces_plain(Lamb_main, H_mnmf, XX_main, MNMF_EPS),
+            lambda: library_model_traces(Lamb_main, H_mnmf, XX_main, MNMF_EPS),
+            model_traces_bound(M, I, T, M),
+        ),
         "ipa_congruence": (
             "a sweep's last round (257,8,8,8)",
             lambda: K.ipa_congruence(T_sweep, U_sweep, G_sweep),
@@ -1007,29 +1253,45 @@ def main() -> None:
         # the state is (W, V, Vt, Y, Yt); the step reads all but W
         "ADMMIVA": (lambda s: prox_steps.admm_iva_step(X_prox, *s[1:], quad_inv=quad_inv),
                     (F_zero, F_zero, Y_zero, F_zero, Y_zero)),
+        "GaussMNMF-dense": (lambda s: gauss_mnmf_step(XX_main, *s, eps=MNMF_EPS), (T_start, V_start, H_start)),
+        "GaussMNMF-dense eigh": (lambda s: gauss_mnmf_step(XX_eigh, *s, eps=MNMF_EPS, psd_impl="eigh"),
+                                 (T_start, V_start, H_start)),
+    }
+    XX_eigh = instant_covariance(X, eps=MNMF_EPS, psd_impl="eigh")
+    # (kernel, plain) chained steps where the default N_ITER of each would take too long
+    n_steps = {
+        "AuxIVA-IPA": (N_ITER, N_ITER_IPA_PLAIN_RATE),
+        "GaussILRMA-IPA": (N_ITER, N_ITER_IPA_PLAIN_RATE),
+        "GaussMNMF-dense": (N_ITER, N_ITER_MNMF_PLAIN_RATE),
+        "GaussMNMF-dense eigh": (N_ITER_MNMF_EIGH_RATE, N_ITER_MNMF_EIGH_RATE),
     }
     rates = {}
     for label, (step, state) in steps.items():
-        n_plain = N_ITER_IPA_PLAIN_RATE if label.endswith("IPA") else N_ITER
+        n_kernel, n_plain = n_steps.get(label, (N_ITER, N_ITER))
         with plain_versions():
             plain_a = iterations_per_s(step, state, n_plain)
-        kernel_a, kernel_b = iterations_per_s(step, state), iterations_per_s(step, state)
+        kernel_a, kernel_b = iterations_per_s(step, state, n_kernel), iterations_per_s(step, state, n_kernel)
         with plain_versions():
             plain_b = iterations_per_s(step, state, n_plain)
         rates[label] = statistics.mean((kernel_a, kernel_b))
-        say("time", path=repr(f"{label} 8ch 10s, {N_ITER} chained fast-path steps"), card=repr(card),
+        say("time", path=repr(f"{label} 8ch 10s, {n_kernel} chained fast-path steps"), card=repr(card),
             kernels_iters_per_s=(kernel_a, kernel_b), plain_iters_per_s=(plain_a, plain_b), plain_steps=n_plain)
 
     # where the device time of one iteration goes (torch.profiler)
     for label, (step, state) in steps.items():
-        per_kernel, ops_per_iter = profile(step, state)
+        per_kernel, ops_per_iter, sessions = profile(step, state, min(20, n_steps.get(label, (N_ITER,))[0]))
         device_us = sum(per_kernel.values())
-        check(device_us > 0, f"the profiler saw no device time in the {label} iterations")
+        if not device_us:
+            # the rate above already timed these steps with CUDA events, idle gaps included
+            say("profile", path=repr(label), card=repr(card), sessions=sessions,
+                device_us_per_iter="not measured: every profiler session came back without a device event",
+                cuda_event_us_per_iter=1e6 / rates[label])
+            continue
         top = sorted(per_kernel.items(), key=lambda kv: -kv[1])[:6]
         # the share of each hand-written kernel (their names end in _kernel, as in csrc/*.cu)
         shares = {name: sum(us for kernel, us in per_kernel.items() if f"{name}_kernel" in kernel) / device_us
                   for name in KERNELS}
-        say("profile", path=repr(label), card=repr(card), device_us_per_iter=device_us,
+        say("profile", path=repr(label), card=repr(card), sessions=sessions, device_us_per_iter=device_us,
             device_ops_per_iter=ops_per_iter, device_busy_share=device_us * 1e-6 * rates[label],
             kernel_shares=repr({name: round(share, 4) for name, share in shares.items() if share}),
             top=repr([(name[:48], round(us, 3)) for name, us in top]))

@@ -1,0 +1,98 @@
+#!/usr/bin/env python3
+"""Dense GaussMNMF in float32 with and without the relative floor on H, against complex128.
+
+Runs ``fast_gauss_mnmf_dense``'s iteration (``ops.mnmf_steps.gauss_mnmf_step``)
+on the 8-channel synthetic mixture (STFT 512/256), ``n_basis = 8``, from the
+fast path's draws of ``default_rng(0)``: once in complex128 (the reference
+route) and once in complex64 for each value of
+``mnmf_steps.F32_SPATIAL_REL`` given. Prints, per run, the iteration at
+which the state first turns non-finite (or the iteration count), the loss
+every 10 iterations, and the worst per-source SI-SDR of the Wiener output
+against the complex128 run. Imports nothing of JAX.
+
+    python3 scripts/torch_mnmf_float32_floor.py --duration 10 --device cuda --rel 0 1e-5
+    python3 scripts/torch_mnmf_float32_floor.py --duration 3 --device cpu --rel 0 1e-5 1e-4
+
+On the card the complex128 run's eighs go through
+``special.psd.spectral``, which hands cuSOLVER at most ``CUDA_EIGH_BATCH``
+matrices per call.
+"""
+
+import argparse
+import os
+import subprocess
+import sys
+import time
+
+import numpy as np
+import torch
+
+sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
+
+from ssspy_tpu_torch.ops import mnmf_steps
+from ssspy_tpu_torch.transform import stft
+from ssspy_tpu_torch.utils.dataset import HOP, N_FFT, make_mixture
+
+N_BASIS = 8
+
+
+def iterate(X, rel, n_iter):
+    """``(Y or None, losses every 10 iterations, iterations done, seconds)``."""
+    mnmf_steps.F32_SPATIAL_REL = rel
+    M, I, T = X.shape
+    rng = np.random.default_rng(0)
+    real = X.real.dtype
+    Tb, Vb = (
+        torch.from_numpy(np.maximum(rng.random(shape), 1e-10)).to(X.device, real)
+        for shape in ((M, I, N_BASIS), (M, N_BASIS, T))
+    )
+    H = (torch.eye(M, dtype=X.dtype, device=X.device) / M).expand(M, I, M, M).contiguous()
+    XX = mnmf_steps.instant_covariance(X)
+    losses, start = [], time.perf_counter()
+    for it in range(1, n_iter + 1):
+        Tb, Vb, H = mnmf_steps.gauss_mnmf_step(XX, Tb, Vb, H)
+        if not bool(torch.isfinite(Tb).all()):
+            return None, losses, it, time.perf_counter() - start
+        if it % 10 == 0:
+            losses.append(round(float(mnmf_steps.gauss_mnmf_loss(XX, Tb, Vb, H)), 3))
+    return mnmf_steps.wiener_separate(X, Tb @ Vb, H), losses, n_iter, time.perf_counter() - start
+
+
+def min_si_sdr(est, ref):
+    est, ref = (a.to(torch.complex128).cpu().numpy() for a in (est, ref))
+    worst = np.inf
+    for e, r in zip(est, ref):
+        e, r = e.ravel(), r.ravel()
+        alpha = np.vdot(r, e) / np.vdot(r, r)
+        worst = min(worst, 10 * np.log10(np.abs(np.vdot(alpha * r, alpha * r)) / np.abs(np.vdot(e - alpha * r, e - alpha * r))))
+    return float(worst)
+
+
+def main():
+    parser = argparse.ArgumentParser(description=__doc__.splitlines()[0])
+    parser.add_argument("--duration", type=float, default=10.0, help="seconds of the 16 kHz mixture")
+    parser.add_argument("--device", default="cuda")
+    parser.add_argument("--iterations", type=int, default=100)
+    parser.add_argument("--rel", type=float, nargs="+", default=[0.0, 1e-5])
+    args = parser.parse_args()
+    device = torch.device(args.device)
+    if device.type == "cuda":
+        torch.backends.cuda.matmul.allow_tf32 = False
+        card = subprocess.run(
+            ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"], capture_output=True, text=True
+        ).stdout.strip()
+        print(f"card: {card}", flush=True)
+    wave = torch.from_numpy(make_mixture(seed=0, duration_s=args.duration)).to(device)
+    X = stft(wave, n_fft=N_FFT, hop_length=HOP)
+    print(f"X {tuple(X.shape)} on {device}", flush=True)
+    Y_ref, losses, done, seconds = iterate(X, 0.0, args.iterations)
+    print(f"complex128: iterations={done} losses={losses} seconds={seconds:.2f}", flush=True)
+    for rel in args.rel:
+        Y, losses, done, seconds = iterate(X.to(torch.complex64), rel, args.iterations)
+        sdr = None if Y is None or Y_ref is None else min_si_sdr(Y, Y_ref)
+        print(f"complex64 F32_SPATIAL_REL={rel}: iterations={done} finite={Y is not None} losses={losses} "
+              f"min_si_sdr_db_vs_complex128={sdr} seconds={seconds:.2f}", flush=True)
+
+
+if __name__ == "__main__":
+    main()

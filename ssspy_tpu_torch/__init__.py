@@ -12,7 +12,8 @@ API and :func:`fast.fast_gauss_ilrma`, :func:`fast.fast_t_ilrma`,
 :func:`fast.fast_ggd_ilrma`); the proximal-splitting family PDSIVA,
 HVA and ADMMIVA (class API, the PDS/ADMM base classes and
 :func:`fast.fast_pds_iva`, :func:`fast.fast_hva`,
-:func:`fast.fast_admm_iva`); STFT/iSTFT, projection back, minimal
+:func:`fast.fast_admm_iva`); dense GaussMNMF (class API and
+:func:`fast.fast_gauss_mnmf_dense`); STFT/iSTFT, projection back, minimal
 distortion principle and the waveform-to-waveform :func:`separate`. Every
 entry point runs on the card unless the caller passes ``device="cpu"``.
 """

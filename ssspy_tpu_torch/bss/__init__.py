@@ -1,11 +1,12 @@
 """Separator classes ported so far (see ROADMAP.md, Queue 1)."""
 
-from . import admmbss, hva, ilrma, iva, pdsbss, proxbss
+from . import admmbss, hva, ilrma, iva, mnmf, pdsbss, proxbss
 from .admmbss import ADMMBSS, MaskingADMMBSS
 from .base import IterativeMethodBase, SeparatorBase
 from .hva import HVA, MaskingADMMHVA, MaskingPDSHVA
 from .ilrma import GaussILRMA, GGDILRMA, ILRMABase, TILRMA
 from .iva import ADMMIVA, PDSIVA, AuxIVA, AuxLaplaceIVA
+from .mnmf import MNMF, GaussMNMF, MNMFBase
 from .pdsbss import MaskingPDSBSS, PDSBSS
 from .proxbss import ProxBSSBase
 
@@ -14,6 +15,7 @@ __all__ = [
     "hva",
     "ilrma",
     "iva",
+    "mnmf",
     "pdsbss",
     "proxbss",
     "IterativeMethodBase",
@@ -34,4 +36,7 @@ __all__ = [
     "MaskingPDSHVA",
     "MaskingADMMHVA",
     "HVA",
+    "MNMFBase",
+    "MNMF",
+    "GaussMNMF",
 ]

@@ -80,12 +80,19 @@ def ipa_keywords(spatial_algorithm: str, kwargs: dict) -> dict:
 
 
 class IterativeMethodBase:
-    """Base class of iterative methods (loop driver + callbacks)."""
+    """Base class of iterative methods (the iteration loop and its callbacks).
+
+    ``device``: where the method runs, the card by default; ``"cpu"`` runs
+    on the CPU, and without a card the default raises
+    (:func:`ssspy_tpu_torch.utils.device.resolve_device`). The input and
+    every warm-start tensor are moved there.
+    """
 
     def __init__(
         self,
         callbacks: Optional[Union[Callable, List[Callable]]] = None,
         record_loss: bool = True,
+        device=DEFAULT_DEVICE,
     ) -> None:
         if callbacks is not None and callable(callbacks):
             callbacks = [callbacks]
@@ -93,6 +100,23 @@ class IterativeMethodBase:
 
         self.record_loss = record_loss
         self.loss = [] if record_loss else None
+        self.input = None
+        self.device = resolve_device(device)
+
+    def _bind_input(self, input) -> None:
+        """Keep a contiguous copy of the spectrogram on the method's device."""
+        self.input = torch.as_tensor(input, device=self.device).clone(
+            memory_format=torch.contiguous_format
+        )
+
+    def _set_warm_start(self, kwargs) -> None:
+        """Set each keyword as an attribute, tensors moved to the input's device."""
+        if self.input is None:
+            raise RuntimeError("no input bound; call the separator with a spectrogram first.")
+        for key, value in kwargs.items():
+            if hasattr(value, "shape"):
+                value = torch.as_tensor(value, device=self.input.device)
+            setattr(self, key, value)
 
     # ---- subclass contract -------------------------------------------------
 
@@ -165,15 +189,13 @@ class IterativeMethodBase:
 
 
 class SeparatorBase(IterativeMethodBase):
-    """What the frequency-domain separators (IVA, ILRMA) share.
+    """What the frequency-domain separators with demixing filters (IVA, ILRMA, the prox family) share.
 
-    The device they run on, the bound input and its warm start, and the
-    scale restoration after the loop. The state holds demixing filters
-    ``W`` (``demix_filter``; IP) or only the separated spectrograms ``Y``
-    (``demix_filter`` is ``None``; ISS, IPA). ``device``: the card by default;
-    ``"cpu"`` runs on the CPU, and without a card the default raises
-    (:func:`ssspy_tpu_torch.utils.device.resolve_device`). The input and
-    every warm-start tensor are moved there.
+    The flooring, the scale restoration after the loop and the demixing
+    filters' warm start. The state holds demixing filters ``W``
+    (``demix_filter``; IP) or only the separated spectrograms ``Y``
+    (``demix_filter`` is ``None``; ISS, IPA). ``device`` as in
+    :class:`IterativeMethodBase`.
     """
 
     def __init__(
@@ -185,13 +207,11 @@ class SeparatorBase(IterativeMethodBase):
         reference_id: int = 0,
         device=DEFAULT_DEVICE,
     ) -> None:
-        super().__init__(callbacks=callbacks, record_loss=record_loss)
+        super().__init__(callbacks=callbacks, record_loss=record_loss, device=device)
 
         self.flooring_fn = resolve_flooring_spec(flooring_fn)
-        self.input = None
         self.scale_restoration = scale_restoration
         self.reference_id = reference_id
-        self.device = resolve_device(device)
 
     def __call__(self, input, n_iter: int = 100, initial_call: bool = True, **kwargs):
         """Bind ``input``, reset from the warm-start ``kwargs``, iterate, restore the scale."""
@@ -209,21 +229,6 @@ class SeparatorBase(IterativeMethodBase):
     @property
     def _uses_demix_filter(self) -> bool:
         return self.spatial_algorithm not in DEMIX_FREE_ALGORITHMS
-
-    def _bind_input(self, input) -> None:
-        """Keep a contiguous copy of the spectrogram on the separator's device."""
-        self.input = torch.as_tensor(input, device=self.device).clone(
-            memory_format=torch.contiguous_format
-        )
-
-    def _set_warm_start(self, kwargs) -> None:
-        """Set each keyword as an attribute, tensors moved to the input's device."""
-        if self.input is None:
-            raise RuntimeError("no input bound; call the separator with a spectrogram first.")
-        for key, value in kwargs.items():
-            if hasattr(value, "shape"):
-                value = torch.as_tensor(value, device=self.input.device)
-            setattr(self, key, value)
 
     def _reset_demix_filter(self, kwargs) -> None:
         """Initial ``demix_filter`` and ``output`` (ssspy_tpu/bss/iva.py:159-176).

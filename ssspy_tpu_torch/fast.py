@@ -11,6 +11,7 @@ on complex64 tensors through the hand-written kernels
 >>> Y, (T, V), W = fast_gauss_ilrma(spectrogram, n_basis=8, n_iter=100)
 >>> from ssspy_tpu_torch.bss import PDSIVA
 >>> Y, W = fast_pds_iva(PDSIVA().normalize_by_spectral_norm(spectrogram), n_iter=100)
+>>> Y, (T, V, H) = fast_gauss_mnmf_dense(spectrogram, n_basis=8, n_iter=100)
 """
 
 from typing import Optional, Tuple
@@ -21,6 +22,7 @@ import torch
 from .algorithm import projection_back
 from .ops.ilrma_steps import ilrma_ip_step, ilrma_iss_step
 from .ops.iva_steps import auxiva_ip1_step, auxiva_ipa_step, auxiva_iss1_step, separate
+from .ops.mnmf_steps import gauss_mnmf_step, instant_covariance, wiener_separate
 from .ops.prox_steps import admm_iva_step, admm_quad_inv, hva_pds_step, pds_iva_step
 from .utils.device import DEFAULT_DEVICE, resolve_device
 
@@ -32,6 +34,7 @@ __all__ = [
     "fast_pds_iva",
     "fast_admm_iva",
     "fast_hva",
+    "fast_gauss_mnmf_dense",
 ]
 
 _ALGORITHMS = ("IP1", "IP2", "ISS1", "ISS2", "IPA")
@@ -304,3 +307,38 @@ def fast_hva(
             X, W, Y, mu1=mu1, mu2=mu2, relaxation=relaxation, attenuation=attenuation, mask_iter=mask_iter
         )
     return _restored(X, W, scale_restoration, reference_id)
+
+
+def fast_gauss_mnmf_dense(
+    spectrogram,
+    n_basis: int,
+    n_iter: int = 100,
+    n_sources: Optional[int] = None,
+    reference_id: int = 0,
+    rng: Optional[np.random.Generator] = None,
+    device=DEFAULT_DEVICE,
+):
+    """GaussMNMF with dense spatial covariances in complex64 (fast.py:849-909).
+
+    Draws ``T0``, then ``V0``, as ``max(rng.random(...), 1e-10)`` in
+    float32, and starts from ``H0 = I / M``, as the JAX package does;
+    ``n_sources`` may be smaller or larger than the number of channels.
+    ``n_iter`` steps of :func:`~ssspy_tpu_torch.ops.mnmf_steps.gauss_mnmf_step`
+    at ``eps = 1e-10`` (three launches of the fused kernel K5 and one of K7
+    per step), then the multichannel Wiener filter at ``reference_id``, all
+    on ``device``. Returns ``(separated (N, I, T), (T, V, H))``.
+    """
+    X = _spectrogram(spectrogram, device)
+    n_channels, n_bins, n_frames = X.shape
+    n_sources = n_channels if n_sources is None else n_sources
+    rng = np.random.default_rng() if rng is None else rng
+    T, V = (
+        torch.from_numpy(np.maximum(rng.random(shape), 1e-10).astype(np.float32)).to(X.device)
+        for shape in ((n_sources, n_bins, n_basis), (n_sources, n_basis, n_frames))
+    )
+    H = torch.eye(n_channels, dtype=X.dtype, device=X.device) / n_channels
+    H = H.expand(n_sources, n_bins, -1, -1).contiguous()
+    XX = instant_covariance(X)
+    for _ in range(n_iter):
+        T, V, H = gauss_mnmf_step(XX, T, V, H)
+    return wiener_separate(X, T @ V, H, reference_id=reference_id), (T, V, H)

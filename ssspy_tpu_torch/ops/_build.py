@@ -6,12 +6,14 @@ first use with
     nvcc -gencode arch=compute_90a,code=sm_90a -std=c++17 -O3 -shared -Xcompiler -fPIC
 
 into ``ssspy_tpu_torch/_build/<name>-<hash>.so`` (the hash covers the
-source and the flags, so an edited source is rebuilt), then loaded with
+source, the shared headers ``csrc/*.cuh`` and the flags, so an edited
+source or header is rebuilt), then loaded with
 ``ctypes``. A missing ``nvcc`` or a failed compile raises with the
 compiler's output; nothing falls back to another implementation.
 """
 
 import ctypes
+import glob
 import hashlib
 import os
 import shutil
@@ -67,9 +69,18 @@ def find_nvcc() -> str:
     )
 
 
+def _digest(source: str) -> str:
+    """Hash of the source, the headers it may include (``csrc/*.cuh``) and the flags."""
+    h = hashlib.sha256()
+    for path in [source] + sorted(glob.glob(os.path.join(SOURCE_DIR, "*.cuh"))):
+        with open(path, "rb") as f:
+            h.update(f.read())
+    h.update(" ".join(NVCC_FLAGS).encode())
+    return h.hexdigest()[:16]
+
+
 def _compile(name: str, source: str) -> str:
-    with open(source, "rb") as f:
-        digest = hashlib.sha256(f.read() + " ".join(NVCC_FLAGS).encode()).hexdigest()[:16]
+    digest = _digest(source)
     target = os.path.join(BUILD_DIR, f"{name}-{digest}.so")
     if os.path.exists(target):
         build_info[name] = {"seconds": 0.0, "log": ""}

@@ -1,4 +1,4 @@
-"""The hand-written CUDA kernels of the IVA, ILRMA, IPA and prox-family steps, with their plain versions.
+"""The hand-written CUDA kernels of the IVA, ILRMA, IPA, prox-family and dense-MNMF steps, with their plain versions.
 
 - :func:`weighted_covariance` — ``U[i,n] = mean_t phi[n,(i),t] x_it x_it^H``,
   counterpart of ``ssspy_tpu.ops.pallas_kernels.weighted_covariance_sc``
@@ -20,6 +20,16 @@
   ``U[s] <- T U[s] T^H`` for every source and ``G <- T G`` per bin,
   counterpart of ``ssspy_tpu.ops.pallas_kernels.ipa_congruence_lanes``
   (pallas_kernels.py:417-496); kernel ``csrc/ipa_congruence.cu``.
+- :func:`inv_sandwich` — ``(R^-1, R^-1 C R^-1)`` of a batch of small
+  Hermitian systems by pivot-free complex Gauss-Jordan, counterpart of
+  ``ssspy_tpu.ops.pallas_kernels.planar_inv_sandwich_sc``
+  (pallas_kernels.py:334-414); kernel ``csrc/inv_sandwich.cu``.
+- :func:`model_traces` — the fused dense-MNMF model pass (model, inverse,
+  sandwich, traces and the frame sums P and Q), counterpart of
+  ``ssspy_tpu.ops.pallas_kernels.planar_model_traces_sc``
+  (pallas_kernels.py:499-726); kernel ``csrc/mnmf_model_traces.cu``.
+  Both share the elimination of ``csrc/gj_inverse.cuh``, whose plain
+  version is :func:`gj_inverse_plain`.
 
 Each wrapper takes its plain PyTorch version for CPU tensors and launches
 its kernel for CUDA tensors, which must be complex64/float32 and
@@ -51,6 +61,12 @@ __all__ = [
     "jacobi_eigh_plain",
     "ipa_congruence",
     "ipa_congruence_plain",
+    "gj_inverse_plain",
+    "inv_sandwich",
+    "inv_sandwich_plain",
+    "model_traces",
+    "model_traces_plain",
+    "source_of",
 ]
 
 # limits the kernels take, mirrored from csrc/*.cu
@@ -84,7 +100,22 @@ _SIGNATURES = {
         "ipa_congruence_launch",
         [_VOID, _VOID, _VOID, _VOID, _VOID, _INT, _INT, _INT, _INT, _VOID],
     ),
+    "inv_sandwich": (
+        "inv_sandwich_launch",
+        [_VOID, _VOID, _VOID, _VOID, _INT, _INT, _FLOAT, _INT, _VOID],
+    ),
+    "model_traces": (
+        "model_traces_launch",
+        [_VOID, _VOID, _VOID, _VOID, _VOID, _VOID, _VOID, _INT, _INT, _INT, _INT, _FLOAT, _FLOAT, _INT, _VOID],
+    ),
 }
+# the source file of a kernel, where it is not named after its wrapper
+_SOURCES = {"model_traces": "mnmf_model_traces"}
+
+
+def source_of(name: str) -> str:
+    """The ``csrc/<source>.cu`` stem that kernel ``name`` is built from."""
+    return _SOURCES.get(name, name)
 
 
 _entries = {}
@@ -94,7 +125,7 @@ def _entry(name: str):
     """``(library, typed C launch function)`` of kernel ``name``, built on first use."""
     entry = _entries.get(name)
     if entry is None:
-        lib = _build.load(name)
+        lib = _build.load(source_of(name))
         symbol, argtypes = _SIGNATURES[name]
         fn = getattr(lib, symbol)
         fn.argtypes = argtypes
@@ -201,8 +232,17 @@ def gauss_jordan_solve_nopivot(A: torch.Tensor, b: torch.Tensor, tiny: float = _
     (splitc.py:168-199) applied to the complex pivot. Same elimination,
     same order, as ``csrc/ip1_sweep.cu``.
     """
-    n = A.shape[-1]
-    M = torch.cat([A, b[..., None]], dim=-1)
+    return _gauss_jordan(torch.cat([A, b[..., None]], dim=-1), tiny)[..., 0]
+
+
+def _gauss_jordan(M: torch.Tensor, tiny: float) -> torch.Tensor:
+    """Pivot-free Gauss-Jordan on the augmented ``(..., n, n + k)`` system ``M``; returns its last ``k`` columns.
+
+    For ``k = 0 .. n-1``: row ``k`` over its pivot, floored to magnitude
+    ``tiny`` keeping its phase, then every other row minus its entry in
+    column ``k`` times that row (csrc/gj_inverse.cuh).
+    """
+    n = M.shape[-2]
     for k in range(n):
         pivot = M[..., k, k : k + 1]
         mag = pivot.abs()
@@ -211,7 +251,7 @@ def gauss_jordan_solve_nopivot(A: torch.Tensor, b: torch.Tensor, tiny: float = _
         pivot_row = M[..., k, :] / pivot
         M = M - M[..., :, k, None] * pivot_row[..., None, :]
         M[..., k, :] = pivot_row
-    return M[..., n]
+    return M[..., n:]
 
 
 def ip1_sweep_plain(
@@ -596,3 +636,176 @@ def ipa_congruence(
 
 
 ipa_congruence.launches = 0
+
+
+# ---- inverse sandwich (dense MNMF, unfused route) -------------------------------
+
+_GJ_MAX_M = 16  # systems per group of m threads in one warp, mirrored from csrc/gj_inverse.cuh
+
+
+def gj_inverse_plain(R: torch.Tensor, tiny: float = _GJ_TINY) -> torch.Tensor:
+    """Inverse of ``(..., m, m)`` by pivot-free Gauss-Jordan on ``[R | I]``, the floor of :func:`gauss_jordan_solve_nopivot`.
+
+    The complex elimination of ``csrc/gj_inverse.cuh``, step by step; the
+    JAX package runs the same elimination on the real embedding
+    (``splitc._cinv``, splitc.py:3143-3147).
+    """
+    eye = torch.eye(R.shape[-1], dtype=R.dtype, device=R.device).expand(R.shape)
+    return _gauss_jordan(torch.cat([R, eye], dim=-1), tiny)
+
+
+def inv_sandwich_plain(
+    R: torch.Tensor, C: torch.Tensor, tiny: float = _GJ_TINY
+) -> Tuple[torch.Tensor, torch.Tensor]:
+    """``(R^-1, (R^-1 C) R^-1)`` of ``(..., m, m)`` pairs: :func:`gj_inverse_plain` and two products.
+
+    The ``"gj"`` branch of ``planar_inv_sandwich_sc`` (pallas_kernels.py:369-375)
+    on native complex.
+    """
+    Rinv = gj_inverse_plain(R, tiny)
+    return Rinv, (Rinv @ C) @ Rinv
+
+
+def _check_inv_sandwich(R: torch.Tensor, C: torch.Tensor) -> None:
+    name = "inv_sandwich"
+    _require(
+        R.dim() >= 3 and R.shape[-1] == R.shape[-2], f"{name}: R must be (..., m, m), got {tuple(R.shape)}"
+    )
+    _require(R.shape == C.shape, f"{name}: C {tuple(C.shape)} does not match R {tuple(R.shape)}")
+    _require(
+        R.dtype == C.dtype == torch.complex64, f"{name}: the kernel takes complex64, got {R.dtype}, {C.dtype}"
+    )
+    _require(R.is_contiguous() and C.is_contiguous(), f"{name}: inputs must be contiguous")
+    m = R.shape[-1]
+    _require(1 <= m <= _GJ_MAX_M, f"{name}: the kernel takes m <= {_GJ_MAX_M}, got m={m}")
+    B = R.numel() // (m * m)
+    _require(1 <= B < 2**31, f"{name}: batch of {B} systems")
+    _check_cuda(name, R, C)
+
+
+def inv_sandwich(
+    R: torch.Tensor, C: torch.Tensor, tiny: float = _GJ_TINY
+) -> Tuple[torch.Tensor, torch.Tensor]:
+    """``(R^-1, R^-1 C R^-1)`` for Hermitian ``(..., m, m)`` pairs; kernel on CUDA, :func:`inv_sandwich_plain` on CPU.
+
+    The kernel takes complex64 and ``m <= 16``; the batch axes are
+    flattened.
+    """
+    if _on_cpu(R, C):
+        return inv_sandwich_plain(R, C, tiny)
+    _check_inv_sandwich(R, C)
+    m = R.shape[-1]
+    lib, launch = _entry("inv_sandwich")
+    Rinv, S = torch.empty_like(R), torch.empty_like(R)
+    status = launch(
+        R.data_ptr(), C.data_ptr(), Rinv.data_ptr(), S.data_ptr(), R.numel() // (m * m), m, float(tiny),
+        R.device.index, _stream(R.device),
+    )
+    _build.check(lib, "inv_sandwich", status)
+    inv_sandwich.launches += 1
+    return Rinv, S
+
+
+inv_sandwich.launches = 0
+
+
+# ---- fused dense-MNMF model pass --------------------------------------------------------
+
+_MT_WARPS = 8  # warps per block, mirrored from csrc/mnmf_model_traces.cu
+
+
+def model_traces_plain(
+    Lamb: torch.Tensor, H: torch.Tensor, XX: torch.Tensor, eps: float = 1e-10, tiny: float = _GJ_TINY
+) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor, torch.Tensor]:
+    """``(t1, t2, P, Q)`` of the dense-MNMF model pass, composed from tensor operations.
+
+    ``Lamb``: real ``(N, I, T)``; ``H``: complex ``(N, I, m, m)``; ``XX``:
+    complex ``(I, T, m, m)``. With ``R = herm(sum_n Lamb_n herm(H_n)) +
+    eps I`` and ``M = R^-1 XX R^-1`` per (bin, frame): ``t1 = Re tr(M H_n)``
+    and ``t2 = Re tr(R^-1 H_n)``, real ``(N, I, T)``; ``P = sum_t Lamb R^-1``
+    and ``Q = sum_t Lamb M``, complex ``(N, I, m, m)``. The ``"gj"`` branch
+    of ``planar_model_traces_sc`` (pallas_kernels.py:651-672) with ``H``
+    hermitized first, as the kernels of both packages do (:676-678), and the
+    inverse of :func:`gj_inverse_plain`.
+    """
+    Hh = (H + H.mH) / 2
+    Lc = Lamb.to(H.dtype)
+    R = torch.einsum("nit,nipq->itpq", Lc, Hh)
+    R = (R + R.mH) / 2 + eps * torch.eye(R.shape[-1], dtype=R.dtype, device=R.device)
+    Rinv = gj_inverse_plain(R, tiny)
+    M = (Rinv @ XX) @ Rinv
+    t1 = torch.einsum("itab,niba->nit", M, Hh).real
+    t2 = torch.einsum("itab,niba->nit", Rinv, Hh).real
+    P = torch.einsum("nit,itpq->nipq", Lc, Rinv)
+    Q = torch.einsum("nit,itpq->nipq", Lc, M)
+    return t1, t2, P, Q
+
+
+def model_traces_smem_bytes(n_sources: int, m: int) -> int:
+    """Shared memory one block of the kernel takes (csrc/mnmf_model_traces.cu:model_traces_smem_bytes).
+
+    The bin's padded hermitized ``H`` and its ``P`` and ``Q``
+    (``N (3 m^2 + 1)`` complex64), per frame of a tile of
+    ``8 floor(32 / m)`` the padded ``[R | I]`` and ``XX`` (``m (3 m + 1)``
+    complex64), and the tile's ``Lamb`` (``N`` float32 per frame).
+    """
+    frames = _MT_WARPS * (32 // m)
+    return (n_sources * (3 * m * m + 1) + frames * m * (3 * m + 1)) * 8 + n_sources * frames * 4
+
+
+def _check_model_traces(Lamb: torch.Tensor, H: torch.Tensor, XX: torch.Tensor) -> None:
+    name = "model_traces"
+    _require(Lamb.dim() == 3, f"{name}: Lamb must be (N, I, T), got {tuple(Lamb.shape)}")
+    N, I, T = Lamb.shape
+    _require(
+        H.dim() == 4 and H.shape[:2] == (N, I) and H.shape[-1] == H.shape[-2],
+        f"{name}: H must be (N, I, m, m) with Lamb {tuple(Lamb.shape)}, got {tuple(H.shape)}",
+    )
+    m = H.shape[-1]
+    _require(
+        tuple(XX.shape) == (I, T, m, m),
+        f"{name}: XX {tuple(XX.shape)} does not match Lamb {tuple(Lamb.shape)} and H {tuple(H.shape)}",
+    )
+    _require(Lamb.dtype == torch.float32, f"{name}: the kernel takes float32 Lamb, got {Lamb.dtype}")
+    _require(
+        H.dtype == XX.dtype == torch.complex64, f"{name}: the kernel takes complex64 H and XX, got {H.dtype}, {XX.dtype}"
+    )
+    _require(
+        Lamb.is_contiguous() and H.is_contiguous() and XX.is_contiguous(), f"{name}: inputs must be contiguous"
+    )
+    _require(min(N, I, T) >= 1, f"{name}: empty input {tuple(Lamb.shape)}")
+    _require(1 <= m <= _GJ_MAX_M, f"{name}: the kernel takes m <= {_GJ_MAX_M}, got m={m}")
+    _require(
+        model_traces_smem_bytes(N, m) <= _SMEM_BLOCK_MAX,
+        f"{name}: N={N}, m={m} exceeds the shared memory of one block",
+    )
+    _check_cuda(name, Lamb, H, XX)
+
+
+def model_traces(
+    Lamb: torch.Tensor, H: torch.Tensor, XX: torch.Tensor, eps: float = 1e-10, tiny: float = _GJ_TINY
+) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor, torch.Tensor]:
+    """Fused dense-MNMF model pass ``(t1, t2, P, Q)``; kernel on CUDA, :func:`model_traces_plain` on CPU.
+
+    Shapes as :func:`model_traces_plain`. The kernel takes float32 ``Lamb``,
+    complex64 ``H`` and ``XX`` and ``m <= 16``, and writes no
+    ``(I, T, m, m)`` intermediate to device memory.
+    """
+    if _on_cpu(Lamb, H, XX):
+        return model_traces_plain(Lamb, H, XX, eps, tiny)
+    _check_model_traces(Lamb, H, XX)
+    N, I, T = Lamb.shape
+    m = H.shape[-1]
+    lib, launch = _entry("model_traces")
+    t1, t2 = torch.empty_like(Lamb), torch.empty_like(Lamb)
+    P, Q = torch.empty_like(H), torch.empty_like(H)
+    status = launch(
+        Lamb.data_ptr(), H.data_ptr(), XX.data_ptr(), t1.data_ptr(), t2.data_ptr(), P.data_ptr(), Q.data_ptr(),
+        N, I, T, m, float(eps), float(tiny), Lamb.device.index, _stream(Lamb.device),
+    )
+    _build.check(lib, "model_traces", status)
+    model_traces.launches += 1
+    return t1, t2, P, Q
+
+
+model_traces.launches = 0

@@ -1,0 +1,304 @@
+"""Dense GaussMNMF on native complex tensors: the iteration, its loss and the Wiener filter.
+
+Counterparts of ``ssspy_tpu/ops/splitc.py``'s ``instant_covariance_sc``
+(:2905-2918), ``_psd_project_sc`` (:3150-3162), ``gmean2_sc`` with
+``_chol_unrolled`` and ``_tri_lower_inv`` (:3165-3291),
+``gauss_mnmf_step_sc`` (:2921-3124) and ``gauss_mnmf_loss_sc``
+(:4306-4331), and of the multichannel Wiener filter of
+``ssspy_tpu/fast.py:902-908`` and ``ssspy_tpu/bss/mnmf.py:322-334``.
+
+The routes are decided by dtype, before any launch; the JAX package makes
+the same choices by backend (splitc.py:2974-2992):
+
+- complex64, the accelerator route: ``psd_impl="ridge"`` (hermitize and add
+  ``eps I``) and ``gmean_impl="chol"``; every model, inverse, sandwich,
+  trace and frame-sum pass is the fused kernel K5
+  (:func:`ssspy_tpu_torch.ops.kernels.model_traces`), three times per
+  iteration and a fourth with the latent ``Z``; the geometric mean's one
+  embedded eigh is K7 at ``B = N I``, ``n = 2M``. With ``psd_impl="eigh"``
+  (the JAX package's parity model in float32) the step runs unfused: the
+  inverse sandwich K4 (:func:`ssspy_tpu_torch.ops.kernels.inv_sandwich`)
+  three times per iteration (four with ``Z``), and every PSD projection,
+  ``B = I T`` embedded ``2M x 2M`` matrices for each model ``R``, through K7.
+- complex128, the reference route: ``psd_impl="eigh"`` through
+  ``torch.linalg.eigh`` and ``gmean_impl="eigh2"``; the inverse and the
+  sandwich are ``torch.linalg.inv_ex`` and ``matmul``, since the kernels
+  take float32 only.
+"""
+
+import functools
+from typing import Optional, Tuple
+
+import torch
+
+from ..special.flooring import max_flooring
+from ..special.psd import hermitize, spectral, to_psd
+from . import kernels, prox_steps
+from .ilrma_steps import reconstruct_nmf
+from .prox_steps import _extract, block_embed
+
+__all__ = [
+    "instant_covariance",
+    "psd_project",
+    "chol_unrolled",
+    "gmean2",
+    "gauss_mnmf_step",
+    "gauss_mnmf_loss",
+    "wiener_separate",
+]
+
+PSD_IMPLS = ("ridge", "eigh")
+# complex64: the spatial covariances' ridge or floor relative to their scale (see gauss_mnmf_step)
+F32_SPATIAL_REL = 1e-5
+GMEAN_IMPLS = ("chol", "eigh2")
+
+
+def _routes(dtype: torch.dtype, psd_impl: str = "auto", gmean_impl: str = "auto") -> Tuple[str, str]:
+    """``(psd_impl, gmean_impl)`` with ``"auto"`` resolved by dtype (see the module)."""
+    if dtype not in (torch.complex64, torch.complex128):
+        raise ValueError(f"dense GaussMNMF takes complex64 or complex128, got {dtype}")
+    f32 = dtype == torch.complex64
+    psd_impl = ("ridge" if f32 else "eigh") if psd_impl == "auto" else psd_impl
+    gmean_impl = ("chol" if f32 else "eigh2") if gmean_impl == "auto" else gmean_impl
+    if psd_impl not in PSD_IMPLS:
+        raise ValueError(f"unknown psd_impl {psd_impl!r}; expected 'auto' or one of {PSD_IMPLS}")
+    if gmean_impl not in GMEAN_IMPLS:
+        raise ValueError(f"unknown gmean_impl {gmean_impl!r}; expected 'auto' or one of {GMEAN_IMPLS}")
+    return psd_impl, gmean_impl
+
+
+def psd_project(A: torch.Tensor, eps: float, impl: str, rel: float = 0.0) -> torch.Tensor:
+    """PSD projection of Hermitian ``(..., m, m)`` (splitc.py:3150-3162).
+
+    ``"eigh"`` floors the eigenvalues at ``max(eps, rel lamb_max)``
+    (:func:`~ssspy_tpu_torch.special.psd.to_psd`); ``"ridge"`` hermitizes
+    and adds ``(eps + rel tr(A) / m) I``. ``rel = 0`` is the JAX step.
+    """
+    if impl == "eigh":
+        return to_psd(A, functools.partial(max_flooring, eps=eps), rel=rel)
+    if impl == "ridge":
+        A = hermitize(A)
+        eye = torch.eye(A.shape[-1], dtype=A.dtype, device=A.device)
+        if rel:
+            return A + (eps + rel * A.diagonal(dim1=-2, dim2=-1).real.mean(dim=-1))[..., None, None] * eye
+        return A + eps * eye
+    raise ValueError(f"unknown psd_impl {impl!r}; expected one of {PSD_IMPLS}")
+
+
+def instant_covariance(X: torch.Tensor, eps: float = 1e-10, psd_impl: str = "auto") -> torch.Tensor:
+    """``XX[i,t] = psd_project(x_it x_it^H)``, ``(I, T, M, M)`` from ``X (M, I, T)`` (splitc.py:2905-2918).
+
+    ``psd_impl`` as :func:`gauss_mnmf_step` resolves it; the rank-one outer
+    product is PSD by construction, so the ridge is its float32 route.
+    """
+    psd_impl, _ = _routes(X.dtype, psd_impl)
+    XX = torch.einsum("pit,qit->itpq", X, X.conj())
+    return psd_project(XX, eps, psd_impl).contiguous()
+
+
+def chol_unrolled(S: torch.Tensor, tiny: float = 1e-30) -> torch.Tensor:
+    """Lower Cholesky factor of real symmetric ``(..., n, n)``, column by column.
+
+    Cholesky-Banachiewicz as ``splitc._chol_unrolled`` (splitc.py:3165-3202):
+    each diagonal entry is floored at ``sqrt(tiny)`` before it divides, so a
+    semidefinite input gives a finite factor where a library Cholesky
+    reports failure.
+    """
+    n = S.shape[-1]
+    rows = torch.arange(n, device=S.device)
+    cols = []
+    for j in range(n):
+        c = S[..., :, j]
+        if j:
+            L = torch.stack(cols, dim=-1)  # (..., n, j)
+            c = c - (L @ L[..., j, :, None])[..., 0]
+        d = torch.sqrt(torch.clamp(c[..., j : j + 1], min=tiny))
+        cols.append(torch.where(rows >= j, c / d, torch.zeros_like(c)))
+    return torch.stack(cols, dim=-1)
+
+
+def _symmetrised(S: torch.Tensor) -> torch.Tensor:
+    return (S + S.transpose(-1, -2)) / 2
+
+
+def gmean2(A: torch.Tensor, B: torch.Tensor, impl: str = "eigh2") -> torch.Tensor:
+    """Geometric mean ``A^-1 # B`` of Hermitian PSD pairs ``(..., m, m)``: the Hermitian PD ``G`` with ``G A G = B``.
+
+    ``splitc.gmean2_sc`` (splitc.py:3222-3291; reference
+    ``ssspy.linalg.gmeanmh(A, B, type=2)``). ``"eigh2"``:
+    ``A^-1/2 (A^1/2 B A^1/2)^1/2 A^-1/2``, one eigh of ``A`` for both outer
+    roots and one for the inner one, each routed by dtype
+    (:func:`~ssspy_tpu_torch.special.psd.spectral`). ``"chol"``: with the
+    real embedding ``E(A) = F F^T`` (:func:`chol_unrolled`),
+    ``E(G) = F^-T (F^T E(B) F)^1/2 F^-1``: one real symmetric eigh of
+    ``2m x 2m`` matrices through :func:`prox_steps.symm_eigh` (the Jacobi
+    kernel K7 in float32) and a triangular inverse; it needs ``A``
+    positive definite, as the step's projections leave it.
+    """
+    if impl == "chol":
+        n = A.shape[-1]
+        F = chol_unrolled(_symmetrised(block_embed(A)))
+        eye = torch.eye(2 * n, dtype=F.dtype, device=F.device).expand(F.shape)
+        F_inv = torch.linalg.solve_triangular(F, eye, upper=False)
+        C = _symmetrised(F.transpose(-1, -2) @ _symmetrised(block_embed(B)) @ F)
+        lamb, P = prox_steps.symm_eigh(C)
+        S = (P * torch.sqrt(torch.clamp(lamb, min=0.0))[..., None, :]) @ P.transpose(-1, -2)
+        return _extract(F_inv.transpose(-1, -2) @ S @ F_inv, n)
+    if impl == "eigh2":
+        def root(lamb):
+            return torch.sqrt(torch.clamp(lamb, min=0.0))
+
+        A_half, A_inv_half = spectral(A, root, lambda lamb: 1 / root(lamb))
+        S = spectral(hermitize(A_half @ B @ A_half), root)
+        return hermitize(A_inv_half @ S @ A_inv_half)
+    raise ValueError(f"unknown gmean_impl {impl!r}; expected one of {GMEAN_IMPLS}")
+
+
+def _model(Lamb: torch.Tensor, H: torch.Tensor) -> torch.Tensor:
+    """``R = sum_n Lamb_n H_n``, ``(I, T, M, M)``."""
+    return torch.einsum("nit,nipq->itpq", Lamb.to(H.dtype), H)
+
+
+def _trace_real(A: torch.Tensor, H: torch.Tensor) -> torch.Tensor:
+    """``Re tr(A[i,t] H[n,i])`` as ``(N, I, T)``, without forming the products (bss/mnmf.py:44-46)."""
+    return torch.einsum("itab,niba->nit", A, H).real
+
+
+def _inv_sandwich(R: torch.Tensor, C: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
+    """``(R^-1, R^-1 C R^-1)``: K4 in complex64, ``inv_ex`` and ``matmul`` in complex128."""
+    if R.dtype == torch.complex64:
+        return kernels.inv_sandwich(R.contiguous(), C.contiguous())
+    R_inv = torch.linalg.inv_ex(R)[0]
+    return R_inv, (R_inv @ C) @ R_inv
+
+
+def gauss_mnmf_step(
+    XX: torch.Tensor,
+    T: torch.Tensor,
+    V: torch.Tensor,
+    H: torch.Tensor,
+    Z: Optional[torch.Tensor] = None,
+    eps: float = 1e-10,
+    psd_impl: str = "auto",
+    normalization: bool = True,
+    gmean_impl: str = "auto",
+):
+    """One dense GaussMNMF iteration (``splitc.gauss_mnmf_step_sc``, splitc.py:2921-3124).
+
+    ``XX``: instant covariances ``(I, T, M, M)``; ``T``, ``V``: NMF basis
+    ``(N, I, K)`` and activation ``(N, K, T)`` (with ``Z``: ``(I, K)``,
+    ``(K, T)`` and the latent ``(N, K)``); ``H``: spatial covariances
+    ``(N, I, M, M)``. MM updates of the basis, then the activation, from the
+    Wiener traces ``tr(R^-1 XX R^-1 H_n)`` and ``tr(R^-1 H_n)``; the spatial
+    update ``H <- P^-1 # HQH``; unit-trace normalization; the latent update.
+    ``psd_impl`` (``"ridge"`` or ``"eigh"``) and ``gmean_impl`` (``"chol"``
+    or ``"eigh2"``) default by dtype, and complex64 with the ridge model
+    runs fused (see the module). In complex64 the new ``H`` is projected
+    with a relative term, ``rel = F32_SPATIAL_REL``: the absolute ``eps``
+    vanishes under float32 rounding once a spatial covariance nears rank
+    one, and without it ``H`` and then ``R`` lose definiteness, a trace
+    that is non-negative in exact arithmetic comes out negative and the
+    square root of the MM update is NaN (the JAX float32 step as well).
+    The JAX step's ``inv_impl``, ``fuse`` and ``XX_lanes`` choose TPU
+    layouts and have no counterpart; ``bin_mask`` belongs to the sharded
+    runner, not ported yet. Returns ``(T, V, H)`` or ``(T, V, H, Z)``.
+    """
+    psd_impl, gmean_impl = _routes(XX.dtype, psd_impl, gmean_impl)
+    fused = XX.dtype == torch.complex64 and psd_impl == "ridge"
+
+    def traces(T, V, Z, H):
+        Lamb = reconstruct_nmf(T, V, Z).contiguous()
+        if fused:
+            return kernels.model_traces(Lamb, H, XX, eps)[:2]
+        R_inv, S = _inv_sandwich(psd_project(_model(Lamb, H), eps, psd_impl), XX)
+        return _trace_real(S, H), _trace_real(R_inv, H)
+
+    # ---- MM updates of basis, then activation (mnmf.py:836-968) ----
+    num, denom = traces(T, V, Z, H)
+    if Z is None:
+        n_, d_ = (torch.einsum("nkt,nit->nik", V, x) for x in (num, denom))
+    else:
+        n_, d_ = (torch.einsum("nk,kt,nit->ik", Z, V, x) for x in (num, denom))
+    T = torch.clamp(T * torch.sqrt(n_ / d_), min=eps)
+
+    num, denom = traces(T, V, Z, H)
+    if Z is None:
+        n_, d_ = (torch.einsum("nik,nit->nkt", T, x) for x in (num, denom))
+    else:
+        n_, d_ = (torch.einsum("nk,ik,nit->kt", Z, T, x) for x in (num, denom))
+    V = torch.clamp(V * torch.sqrt(n_ / d_), min=eps)
+
+    # ---- spatial update H <- P^-1 # HQH (mnmf.py:970-1016) ----
+    Lamb = reconstruct_nmf(T, V, Z).contiguous()
+    if fused:
+        _, _, P, Q = kernels.model_traces(Lamb, H, XX, eps)
+    else:
+        R_inv, S = _inv_sandwich(psd_project(_model(Lamb, H), eps, psd_impl), XX)
+        Lc = Lamb.to(H.dtype)
+        P = torch.einsum("nit,itpq->nipq", Lc, R_inv)
+        Q = torch.einsum("nit,itpq->nipq", Lc, S)
+    P = psd_project(P, eps, psd_impl)
+    HQH = psd_project(H @ Q @ H, eps, psd_impl)
+    rel = F32_SPATIAL_REL if H.dtype == torch.complex64 else 0.0
+    H = psd_project(gmean2(P, HQH, impl=gmean_impl), eps, psd_impl, rel=rel)
+
+    # ---- unit-trace normalization (mnmf.py:391-414) ----
+    if normalization:
+        trace = H.diagonal(dim1=-2, dim2=-1).real.sum(dim=-1)  # (N, I)
+        H = H / trace[..., None, None]
+        if Z is None:
+            T = trace[:, :, None] * T
+
+    # ---- latent update (partitioning, mnmf.py:1018-1073) ----
+    if Z is not None:
+        num, denom = traces(T, V, Z, H)
+        n_, d_ = (torch.einsum("ik,kt,nit->nk", T, V, x) for x in (num, denom))
+        Z = Z * torch.sqrt(n_ / d_)
+        return T, V, H, Z / Z.sum(dim=0)
+    return T, V, H
+
+
+def gauss_mnmf_loss(
+    XX: torch.Tensor,
+    T: torch.Tensor,
+    V: torch.Tensor,
+    H: torch.Tensor,
+    Z: Optional[torch.Tensor] = None,
+    eps: float = 1e-10,
+    psd_impl: str = "auto",
+) -> torch.Tensor:
+    """Negative log-likelihood ``sum_i mean_t [tr(R^-1 XX) + log det R]`` (splitc.py:4306-4331).
+
+    ``R`` is the model projected as :func:`gauss_mnmf_step` projects it.
+    One batched LU (``lu_factor_ex``, which reports a singular system
+    instead of raising) gives both terms: ``lu_solve`` for the trace and
+    the log-magnitudes of its pivots for the log-determinant, as the
+    class's ``solve`` and ``slogdet`` (bss/mnmf.py:426-441). A 0-dim tensor
+    on the input's device.
+    """
+    psd_impl, _ = _routes(XX.dtype, psd_impl)
+    R = psd_project(_model(reconstruct_nmf(T, V, Z), H), eps, psd_impl)
+    LU, pivots, _ = torch.linalg.lu_factor_ex(R)
+    trace = torch.linalg.lu_solve(LU, pivots, XX).diagonal(dim1=-2, dim2=-1).real.sum(dim=-1)
+    logdet = torch.log(LU.diagonal(dim1=-2, dim2=-1).abs()).sum(dim=-1)
+    return torch.sum(torch.mean(trace + logdet, dim=-1))
+
+
+def wiener_separate(
+    X: torch.Tensor, Lamb: torch.Tensor, H: torch.Tensor, reference_id: int = 0, eps: Optional[float] = None
+) -> torch.Tensor:
+    """Multichannel Wiener filter at the reference channel: ``Y (N, I, T)`` from ``X (M, I, T)``.
+
+    ``y_n = [R_n^H R^-H x]_ref`` with ``R_n = Lamb_n H_n`` and ``R = sum_n
+    R_n`` (fast.py:902-908), projected first with ``eps`` as the class does
+    (bss/mnmf.py:322-334; the step's model for the dtype; ``eps=None``: not
+    projected, as the fast path).
+    The reference forms ``W_n = R^-1 R_n`` for every source, an
+    ``(N, I, T, M, M)`` tensor; here one ``solve_ex`` of ``R^H z = x`` serves
+    every source, and ``y_n = Lamb_n conj(H_n[:, ref]) . z``.
+    """
+    R = _model(Lamb, H)
+    if eps is not None:
+        R = psd_project(R, eps, _routes(R.dtype)[0])
+    z = torch.linalg.solve_ex(R.mH, X.permute(1, 2, 0)[..., None])[0][..., 0]  # (I, T, M)
+    return Lamb.to(X.dtype) * torch.einsum("nip,itp->nit", H[..., :, reference_id].conj(), z)

@@ -8,7 +8,8 @@ eigenvalue floor ``splitc._eig_floor`` (splitc.py:1261-1280).
 Both are spectral functions of a Hermitian matrix, and the route of their
 eigendecomposition is decided by dtype, before any launch: complex128 and
 float64 go to ``torch.linalg.eigh`` on the matrix itself (the
-reference-exact route of the CPU tests and the fixtures); complex64 goes
+reference-exact route of the CPU tests and the fixtures; on the card in
+batches of ``CUDA_EIGH_BATCH`` matrices); complex64 goes
 through the real ``2m x 2m`` embedding and
 :func:`ssspy_tpu_torch.ops.prox_steps.herm_eigh_embed` (the Jacobi kernel
 K7 on the card), with the two embedded copies averaged on the way back
@@ -18,7 +19,7 @@ in exact pairs, so single eigenvector columns mean nothing, but
 """
 
 import functools
-from typing import Callable, Optional
+from typing import Callable, Optional, Tuple
 
 import torch
 
@@ -52,18 +53,41 @@ def eig_floor(flooring_fn: Optional[Callable], rel: float = 0.0) -> Callable:
     return floor
 
 
-def spectral(A: torch.Tensor, f: Callable) -> torch.Tensor:
-    """``P f(lamb) P^H`` of Hermitian ``A (..., m, m)``, the eigh routed by dtype (see the module)."""
-    if A.dtype in (torch.complex128, torch.float64):
-        lamb, P = torch.linalg.eigh(A)
-        return (P * f(lamb)[..., None, :].to(P.dtype)) @ P.mH
-    if A.dtype != torch.complex64:
-        raise ValueError(f"spectral takes complex128, float64 or complex64, got {A.dtype}")
-    # imported here: ops imports this module
-    from ..ops.prox_steps import _extract, herm_eigh_embed
+# matrices per cuSOLVER batched eigh: it refuses dense GaussMNMF's model
+# batch (257 x 626 = 160,882 complex128 8 x 8) in one call
+CUDA_EIGH_BATCH = 16384
 
-    lamb2, P2 = herm_eigh_embed(A)
-    return _extract((P2 * f(lamb2)[..., None, :]) @ P2.transpose(-1, -2), A.shape[-1])
+
+def eigh_in_batches(A: torch.Tensor, batch: int) -> Tuple[torch.Tensor, torch.Tensor]:
+    """``torch.linalg.eigh`` of ``(..., m, m)``, called on at most ``batch`` matrices at a time."""
+    flat = A.reshape(-1, *A.shape[-2:])
+    if flat.shape[0] <= batch:
+        return torch.linalg.eigh(A)
+    parts = [torch.linalg.eigh(flat[k : k + batch]) for k in range(0, flat.shape[0], batch)]
+    lamb, P = (torch.cat([part[j] for part in parts]) for j in (0, 1))
+    return lamb.reshape(A.shape[:-1]), P.reshape(A.shape)
+
+
+def spectral(A: torch.Tensor, f: Callable, *more: Callable):
+    """``P f(lamb) P^H`` of Hermitian ``A (..., m, m)``, the eigh routed by dtype (see the module).
+
+    With ``more`` functions, a tuple with one matrix per function, all from
+    the one eigh.
+    """
+    if A.dtype in (torch.complex128, torch.float64):
+        lamb, P = eigh_in_batches(A, CUDA_EIGH_BATCH) if A.is_cuda else torch.linalg.eigh(A)
+        out = tuple((P * g(lamb)[..., None, :].to(P.dtype)) @ P.mH for g in (f, *more))
+    elif A.dtype == torch.complex64:
+        # imported here: ops imports this module
+        from ..ops.prox_steps import _extract, herm_eigh_embed
+
+        lamb2, P2 = herm_eigh_embed(A)
+        out = tuple(
+            _extract((P2 * g(lamb2)[..., None, :]) @ P2.transpose(-1, -2), A.shape[-1]) for g in (f, *more)
+        )
+    else:
+        raise ValueError(f"spectral takes complex128, float64 or complex64, got {A.dtype}")
+    return out if more else out[0]
 
 
 def to_psd(

@@ -38,17 +38,19 @@ _COMPLEX_KEYS = (
     "dual",  # PDS dual
     "V1", "V2", "Y1", "Y2", "quad_inv",  # ADMM fast-path auxiliaries, duals, (X X^H + I)^-1
     "auxiliary1", "auxiliary2", "dual1", "dual2",  # ADMM class auxiliaries and duals
+    "H", "XX",  # dense MNMF spatial and instant covariances
 )
-_REAL_KEYS = ("T", "V", "Z")  # NMF basis, activation and latent
+_REAL_KEYS = ("T", "V", "Z")  # NMF basis, activation and latent (ILRMA and MNMF)
 
 
 def from_jax_state(state: Dict, device=None) -> Dict[str, torch.Tensor]:
     """Convert a JAX class or fast-path state dict (e.g. ``{"X": Xs, "W": Ws}``).
 
     The kind of each entry is decided by its key, never by its shape:
-    ``X``, ``W``, ``Y`` and the prox family's ``dual``, ``V1``, ``V2``,
+    ``X``, ``W``, ``Y``, the prox family's ``dual``, ``V1``, ``V2``,
     ``Y1``, ``Y2``, ``quad_inv``, ``auxiliary1``, ``auxiliary2``,
-    ``dual1`` and ``dual2`` are complex and arrive either complex (class
+    ``dual1`` and ``dual2``, and dense MNMF's ``H`` and ``XX`` are
+    complex and arrive either complex (class
     state) or planar ``(2, ...)`` real (fast-path state, through
     :func:`planar_to_complex`); ``T``, ``V`` and ``Z`` are real and keep
     their dtype, whatever their leading axis. Any other key raises.

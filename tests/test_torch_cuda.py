@@ -207,3 +207,146 @@ def test_fast_auxiva_ipa_runs_through_the_kernels(cuda_device):
     assert torch.isfinite(torch.view_as_real(Y)).all()
     Xt = torch.from_numpy(X).to(cuda_device)
     assert float(iva_laplace_loss(Xt, Y=Y)) < float(iva_laplace_loss(Xt, Y=Xt))
+
+
+def _psd(rng, shape, device):
+    """Hermitian positive definite complex64 ``shape = (..., m, m)`` on ``device``."""
+    A = _complex(rng, shape, device)
+    return (A @ A.mH / shape[-1] + 0.1 * torch.eye(shape[-1], device=device)).contiguous()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("shape", [(257, 626, 8), (5, 37, 4), (7, 50, 16), (3, 41, 3)], ids=["main_path", "m4", "m16", "m3"])
+def test_inv_sandwich_kernel_matches_plain(cuda_device, shape):
+    rng = np.random.default_rng(15)
+    R, C = _psd(rng, shape + shape[-1:], cuda_device), _psd(rng, shape + shape[-1:], cuda_device)
+    before = K.inv_sandwich.launches
+    R_inv, S = K.inv_sandwich(R, C)
+    R_inv_ref, S_ref = K.inv_sandwich_plain(R, C)
+    torch.cuda.synchronize()
+    assert K.inv_sandwich.launches == before + 1
+    # the same elimination on both sides, sums in another order
+    assert (R_inv - R_inv_ref).abs().max() <= 1e-5 * R_inv_ref.abs().max()
+    assert (S - S_ref).abs().max() <= 1e-5 * S_ref.abs().max()
+
+
+@pytest.mark.cuda
+def test_inv_sandwich_kernel_floors_the_pivot_of_a_zero_system(cuda_device):
+    rng = np.random.default_rng(16)
+    R, C = _psd(rng, (20, 8, 8), cuda_device), _psd(rng, (20, 8, 8), cuda_device)
+    R[[3, 11]] = 0
+    C[[3, 11]] = 0
+    R_inv, S = K.inv_sandwich(R, C)
+    R_inv_ref, S_ref = K.inv_sandwich_plain(R, C)
+    torch.cuda.synchronize()
+    assert torch.isfinite(torch.view_as_real(R_inv)).all() and torch.isfinite(torch.view_as_real(S)).all()
+    # every pivot floors to 1e-20, divided as PyTorch divides
+    assert torch.equal(R_inv[[3, 11]], R_inv_ref[[3, 11]])
+    assert torch.equal(R_inv[3], torch.eye(8, dtype=R.dtype, device=cuda_device) / torch.tensor(1e-20, device=cuda_device))
+    assert not S[[3, 11]].any()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("shape", [(8, 257, 626, 8), (3, 5, 37, 4), (2, 4, 130, 8), (3, 7, 50, 16)],
+                         ids=["main_path", "m4", "m8_short", "m16"])
+def test_model_traces_kernel_matches_plain(cuda_device, shape):
+    rng = np.random.default_rng(17)
+    N, I, T, m = shape
+    H, XX = _psd(rng, (N, I, m, m), cuda_device), _psd(rng, (I, T, m, m), cuda_device)
+    Lamb = torch.from_numpy(rng.random((N, I, T), dtype=np.float32) + 0.05).to(cuda_device)
+    before = K.model_traces.launches
+    out = K.model_traces(Lamb, H, XX, 1e-6)
+    ref = K.model_traces_plain(Lamb, H, XX, 1e-6)
+    torch.cuda.synchronize()
+    assert K.model_traces.launches == before + 1
+    # relative to max, as tests/ops/test_pallas_kernels.py:101-105 holds the TPU kernel
+    for got, want in zip(out, ref):
+        assert got.shape == want.shape
+        assert (got - want).abs().max() <= 2e-4 * want.abs().max()
+
+
+@pytest.mark.cuda
+def test_model_traces_kernel_stays_finite_on_zero_bins_and_a_tiny_lamb(cuda_device):
+    rng = np.random.default_rng(18)
+    H, XX = _psd(rng, (8, 12, 8, 8), cuda_device), _psd(rng, (12, 70, 8, 8), cuda_device)
+    Lamb = torch.from_numpy(rng.random((8, 12, 70), dtype=np.float32) + 0.05).to(cuda_device)
+    XX[[2, 9]] = 0
+    Lamb[:, 5] = 1e-30
+    out = K.model_traces(Lamb, H, XX, 1e-10)
+    ref = K.model_traces_plain(Lamb, H, XX, 1e-10)
+    torch.cuda.synchronize()
+    for got, want in zip(out, ref):
+        got = torch.view_as_real(got) if got.is_complex() else got
+        want = torch.view_as_real(want) if want.is_complex() else want
+        assert torch.isfinite(got).all()
+        keep = [i for i in range(12) if i != 5]
+        assert (got[:, keep] - want[:, keep]).abs().max() <= 2e-4 * want[:, keep].abs().max()
+        assert (got[:, 5] - want[:, 5]).abs().max() <= 2e-4 * want[:, 5].abs().max()
+    assert not out[0][:, [2, 9]].any() and not out[3][:, [2, 9]].any()
+
+
+@pytest.mark.cuda
+def test_mnmf_kernels_reject_what_they_do_not_take(cuda_device):
+    R = torch.zeros((4, 3, 3), dtype=torch.complex64, device=cuda_device)
+    with pytest.raises(ValueError, match="complex64"):
+        K.inv_sandwich(R.to(torch.complex128), R.to(torch.complex128))
+    with pytest.raises(ValueError, match="contiguous"):
+        K.inv_sandwich(R.mT, R)
+    with pytest.raises(ValueError, match="all CUDA tensors"):
+        K.inv_sandwich(R, R.cpu())
+    Lamb = torch.ones((2, 4, 5), device=cuda_device)
+    H = torch.zeros((2, 4, 3, 3), dtype=torch.complex64, device=cuda_device)
+    XX = torch.zeros((4, 5, 3, 3), dtype=torch.complex64, device=cuda_device)
+    with pytest.raises(ValueError, match="float32 Lamb"):
+        K.model_traces(Lamb.double(), H, XX)
+    with pytest.raises(ValueError, match="contiguous"):
+        K.model_traces(Lamb, H, XX.transpose(0, 1).contiguous().transpose(0, 1))
+    with pytest.raises(ValueError, match="all CUDA tensors"):
+        K.model_traces(Lamb, H.cpu(), XX)
+
+
+@pytest.mark.cuda
+def test_dense_mnmf_runs_through_the_kernels(cuda_device):
+    """Five iterations of ``fast_gauss_mnmf_dense`` on the card: K5 three times, K7 once per iteration; the eigh model K4."""
+    from ssspy_tpu_torch.fast import fast_gauss_mnmf_dense
+    from ssspy_tpu_torch.ops.mnmf_steps import gauss_mnmf_loss, gauss_mnmf_step, instant_covariance
+
+    rng = np.random.default_rng(19)
+    X = (rng.standard_normal((4, 65, 120)) + 1j * rng.standard_normal((4, 65, 120))).astype(np.complex64)
+    X[1] += 0.5 * X[0]
+    names = ("model_traces", "jacobi_eigh", "inv_sandwich")
+    before = {name: getattr(K, name).launches for name in names}
+    Y, (T, V, H) = fast_gauss_mnmf_dense(X, n_basis=2, n_iter=5, rng=np.random.default_rng(20))
+    torch.cuda.synchronize()
+    assert {name: getattr(K, name).launches - before[name] for name in names} == {
+        "model_traces": 15, "jacobi_eigh": 5, "inv_sandwich": 0}
+    assert Y.device.type == "cuda" and Y.dtype == torch.complex64 and Y.shape == X.shape
+    assert torch.isfinite(torch.view_as_real(Y)).all()
+    XX = instant_covariance(torch.from_numpy(X).to(cuda_device))
+    start = (torch.ones_like(T), torch.ones_like(V), torch.eye(4, dtype=H.dtype, device=cuda_device).expand_as(H) / 4)
+    assert float(gauss_mnmf_loss(XX, T, V, H)) < float(gauss_mnmf_loss(XX, *start))
+    before = K.inv_sandwich.launches
+    gauss_mnmf_step(XX, T, V, H, psd_impl="eigh")
+    torch.cuda.synchronize()
+    assert K.inv_sandwich.launches == before + 3
+
+
+@pytest.mark.cuda
+def test_complex128_psd_projection_takes_the_dense_mnmf_model_batch(cuda_device):
+    """``to_psd`` on 160,882 complex128 8 x 8 matrices, dense GaussMNMF's model at full width.
+
+    cuSOLVER's batched eigh refuses that batch in one call;
+    ``special.psd.spectral`` hands it over in batches of ``CUDA_EIGH_BATCH``.
+    """
+    from ssspy_tpu_torch.special.psd import CUDA_EIGH_BATCH, to_psd
+
+    rng = np.random.default_rng(21)
+    A = torch.from_numpy(rng.standard_normal((257, 626, 8, 8)) + 1j * rng.standard_normal((257, 626, 8, 8)))
+    A = A.to(cuda_device)
+    assert A.shape[:-2].numel() > CUDA_EIGH_BATCH
+    out = to_psd(A)
+    head = to_psd(A[:2])
+    torch.cuda.synchronize()
+    assert torch.isfinite(torch.view_as_real(out)).all()
+    assert torch.linalg.eigvalsh(out[:2]).min() >= -1e-12
+    assert (out[:2] - head).abs().max() <= 1e-12 * head.abs().max()

@@ -313,10 +313,25 @@ def test_failed_build_raises_with_the_compiler_output(monkeypatch, tmp_path):
 
 
 def test_every_kernel_source_exists_for_its_wrapper():
-    assert set(K._SIGNATURES) == {"weighted_covariance", "ip1_sweep", "iss1_sweep", "jacobi_eigh", "ipa_congruence"}
+    assert set(K._SIGNATURES) == {
+        "weighted_covariance", "ip1_sweep", "iss1_sweep", "jacobi_eigh", "ipa_congruence", "inv_sandwich", "model_traces"
+    }
     for name in K._SIGNATURES:
         assert hasattr(getattr(K, name), "launches")
-        assert os.path.isfile(os.path.join(_build.SOURCE_DIR, f"{name}.cu"))
+        assert os.path.isfile(os.path.join(_build.SOURCE_DIR, f"{K.source_of(name)}.cu"))
+    assert K.source_of("model_traces") == "mnmf_model_traces"
+
+
+def test_an_edited_shared_header_rebuilds_every_kernel(monkeypatch, tmp_path):
+    """The build hash covers csrc/*.cuh, which the sources include, as well as the source itself."""
+    source = tmp_path / "k.cu"
+    source.write_text("// kernel\n")
+    header = tmp_path / "shared.cuh"
+    header.write_text("// one\n")
+    monkeypatch.setattr(_build, "SOURCE_DIR", str(tmp_path))
+    first = _build._digest(str(source))
+    header.write_text("// two\n")
+    assert _build._digest(str(source)) != first
 
 
 def test_import_pulls_in_no_jax():
@@ -324,7 +339,8 @@ def test_import_pulls_in_no_jax():
         "import sys, ssspy_tpu_torch, ssspy_tpu_torch.bss.iva, ssspy_tpu_torch.fast, "
         "ssspy_tpu_torch.pipeline, ssspy_tpu_torch.utils.convert, ssspy_tpu_torch.bss.hva, "
         "ssspy_tpu_torch.ops.prox_steps, ssspy_tpu_torch.linalg.prox, ssspy_tpu_torch.ops.ipa_steps, "
-        "ssspy_tpu_torch.linalg.lqpqm, ssspy_tpu_torch.special.psd\n"
+        "ssspy_tpu_torch.linalg.lqpqm, ssspy_tpu_torch.special.psd, ssspy_tpu_torch.bss.mnmf, "
+        "ssspy_tpu_torch.ops.mnmf_steps\n"
         "bad = sorted(m for m in sys.modules if m == 'jax' or m.startswith(('jax.', 'ssspy_tpu.')) "
         "or m == 'ssspy_tpu')\n"
         "assert not bad, bad\n"
