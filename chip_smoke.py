@@ -47,11 +47,22 @@ calls, on the default device:
   must be the same through the kernel and through the plain version;
 - dense GaussMNMF (``n_basis=8``, 8 sources): ``GaussMNMF`` and
   ``fast_gauss_mnmf_dense``, 100 iterations each, on the float32 route:
-  the fused model pass K5 three times and the Jacobi eigh K7 (the
-  geometric mean's 16 x 16 embedding, ``B = 2,056``) once per iteration;
+  the fused model pass K5 three times and the Jacobi eigh K7 twice per
+  iteration (the geometric mean's 16 x 16 embedding and the new spatial
+  covariances' eigenvalue floor, ``B = 2,056`` each);
   and 10 iterations of ``gauss_mnmf_step(psd_impl="eigh")`` with its loss,
   the unfused route: the inverse sandwich K4 three times per iteration and
-  K7 on every PSD projection, ``B = 160,882`` for each model.
+  K7 on every PSD projection, ``B = 160,882`` for each model;
+- IPSDTA (``n_basis=8``, 64 blocks: 63 of 4 bins and one of 5, the JAX
+  package's timing configuration, scripts/tpu_bench.py:260-277):
+  ``fast_gauss_ipsdta`` and ``fast_t_ipsdta`` (``dof=1000``), 20 iterations
+  each, whose model inverse launches K3 three times per part and iteration
+  and whose geometric mean (Gauss) or square roots (t) launch K7 once or
+  twice per part; ``GaussIPSDTA``, which must equal the fast path from the
+  same draws; and ``GaussIPSDTA`` in complex64 on the hard scenario of
+  tests/test_hard_fidelity.py:352-400 (4 channels, 257 bins in 16 blocks of
+  16 and 17 bins), where K3 takes m = 17 and the 34 x 34 embedded eigh takes
+  ``torch.linalg.eigh``, held to its fidelity pin.
 
 Every launch count is set to 0 just before a path and read just after it,
 and each path must have launched the kernels it runs (and no other). The
@@ -71,6 +82,7 @@ and ``{"ok": true, "device": {...}}``. Imports nothing of JAX.
 
 import contextlib
 import functools
+import itertools
 import json
 import statistics
 import subprocess
@@ -89,6 +101,7 @@ from ssspy_tpu_torch.bss import (
     PDSIVA,
     AuxLaplaceIVA,
     GaussILRMA,
+    GaussIPSDTA,
     GaussMNMF,
     MaskingADMMHVA,
     TILRMA,
@@ -97,13 +110,15 @@ from ssspy_tpu_torch.fast import (
     fast_admm_iva,
     fast_auxiva,
     fast_gauss_ilrma,
+    fast_gauss_ipsdta,
     fast_gauss_mnmf_dense,
     fast_hva,
     fast_pds_iva,
+    fast_t_ipsdta,
 )
 from ssspy_tpu_torch.ops import _build
 from ssspy_tpu_torch.ops import kernels as K
-from ssspy_tpu_torch.ops import prox_steps
+from ssspy_tpu_torch.ops import ipsdta_steps, prox_steps
 from ssspy_tpu_torch.ops.ilrma_steps import ilrma_ip_step, ilrma_iss_step, ilrma_loss
 from ssspy_tpu_torch.ops.mnmf_steps import (
     gauss_mnmf_loss,
@@ -119,8 +134,8 @@ from ssspy_tpu_torch.ops.iva_steps import (
     iva_laplace_loss,
     separate,
 )
-from ssspy_tpu_torch.transform import stft
-from ssspy_tpu_torch.utils.dataset import HOP, N_FFT, make_mixture
+from ssspy_tpu_torch.transform import istft, stft
+from ssspy_tpu_torch.utils.dataset import HOP, N_FFT, hard_speech_mixture, make_mixture
 
 N_ITER = 100
 N_ITER_MODELS = 10  # TILRMA / GGDILRMA
@@ -151,6 +166,16 @@ MODEL_TRACES_TOL = 2e-4  # relative to max, the JAX package's own tolerance for 
 N_ITER_MNMF_EIGH = 10  # the eigh route: K7 on 160,882 matrices four times per iteration, its plain twin ~1 s each
 N_ITER_MNMF_PLAIN_RATE = 10  # the plain fused pass takes tens of ms, three times per iteration
 N_ITER_MNMF_EIGH_RATE = 2
+GJ_INVERSE_TOL = 1e-5  # the same elimination on both sides; fused multiply-adds round differently
+GJ_INVERSE_SIZES = (16, 17, 32)  # beyond the timing shape's 4 and 5: K4's former limit, the hard tier's 17, the kernel's limit
+N_ITER_IPSDTA = 20
+N_ITER_IPSDTA_PLAIN_RATE = 5
+IPSDTA_BLOCKS = 64  # scripts/tpu_bench.py:260-277: 63 blocks of 4 bins and one of 5
+IPSDTA_DOF = 1000  # TIPSDTA's dof, as the regression fixture takes it (tests/regression/test_regression.py:316-322)
+IPSDTA_EPS = 1e-10  # the IPSDTA step's floor and ridge, class and fast path
+# the hard scenario of tests/test_hard_fidelity.py:352-400 and its pin (tests/fidelity_pins.json:36)
+HARD_N_FFT, HARD_HOP, HARD_BLOCKS, HARD_BASIS, HARD_ITER, HARD_SEED = 512, 256, 16, 2, 5, 29
+HARD_PIN_DB, HARD_PIN_TOL_DB = -11.41965, 0.1
 
 # the card's peaks for the bound: NVIDIA H100 SXM data sheet, at 700 W
 HBM_BYTES_PER_S = 3.35e12
@@ -177,6 +202,10 @@ KERNELS = {
         "source": "ssspy_tpu_torch/ops/csrc/ipa_congruence.cu",
         "replaces": "ssspy_tpu/ops/pallas_kernels.py:462",
     },
+    "gj_inverse": {
+        "source": "ssspy_tpu_torch/ops/csrc/gj_inverse.cu",
+        "replaces": "ssspy_tpu/ops/pallas_kernels.py:284",
+    },
     "inv_sandwich": {
         "source": "ssspy_tpu_torch/ops/csrc/inv_sandwich.cu",
         "replaces": "ssspy_tpu/ops/pallas_kernels.py:349",
@@ -193,6 +222,7 @@ PLAIN = {
     "iss1_sweep": K.iss1_sweep_plain,
     "jacobi_eigh": K.jacobi_eigh_plain,
     "ipa_congruence": K.ipa_congruence_plain,
+    "gj_inverse": K.gj_inverse_plain,
     "inv_sandwich": K.inv_sandwich_plain,
     "model_traces": K.model_traces_plain,
 }
@@ -382,6 +412,12 @@ def congruence_bound(I, S, N):
     return bound_ms(n_bytes, I * 8 * N**3 * (2 * S + 1))
 
 
+def gj_inverse_bound(B, m):
+    # read R, write R^-1; the elimination updates every entry of [R | I] at
+    # each of m steps (16 m^3 flops)
+    return bound_ms(2 * B * m * m * 8, 16 * B * m**3)
+
+
 def inv_sandwich_bound(B, m):
     # read R and C, write R^-1 and S; the elimination updates every entry of
     # [R | I] at each of m steps (16 m^3 flops), the two products 8 m^3 each
@@ -480,6 +516,46 @@ def hold_trace(label: str, Y, Y_plain, loss, loss_plain) -> None:
     check(not diverged, f"{label}: loss left the {LOSS_TOL} band at iterations {diverged[:5]}")
     check(np.isfinite(loss[-1]) and loss[-1] < loss[0], f"{label}: loss did not fall: {loss[0]} -> {loss[-1]}")
     check(sdr >= MIN_SI_SDR_DB, f"{label}: output vs plain {sdr:.2f} dB")
+
+
+@contextlib.contextmanager
+def recording(module, name: str, record):
+    """Hand the arguments of every call to ``module.name`` to ``record`` first; the call still runs.
+
+    The recorder sits in front of a router (``ipsdta_steps.hermitian_inverse``,
+    ``prox_steps.symm_eigh``) or of a step's PyTorch operations
+    (``ipsdta_steps.vcd_sweep``), never in place of a kernel wrapper, whose
+    launch count goes through its module attribute; the wrappers behind it
+    count as ever.
+    """
+    inner = getattr(module, name)
+
+    def recorder(*args, **kwargs):
+        record(*args, **kwargs)
+        return inner(*args, **kwargs)
+
+    setattr(module, name, recorder)
+    try:
+        yield
+    finally:
+        setattr(module, name, inner)
+
+
+def size_of(sizes: list):
+    """A ``record`` for :func:`recording`: the trailing size of the first argument."""
+    return lambda A, *args, **kwargs: sizes.append(A.shape[-1])
+
+
+def best_permutation_si_sdr(y: np.ndarray, refs: np.ndarray) -> float:
+    """Mean SI-SDR of ``y`` against ``refs`` under the best source permutation (tests/test_hard_fidelity.py:102-114)."""
+
+    def si_sdr(est, ref):
+        alpha = np.sum(est * ref) / np.sum(ref**2)
+        ref = alpha * ref
+        return 10 * np.log10(np.sum(ref**2) / np.sum((est - ref) ** 2))
+
+    n = refs.shape[0]
+    return max(np.mean([si_sdr(y[perm[s]], refs[s]) for s in range(n)]) for perm in itertools.permutations(range(n)))
 
 
 def relative_error(got, ref) -> float:
@@ -845,6 +921,40 @@ def main() -> None:
             traces_abs = max(float((o - r).abs().max()) for o, r in zip(out, ref))
     errors["model_traces"] = traces_abs
 
+    # ---- 4g. K3 against its plain version ----------------------------------------------
+    # IPSDTA's projected model after two iterations of fast_gauss_ipsdta at the
+    # timing shape, both parts: (N, T, B, J, J) = (8, 626, 63, 4, 4) and
+    # (8, 626, 1, 5, 5); a batch of zero matrices, whose pivots all take the
+    # 1e-20 floor; random positive definite systems at GJ_INVERSE_SIZES
+    ipsdta_shapes = ipsdta_steps.part_shapes(I, IPSDTA_BLOCKS)
+    _, (T_ip, V_ip), _ = fast_gauss_ipsdta(X, n_basis=N_BASIS, n_blocks=IPSDTA_BLOCKS, n_iter=2,
+                                           rng=np.random.default_rng(0))
+    R_ipsdta = [psd_project(ipsdta_steps._model(Tp, V_ip), IPSDTA_EPS, "ridge").contiguous() for Tp in T_ip]
+    check([tuple(R.shape) for R in R_ipsdta] == [(M, T, B_, J_, J_) for B_, J_ in ipsdta_shapes] == [
+        (M, T, 63, 4, 4), (M, T, 1, 5, 5)], f"IPSDTA models {[tuple(R.shape) for R in R_ipsdta]}")
+    gj_cases = [("IPSDTA model, main part", R_ipsdta[0]), ("IPSDTA model, remainder part", R_ipsdta[1])]
+    for m in GJ_INVERSE_SIZES:
+        A_rand = random_complex((1000, m, m))
+        gj_cases.append((f"random positive definite m={m}", (A_rand @ A_rand.mH / m + torch.eye(m, device=device)).contiguous()))
+    gj_abs = 0.0
+    for label, R_in in gj_cases:
+        R_inv = K.gj_inverse(R_in)
+        R_inv_ref = K.gj_inverse_plain(R_in)
+        torch.cuda.synchronize()
+        abs_err = float((R_inv - R_inv_ref).abs().max())
+        rel_err = abs_err / float(R_inv_ref.abs().max())
+        say("K3 gj_inverse", input=repr(label), shape=tuple(R_in.shape), max_abs_err=abs_err, rel_err=rel_err,
+            tol=GJ_INVERSE_TOL, max_abs_R_inv=float(R_inv_ref.abs().max()))
+        check(all_finite(R_inv) and rel_err <= GJ_INVERSE_TOL, f"gj_inverse {label}: rel err {rel_err}")
+        gj_abs = max(gj_abs, abs_err)
+    zero = torch.zeros((M * T, 4, 4), dtype=X.dtype, device=device)
+    R_inv = K.gj_inverse(zero)
+    floored = bool(torch.equal(R_inv, K.gj_inverse_plain(zero))) and bool(
+        torch.equal(R_inv[0], floor_inverse * torch.eye(4, dtype=X.dtype, device=device)))
+    say("K3 gj_inverse", input=repr("all zero"), shape=tuple(zero.shape), floored_equal_to_plain=floored)
+    check(all_finite(R_inv) and floored, "gj_inverse of a zero batch is not (1 / 1e-20) I as in the plain version")
+    errors["gj_inverse"] = gj_abs
+
     # ---- 5. main path: AuxIVA-IP1 -------------------------------------------------
 
     def auxiva_ip1():
@@ -1070,10 +1180,10 @@ def main() -> None:
     hold_sdr("MaskingADMMHVA class", Y_mah, run_plain(masking_admm_hva))
 
     # ---- 5d. dense GaussMNMF: the fused route (K5, K7) and the eigh route (K4, K7) -------
-    # per iteration K5 three times and K7 once (the geometric mean, B = N I);
+    # per iteration K5 three times and K7 twice (the geometric mean and H's floor, B = N I);
     # each path beside its plain twin, and a control run of the kernels on the
     # input times (1 + 1e-7 noise), printed before the gates
-    mnmf_uses = {"model_traces": 3 * N_ITER, "jacobi_eigh": N_ITER}
+    mnmf_uses = {"model_traces": 3 * N_ITER, "jacobi_eigh": 2 * N_ITER}
 
     def mnmf_class(X_in=X):
         method = GaussMNMF(n_basis=N_BASIS, rng=np.random.default_rng(0))
@@ -1136,6 +1246,88 @@ def main() -> None:
     hold("GaussMNMF step, eigh model", Y_eigh, Y_eigh_plain, loss_eigh[-1], loss_eigh_plain[-1],
          loss_first=loss_eigh[0], first_divergent_iteration=first_divergence(loss_eigh, loss_eigh_plain, LOSS_TOL))
     check(loss_eigh[-1] < loss_eigh[0], f"eigh model: loss did not fall: {loss_eigh[0]} -> {loss_eigh[-1]}")
+
+    # ---- 5e. IPSDTA: fast_gauss_ipsdta, fast_t_ipsdta, GaussIPSDTA, the hard tier ---------------
+    # per iteration K3 three times per part (the model's inverse before the
+    # basis, the activation and the spatial update) and K7 once per part
+    # (Gauss: the geometric mean's 2J x 2J embedding) or twice (t: Q^1/2 and
+    # M^-1/2). The fast paths run without scale restoration, whose filters
+    # the loss reads; each is held against its plain twin (K3 and K7 plain).
+    def ipsdta_start():
+        T0, V0 = ipsdta_steps.random_psdtf(np.random.default_rng(0), M, N_BASIS, T, ipsdta_shapes, X.dtype, device,
+                                           IPSDTA_EPS)
+        T0, V0 = ipsdta_steps.normalize_psdtf(T0, V0)
+        return W_eye, T0, V0
+
+    def ipsdta_fast(dof):
+        kw = dict(n_basis=N_BASIS, n_blocks=IPSDTA_BLOCKS, n_iter=N_ITER_IPSDTA, scale_restoration=False,
+                  rng=np.random.default_rng(0))
+        return fast_gauss_ipsdta(X, **kw) if dof is None else fast_t_ipsdta(X, dof=dof, **kw)
+
+    def ipsdta_loss_of(out, dof):
+        _, (T_parts, V_), W_ = out
+        return float(ipsdta_steps.ipsdta_loss(X, W_, T_parts, V_, dof=dof, eps=IPSDTA_EPS))
+
+    ipsdta_fast_out = {}
+    for label, dof, k7_per_iter in (("fast_gauss_ipsdta", None, 2), ("fast_t_ipsdta", IPSDTA_DOF, 4)):
+        uses = {"gj_inverse": 3 * len(ipsdta_shapes) * N_ITER_IPSDTA, "jacobi_eigh": k7_per_iter * N_ITER_IPSDTA}
+        k3_sizes = []
+        with recording(ipsdta_steps, "hermitian_inverse", size_of(k3_sizes)):
+            out = drive(label, functools.partial(ipsdta_fast, dof), uses, totals, exact=True)
+        check(sorted(set(k3_sizes)) == [4, 5], f"{label}: K3 sizes {sorted(set(k3_sizes))}")
+        out_plain = run_plain(functools.partial(ipsdta_fast, dof))
+        start = ipsdta_start()
+        loss_start = float(ipsdta_steps.ipsdta_loss(X, start[0], list(start[1]), start[2], dof=dof, eps=IPSDTA_EPS))
+        check(all_finite(out[0], out[2], out[1][1], *out[1][0]), f"{label}: non-finite output")
+        hold(label, out[0], out_plain[0], ipsdta_loss_of(out, dof), ipsdta_loss_of(out_plain, dof),
+             loss_first=loss_start, iterations=N_ITER_IPSDTA)
+        check(ipsdta_loss_of(out, dof) < loss_start, f"{label}: loss did not fall")
+        ipsdta_fast_out[label] = out
+
+    def gauss_ipsdta_class():
+        method = GaussIPSDTA(n_basis=N_BASIS, n_blocks=IPSDTA_BLOCKS, scale_restoration=False,
+                             rng=np.random.default_rng(0))
+        return method, method(X, n_iter=N_ITER_IPSDTA)
+
+    method, Y_class = drive("GaussIPSDTA", gauss_ipsdta_class,
+                            {"gj_inverse": 3 * len(ipsdta_shapes) * N_ITER_IPSDTA, "jacobi_eigh": 2 * N_ITER_IPSDTA},
+                            totals, exact=True)
+    Y_fast, (T_fast, V_fast), _ = ipsdta_fast_out["fast_gauss_ipsdta"]
+    same = bool(torch.equal(Y_class, Y_fast)) and bool(torch.equal(method.activation, V_fast)) and all(
+        torch.equal(a, b) for a, b in zip(method.basis, T_fast))
+    say("path vs fast path", path=repr("GaussIPSDTA"), equal=same, loss_first=method.loss[0],
+        loss_last=method.loss[-1], max_abs_diff=float((Y_class - Y_fast).abs().max()))
+    check(same, "GaussIPSDTA differs from fast_gauss_ipsdta from the same draws")
+    check(len(method.loss) == N_ITER_IPSDTA + 1 and method.loss[-1] < method.loss[0], "GaussIPSDTA: loss did not fall")
+
+    # the hard tier: 4 channels, 257 bins in 15 blocks of 16 and one of 17, the
+    # warm start and iterations of tests/test_hard_fidelity.py:352-400; K3 at
+    # m = 16 and 17, K7 on the 32 x 32 embedding, torch.linalg.eigh on the 34 x 34
+    images, _ = hard_speech_mixture()
+    hard_mix = torch.from_numpy(images.sum(axis=0)).to(device)
+    X_hard = stft(hard_mix, n_fft=HARD_N_FFT, hop_length=HARD_HOP).to(torch.complex64)
+    hard_M, hard_I, hard_T = X_hard.shape
+    draws = np.random.default_rng(HARD_SEED)
+    hard_basis = tuple(draws.random((hard_M, HARD_BASIS, B_, J_))[..., None] * np.eye(J_)
+                       for B_, J_ in ipsdta_steps.part_shapes(hard_I, HARD_BLOCKS))
+    hard_activation = draws.random((hard_M, HARD_BASIS, hard_T))
+
+    def hard_tier():
+        method = GaussIPSDTA(n_basis=HARD_BASIS, n_blocks=HARD_BLOCKS, record_loss=False)
+        return method(X_hard, n_iter=HARD_ITER, basis=hard_basis, activation=hard_activation)
+
+    k3_sizes, eigh_sizes = [], []
+    with recording(ipsdta_steps, "hermitian_inverse", size_of(k3_sizes)), recording(prox_steps, "symm_eigh", size_of(eigh_sizes)):
+        Y_hard = drive("GaussIPSDTA, hard tier (complex64, J = 16 and 17)", hard_tier,
+                       {"gj_inverse": 6 * HARD_ITER, "jacobi_eigh": HARD_ITER}, totals, exact=True)
+    y_hard = istft(Y_hard.to(torch.complex128), n_fft=HARD_N_FFT, hop_length=HARD_HOP, length=images.shape[-1])
+    hard_db = best_permutation_si_sdr(y_hard.cpu().numpy(), images[:, 0])
+    say("path", path=repr("GaussIPSDTA, hard tier"), shape=tuple(X_hard.shape), k3_sizes=sorted(set(k3_sizes)),
+        eigh_sizes=sorted(set(eigh_sizes)), si_sdr_db=hard_db, pin_db=HARD_PIN_DB, tol_db=HARD_PIN_TOL_DB)
+    check(all_finite(Y_hard), "hard tier: non-finite output")
+    check(sorted(set(k3_sizes)) == [16, 17] and sorted(set(eigh_sizes)) == [32, 34],
+          f"hard tier: K3 sizes {sorted(set(k3_sizes))}, eigh sizes {sorted(set(eigh_sizes))}")
+    check(abs(hard_db - HARD_PIN_DB) <= HARD_PIN_TOL_DB, f"hard tier: {hard_db:.5f} dB against the pin {HARD_PIN_DB}")
 
     # ---- 6. times --------------------------------------------------------------
     U_main = K.weighted_covariance(X, phi_scalar)
@@ -1211,6 +1403,13 @@ def main() -> None:
             lambda: library_model_traces(Lamb_main, H_mnmf, XX_main, MNMF_EPS),
             model_traces_bound(M, I, T, M),
         ),
+        "gj_inverse": (
+            "IPSDTA model, main part (8,626,63,4,4)",
+            lambda: K.gj_inverse(R_ipsdta[0]),
+            lambda: K.gj_inverse_plain(R_ipsdta[0]),
+            lambda: torch.linalg.inv_ex(R_ipsdta[0]),
+            gj_inverse_bound(R_ipsdta[0].numel() // 16, 4),
+        ),
         "ipa_congruence": (
             "a sweep's last round (257,8,8,8)",
             lambda: K.ipa_congruence(T_sweep, U_sweep, G_sweep),
@@ -1233,6 +1432,13 @@ def main() -> None:
             bound_ms=bound, bound_by=bound_by, bound_share=bound / ms, runs=N_TIMED, stat="median")
     gjnp_ms = median_ms(lambda: K.ip1_sweep_plain(W_eye, U_main, solve_impl="gjnp"), queued=True)
     say("time", kernel="ip1_sweep", card=repr(card), plain_gjnp_device_ms=gjnp_ms, runs=N_TIMED, stat="median")
+    B_rem = R_ipsdta[1].numel() // 25
+    rem_ms = median_ms(lambda: K.gj_inverse(R_ipsdta[1]), queued=True)
+    rem_lib_ms = median_ms(lambda: torch.linalg.inv_ex(R_ipsdta[1]), queued=True)
+    stage_bound = gj_inverse_bound(R_ipsdta[0].numel() // 16, 4)[0] + gj_inverse_bound(B_rem, 5)[0]
+    say("time", kernel="gj_inverse remainder part", shape=tuple(R_ipsdta[1].shape), card=repr(card), device_ms=rem_ms,
+        library_device_ms=rem_lib_ms, bound_ms=gj_inverse_bound(B_rem, 5)[0],
+        stage_device_ms=timings["gj_inverse"]["ms"] + rem_ms, stage_bound_ms=stage_bound, runs=N_TIMED, stat="median")
     Y_long_phi = cases[3][2]
     long_ms = median_ms(lambda: K.iss1_sweep(Y_long, Y_long_phi, eps=ILRMA_EPS), queued=True)
     say("time", kernel="iss1_sweep streamed", shape=LONG_SHAPE, card=repr(card), device_ms=long_ms,
@@ -1256,6 +1462,8 @@ def main() -> None:
         "GaussMNMF-dense": (lambda s: gauss_mnmf_step(XX_main, *s, eps=MNMF_EPS), (T_start, V_start, H_start)),
         "GaussMNMF-dense eigh": (lambda s: gauss_mnmf_step(XX_eigh, *s, eps=MNMF_EPS, psd_impl="eigh"),
                                  (T_start, V_start, H_start)),
+        "GaussIPSDTA": (lambda s: ipsdta_steps.ipsdta_vcd_step(X, *s, eps=IPSDTA_EPS), ipsdta_start()),
+        "TIPSDTA": (lambda s: ipsdta_steps.ipsdta_vcd_step(X, *s, dof=IPSDTA_DOF, eps=IPSDTA_EPS), ipsdta_start()),
     }
     XX_eigh = instant_covariance(X, eps=MNMF_EPS, psd_impl="eigh")
     # (kernel, plain) chained steps where the default N_ITER of each would take too long
@@ -1264,6 +1472,8 @@ def main() -> None:
         "GaussILRMA-IPA": (N_ITER, N_ITER_IPA_PLAIN_RATE),
         "GaussMNMF-dense": (N_ITER, N_ITER_MNMF_PLAIN_RATE),
         "GaussMNMF-dense eigh": (N_ITER_MNMF_EIGH_RATE, N_ITER_MNMF_EIGH_RATE),
+        "GaussIPSDTA": (N_ITER_IPSDTA, N_ITER_IPSDTA_PLAIN_RATE),
+        "TIPSDTA": (N_ITER_IPSDTA, N_ITER_IPSDTA_PLAIN_RATE),
     }
     rates = {}
     for label, (step, state) in steps.items():
@@ -1276,6 +1486,21 @@ def main() -> None:
         rates[label] = statistics.mean((kernel_a, kernel_b))
         say("time", path=repr(f"{label} 8ch 10s, {n_kernel} chained fast-path steps"), card=repr(card),
             kernels_iters_per_s=(kernel_a, kernel_b), plain_iters_per_s=(plain_a, plain_b), plain_steps=n_plain)
+
+    # the VCD sweeps of one IPSDTA iteration alone (PyTorch operations, no
+    # kernel of the port): their device time, read as a share of the step's
+    sweep_inputs = []
+    with recording(ipsdta_steps, "vcd_sweep", lambda W_p, RXX_p, **kwargs: sweep_inputs.append((W_p, RXX_p))):
+        steps["GaussIPSDTA"][0](steps["GaussIPSDTA"][1])
+    check(len(sweep_inputs) == len(ipsdta_shapes), f"recorded {len(sweep_inputs)} VCD sweeps")
+
+    def sweeps_only(s):
+        for W_p, RXX_p in sweep_inputs:
+            ipsdta_steps.vcd_sweep(W_p, RXX_p, eps=IPSDTA_EPS)
+        return s
+
+    sweep_per_kernel, sweep_ops, _ = profile(sweeps_only, None, 10)
+    sweep_us = sum(sweep_per_kernel.values())
 
     # where the device time of one iteration goes (torch.profiler)
     for label, (step, state) in steps.items():
@@ -1291,10 +1516,14 @@ def main() -> None:
         # the share of each hand-written kernel (their names end in _kernel, as in csrc/*.cu)
         shares = {name: sum(us for kernel, us in per_kernel.items() if f"{name}_kernel" in kernel) / device_us
                   for name in KERNELS}
+        extra = {}
+        if label in ("GaussIPSDTA", "TIPSDTA") and sweep_us:
+            extra = dict(vcd_sweep_us_per_iter=sweep_us, vcd_sweep_ops_per_iter=sweep_ops,
+                         vcd_sweep_share=sweep_us / device_us)
         say("profile", path=repr(label), card=repr(card), sessions=sessions, device_us_per_iter=device_us,
             device_ops_per_iter=ops_per_iter, device_busy_share=device_us * 1e-6 * rates[label],
             kernel_shares=repr({name: round(share, 4) for name, share in shares.items() if share}),
-            top=repr([(name[:48], round(us, 3)) for name, us in top]))
+            top=repr([(name[:48], round(us, 3)) for name, us in top]), **extra)
 
     summary = [
         {

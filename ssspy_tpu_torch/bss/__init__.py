@@ -1,10 +1,11 @@
 """Separator classes ported so far (see ROADMAP.md, Queue 1)."""
 
-from . import admmbss, hva, ilrma, iva, mnmf, pdsbss, proxbss
+from . import admmbss, hva, ilrma, ipsdta, iva, mnmf, pdsbss, proxbss
 from .admmbss import ADMMBSS, MaskingADMMBSS
 from .base import IterativeMethodBase, SeparatorBase
 from .hva import HVA, MaskingADMMHVA, MaskingPDSHVA
 from .ilrma import GaussILRMA, GGDILRMA, ILRMABase, TILRMA
+from .ipsdta import BlockDecompositionIPSDTABase, GaussIPSDTA, IPSDTABase, TIPSDTA
 from .iva import ADMMIVA, PDSIVA, AuxIVA, AuxLaplaceIVA
 from .mnmf import MNMF, GaussMNMF, MNMFBase
 from .pdsbss import MaskingPDSBSS, PDSBSS
@@ -14,6 +15,7 @@ __all__ = [
     "admmbss",
     "hva",
     "ilrma",
+    "ipsdta",
     "iva",
     "mnmf",
     "pdsbss",
@@ -39,4 +41,8 @@ __all__ = [
     "MNMFBase",
     "MNMF",
     "GaussMNMF",
+    "IPSDTABase",
+    "BlockDecompositionIPSDTABase",
+    "GaussIPSDTA",
+    "TIPSDTA",
 ]

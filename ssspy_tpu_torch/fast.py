@@ -12,6 +12,7 @@ on complex64 tensors through the hand-written kernels
 >>> from ssspy_tpu_torch.bss import PDSIVA
 >>> Y, W = fast_pds_iva(PDSIVA().normalize_by_spectral_norm(spectrogram), n_iter=100)
 >>> Y, (T, V, H) = fast_gauss_mnmf_dense(spectrogram, n_basis=8, n_iter=100)
+>>> Y, (T_parts, V), W = fast_gauss_ipsdta(spectrogram, n_basis=8, n_blocks=64, n_iter=100)
 """
 
 from typing import Optional, Tuple
@@ -21,6 +22,7 @@ import torch
 
 from .algorithm import projection_back
 from .ops.ilrma_steps import ilrma_ip_step, ilrma_iss_step
+from .ops.ipsdta_steps import ipsdta_vcd_step, normalize_psdtf, part_shapes, random_psdtf
 from .ops.iva_steps import auxiva_ip1_step, auxiva_ipa_step, auxiva_iss1_step, separate
 from .ops.mnmf_steps import gauss_mnmf_step, instant_covariance, wiener_separate
 from .ops.prox_steps import admm_iva_step, admm_quad_inv, hva_pds_step, pds_iva_step
@@ -35,6 +37,8 @@ __all__ = [
     "fast_admm_iva",
     "fast_hva",
     "fast_gauss_mnmf_dense",
+    "fast_gauss_ipsdta",
+    "fast_t_ipsdta",
 ]
 
 _ALGORITHMS = ("IP1", "IP2", "ISS1", "ISS2", "IPA")
@@ -342,3 +346,67 @@ def fast_gauss_mnmf_dense(
     for _ in range(n_iter):
         T, V, H = gauss_mnmf_step(XX, T, V, H)
     return wiener_separate(X, T @ V, H, reference_id=reference_id), (T, V, H)
+
+
+def fast_gauss_ipsdta(
+    spectrogram,
+    n_basis: int,
+    n_blocks: int,
+    n_iter: int = 100,
+    scale_restoration: bool = True,
+    reference_id: int = 0,
+    rng: Optional[np.random.Generator] = None,
+    device=DEFAULT_DEVICE,
+):
+    """GaussIPSDTA (MM source, VCD spatial) in complex64 (fast.py:912-933).
+
+    The block-decomposed PSDTF of :mod:`~ssspy_tpu_torch.ops.ipsdta_steps`,
+    the remainder part included when ``n_blocks`` does not divide the bins.
+    Returns ``(separated, (basis_parts, activation), demix_filter)``, the
+    basis as a list of parts. See :func:`fast_t_ipsdta` for the start.
+    """
+    return _fast_ipsdta(spectrogram, n_basis, n_blocks, None, n_iter, scale_restoration, reference_id, rng, device)
+
+
+def fast_t_ipsdta(
+    spectrogram,
+    n_basis: int,
+    n_blocks: int,
+    dof: float,
+    n_iter: int = 100,
+    scale_restoration: bool = True,
+    reference_id: int = 0,
+    rng: Optional[np.random.Generator] = None,
+    device=DEFAULT_DEVICE,
+):
+    """TIPSDTA (Student's-t source with ``dof``, VCD spatial) in complex64 (fast.py:936-955).
+
+    Draws each part's diagonal basis, then the activation as
+    ``max(rng.random(...), 1e-10)``, in float32, normalizes the basis to unit
+    summed trace and starts from ``W = I``, as the JAX package does
+    (fast.py:958-990); then ``n_iter`` steps of
+    :func:`~ssspy_tpu_torch.ops.ipsdta_steps.ipsdta_vcd_step` at
+    ``eps = 1e-10`` (three launches of the inverse kernel K3 per part and
+    step; the geometric means' or square roots' eigh through K7) and, with
+    ``scale_restoration``, projection back at ``reference_id``, all on
+    ``device``. Returns ``(separated, (basis_parts, activation),
+    demix_filter)``.
+    """
+    return _fast_ipsdta(
+        spectrogram, n_basis, n_blocks, float(dof), n_iter, scale_restoration, reference_id, rng, device
+    )
+
+
+def _fast_ipsdta(spectrogram, n_basis, n_blocks, dof, n_iter, scale_restoration, reference_id, rng, device):
+    X = _spectrogram(spectrogram, device)
+    n_channels, n_bins, n_frames = X.shape
+    rng = np.random.default_rng() if rng is None else rng
+    T_parts, V = random_psdtf(
+        rng, n_channels, n_basis, n_frames, part_shapes(n_bins, n_blocks), X.dtype, X.device, 1e-10
+    )
+    T_parts, V = normalize_psdtf(T_parts, V)
+    W = _identity_filters(X)
+    for _ in range(n_iter):
+        W, T_parts, V = ipsdta_vcd_step(X, W, T_parts, V, dof=dof)
+    Y, W = _restored(X, W, scale_restoration, reference_id)
+    return Y, (T_parts, V), W

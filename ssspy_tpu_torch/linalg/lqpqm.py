@@ -15,6 +15,7 @@ from typing import Callable, Optional, Union
 import torch
 
 from ..special.flooring import EPS, identity, max_flooring
+from ..special.psd import eigh_in_batches
 
 __all__ = ["cbrt", "lqpqm2", "solve_equation"]
 
@@ -70,7 +71,7 @@ def lqpqm2(
     elif not callable(singular_fn):
         raise TypeError("singular_fn must be callable.")
 
-    phi, sigma = torch.linalg.eigh(H)
+    phi, sigma = eigh_in_batches(H)
     is_singular = singular_fn(torch.linalg.vector_norm(v, dim=-1))
 
     phi_max = phi[..., -1]

@@ -1,6 +1,7 @@
 // Pivot-free complex Gauss-Jordan inverse of one small Hermitian system,
-// shared by the inverse-sandwich kernel (inv_sandwich.cu, K4) and the fused
-// dense-MNMF model pass (mnmf_model_traces.cu, K5).
+// shared by the batched inverse (gj_inverse.cu, K3), the inverse-sandwich
+// kernel (inv_sandwich.cu, K4) and the fused dense-MNMF model pass
+// (mnmf_model_traces.cu, K5).
 //
 // Counterpart of the elimination inside ssspy_tpu/ops/pallas_kernels.py
 // (_gj_inverse_lanes, :201-235), which runs on the real 2m x 3m embedding
@@ -19,7 +20,9 @@
 // step orders the pivot row's write before the other rows read it; a row is
 // read by other threads only while it is the pivot row. Callers pad each row
 // of [R | I] to 2m + 1 entries: at m = 8 the 16 rows that a half-warp's two
-// groups update then fall in 16 different shared-memory banks.
+// groups update then fall in 16 different shared-memory banks. Up to m = 32
+// a group fits one warp, floor(32 / m) groups to a warp; K4 and K5 keep
+// each thread's row of their products in registers and take m <= 16.
 
 #pragma once
 
@@ -27,7 +30,7 @@
 
 namespace gj {
 
-constexpr int kMaxM = 16;  // largest system; the group of m threads fits a warp
+constexpr int kMaxM = 32;  // largest system; the group of m threads fits a warp
 
 __device__ __forceinline__ float2 cmul(float2 a, float2 b) {
   return make_float2(a.x * b.x - a.y * b.y, a.x * b.y + a.y * b.x);

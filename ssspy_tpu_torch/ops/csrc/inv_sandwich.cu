@@ -33,6 +33,9 @@
 
 namespace {
 
+// largest system: each thread keeps its row of the products in registers
+constexpr int kMaxM = 16;
+
 constexpr int kWarpSize = 32;
 
 __global__ void __launch_bounds__(128)
@@ -72,12 +75,12 @@ __global__ void __launch_bounds__(128)
 
   gj::invert(sys, m, row, live, tiny);
 
-  float2 s[gj::kMaxM];
+  float2 s[kMaxM];
   if (live) {
     const float2* rinv_row = sys + row * w + m;
-    float2 m1[gj::kMaxM];
+    float2 m1[kMaxM];
 #pragma unroll
-    for (int j = 0; j < gj::kMaxM; ++j) {
+    for (int j = 0; j < kMaxM; ++j) {
       if (j < m) {
         float2 acc = make_float2(0.f, 0.f);
         for (int k = 0; k < m; ++k) acc = gj::cmadd(acc, rinv_row[k], cg[k * m + j]);
@@ -85,11 +88,11 @@ __global__ void __launch_bounds__(128)
       }
     }
 #pragma unroll
-    for (int j = 0; j < gj::kMaxM; ++j) {
+    for (int j = 0; j < kMaxM; ++j) {
       if (j < m) {
         float2 acc = make_float2(0.f, 0.f);
 #pragma unroll
-        for (int k = 0; k < gj::kMaxM; ++k)
+        for (int k = 0; k < kMaxM; ++k)
           if (k < m) acc = gj::cmadd(acc, m1[k], sys[k * w + m + j]);
         s[j] = acc;
       }
@@ -98,7 +101,7 @@ __global__ void __launch_bounds__(128)
   __syncwarp();  // every row of R^-1 C is formed before C is overwritten by S
   if (live) {
 #pragma unroll
-    for (int j = 0; j < gj::kMaxM; ++j)
+    for (int j = 0; j < kMaxM; ++j)
       if (j < m) cg[row * m + j] = s[j];
   }
   __syncthreads();
@@ -132,7 +135,7 @@ int inv_sandwich_launch(const void* R, const void* C, void* Rinv, void* S, int B
                         int device, void* stream) {
   cudaError_t status = cudaSetDevice(device);
   if (status != cudaSuccess) return (int)status;
-  if (B < 1 || m < 1 || m > gj::kMaxM) return (int)cudaErrorInvalidValue;
+  if (B < 1 || m < 1 || m > kMaxM) return (int)cudaErrorInvalidValue;
   const int warps = warps_per_block(m);
   const int groups = warps * (kWarpSize / m);
   const int blocks = (B + groups - 1) / groups;

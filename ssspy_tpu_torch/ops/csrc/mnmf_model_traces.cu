@@ -44,6 +44,9 @@
 
 namespace {
 
+// largest system: each thread keeps its row of the products in registers
+constexpr int kMaxM = 16;
+
 constexpr int kWarpSize = 32;
 constexpr int kWarps = 8;
 constexpr int kThreads = kWarps * kWarpSize;
@@ -116,12 +119,12 @@ __global__ void __launch_bounds__(kThreads)
     }
     gj::invert(sys, m, row, live, tiny);
 
-    float2 mrow[gj::kMaxM];
+    float2 mrow[kMaxM];
     if (live) {
       const float2* rinv_row = sys + row * w + m;
-      float2 m1[gj::kMaxM];
+      float2 m1[kMaxM];
 #pragma unroll
-      for (int j = 0; j < gj::kMaxM; ++j) {
+      for (int j = 0; j < kMaxM; ++j) {
         if (j < m) {
           float2 acc = make_float2(0.f, 0.f);
           for (int k = 0; k < m; ++k) acc = gj::cmadd(acc, rinv_row[k], xf[k * m + j]);
@@ -129,11 +132,11 @@ __global__ void __launch_bounds__(kThreads)
         }
       }
 #pragma unroll
-      for (int j = 0; j < gj::kMaxM; ++j) {
+      for (int j = 0; j < kMaxM; ++j) {
         if (j < m) {
           float2 acc = make_float2(0.f, 0.f);
 #pragma unroll
-          for (int k = 0; k < gj::kMaxM; ++k)
+          for (int k = 0; k < kMaxM; ++k)
             if (k < m) acc = gj::cmadd(acc, m1[k], sys[k * w + m + j]);
           mrow[j] = acc;
         }
@@ -142,7 +145,7 @@ __global__ void __launch_bounds__(kThreads)
     __syncwarp();  // every row of R^-1 XX is formed before XX is overwritten by M
     if (live) {
 #pragma unroll
-      for (int j = 0; j < gj::kMaxM; ++j)
+      for (int j = 0; j < kMaxM; ++j)
         if (j < m) xf[row * m + j] = mrow[j];
     }
     __syncwarp();
@@ -216,7 +219,7 @@ int model_traces_launch(const void* Lamb, const void* H, const void* XX, void* t
                         void* stream) {
   cudaError_t status = cudaSetDevice(device);
   if (status != cudaSuccess) return (int)status;
-  if (N < 1 || I < 1 || T < 1 || m < 1 || m > gj::kMaxM) return (int)cudaErrorInvalidValue;
+  if (N < 1 || I < 1 || T < 1 || m < 1 || m > kMaxM) return (int)cudaErrorInvalidValue;
   const int smem = model_traces_smem_bytes(N, m);
   status = cudaFuncSetAttribute(model_traces_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
   if (status != cudaSuccess) return (int)status;

@@ -14,7 +14,7 @@ The route is decided by dtype, before any launch (:func:`ipa_sweep`):
 - complex128 takes :func:`ipa_sweep_direct`, the reference's data flow:
   the weighted covariance stack recomputed from ``Y`` before each source,
   projected onto the PSD cone and inverted through floored eigenvalues
-  (``torch.linalg.eigh``). The CPU tests and the fixtures run it.
+  (``torch.linalg.eigh``, in batches). The CPU tests and the fixtures run it.
 - complex64 takes :func:`ipa_sweep_congruence`, what the JAX package runs
   in float32: the stack computed once per sweep by the weighted covariance
   kernel, a relative Tikhonov ridge ``U + (eps + rel tr(U) / N) I`` in
@@ -39,7 +39,7 @@ import torch
 from ..linalg import lqpqm as reference
 from ..linalg.lqpqm import _find_largest_root_real, solve_equation
 from ..special.flooring import max_flooring
-from ..special.psd import hermitize, psd_inv, to_psd
+from ..special.psd import eigh_in_batches, hermitize, psd_inv, to_psd
 from . import kernels
 from .prox_steps import herm_eigh_embed
 
@@ -72,7 +72,7 @@ def _pencil_spectrum(H: torch.Tensor, v: torch.Tensor):
     singular branch alone, whose direction is arbitrary (its norm is 1).
     """
     if H.dtype == torch.complex128:
-        phi, sigma = torch.linalg.eigh(H)
+        phi, sigma = eigh_in_batches(H)
         vt = torch.sum(sigma.conj() * v[..., :, None], dim=-2)
         return phi, vt.real.square() + vt.imag.square(), sigma[..., :, -1]
     if H.dtype != torch.complex64:

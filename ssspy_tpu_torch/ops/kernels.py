@@ -20,6 +20,10 @@
   ``U[s] <- T U[s] T^H`` for every source and ``G <- T G`` per bin,
   counterpart of ``ssspy_tpu.ops.pallas_kernels.ipa_congruence_lanes``
   (pallas_kernels.py:417-496); kernel ``csrc/ipa_congruence.cu``.
+- :func:`gj_inverse` — ``R^-1`` of a batch of small Hermitian positive
+  definite systems by pivot-free complex Gauss-Jordan, counterpart of
+  ``ssspy_tpu.ops.pallas_kernels.planar_inverse_sc``
+  (pallas_kernels.py:201-300); kernel ``csrc/gj_inverse.cu``.
 - :func:`inv_sandwich` — ``(R^-1, R^-1 C R^-1)`` of a batch of small
   Hermitian systems by pivot-free complex Gauss-Jordan, counterpart of
   ``ssspy_tpu.ops.pallas_kernels.planar_inv_sandwich_sc``
@@ -28,13 +32,16 @@
   sandwich, traces and the frame sums P and Q), counterpart of
   ``ssspy_tpu.ops.pallas_kernels.planar_model_traces_sc``
   (pallas_kernels.py:499-726); kernel ``csrc/mnmf_model_traces.cu``.
-  Both share the elimination of ``csrc/gj_inverse.cuh``, whose plain
+  These three share the elimination of ``csrc/gj_inverse.cuh``, whose plain
   version is :func:`gj_inverse_plain`.
 
 Each wrapper takes its plain PyTorch version for CPU tensors and launches
 its kernel for CUDA tensors, which must be complex64/float32 and
 contiguous; anything else raises. ``<wrapper>.launches`` counts kernel
-launches (never plain calls).
+launches (never plain calls). Where a kernel takes a bounded size, the
+predicate ``<wrapper>_takes`` says whether it takes a shape, so that a
+caller can choose its route by shape before any launch (the routes are
+listed in PERF.md).
 """
 
 import ctypes
@@ -59,13 +66,18 @@ __all__ = [
     "jacobi_sweeps",
     "jacobi_eigh",
     "jacobi_eigh_plain",
+    "jacobi_eigh_takes",
     "ipa_congruence",
     "ipa_congruence_plain",
+    "gj_inverse",
     "gj_inverse_plain",
+    "gj_inverse_takes",
     "inv_sandwich",
+    "inv_sandwich_takes",
     "inv_sandwich_plain",
     "model_traces",
     "model_traces_plain",
+    "model_traces_takes",
     "source_of",
 ]
 
@@ -99,6 +111,10 @@ _SIGNATURES = {
     "ipa_congruence": (
         "ipa_congruence_launch",
         [_VOID, _VOID, _VOID, _VOID, _VOID, _INT, _INT, _INT, _INT, _VOID],
+    ),
+    "gj_inverse": (
+        "gj_inverse_launch",
+        [_VOID, _VOID, _INT, _INT, _FLOAT, _INT, _VOID],
     ),
     "inv_sandwich": (
         "inv_sandwich_launch",
@@ -523,13 +539,18 @@ def jacobi_eigh_plain(
     return lamb, torch.gather(V, -1, order[:, None, :].expand(V.shape))
 
 
+def jacobi_eigh_takes(n: int) -> bool:
+    """Whether the Jacobi kernel takes ``n x n`` matrices: ``2 <= n <= 32``."""
+    return 2 <= n <= _JACOBI_MAX_N
+
+
 def _check_jacobi_eigh(A: torch.Tensor) -> None:
     name = "jacobi_eigh"
     _require(A.dim() == 3, f"{name}: A must be (B, n, n), got {tuple(A.shape)}")
     B, n, n2 = A.shape
     _require(n == n2, f"{name}: A must be square, got {tuple(A.shape)}")
     _require(
-        2 <= n <= _JACOBI_MAX_N, f"{name}: the kernel takes 2 <= n <= {_JACOBI_MAX_N}, got n={n}"
+        jacobi_eigh_takes(n), f"{name}: the kernel takes 2 <= n <= {_JACOBI_MAX_N}, got n={n}"
     )
     _require(A.dtype == torch.float32, f"{name}: the kernel takes float32 A, got {A.dtype}")
     _require(A.is_contiguous(), f"{name}: A must be contiguous")
@@ -638,9 +659,10 @@ def ipa_congruence(
 ipa_congruence.launches = 0
 
 
-# ---- inverse sandwich (dense MNMF, unfused route) -------------------------------
+# ---- batched Hermitian inverse (IPSDTA's model) ------------------------------------
 
-_GJ_MAX_M = 16  # systems per group of m threads in one warp, mirrored from csrc/gj_inverse.cuh
+_GJ_MAX_M = 32  # a group of m threads in one warp, mirrored from csrc/gj_inverse.cuh
+_SANDWICH_MAX_M = 16  # K4 and K5 keep each thread's row of their products in registers
 
 
 def gj_inverse_plain(R: torch.Tensor, tiny: float = _GJ_TINY) -> torch.Tensor:
@@ -648,10 +670,58 @@ def gj_inverse_plain(R: torch.Tensor, tiny: float = _GJ_TINY) -> torch.Tensor:
 
     The complex elimination of ``csrc/gj_inverse.cuh``, step by step; the
     JAX package runs the same elimination on the real embedding
-    (``splitc._cinv``, splitc.py:3143-3147).
+    (``splitc._cinv``, splitc.py:3143-3147, and the Pallas kernel of
+    ``planar_inverse_sc``).
     """
     eye = torch.eye(R.shape[-1], dtype=R.dtype, device=R.device).expand(R.shape)
     return _gauss_jordan(torch.cat([R, eye], dim=-1), tiny)
+
+
+def gj_inverse_takes(m: int) -> bool:
+    """Whether the inverse kernel takes ``m x m`` systems: ``1 <= m <= 32``."""
+    return 1 <= m <= _GJ_MAX_M
+
+
+def _check_gj_inverse(R: torch.Tensor) -> None:
+    name = "gj_inverse"
+    _require(
+        R.dim() >= 3 and R.shape[-1] == R.shape[-2], f"{name}: R must be (..., m, m), got {tuple(R.shape)}"
+    )
+    _require(R.dtype == torch.complex64, f"{name}: the kernel takes complex64, got {R.dtype}")
+    _require(R.is_contiguous(), f"{name}: R must be contiguous")
+    m = R.shape[-1]
+    _require(gj_inverse_takes(m), f"{name}: the kernel takes 1 <= m <= {_GJ_MAX_M}, got m={m}")
+    B = R.numel() // (m * m)
+    _require(1 <= B < 2**31, f"{name}: batch of {B} systems")
+    _check_cuda(name, R)
+
+
+def gj_inverse(R: torch.Tensor) -> torch.Tensor:
+    """``R^-1`` of Hermitian positive definite ``(..., m, m)``; kernel on CUDA, :func:`gj_inverse_plain` on CPU.
+
+    The kernel takes complex64 and ``1 <= m <= 32``; the batch axes are
+    flattened. A pivot under ``1e-20`` in magnitude is floored to ``1e-20``
+    keeping its phase, so a zero or singular system gives large, finite
+    values.
+    """
+    if _on_cpu(R):
+        return gj_inverse_plain(R)
+    _check_gj_inverse(R)
+    m = R.shape[-1]
+    lib, launch = _entry("gj_inverse")
+    Rinv = torch.empty_like(R)
+    status = launch(
+        R.data_ptr(), Rinv.data_ptr(), R.numel() // (m * m), m, _GJ_TINY, R.device.index, _stream(R.device)
+    )
+    _build.check(lib, "gj_inverse", status)
+    gj_inverse.launches += 1
+    return Rinv
+
+
+gj_inverse.launches = 0
+
+
+# ---- inverse sandwich (dense MNMF, unfused route) -------------------------------
 
 
 def inv_sandwich_plain(
@@ -666,6 +736,11 @@ def inv_sandwich_plain(
     return Rinv, (Rinv @ C) @ Rinv
 
 
+def inv_sandwich_takes(m: int) -> bool:
+    """Whether the inverse-sandwich kernel takes ``m x m`` systems: ``1 <= m <= 16``."""
+    return 1 <= m <= _SANDWICH_MAX_M
+
+
 def _check_inv_sandwich(R: torch.Tensor, C: torch.Tensor) -> None:
     name = "inv_sandwich"
     _require(
@@ -677,7 +752,7 @@ def _check_inv_sandwich(R: torch.Tensor, C: torch.Tensor) -> None:
     )
     _require(R.is_contiguous() and C.is_contiguous(), f"{name}: inputs must be contiguous")
     m = R.shape[-1]
-    _require(1 <= m <= _GJ_MAX_M, f"{name}: the kernel takes m <= {_GJ_MAX_M}, got m={m}")
+    _require(inv_sandwich_takes(m), f"{name}: the kernel takes m <= {_SANDWICH_MAX_M}, got m={m}")
     B = R.numel() // (m * m)
     _require(1 <= B < 2**31, f"{name}: batch of {B} systems")
     _check_cuda(name, R, C)
@@ -753,6 +828,11 @@ def model_traces_smem_bytes(n_sources: int, m: int) -> int:
     return (n_sources * (3 * m * m + 1) + frames * m * (3 * m + 1)) * 8 + n_sources * frames * 4
 
 
+def model_traces_takes(n_sources: int, m: int) -> bool:
+    """Whether the fused kernel takes ``n_sources`` models of ``m x m``: ``m <= 16`` and one block's shared memory."""
+    return 1 <= m <= _SANDWICH_MAX_M and model_traces_smem_bytes(n_sources, m) <= _SMEM_BLOCK_MAX
+
+
 def _check_model_traces(Lamb: torch.Tensor, H: torch.Tensor, XX: torch.Tensor) -> None:
     name = "model_traces"
     _require(Lamb.dim() == 3, f"{name}: Lamb must be (N, I, T), got {tuple(Lamb.shape)}")
@@ -774,10 +854,9 @@ def _check_model_traces(Lamb: torch.Tensor, H: torch.Tensor, XX: torch.Tensor) -
         Lamb.is_contiguous() and H.is_contiguous() and XX.is_contiguous(), f"{name}: inputs must be contiguous"
     )
     _require(min(N, I, T) >= 1, f"{name}: empty input {tuple(Lamb.shape)}")
-    _require(1 <= m <= _GJ_MAX_M, f"{name}: the kernel takes m <= {_GJ_MAX_M}, got m={m}")
+    _require(1 <= m <= _SANDWICH_MAX_M, f"{name}: the kernel takes m <= {_SANDWICH_MAX_M}, got m={m}")
     _require(
-        model_traces_smem_bytes(N, m) <= _SMEM_BLOCK_MAX,
-        f"{name}: N={N}, m={m} exceeds the shared memory of one block",
+        model_traces_takes(N, m), f"{name}: N={N}, m={m} exceeds the shared memory of one block"
     )
     _check_cuda(name, Lamb, H, XX)
 

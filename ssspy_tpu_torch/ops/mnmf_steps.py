@@ -14,12 +14,20 @@ the same choices by backend (splitc.py:2974-2992):
   ``eps I``) and ``gmean_impl="chol"``; every model, inverse, sandwich,
   trace and frame-sum pass is the fused kernel K5
   (:func:`ssspy_tpu_torch.ops.kernels.model_traces`), three times per
-  iteration and a fourth with the latent ``Z``; the geometric mean's one
-  embedded eigh is K7 at ``B = N I``, ``n = 2M``. With ``psd_impl="eigh"``
+  iteration and a fourth with the latent ``Z``; the geometric mean's
+  embedded eigh and the new ``H``'s eigenvalue floor
+  (:func:`spatial_projection`) are K7 at ``B = N I``, ``n = 2M``, twice per
+  iteration. With ``psd_impl="eigh"``
   (the JAX package's parity model in float32) the step runs unfused: the
   inverse sandwich K4 (:func:`ssspy_tpu_torch.ops.kernels.inv_sandwich`)
   three times per iteration (four with ``Z``), and every PSD projection,
   ``B = I T`` embedded ``2M x 2M`` matrices for each model ``R``, through K7.
+  Beyond the kernels' sizes the route is chosen by shape, before any launch:
+  above 16 channels (or where one block's shared memory cannot hold the
+  sources) the ridge model runs unfused, the sandwich as ``inv_ex`` and
+  ``matmul`` (:func:`_inv_sandwich`, :func:`_fused`), and above 16 channels
+  the embedded eigh is ``torch.linalg.eigh``
+  (:func:`~ssspy_tpu_torch.ops.prox_steps.symm_eigh`).
 - complex128, the reference route: ``psd_impl="eigh"`` through
   ``torch.linalg.eigh`` and ``gmean_impl="eigh2"``; the inverse and the
   sandwich are ``torch.linalg.inv_ex`` and ``matmul``, since the kernels
@@ -48,15 +56,16 @@ __all__ = [
 ]
 
 PSD_IMPLS = ("ridge", "eigh")
-# complex64: the spatial covariances' ridge or floor relative to their scale (see gauss_mnmf_step)
-F32_SPATIAL_REL = 1e-5
+# complex64: the new spatial covariances' eigenvalue floor relative to their top eigenvalue
+# (see spatial_projection; scripts/torch_mnmf_float32_floor.py measures it)
+F32_SPATIAL_REL = 1e-6
 GMEAN_IMPLS = ("chol", "eigh2")
 
 
 def _routes(dtype: torch.dtype, psd_impl: str = "auto", gmean_impl: str = "auto") -> Tuple[str, str]:
-    """``(psd_impl, gmean_impl)`` with ``"auto"`` resolved by dtype (see the module)."""
+    """``(psd_impl, gmean_impl)`` with ``"auto"`` resolved by dtype (see the module; IPSDTA's step takes the same)."""
     if dtype not in (torch.complex64, torch.complex128):
-        raise ValueError(f"dense GaussMNMF takes complex64 or complex128, got {dtype}")
+        raise ValueError(f"the step takes complex64 or complex128, got {dtype}")
     f32 = dtype == torch.complex64
     psd_impl = ("ridge" if f32 else "eigh") if psd_impl == "auto" else psd_impl
     gmean_impl = ("chol" if f32 else "eigh2") if gmean_impl == "auto" else gmean_impl
@@ -71,17 +80,13 @@ def psd_project(A: torch.Tensor, eps: float, impl: str, rel: float = 0.0) -> tor
     """PSD projection of Hermitian ``(..., m, m)`` (splitc.py:3150-3162).
 
     ``"eigh"`` floors the eigenvalues at ``max(eps, rel lamb_max)``
-    (:func:`~ssspy_tpu_torch.special.psd.to_psd`); ``"ridge"`` hermitizes
-    and adds ``(eps + rel tr(A) / m) I``. ``rel = 0`` is the JAX step.
+    (:func:`~ssspy_tpu_torch.special.psd.to_psd`; ``rel = 0`` is the JAX
+    step); ``"ridge"`` hermitizes and adds ``eps I``.
     """
     if impl == "eigh":
         return to_psd(A, functools.partial(max_flooring, eps=eps), rel=rel)
     if impl == "ridge":
-        A = hermitize(A)
-        eye = torch.eye(A.shape[-1], dtype=A.dtype, device=A.device)
-        if rel:
-            return A + (eps + rel * A.diagonal(dim1=-2, dim2=-1).real.mean(dim=-1))[..., None, None] * eye
-        return A + eps * eye
+        return hermitize(A) + eps * torch.eye(A.shape[-1], dtype=A.dtype, device=A.device)
     raise ValueError(f"unknown psd_impl {impl!r}; expected one of {PSD_IMPLS}")
 
 
@@ -165,11 +170,41 @@ def _trace_real(A: torch.Tensor, H: torch.Tensor) -> torch.Tensor:
 
 
 def _inv_sandwich(R: torch.Tensor, C: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
-    """``(R^-1, R^-1 C R^-1)``: K4 in complex64, ``inv_ex`` and ``matmul`` in complex128."""
-    if R.dtype == torch.complex64:
+    """``(R^-1, R^-1 C R^-1)``, routed by dtype and shape.
+
+    K4 in complex64 up to ``m = 16``
+    (:func:`~ssspy_tpu_torch.ops.kernels.inv_sandwich_takes`); ``inv_ex``
+    and ``matmul`` in complex128, and in complex64 above that.
+    """
+    if R.dtype == torch.complex64 and kernels.inv_sandwich_takes(R.shape[-1]):
         return kernels.inv_sandwich(R.contiguous(), C.contiguous())
     R_inv = torch.linalg.inv_ex(R)[0]
     return R_inv, (R_inv @ C) @ R_inv
+
+
+def spatial_projection(G: torch.Tensor, eps: float, psd_impl: str) -> torch.Tensor:
+    """The projection of the new spatial covariances: ``psd_impl`` in complex128, an eigenvalue floor in complex64.
+
+    In complex64 the eigenvalues of ``G`` are floored at
+    ``max(eps, F32_SPATIAL_REL lamb_max)`` whatever ``psd_impl``: one more
+    K7 eigh of the ``N I`` embedded ``2M x 2M`` matrices. Once a spatial
+    covariance nears rank one, the absolute ``eps`` vanishes under float32
+    rounding, ``H`` and then ``R`` lose definiteness, a trace that is
+    non-negative in exact arithmetic comes out negative and the square root
+    of the MM update is NaN (the JAX float32 step as well). On the 8-channel
+    10 s mixture a floor relative to the top eigenvalue keeps the step
+    finite closer to complex128 than a relative ridge, which lifts every
+    eigenvalue (scripts/torch_mnmf_float32_floor.py; PERF.md, section 6).
+    """
+    if G.dtype == torch.complex64:
+        return psd_project(G, eps, "eigh", rel=F32_SPATIAL_REL)
+    return psd_project(G, eps, psd_impl)
+
+
+def _fused(dtype: torch.dtype, psd_impl: str, n_sources: int, m: int) -> bool:
+    """Whether the step runs the fused kernel K5: complex64, the ridge model, and a shape K5 takes
+    (:func:`~ssspy_tpu_torch.ops.kernels.model_traces_takes`); otherwise the unfused route."""
+    return dtype == torch.complex64 and psd_impl == "ridge" and kernels.model_traces_takes(n_sources, m)
 
 
 def gauss_mnmf_step(
@@ -193,18 +228,15 @@ def gauss_mnmf_step(
     update ``H <- P^-1 # HQH``; unit-trace normalization; the latent update.
     ``psd_impl`` (``"ridge"`` or ``"eigh"``) and ``gmean_impl`` (``"chol"``
     or ``"eigh2"``) default by dtype, and complex64 with the ridge model
-    runs fused (see the module). In complex64 the new ``H`` is projected
-    with a relative term, ``rel = F32_SPATIAL_REL``: the absolute ``eps``
-    vanishes under float32 rounding once a spatial covariance nears rank
-    one, and without it ``H`` and then ``R`` lose definiteness, a trace
-    that is non-negative in exact arithmetic comes out negative and the
-    square root of the MM update is NaN (the JAX float32 step as well).
-    The JAX step's ``inv_impl``, ``fuse`` and ``XX_lanes`` choose TPU
+    runs fused (see the module). In complex64 the new ``H`` takes an
+    eigenvalue floor relative to its top eigenvalue
+    (:func:`spatial_projection`), without which the float32 step goes
+    non-finite as the JAX float32 step does. The JAX step's ``inv_impl``, ``fuse`` and ``XX_lanes`` choose TPU
     layouts and have no counterpart; ``bin_mask`` belongs to the sharded
     runner, not ported yet. Returns ``(T, V, H)`` or ``(T, V, H, Z)``.
     """
     psd_impl, gmean_impl = _routes(XX.dtype, psd_impl, gmean_impl)
-    fused = XX.dtype == torch.complex64 and psd_impl == "ridge"
+    fused = _fused(XX.dtype, psd_impl, H.shape[0], H.shape[-1])
 
     def traces(T, V, Z, H):
         Lamb = reconstruct_nmf(T, V, Z).contiguous()
@@ -239,8 +271,7 @@ def gauss_mnmf_step(
         Q = torch.einsum("nit,itpq->nipq", Lc, S)
     P = psd_project(P, eps, psd_impl)
     HQH = psd_project(H @ Q @ H, eps, psd_impl)
-    rel = F32_SPATIAL_REL if H.dtype == torch.complex64 else 0.0
-    H = psd_project(gmean2(P, HQH, impl=gmean_impl), eps, psd_impl, rel=rel)
+    H = spatial_projection(gmean2(P, HQH, impl=gmean_impl), eps, psd_impl)
 
     # ---- unit-trace normalization (mnmf.py:391-414) ----
     if normalization:

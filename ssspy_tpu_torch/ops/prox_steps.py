@@ -22,6 +22,7 @@ from typing import Callable, Optional, Tuple
 import torch
 
 from ..linalg.prox import neg_log
+from ..special.psd import eigh_in_batches
 from . import kernels
 from .iva_steps import clogabsdet, separate
 
@@ -57,19 +58,23 @@ def _extract(W2: torch.Tensor, n: int) -> torch.Tensor:
 
 
 def symm_eigh(S: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
-    """Eigh of real symmetric ``(..., n, n)``: ``(lamb ascending, V)``, routed by dtype.
+    """Eigh of real symmetric ``(..., n, n)``: ``(lamb ascending, V)``, routed by dtype and shape.
 
-    float32 goes to :func:`ssspy_tpu_torch.ops.kernels.jacobi_eigh` (the
-    kernel on CUDA, its plain version on the CPU), float64 to
-    ``torch.linalg.eigh`` (the JAX package's LAPACK route "for f64 parity
-    runs", splitc.py:1219-1221). The choice is made here, by dtype, before
-    any launch; any other dtype raises.
+    float32 up to ``n = 32`` goes to
+    :func:`ssspy_tpu_torch.ops.kernels.jacobi_eigh` (the kernel on CUDA, its
+    plain version on the CPU); float64, and float32 above the kernel's
+    ``n`` (:func:`~ssspy_tpu_torch.ops.kernels.jacobi_eigh_takes`), to
+    ``torch.linalg.eigh`` through
+    :func:`~ssspy_tpu_torch.special.psd.eigh_in_batches` (the JAX package's
+    LAPACK route "for f64 parity runs", splitc.py:1219-1221). The choice is
+    made here, by dtype and shape, before any launch, on every device alike;
+    any other dtype raises.
     """
-    if S.dtype == torch.float64:
-        return torch.linalg.eigh(S)
-    if S.dtype != torch.float32:
+    if S.dtype not in (torch.float32, torch.float64):
         raise ValueError(f"symm_eigh takes float32 or float64, got {S.dtype}")
     n = S.shape[-1]
+    if S.dtype == torch.float64 or not kernels.jacobi_eigh_takes(n):
+        return eigh_in_batches(S)
     lamb, V = kernels.jacobi_eigh(S.reshape(-1, n, n).contiguous())
     return lamb.reshape(S.shape[:-1]), V.reshape(S.shape)
 

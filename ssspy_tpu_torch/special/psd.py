@@ -8,8 +8,8 @@ eigenvalue floor ``splitc._eig_floor`` (splitc.py:1261-1280).
 Both are spectral functions of a Hermitian matrix, and the route of their
 eigendecomposition is decided by dtype, before any launch: complex128 and
 float64 go to ``torch.linalg.eigh`` on the matrix itself (the
-reference-exact route of the CPU tests and the fixtures; on the card in
-batches of ``CUDA_EIGH_BATCH`` matrices); complex64 goes
+reference-exact route of the CPU tests and the fixtures), in batches of
+``CUDA_EIGH_BATCH`` matrices (:func:`eigh_in_batches`); complex64 goes
 through the real ``2m x 2m`` embedding and
 :func:`ssspy_tpu_torch.ops.prox_steps.herm_eigh_embed` (the Jacobi kernel
 K7 on the card), with the two embedded copies averaged on the way back
@@ -25,7 +25,7 @@ import torch
 
 from .flooring import EPS, identity, max_flooring
 
-__all__ = ["hermitize", "eig_floor", "spectral", "to_psd", "psd_inv"]
+__all__ = ["hermitize", "eig_floor", "eigh_in_batches", "spectral", "to_psd", "psd_inv"]
 
 
 def hermitize(X: torch.Tensor) -> torch.Tensor:
@@ -58,8 +58,13 @@ def eig_floor(flooring_fn: Optional[Callable], rel: float = 0.0) -> Callable:
 CUDA_EIGH_BATCH = 16384
 
 
-def eigh_in_batches(A: torch.Tensor, batch: int) -> Tuple[torch.Tensor, torch.Tensor]:
-    """``torch.linalg.eigh`` of ``(..., m, m)``, called on at most ``batch`` matrices at a time."""
+def eigh_in_batches(A: torch.Tensor, batch: int = CUDA_EIGH_BATCH) -> Tuple[torch.Tensor, torch.Tensor]:
+    """``torch.linalg.eigh`` of ``(..., m, m)``, called on at most ``batch`` matrices at a time.
+
+    Every call of the port to ``torch.linalg.eigh`` goes through here, so
+    that no batch reaches cuSOLVER whole; on the CPU, where LAPACK takes one
+    matrix at a time, the split changes nothing.
+    """
     flat = A.reshape(-1, *A.shape[-2:])
     if flat.shape[0] <= batch:
         return torch.linalg.eigh(A)
@@ -75,7 +80,7 @@ def spectral(A: torch.Tensor, f: Callable, *more: Callable):
     the one eigh.
     """
     if A.dtype in (torch.complex128, torch.float64):
-        lamb, P = eigh_in_batches(A, CUDA_EIGH_BATCH) if A.is_cuda else torch.linalg.eigh(A)
+        lamb, P = eigh_in_batches(A)
         out = tuple((P * g(lamb)[..., None, :].to(P.dtype)) @ P.mH for g in (f, *more))
     elif A.dtype == torch.complex64:
         # imported here: ops imports this module

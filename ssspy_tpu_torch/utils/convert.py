@@ -7,7 +7,7 @@ both packages can be fed the same state. They take numpy arrays (a JAX
 array converts with ``np.asarray``) and import nothing from JAX.
 """
 
-from typing import Dict
+from typing import Dict, List, Union
 
 import numpy as np
 import torch
@@ -41,9 +41,10 @@ _COMPLEX_KEYS = (
     "H", "XX",  # dense MNMF spatial and instant covariances
 )
 _REAL_KEYS = ("T", "V", "Z")  # NMF basis, activation and latent (ILRMA and MNMF)
+_COMPLEX_LIST_KEYS = ("T_parts",)  # IPSDTA's PSDTF basis, one entry per block part
 
 
-def from_jax_state(state: Dict, device=None) -> Dict[str, torch.Tensor]:
+def from_jax_state(state: Dict, device=None) -> Dict[str, Union[torch.Tensor, List[torch.Tensor]]]:
     """Convert a JAX class or fast-path state dict (e.g. ``{"X": Xs, "W": Ws}``).
 
     The kind of each entry is decided by its key, never by its shape:
@@ -53,21 +54,33 @@ def from_jax_state(state: Dict, device=None) -> Dict[str, torch.Tensor]:
     complex and arrive either complex (class
     state) or planar ``(2, ...)`` real (fast-path state, through
     :func:`planar_to_complex`); ``T``, ``V`` and ``Z`` are real and keep
-    their dtype, whatever their leading axis. Any other key raises.
+    their dtype, whatever their leading axis. ``T_parts``, IPSDTA's basis,
+    is a list (or tuple) of complex parts ``(N, K, B_p, J_p, J_p)``, each
+    complex or planar ``(2, N, K, B_p, J_p, J_p)`` (the JAX fast path's
+    ``T0``, ``T1``), and becomes a list of complex tensors. Any other key
+    raises.
     """
+
+    def as_complex(a):
+        a = np.asarray(a)
+        return torch.from_numpy(a.copy()).to(device) if np.iscomplexobj(a) else planar_to_complex(a, device)
+
     out = {}
     for key, value in state.items():
+        if key in _COMPLEX_LIST_KEYS:
+            if not isinstance(value, (list, tuple)):
+                raise ValueError(f"state entry {key!r} must be a list of parts, got {type(value).__name__}")
+            out[key] = [as_complex(part) for part in value]
+            continue
         a = np.asarray(value)
         if key in _COMPLEX_KEYS:
-            out[key] = (
-                torch.from_numpy(a.copy()).to(device) if np.iscomplexobj(a) else planar_to_complex(a, device)
-            )
+            out[key] = as_complex(a)
         elif key in _REAL_KEYS:
             if np.iscomplexobj(a):
                 raise ValueError(f"state entry {key!r} must be real, got {a.dtype}")
             out[key] = torch.from_numpy(a.copy()).to(device)
         else:
             raise ValueError(
-                f"unknown state key {key!r}; expected one of {_COMPLEX_KEYS + _REAL_KEYS}"
+                f"unknown state key {key!r}; expected one of {_COMPLEX_KEYS + _REAL_KEYS + _COMPLEX_LIST_KEYS}"
             )
     return out

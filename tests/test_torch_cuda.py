@@ -307,7 +307,7 @@ def test_mnmf_kernels_reject_what_they_do_not_take(cuda_device):
 
 @pytest.mark.cuda
 def test_dense_mnmf_runs_through_the_kernels(cuda_device):
-    """Five iterations of ``fast_gauss_mnmf_dense`` on the card: K5 three times, K7 once per iteration; the eigh model K4."""
+    """Five iterations of ``fast_gauss_mnmf_dense`` on the card: K5 three times, K7 twice per iteration; the eigh model K4."""
     from ssspy_tpu_torch.fast import fast_gauss_mnmf_dense
     from ssspy_tpu_torch.ops.mnmf_steps import gauss_mnmf_loss, gauss_mnmf_step, instant_covariance
 
@@ -319,7 +319,7 @@ def test_dense_mnmf_runs_through_the_kernels(cuda_device):
     Y, (T, V, H) = fast_gauss_mnmf_dense(X, n_basis=2, n_iter=5, rng=np.random.default_rng(20))
     torch.cuda.synchronize()
     assert {name: getattr(K, name).launches - before[name] for name in names} == {
-        "model_traces": 15, "jacobi_eigh": 5, "inv_sandwich": 0}
+        "model_traces": 15, "jacobi_eigh": 10, "inv_sandwich": 0}
     assert Y.device.type == "cuda" and Y.dtype == torch.complex64 and Y.shape == X.shape
     assert torch.isfinite(torch.view_as_real(Y)).all()
     XX = instant_covariance(torch.from_numpy(X).to(cuda_device))
@@ -350,3 +350,87 @@ def test_complex128_psd_projection_takes_the_dense_mnmf_model_batch(cuda_device)
     assert torch.isfinite(torch.view_as_real(out)).all()
     assert torch.linalg.eigvalsh(out[:2]).min() >= -1e-12
     assert (out[:2] - head).abs().max() <= 1e-12 * head.abs().max()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize(
+    "shape",
+    [(8 * 626 * 63, 4), (8 * 626, 5), (37, 1), (50, 16), (41, 17), (23, 32)],
+    ids=["ipsdta_timing_part", "ipsdta_remainder_part", "m1", "m16", "m17", "m32"],
+)
+def test_gj_inverse_kernel_matches_plain(cuda_device, shape):
+    rng = np.random.default_rng(22)
+    B, m = shape
+    R = torch.eye(m, dtype=torch.complex64, device=cuda_device) + _psd(rng, (B, m, m), cuda_device)
+    before = K.gj_inverse.launches
+    R_inv = K.gj_inverse(R)
+    R_inv_ref = K.gj_inverse_plain(R)
+    torch.cuda.synchronize()
+    assert K.gj_inverse.launches == before + 1
+    # the same elimination on both sides; only the rounding of fused products may differ
+    assert (R_inv - R_inv_ref).abs().max() <= 1e-5 * R_inv_ref.abs().max()
+
+
+@pytest.mark.cuda
+def test_gj_inverse_kernel_floors_the_pivot_of_a_zero_system(cuda_device):
+    rng = np.random.default_rng(23)
+    R = _psd(rng, (40, 5, 5), cuda_device)
+    R[[0, 17]] = 0
+    R_inv = K.gj_inverse(R)
+    R_inv_ref = K.gj_inverse_plain(R)
+    torch.cuda.synchronize()
+    assert torch.isfinite(torch.view_as_real(R_inv)).all()
+    assert torch.equal(R_inv[[0, 17]], R_inv_ref[[0, 17]])
+    assert torch.equal(R_inv[0], torch.eye(5, dtype=R.dtype, device=cuda_device) / torch.tensor(1e-20, device=cuda_device))
+
+
+@pytest.mark.cuda
+def test_gj_inverse_kernel_rejects_what_it_does_not_take(cuda_device):
+    with pytest.raises(ValueError, match="1 <= m <= 32"):
+        K.gj_inverse(torch.zeros((4, 33, 33), dtype=torch.complex64, device=cuda_device))
+    with pytest.raises(ValueError, match="complex64"):
+        K.gj_inverse(torch.zeros((4, 3, 3), dtype=torch.complex128, device=cuda_device))
+    with pytest.raises(ValueError, match="contiguous"):
+        K.gj_inverse(torch.zeros((4, 3, 3), dtype=torch.complex64, device=cuda_device).mT)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("model", ["gauss", "t"])
+def test_fast_ipsdta_runs_through_the_kernels(cuda_device, model):
+    """One complex64 step of ``fast_gauss_ipsdta`` / ``fast_t_ipsdta`` on the card, two parts (J = 4 and 5): K3 three
+    times per part; K7 once per part (Gauss) or twice (t)."""
+    from ssspy_tpu_torch.fast import fast_gauss_ipsdta, fast_t_ipsdta
+
+    rng = np.random.default_rng(24)
+    X = (rng.standard_normal((4, 65, 120)) + 1j * rng.standard_normal((4, 65, 120))).astype(np.complex64)
+    X[1] += 0.5 * X[0]
+    names = ("gj_inverse", "jacobi_eigh")
+    before = {name: getattr(K, name).launches for name in names}
+    fast = fast_gauss_ipsdta if model == "gauss" else (lambda *a, **kw: fast_t_ipsdta(*a, dof=5, **kw))
+    Y, (T_parts, V), W = fast(X, n_basis=2, n_blocks=16, n_iter=1, rng=np.random.default_rng(25))
+    torch.cuda.synchronize()
+    assert {name: getattr(K, name).launches - before[name] for name in names} == {
+        "gj_inverse": 6, "jacobi_eigh": 2 if model == "gauss" else 4}
+    assert Y.device.type == "cuda" and Y.dtype == torch.complex64 and Y.shape == X.shape
+    assert [tuple(p.shape) for p in T_parts] == [(4, 2, 15, 4, 4), (4, 2, 1, 5, 5)]
+    for t in (Y, W, *T_parts, V):
+        assert torch.isfinite(torch.view_as_real(t) if t.is_complex() else t).all()
+
+
+@pytest.mark.cuda
+def test_vcd_sweep_freezes_only_the_rows_of_a_silent_bin(cuda_device):
+    """A silent bin (x = 0) makes its VCD solves singular: ``solve_ex`` reports it on the card as on the CPU, the bin's
+    rows keep their value and the other bins of its block are updated and finite."""
+    from ssspy_tpu_torch.ops.ipsdta_steps import vcd_covariance, vcd_sweep
+
+    rng = np.random.default_rng(26)
+    B, J, M, T = 3, 4, 3, 50
+    X = _complex(rng, (M, B, J, T), cuda_device)
+    X[:, 1, 2] = 0
+    A = _complex(rng, (M, T, B, J, J), cuda_device)
+    R_inv = A @ A.conj().transpose(-1, -2) + torch.eye(J, dtype=A.dtype, device=cuda_device)
+    W0 = torch.eye(M, dtype=torch.complex64, device=cuda_device).expand(B, J, M, M).contiguous()
+    W = vcd_sweep(W0, vcd_covariance(R_inv, X))
+    assert torch.isfinite(torch.view_as_real(W)).all()
+    assert torch.equal(W[1, 2], W0[1, 2])
+    assert not torch.equal(W[1, 1], W0[1, 1]) and not torch.equal(W[0, 2], W0[0, 2])

@@ -1,10 +1,11 @@
-"""ssspy_tpu_torch kernels: plain versions against the JAX package, dispatch and build.
+"""ssspy_tpu_torch kernels: plain versions against the JAX package, dispatch, routes by shape and build.
 
 On the CPU the kernel wrappers take their plain PyTorch versions; these
 are checked against the JAX functions they port (the Pallas covariance
 in interpret mode and its einsum, the split-complex IP1 sweep with both
 solvers, the ISS1 sweep in its XLA form and its Pallas body in interpret
-mode) on the same numpy inputs. The CUDA kernels themselves are
+mode, the batched Hermitian inverse in its Pallas body in interpret mode
+and its XLA form) on the same numpy inputs. The CUDA kernels themselves are
 compared with the plain versions on the card by tests/test_torch_cuda.py
 and by ``chip_smoke.py``.
 """
@@ -19,9 +20,9 @@ import numpy as np
 import pytest
 import torch
 
-from ssspy_tpu.ops.pallas_kernels import weighted_covariance_sc
-from ssspy_tpu.ops.splitc import ip1_sweep_sc, iss1_sweep_sc
-from ssspy_tpu_torch.ops import _build
+from ssspy_tpu.ops.pallas_kernels import planar_inverse_sc, weighted_covariance_sc
+from ssspy_tpu.ops.splitc import _cinv, ip1_sweep_sc, iss1_sweep_sc
+from ssspy_tpu_torch.ops import _build, ipsdta_steps, mnmf_steps, prox_steps
 from ssspy_tpu_torch.ops import kernels as K
 from ssspy_tpu_torch.utils import complex_to_planar, planar_to_complex
 
@@ -225,6 +226,135 @@ def test_iss1_sweep_keeps_a_bin_resident_while_it_fits():
     assert not K.iss1_sweep_resident(8, 3583, per_bin=False)
 
 
+# ---- batched Hermitian inverse (K3) ------------------------------------------
+
+
+def _hermitian_pd(rng, batch, m, dtype=np.complex64):
+    """Well-conditioned Hermitian positive definite ``(batch, m, m)``: ``A A^H / m + I``."""
+    A = rng.standard_normal((batch, m, m)) + 1j * rng.standard_normal((batch, m, m))
+    return (A @ A.conj().swapaxes(-1, -2) / m + np.eye(m)).astype(dtype)
+
+
+@pytest.mark.parametrize("impl", ["interpret", "cinv"])
+@pytest.mark.parametrize("m", [4, 5, 17])
+def test_gj_inverse_plain_matches_jax(m, impl):
+    """The plain version against the Pallas kernel in interpret mode and the XLA ``_cinv``, float32.
+
+    Both JAX forms eliminate on the real 2m x 2m embedding, the plain
+    version on the complex m x m system, in the same pivot-free order: the
+    sums differ in order and rounding only, well inside 1e-6 relative to
+    max |R^-1| on these well-conditioned systems.
+    """
+    rng = np.random.default_rng(30 + m)
+    R = _hermitian_pd(rng, 6, m)
+    Rr, Ri = jnp.asarray(R.real), jnp.asarray(R.imag)
+    if impl == "interpret":
+        ref = planar_inverse_sc(Rr, Ri, impl="interpret")
+    else:
+        ref = _cinv(Rr, Ri, impl="gjnp")
+    ref = np.asarray(ref[0]) + 1j * np.asarray(ref[1])
+    got = K.gj_inverse_plain(torch.from_numpy(R))
+    assert got.dtype == torch.complex64 and got.shape == R.shape
+    assert _rel_err(got.numpy(), ref) <= 1e-6
+    before = K.gj_inverse.launches
+    assert torch.equal(K.gj_inverse(torch.from_numpy(R)), got)
+    assert K.gj_inverse.launches == before
+
+
+def test_gj_inverse_plain_floors_a_zero_system_as_the_kernel_does():
+    """Every pivot of a zero system floors to 1e-20: the inverse is 1e20 I, finite."""
+    out = K.gj_inverse_plain(torch.zeros((3, 5, 5), dtype=torch.complex64))
+    assert torch.equal(out, (1 / torch.tensor(1e-20, dtype=torch.float32)) * torch.eye(5, dtype=torch.complex64).expand(3, 5, 5))
+
+
+@pytest.mark.parametrize("m", [1, 17, 32])
+def test_gj_inverse_kernel_takes_m_up_to_32(m):
+    """At m <= 32 every check of the wrapper passes but the device's (the CPU tensor is the last check)."""
+    R = torch.zeros((4, m, m), dtype=torch.complex64)
+    assert K.gj_inverse_takes(m)
+    with pytest.raises(ValueError, match="all CUDA tensors"):
+        K._check_gj_inverse(R)
+
+
+def test_gj_inverse_kernel_rejects_what_it_does_not_take():
+    R = torch.zeros((4, 33, 33), dtype=torch.complex64)
+    assert not K.gj_inverse_takes(33) and not K.gj_inverse_takes(0)
+    with pytest.raises(ValueError, match="1 <= m <= 32, got m=33"):
+        K._check_gj_inverse(R)
+    R4 = torch.zeros((4, 4, 4), dtype=torch.complex64)
+    with pytest.raises(ValueError, match="complex64"):
+        K._check_gj_inverse(R4.to(torch.complex128))
+    with pytest.raises(ValueError, match="contiguous"):
+        K._check_gj_inverse(R4.mT)
+    with pytest.raises(ValueError, match=r"\(\.\.\., m, m\)"):
+        K._check_gj_inverse(R4[:, :3])
+    with pytest.raises(ValueError, match="CUDA"):
+        K.gj_inverse(R4.to("meta"))
+
+
+# ---- routes by shape beyond the kernels' sizes ---------------------------------------
+
+
+@pytest.fixture
+def no_kernel(monkeypatch):
+    """Every kernel wrapper raises if it is called: a route by shape must not reach them."""
+    for name in ("jacobi_eigh", "gj_inverse", "inv_sandwich", "model_traces"):
+
+        def refuse(*args, _name=name, **kwargs):
+            raise AssertionError(f"{_name} called beyond its size")
+
+        monkeypatch.setattr(K, name, refuse)
+
+
+@pytest.mark.parametrize("n", [34, 66])
+def test_symm_eigh_above_the_jacobi_kernel_takes_torch_eigh(n, no_kernel):
+    """float32 above n = 32 goes to ``torch.linalg.eigh`` (in batches), never to K7, whose checks refuse it."""
+    rng = np.random.default_rng(n)
+    A = rng.standard_normal((3, n, n)).astype(np.float32)
+    S = torch.from_numpy(A + A.swapaxes(-1, -2))
+    assert not K.jacobi_eigh_takes(n)
+    with pytest.raises(ValueError, match="2 <= n <= 32"):
+        K._check_jacobi_eigh(S)
+    lamb, V = prox_steps.symm_eigh(S)
+    assert lamb.shape == (3, n) and V.shape == (3, n, n) and lamb.dtype == torch.float32
+    recon = (V * lamb[..., None, :]) @ V.mT
+    assert float((recon - S).abs().max()) <= 1e-4 * float(lamb.abs().max())
+    # the embedded complex eigh at m = n / 2 takes the same route
+    Ac = rng.standard_normal((2, n // 2, n // 2)) + 1j * rng.standard_normal((2, n // 2, n // 2))
+    H = torch.from_numpy((Ac @ Ac.conj().swapaxes(-1, -2)).astype(np.complex64))
+    lamb2, _ = prox_steps.herm_eigh_embed(H)
+    want = np.linalg.eigvalsh(H.numpy().astype(np.complex128))
+    np.testing.assert_allclose(lamb2.numpy()[:, 0::2], want, rtol=1e-4, atol=1e-4 * np.abs(want).max())
+
+
+def test_sandwich_and_fused_pass_above_their_kernels_take_inv_ex(no_kernel):
+    """K4 and K5 take m <= 16 (and K5 one block's shared memory): above, the step's routes are ``inv_ex`` and ``matmul``."""
+    rng = np.random.default_rng(40)
+    R, C = _hermitian_pd(rng, 5, 17), _hermitian_pd(rng, 5, 17)
+    assert not K.inv_sandwich_takes(17) and K.inv_sandwich_takes(16)
+    R_inv, S = mnmf_steps._inv_sandwich(torch.from_numpy(R), torch.from_numpy(C))
+    R_inv_ref = np.linalg.inv(R.astype(np.complex128))
+    assert _rel_err(R_inv.numpy(), R_inv_ref) <= 1e-5
+    assert _rel_err(S.numpy(), R_inv_ref @ C @ R_inv_ref) <= 1e-5
+    assert not mnmf_steps._fused(torch.complex64, "ridge", 8, 17)
+    assert not mnmf_steps._fused(torch.complex64, "ridge", 40, 16)  # one block's shared memory
+    assert mnmf_steps._fused(torch.complex64, "ridge", 8, 16) and K.model_traces_takes(8, 16)
+    assert not mnmf_steps._fused(torch.complex128, "ridge", 8, 8)
+
+
+def test_hermitian_inverse_takes_k3_up_to_32_then_inv_ex(monkeypatch):
+    rng = np.random.default_rng(41)
+    calls = []
+    monkeypatch.setattr(K, "gj_inverse", lambda R: calls.append(R.shape[-1]) or K.gj_inverse_plain(R))
+    for m in (4, 17, 32, 33):
+        R = _hermitian_pd(rng, 3, m)
+        got = ipsdta_steps.hermitian_inverse(torch.from_numpy(R))
+        assert _rel_err(got.numpy(), np.linalg.inv(R.astype(np.complex128))) <= 1e-5
+    got = ipsdta_steps.hermitian_inverse(torch.from_numpy(_hermitian_pd(rng, 3, 4, np.complex128)))
+    assert got.dtype == torch.complex128
+    assert calls == [4, 17, 32]
+
+
 # ---- dispatch: no silent fallback -------------------------------------------
 
 
@@ -314,7 +444,8 @@ def test_failed_build_raises_with_the_compiler_output(monkeypatch, tmp_path):
 
 def test_every_kernel_source_exists_for_its_wrapper():
     assert set(K._SIGNATURES) == {
-        "weighted_covariance", "ip1_sweep", "iss1_sweep", "jacobi_eigh", "ipa_congruence", "inv_sandwich", "model_traces"
+        "weighted_covariance", "ip1_sweep", "iss1_sweep", "jacobi_eigh", "ipa_congruence", "gj_inverse",
+        "inv_sandwich", "model_traces"
     }
     for name in K._SIGNATURES:
         assert hasattr(getattr(K, name), "launches")
@@ -340,7 +471,7 @@ def test_import_pulls_in_no_jax():
         "ssspy_tpu_torch.pipeline, ssspy_tpu_torch.utils.convert, ssspy_tpu_torch.bss.hva, "
         "ssspy_tpu_torch.ops.prox_steps, ssspy_tpu_torch.linalg.prox, ssspy_tpu_torch.ops.ipa_steps, "
         "ssspy_tpu_torch.linalg.lqpqm, ssspy_tpu_torch.special.psd, ssspy_tpu_torch.bss.mnmf, "
-        "ssspy_tpu_torch.ops.mnmf_steps\n"
+        "ssspy_tpu_torch.ops.mnmf_steps, ssspy_tpu_torch.ops.ipsdta_steps, ssspy_tpu_torch.bss.ipsdta\n"
         "bad = sorted(m for m in sys.modules if m == 'jax' or m.startswith(('jax.', 'ssspy_tpu.')) "
         "or m == 'ssspy_tpu')\n"
         "assert not bad, bad\n"

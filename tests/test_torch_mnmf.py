@@ -277,14 +277,15 @@ def test_gauss_mnmf_loss_matches_jax(dtype, partitioning):
 
 
 def test_float32_spatial_floor_keeps_the_step_finite(monkeypatch):
-    """The complex64 step's relative floor on H (``F32_SPATIAL_REL``).
+    """The complex64 step's floor on H: eigenvalues at ``F32_SPATIAL_REL`` times the top one (``spatial_projection``).
 
     On an 8-channel mixture a spatial covariance nears rank one, the
     absolute 1e-10 ridge vanishes under float32 rounding, and without the
-    floor a trace that is non-negative in exact arithmetic comes out
-    negative: the step is non-finite by iteration 31 (the JAX float32 step
-    fails the same way on a 3 s cut of the 8-channel, 10 s mixture). With
-    the floor the same iterations stay finite and the loss falls.
+    floor (the JAX step's projection) a trace that is non-negative in exact
+    arithmetic comes out negative: the step is non-finite by iteration 31
+    (the JAX float32 step fails the same way on a 3 s cut of the 8-channel,
+    10 s mixture). With the floor the same iterations stay finite and the
+    loss falls.
     """
     wave = make_mixture(seed=0, n_channels=8, duration_s=0.5)
     X = torch.from_numpy(host_stft(wave, n_fft=256, hop=128).astype(np.complex64))
@@ -302,11 +303,11 @@ def test_float32_spatial_floor_keeps_the_step_finite(monkeypatch):
                 return it, state
         return n_iter, state
 
-    assert mnmf_steps.F32_SPATIAL_REL == 1e-5
+    assert mnmf_steps.F32_SPATIAL_REL == 1e-6
     n_iter, state = iterations(31)
     assert n_iter == 31
     assert float(gauss_mnmf_loss(XX, *state)) < float(gauss_mnmf_loss(XX, *start))
-    monkeypatch.setattr(mnmf_steps, "F32_SPATIAL_REL", 0.0)
+    monkeypatch.setattr(mnmf_steps, "spatial_projection", lambda G, eps, psd_impl: mnmf_steps.psd_project(G, eps, psd_impl))
     assert iterations(31)[0] < 31
 
 
@@ -508,8 +509,8 @@ def test_complex64_paths_hand_the_kernels_what_they_take(monkeypatch):
     fast_gauss_mnmf_dense(X, n_basis=2, n_iter=n_iter, rng=np.random.default_rng(23), device="cpu")
     mnmf = GaussMNMF(n_basis=2, partitioning=True, rng=np.random.default_rng(23), device="cpu")
     mnmf(torch.from_numpy(X), n_iter=n_iter)
-    # K5: three passes per iteration, a fourth with the latent; K7: the geometric mean's eigh
-    assert checked == {"model_traces": 3 * n_iter + 4 * n_iter, "jacobi_eigh": 2 * n_iter}
+    # K5: three passes per iteration, a fourth with the latent; K7: the geometric mean's eigh and H's floor
+    assert checked == {"model_traces": 3 * n_iter + 4 * n_iter, "jacobi_eigh": 2 * 2 * n_iter}
 
     checked.clear()
     XX = instant_covariance(torch.from_numpy(X), psd_impl="eigh")
