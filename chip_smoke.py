@@ -47,9 +47,10 @@ calls, on the default device:
   must be the same through the kernel and through the plain version;
 - dense GaussMNMF (``n_basis=8``, 8 sources): ``GaussMNMF`` and
   ``fast_gauss_mnmf_dense``, 100 iterations each, on the float32 route:
-  the fused model pass K5 three times and the Jacobi eigh K7 twice per
-  iteration (the geometric mean's 16 x 16 embedding and the new spatial
-  covariances' eigenvalue floor, ``B = 2,056`` each);
+  the fused model pass K5 three times (twice the traces alone, once the
+  sums alone) and the Jacobi eigh K7 twice per iteration (the geometric
+  mean's 16 x 16 embedding and the new spatial covariances' eigenvalue
+  floor, ``B = 2,056`` each);
   and 10 iterations of ``gauss_mnmf_step(psd_impl="eigh")`` with its loss,
   the unfused route: the inverse sandwich K4 three times per iteration and
   K7 on every PSD projection, ``B = 160,882`` for each model;
@@ -63,6 +64,11 @@ calls, on the default device:
   tests/test_hard_fidelity.py:352-400 (4 channels, 257 bins in 16 blocks of
   16 and 17 bins), where K3 takes m = 17 and the 34 x 34 embedded eigh takes
   ``torch.linalg.eigh``, held to its fidelity pin.
+
+K7 is held to its plain version bit for bit, at the prox and IPA inputs
+and at the batches of the other paths (dense GaussMNMF's floor, IPSDTA's
+geometric mean, the eigh model's 160,882 matrices, compared on 4,096 at
+each end); K5 within 2e-4, and two launches of each to the bit.
 
 Every launch count is set to 0 just before a path and read just after it,
 and each path must have launched the kernels it runs (and no other). The
@@ -134,6 +140,7 @@ from ssspy_tpu_torch.ops.iva_steps import (
     iva_laplace_loss,
     separate,
 )
+from ssspy_tpu_torch.special.psd import eigh_in_batches
 from ssspy_tpu_torch.transform import istft, stft
 from ssspy_tpu_torch.utils.dataset import HOP, N_FFT, hard_speech_mixture, make_mixture
 
@@ -154,6 +161,7 @@ LONG_SHAPE = (8, 16, 4000)  # (N, I, T) whose bin exceeds shared memory: the str
 EIGH_TOL = 1e-5  # the same 90 rounds in the same order on both sides; f32 rounding may differ
 PROX_TOL = 1e-5
 JACOBI_SIZES = (2, 3, 7, 16, 32)
+EIGH_SLICE = 4096  # matrices of the eigh model's batch held against the plain version, at each end
 N_ITER_MASKING_ADMM = 10
 N_ITER_IPA_CLASSES = 10
 N_ITER_IPA_PLAIN_RATE = 10  # the plain Jacobi eigh takes ~30 ms, eight times per IPA iteration
@@ -786,23 +794,41 @@ def main() -> None:
         A_rand = torch.from_numpy(rng.standard_normal((I, n, n), dtype=np.float32)).to(device)
         eigh_cases.append((f"random n={n}", (A_rand + A_rand.transpose(-1, -2)).contiguous()))
     eigh_abs = 0.0
-    for label, A in eigh_cases:
+
+    def hold_eigh(label, A, rows=None, accuracy=True):
+        """K7 on all of ``A`` against the plain version on ``A[rows]`` (all rows by default): bit for bit, twice.
+
+        With ``accuracy``, the eigenvalues, the reconstruction and V^T V are also held to EIGH_TOL. The
+        batches of 4h are held to the plain version bit for bit only: on them 6 sweeps of float32 Jacobi
+        reconstruct to ~1.3e-5 of max |lambda|, in the plain version as in the kernel.
+        """
+        nonlocal eigh_abs
+        rows = slice(None) if rows is None else rows
         lamb, V = K.jacobi_eigh(A)
-        lamb_ref, _ = K.jacobi_eigh_plain(A)
+        lamb_2, V_2 = K.jacobi_eigh(A)
+        lamb, V, lamb_2, V_2 = lamb[rows], V[rows], lamb_2[rows], V_2[rows]
+        A = A[rows]
+        lamb_ref, V_ref = K.jacobi_eigh_plain(A)
         torch.cuda.synchronize()
         lamb_err, recon_err, ortho_err = eigh_errors(A, lamb, V, lamb_ref)
-        abs_err = float((lamb - lamb_ref).abs().max())
-        say("K7 jacobi_eigh", input=repr(label), shape=tuple(A.shape), max_abs_err=abs_err, lamb_rel_err=lamb_err,
-            recon_rel_err=recon_err, ortho_err=ortho_err, tol=EIGH_TOL)
+        abs_err = max(float((lamb - lamb_ref).abs().max()), float((V - V_ref).abs().max()))
+        bitwise = bool(torch.equal(lamb, lamb_ref)) and bool(torch.equal(V, V_ref))
+        repeat = bool(torch.equal(lamb, lamb_2)) and bool(torch.equal(V, V_2))
+        say("K7 jacobi_eigh", input=repr(label), shape=tuple(A.shape), max_abs_err=abs_err, equal_to_plain=bitwise,
+            two_launches_equal=repeat, lamb_rel_err=lamb_err, recon_rel_err=recon_err, ortho_err=ortho_err, tol=EIGH_TOL)
         check(all_finite(lamb, V) and bool((torch.diff(lamb, dim=-1) >= 0).all()), f"jacobi_eigh {label}: order")
-        check(max(lamb_err, recon_err, ortho_err) <= EIGH_TOL, f"jacobi_eigh {label}: errors {lamb_err}, {recon_err}, {ortho_err}")
+        check(not accuracy or max(lamb_err, recon_err, ortho_err) <= EIGH_TOL,
+              f"jacobi_eigh {label}: errors {lamb_err}, {recon_err}, {ortho_err}")
+        check(bitwise and repeat, f"jacobi_eigh {label}: not bit-identical to plain ({bitwise}) or to itself ({repeat})")
         eigh_abs = max(eigh_abs, abs_err)
+
+    for label, A in eigh_cases:
+        hold_eigh(label, A)
     lamb, V = K.jacobi_eigh(torch.zeros_like(A_pds))
     torch.cuda.synchronize()
     identity = bool(torch.equal(V, torch.eye(2 * M, device=device).expand_as(V))) and not bool(lamb.any())
     say("K7 jacobi_eigh", input=repr("all zero"), shape=tuple(A_pds.shape), identity=identity)
     check(identity, "jacobi_eigh of a zero batch is not (0, I)")
-    errors["jacobi_eigh"] = eigh_abs
     # the log-det prox through the kernel and through the plain version: a
     # spectral function, blind to the eigh's order within a tied pair
     G_pds = W_1 - torch.einsum("nit,mit->inm", Y_1, X_prox.conj())
@@ -901,24 +927,41 @@ def main() -> None:
     for label, Lamb_in, XX_in in (("model after 2 iterations", Lamb_main, XX_main),
                                   ("two zero XX bins, a tiny-Lamb bin", Lamb_edge, XX_edge)):
         out = K.model_traces(Lamb_in, H_mnmf, XX_in, MNMF_EPS)
+        out_2 = K.model_traces(Lamb_in, H_mnmf, XX_in, MNMF_EPS)
         ref = K.model_traces_plain(Lamb_in, H_mnmf, XX_in, MNMF_EPS)
         torch.cuda.synchronize()
         edge = label.startswith("two")
         bins = regular if edge else list(range(I))
         errs = [relative_error(o[:, bins], r[:, bins]) for o, r in zip(out, ref)]
+        repeat = all(bool(torch.equal(a, b)) for a, b in zip(out, out_2))
+        abs_err = max(float((o - r).abs().max()) for o, r in zip(out, ref))
         fields = {}
         if edge:
             fields = dict(
                 tiny_bin_rel_err=[relative_error(o[:, tiny_bin], r[:, tiny_bin]) for o, r in zip(out, ref)],
                 zero_XX_bins_t1_Q_zero=not (bool(out[0][:, list(SILENT_BINS)].any()) or bool(out[3][:, list(SILENT_BINS)].any())),
             )
-        say("K5 model_traces", input=repr(label), shape=(M, I, T, M), rel_err_t1_t2_P_Q=errs, tol=MODEL_TRACES_TOL,
-            **fields)
+        say("K5 model_traces", input=repr(label), shape=(M, I, T, M), max_abs_err=abs_err, rel_err_t1_t2_P_Q=errs,
+            tol=MODEL_TRACES_TOL, two_launches_equal=repeat, **fields)
         check(all_finite(*out), f"model_traces {label}: non-finite output")
+        check(repeat, f"model_traces {label}: two launches on the same inputs differ")
         check(max(errs) <= MODEL_TRACES_TOL, f"model_traces {label}: rel err {errs}")
         check(all(v is True or max(v) <= MODEL_TRACES_TOL for v in fields.values()), f"model_traces {label}: {fields}")
         if not edge:
-            traces_abs = max(float((o - r).abs().max()) for o, r in zip(out, ref))
+            traces_abs = abs_err
+    # the step's two output modes, the traces alone (basis and activation
+    # updates) and the sums alone (spatial update): each against the plain
+    # version's same outputs, and equal to the kernel's full form
+    full = K.model_traces(Lamb_main, H_mnmf, XX_main, MNMF_EPS)
+    for outputs, picked in (("traces", full[:2]), ("sums", full[2:])):
+        got = K.model_traces(Lamb_main, H_mnmf, XX_main, MNMF_EPS, outputs=outputs)
+        ref = K.model_traces_plain(Lamb_main, H_mnmf, XX_main, MNMF_EPS, outputs=outputs)
+        torch.cuda.synchronize()
+        errs = [relative_error(o, r) for o, r in zip(got, ref)]
+        same = len(got) == 2 and all(bool(torch.equal(o, f)) for o, f in zip(got, picked))
+        say("K5 model_traces", input=repr("model after 2 iterations"), outputs=outputs, rel_err=errs,
+            tol=MODEL_TRACES_TOL, equal_to_full_form=same)
+        check(all_finite(*got) and max(errs) <= MODEL_TRACES_TOL and same, f"model_traces outputs={outputs}: {errs}, {same}")
     errors["model_traces"] = traces_abs
 
     # ---- 4g. K3 against its plain version ----------------------------------------------
@@ -954,6 +997,33 @@ def main() -> None:
     say("K3 gj_inverse", input=repr("all zero"), shape=tuple(zero.shape), floored_equal_to_plain=floored)
     check(all_finite(R_inv) and floored, "gj_inverse of a zero batch is not (1 / 1e-20) I as in the plain version")
     errors["gj_inverse"] = gj_abs
+
+    # ---- 4h. K7 at the batches of the other paths -----------------------------------------
+    # dense GaussMNMF's eigenvalue floor of the new spatial covariances (a
+    # step's second eigh: B = N I = 2,056 of 16 x 16), IPSDTA's geometric mean
+    # of the main part (B = 63 x 64 = 4,032 of 8 x 8) and the eigh model's PSD
+    # projection of R (B = I T = 160,882 of 16 x 16). At 160,882 the plain
+    # version (tens of seconds whole) runs on the first and the last
+    # EIGH_SLICE matrices alone: each matrix is independent.
+    mnmf_eighs, ipsdta_eighs, model_eighs = [], [], []
+    with recording_jacobi(mnmf_eighs, keep=True):
+        gauss_mnmf_step(XX_main, T_mnmf, V_mnmf, H_mnmf, eps=MNMF_EPS)
+    with recording_jacobi(ipsdta_eighs, keep=True):
+        ipsdta_steps.ipsdta_vcd_step(X, W_eye, list(T_ip), V_ip, eps=IPSDTA_EPS)
+    with recording_jacobi(model_eighs, keep=True):
+        psd_project(R_main, MNMF_EPS, "eigh")
+    A_floor = mnmf_eighs[1]
+    A_ipsdta = next(A for A in ipsdta_eighs if A.shape[-1] == 8)
+    A_model = model_eighs[0]
+    check(tuple(A_floor.shape) == (M * I, 2 * M, 2 * M) and tuple(A_ipsdta.shape) == (4032, 8, 8)
+          and tuple(A_model.shape) == (I * T, 2 * M, 2 * M),
+          f"K7 inputs {tuple(A_floor.shape)}, {tuple(A_ipsdta.shape)}, {tuple(A_model.shape)}")
+    hold_eigh("dense-MNMF eigenvalue floor", A_floor, accuracy=False)
+    hold_eigh("IPSDTA geometric mean, main part", A_ipsdta, accuracy=False)
+    n_model = A_model.shape[0]
+    hold_eigh(f"eigh model's R, first {EIGH_SLICE}", A_model, slice(0, EIGH_SLICE), accuracy=False)
+    hold_eigh(f"eigh model's R, last {EIGH_SLICE}", A_model, slice(n_model - EIGH_SLICE, n_model), accuracy=False)
+    errors["jacobi_eigh"] = eigh_abs
 
     # ---- 5. main path: AuxIVA-IP1 -------------------------------------------------
 
@@ -1389,6 +1459,28 @@ def main() -> None:
             lambda: torch.linalg.eigh(A_ipa),
             jacobi_bound(*A_ipa.shape[:2]),
         ),
+        "jacobi_eigh MNMF floor": (
+            "dense-MNMF eigenvalue floor (2056,16,16)",
+            lambda: K.jacobi_eigh(A_floor),
+            lambda: K.jacobi_eigh_plain(A_floor),
+            lambda: eigh_in_batches(A_floor),
+            jacobi_bound(*A_floor.shape[:2]),
+        ),
+        "jacobi_eigh IPSDTA": (
+            "IPSDTA geometric mean, main part (4032,8,8)",
+            lambda: K.jacobi_eigh(A_ipsdta),
+            lambda: K.jacobi_eigh_plain(A_ipsdta),
+            lambda: eigh_in_batches(A_ipsdta),
+            jacobi_bound(*A_ipsdta.shape[:2]),
+        ),
+        "jacobi_eigh eigh model": (
+            # no plain time: the plain Jacobi takes tens of seconds here
+            "the eigh model's R (160882,16,16)",
+            lambda: K.jacobi_eigh(A_model),
+            None,
+            lambda: eigh_in_batches(A_model),
+            jacobi_bound(*A_model.shape[:2]),
+        ),
         "inv_sandwich": (
             "dense-MNMF model after 2 iterations (160882,8,8)",
             lambda: K.inv_sandwich(R_main, XX_main),
@@ -1422,14 +1514,22 @@ def main() -> None:
     }
     timings = {}
     for key, (weights, kernel_fn, plain_fn, library_fn, (bound, bound_by)) in timed.items():
-        ms, plain_ms = median_ms(kernel_fn, queued=True), median_ms(plain_fn, queued=True)
-        call_ms, plain_call_ms = median_ms(kernel_fn, queued=False), median_ms(plain_fn, queued=False)
+        ms = median_ms(kernel_fn, queued=True)
+        plain_ms = median_ms(plain_fn, queued=True) if plain_fn is not None else None
+        call_ms = median_ms(kernel_fn, queued=False)
+        plain_call_ms = median_ms(plain_fn, queued=False) if plain_fn is not None else None
         library_ms = median_ms(library_fn, queued=True) if library_fn is not None else None
         timings[key] = {"ms": ms, "plain_ms": plain_ms, "bound_ms": bound, "bound_by": bound_by,
                         "library_ms": library_ms}
         say("time", kernel=repr(key), weights=repr(weights), card=repr(card), device_ms=ms,
             plain_device_ms=plain_ms, call_ms=call_ms, plain_call_ms=plain_call_ms, library_device_ms=library_ms,
             bound_ms=bound, bound_by=bound_by, bound_share=bound / ms, runs=N_TIMED, stat="median")
+    # K5 as the step calls it: twice the traces alone, once the sums alone
+    mode_ms = {outputs: median_ms(lambda: K.model_traces(Lamb_main, H_mnmf, XX_main, MNMF_EPS, outputs=outputs),
+                                  queued=True) for outputs in ("traces", "sums")}
+    say("time", kernel="model_traces by output", card=repr(card), traces_device_ms=mode_ms["traces"],
+        sums_device_ms=mode_ms["sums"], step_device_ms=2 * mode_ms["traces"] + mode_ms["sums"],
+        step_full_form_device_ms=3 * timings["model_traces"]["ms"], runs=N_TIMED, stat="median")
     gjnp_ms = median_ms(lambda: K.ip1_sweep_plain(W_eye, U_main, solve_impl="gjnp"), queued=True)
     say("time", kernel="ip1_sweep", card=repr(card), plain_gjnp_device_ms=gjnp_ms, runs=N_TIMED, stat="median")
     B_rem = R_ipsdta[1].numel() // 25

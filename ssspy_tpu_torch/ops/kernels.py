@@ -78,6 +78,7 @@ __all__ = [
     "model_traces",
     "model_traces_plain",
     "model_traces_takes",
+    "model_traces_geometry",
     "source_of",
 ]
 
@@ -106,7 +107,7 @@ _SIGNATURES = {
     ),
     "jacobi_eigh": (
         "jacobi_eigh_launch",
-        [_VOID, _VOID, _VOID, _VOID, _INT, _INT, _INT, _INT, _FLOAT, _INT, _VOID],
+        [_VOID, _VOID, _VOID, _INT, _INT, _INT, _FLOAT, _INT, _VOID],
     ),
     "ipa_congruence": (
         "ipa_congruence_launch",
@@ -122,7 +123,7 @@ _SIGNATURES = {
     ),
     "model_traces": (
         "model_traces_launch",
-        [_VOID, _VOID, _VOID, _VOID, _VOID, _VOID, _VOID, _INT, _INT, _INT, _INT, _FLOAT, _FLOAT, _INT, _VOID],
+        [_VOID] * 8 + [_INT, _INT, _INT, _INT, _INT, _FLOAT, _FLOAT, _INT, _VOID],
     ),
 }
 # the source file of a kernel, where it is not named after its wrapper
@@ -431,7 +432,7 @@ iss1_sweep.launches = 0
 
 # ---- batched symmetric eigh (round-robin Jacobi) ------------------------------
 
-_JACOBI_MAX_N = 32  # n * n threads, one per entry, in one block of at most 1024
+_JACOBI_MAX_N = 32  # n lanes of one warp per matrix, mirrored from csrc/jacobi_eigh.cu
 
 
 @functools.lru_cache(maxsize=None)
@@ -572,13 +573,11 @@ def jacobi_eigh(
     _check_jacobi_eigh(A)
     B, n, _ = A.shape
     sweeps = jacobi_sweeps(n) if sweeps is None else int(sweeps)
-    table = partner_table(n, A.device)
     lib, launch = _entry("jacobi_eigh")
     lamb = torch.empty((B, n), dtype=A.dtype, device=A.device)
     V = torch.empty_like(A)
     status = launch(
-        A.data_ptr(), table.data_ptr(), lamb.data_ptr(), V.data_ptr(), B, n, table.shape[0],
-        sweeps, float(tiny), A.device.index, _stream(A.device),
+        A.data_ptr(), lamb.data_ptr(), V.data_ptr(), B, n, sweeps, float(tiny), A.device.index, _stream(A.device)
     )
     _build.check(lib, "jacobi_eigh", status)
     jacobi_eigh.launches += 1
@@ -787,11 +786,27 @@ inv_sandwich.launches = 0
 # ---- fused dense-MNMF model pass --------------------------------------------------------
 
 _MT_WARPS = 8  # warps per block, mirrored from csrc/mnmf_model_traces.cu
+# blocks the fused pass aims for: a bin's frames are split into chunks until
+# about this many (I, S) blocks cover the card, some eight waves of the 264
+# that two blocks per SM on 132 SMs run at once, so the last wave's tail is short
+_MT_TARGET_BLOCKS = 2048
+MODEL_TRACES_OUTPUTS = ("all", "traces", "sums")
+
+
+def _model_traces_outputs(outputs: str) -> Tuple[bool, bool]:
+    if outputs not in MODEL_TRACES_OUTPUTS:
+        raise ValueError(f"unknown outputs {outputs!r}; expected one of {MODEL_TRACES_OUTPUTS}")
+    return outputs != "sums", outputs != "traces"
 
 
 def model_traces_plain(
-    Lamb: torch.Tensor, H: torch.Tensor, XX: torch.Tensor, eps: float = 1e-10, tiny: float = _GJ_TINY
-) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor, torch.Tensor]:
+    Lamb: torch.Tensor,
+    H: torch.Tensor,
+    XX: torch.Tensor,
+    eps: float = 1e-10,
+    tiny: float = _GJ_TINY,
+    outputs: str = "all",
+) -> Tuple[torch.Tensor, ...]:
     """``(t1, t2, P, Q)`` of the dense-MNMF model pass, composed from tensor operations.
 
     ``Lamb``: real ``(N, I, T)``; ``H``: complex ``(N, I, m, m)``; ``XX``:
@@ -801,36 +816,80 @@ def model_traces_plain(
     and ``Q = sum_t Lamb M``, complex ``(N, I, m, m)``. The ``"gj"`` branch
     of ``planar_model_traces_sc`` (pallas_kernels.py:651-672) with ``H``
     hermitized first, as the kernels of both packages do (:676-678), and the
-    inverse of :func:`gj_inverse_plain`.
+    inverse of :func:`gj_inverse_plain`. ``outputs="traces"`` returns
+    ``(t1, t2)`` alone, ``"sums"`` ``(P, Q)`` alone.
     """
+    traces, sums = _model_traces_outputs(outputs)
     Hh = (H + H.mH) / 2
     Lc = Lamb.to(H.dtype)
     R = torch.einsum("nit,nipq->itpq", Lc, Hh)
     R = (R + R.mH) / 2 + eps * torch.eye(R.shape[-1], dtype=R.dtype, device=R.device)
     Rinv = gj_inverse_plain(R, tiny)
     M = (Rinv @ XX) @ Rinv
-    t1 = torch.einsum("itab,niba->nit", M, Hh).real
-    t2 = torch.einsum("itab,niba->nit", Rinv, Hh).real
-    P = torch.einsum("nit,itpq->nipq", Lc, Rinv)
-    Q = torch.einsum("nit,itpq->nipq", Lc, M)
-    return t1, t2, P, Q
+    out = ()
+    if traces:
+        out += (torch.einsum("itab,niba->nit", M, Hh).real, torch.einsum("itab,niba->nit", Rinv, Hh).real)
+    if sums:
+        out += (torch.einsum("nit,itpq->nipq", Lc, Rinv), torch.einsum("nit,itpq->nipq", Lc, M))
+    return out
 
 
-def model_traces_smem_bytes(n_sources: int, m: int) -> int:
+def model_traces_smem_bytes(n_sources: int, m: int, stages: int) -> int:
     """Shared memory one block of the kernel takes (csrc/mnmf_model_traces.cu:model_traces_smem_bytes).
 
-    The bin's padded hermitized ``H`` and its ``P`` and ``Q``
-    (``N (3 m^2 + 1)`` complex64), per frame of a tile of
-    ``8 floor(32 / m)`` the padded ``[R | I]`` and ``XX`` (``m (3 m + 1)``
-    complex64), and the tile's ``Lamb`` (``N`` float32 per frame).
+    Per source the hermitized ``H`` (``m`` rows of ``ld = m + (m >= 8)``
+    entries, plus one) and ``P`` and ``Q`` (``2 m^2``); per frame of a tile
+    of ``8 floor(32 / m)`` the pivot row and then ``R^-1`` (``m ld + 1``);
+    per buffer (``stages``) the tile's ``XX`` (``m^2 + 1`` per frame) and
+    ``Lamb`` (``N`` float32 per frame). Complex64 entries of 8 bytes.
     """
     frames = _MT_WARPS * (32 // m)
-    return (n_sources * (3 * m * m + 1) + frames * m * (3 * m + 1)) * 8 + n_sources * frames * 4
+    ld = m + (1 if m >= 8 else 0)
+    complex_entries = n_sources * (m * ld + 1 + 2 * m * m) + frames * (m * ld + 1) + stages * frames * (m * m + 1)
+    return complex_entries * 8 + stages * n_sources * frames * 4
+
+
+def model_traces_geometry(n_sources: int, n_bins: int, n_frames: int, m: int) -> dict:
+    """The kernel's launch for ``(N, I, T, m)``, as csrc/mnmf_model_traces.cu sets it up.
+
+    ``frames_per_tile``: ``8 floor(32 / m)``; ``chunk``: the frames of one
+    block, whole tiles, so that about 2,048 ``(I, S)`` blocks cover the
+    card; ``chunks``: ``S = ceil(T / chunk)``; ``stages``: 2 (the next
+    tile's ``XX`` and ``Lamb`` load while the current one computes) where
+    two buffers fit one block's 227 KB, else 1; ``smem_bytes`` at that
+    count; ``workspace``: the shape of the partial ``P`` and ``Q``.
+    """
+    frames = _MT_WARPS * (32 // m)
+    per_bin = -(-_MT_TARGET_BLOCKS // n_bins)
+    chunk = frames * -(-n_frames // (per_bin * frames))
+    chunks = -(-n_frames // chunk)
+    stages = 2 if model_traces_smem_bytes(n_sources, m, 2) <= _SMEM_BLOCK_MAX else 1
+    return {
+        "frames_per_tile": frames,
+        "chunk": chunk,
+        "chunks": chunks,
+        "stages": stages,
+        "smem_bytes": model_traces_smem_bytes(n_sources, m, stages),
+        "workspace": (2, n_sources, n_bins, chunks, m, m),
+    }
+
+
+def _model_traces_contract_bytes(n_sources: int, m: int) -> int:
+    """The shared memory of one block of the first (one-block-per-bin) kernel: the size contract K5 keeps.
+
+    ``N (3 m^2 + 1)`` and ``8 floor(32 / m) m (3 m + 1)`` complex64 and
+    ``4 N 8 floor(32 / m)`` bytes of ``Lamb``. Every ``(N, m)`` under 227 KB
+    by it also fits the present kernel's single-buffered layout
+    (:func:`model_traces_smem_bytes` with one stage), which is never larger
+    (tests/test_torch_kernels.py).
+    """
+    frames = _MT_WARPS * (32 // m)
+    return (n_sources * (3 * m * m + 1) + frames * m * (3 * m + 1)) * 8 + 4 * n_sources * frames
 
 
 def model_traces_takes(n_sources: int, m: int) -> bool:
     """Whether the fused kernel takes ``n_sources`` models of ``m x m``: ``m <= 16`` and one block's shared memory."""
-    return 1 <= m <= _SANDWICH_MAX_M and model_traces_smem_bytes(n_sources, m) <= _SMEM_BLOCK_MAX
+    return 1 <= m <= _SANDWICH_MAX_M and _model_traces_contract_bytes(n_sources, m) <= _SMEM_BLOCK_MAX
 
 
 def _check_model_traces(Lamb: torch.Tensor, H: torch.Tensor, XX: torch.Tensor) -> None:
@@ -862,29 +921,48 @@ def _check_model_traces(Lamb: torch.Tensor, H: torch.Tensor, XX: torch.Tensor) -
 
 
 def model_traces(
-    Lamb: torch.Tensor, H: torch.Tensor, XX: torch.Tensor, eps: float = 1e-10, tiny: float = _GJ_TINY
-) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor, torch.Tensor]:
+    Lamb: torch.Tensor,
+    H: torch.Tensor,
+    XX: torch.Tensor,
+    eps: float = 1e-10,
+    tiny: float = _GJ_TINY,
+    outputs: str = "all",
+) -> Tuple[torch.Tensor, ...]:
     """Fused dense-MNMF model pass ``(t1, t2, P, Q)``; kernel on CUDA, :func:`model_traces_plain` on CPU.
 
-    Shapes as :func:`model_traces_plain`. The kernel takes float32 ``Lamb``,
-    complex64 ``H`` and ``XX`` and ``m <= 16``, and writes no
-    ``(I, T, m, m)`` intermediate to device memory.
+    Shapes and ``outputs`` as :func:`model_traces_plain`. The kernel takes
+    float32 ``Lamb``, complex64 ``H`` and ``XX`` and ``m <= 16``, and writes
+    no ``(I, T, m, m)`` intermediate to device memory; ``P`` and ``Q`` pass
+    through a workspace of per-chunk partial sums
+    (:func:`model_traces_geometry`), added in chunk order.
     """
     if _on_cpu(Lamb, H, XX):
-        return model_traces_plain(Lamb, H, XX, eps, tiny)
+        return model_traces_plain(Lamb, H, XX, eps, tiny, outputs)
+    traces, sums = _model_traces_outputs(outputs)
     _check_model_traces(Lamb, H, XX)
     N, I, T = Lamb.shape
     m = H.shape[-1]
+    geometry = model_traces_geometry(N, I, T, m)
     lib, launch = _entry("model_traces")
-    t1, t2 = torch.empty_like(Lamb), torch.empty_like(Lamb)
-    P, Q = torch.empty_like(H), torch.empty_like(H)
+    t1 = t2 = partial = P = Q = None
+    if traces:
+        t1, t2 = torch.empty_like(Lamb), torch.empty_like(Lamb)
+    if sums:
+        partial = torch.empty(geometry["workspace"], dtype=H.dtype, device=H.device)
+        P, Q = torch.empty_like(H), torch.empty_like(H)
+
+    def ptr(t):
+        return None if t is None else t.data_ptr()
+
     status = launch(
-        Lamb.data_ptr(), H.data_ptr(), XX.data_ptr(), t1.data_ptr(), t2.data_ptr(), P.data_ptr(), Q.data_ptr(),
-        N, I, T, m, float(eps), float(tiny), Lamb.device.index, _stream(Lamb.device),
+        Lamb.data_ptr(), H.data_ptr(), XX.data_ptr(), ptr(t1), ptr(t2), ptr(partial), ptr(P), ptr(Q),
+        N, I, T, m, geometry["chunk"], float(eps), float(tiny), Lamb.device.index, _stream(Lamb.device),
     )
     _build.check(lib, "model_traces", status)
     model_traces.launches += 1
-    return t1, t2, P, Q
+    if not sums:
+        return t1, t2
+    return (t1, t2, P, Q) if traces else (P, Q)
 
 
 model_traces.launches = 0

@@ -241,7 +241,7 @@ def gauss_mnmf_step(
     def traces(T, V, Z, H):
         Lamb = reconstruct_nmf(T, V, Z).contiguous()
         if fused:
-            return kernels.model_traces(Lamb, H, XX, eps)[:2]
+            return kernels.model_traces(Lamb, H, XX, eps, outputs="traces")
         R_inv, S = _inv_sandwich(psd_project(_model(Lamb, H), eps, psd_impl), XX)
         return _trace_real(S, H), _trace_real(R_inv, H)
 
@@ -263,7 +263,7 @@ def gauss_mnmf_step(
     # ---- spatial update H <- P^-1 # HQH (mnmf.py:970-1016) ----
     Lamb = reconstruct_nmf(T, V, Z).contiguous()
     if fused:
-        _, _, P, Q = kernels.model_traces(Lamb, H, XX, eps)
+        P, Q = kernels.model_traces(Lamb, H, XX, eps, outputs="sums")
     else:
         R_inv, S = _inv_sandwich(psd_project(_model(Lamb, H), eps, psd_impl), XX)
         Lc = Lamb.to(H.dtype)

@@ -127,6 +127,20 @@ def test_jacobi_eigh_kernel_matches_plain(cuda_device, shape):
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("B", [1, 5, 257, 4099])
+@pytest.mark.parametrize("n", [2, 3, 7, 8, 10, 14, 16, 17, 31, 32])
+def test_jacobi_eigh_kernel_is_the_plain_version_bit_for_bit(cuda_device, n, B):
+    """Every templated n (8, 10, 14, 16, 32) and the generic instance, at batches that leave the last block ragged."""
+    A = _symmetric(np.random.default_rng(100 * n + B), B, n, cuda_device)
+    lamb, V = K.jacobi_eigh(A)
+    lamb_2, V_2 = K.jacobi_eigh(A)
+    lamb_ref, V_ref = K.jacobi_eigh_plain(A)
+    torch.cuda.synchronize()
+    assert torch.equal(lamb, lamb_ref) and torch.equal(V, V_ref)
+    assert torch.equal(lamb, lamb_2) and torch.equal(V, V_2)
+
+
+@pytest.mark.cuda
 def test_jacobi_eigh_kernel_zero_batch_gives_the_identity(cuda_device):
     lamb, V = K.jacobi_eigh(torch.zeros((9, 16, 16), device=cuda_device))
     torch.cuda.synchronize()
@@ -263,6 +277,32 @@ def test_model_traces_kernel_matches_plain(cuda_device, shape):
     for got, want in zip(out, ref):
         assert got.shape == want.shape
         assert (got - want).abs().max() <= 2e-4 * want.abs().max()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize(
+    "shape",
+    [(8, 257, 1, 8), (3, 6, 20, 8), (3, 6, 97, 8), (4, 1, 300, 8), (3, 4, 41, 1), (3, 4, 70, 4), (3, 4, 70, 5),
+     (2, 3, 50, 16), (21, 3, 40, 16)],
+    ids=["T1", "T_below_a_tile", "T_ragged", "I1", "m1", "m4", "m5", "m16", "m16_largest_N"],
+)
+def test_model_traces_kernel_at_the_edges_of_its_geometry(cuda_device, shape):
+    """Within 2e-4 of plain, two launches equal to the bit, and each output mode equal to the full form."""
+    N, I, T, m = shape
+    assert K.model_traces_takes(N, m)
+    rng = np.random.default_rng(sum(shape))
+    H, XX = _psd(rng, (N, I, m, m), cuda_device), _psd(rng, (I, T, m, m), cuda_device)
+    Lamb = torch.from_numpy(rng.random((N, I, T), dtype=np.float32) + 0.05).to(cuda_device)
+    out = K.model_traces(Lamb, H, XX, 1e-6)
+    out_2 = K.model_traces(Lamb, H, XX, 1e-6)
+    ref = K.model_traces_plain(Lamb, H, XX, 1e-6)
+    traces = K.model_traces(Lamb, H, XX, 1e-6, outputs="traces")
+    sums = K.model_traces(Lamb, H, XX, 1e-6, outputs="sums")
+    torch.cuda.synchronize()
+    for got, again, want in zip(out, out_2, ref):
+        assert got.shape == want.shape and torch.equal(got, again)
+        assert (got - want).abs().max() <= 2e-4 * want.abs().max()
+    assert all(torch.equal(a, b) for a, b in zip(traces + sums, out))
 
 
 @pytest.mark.cuda

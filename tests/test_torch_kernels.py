@@ -478,3 +478,114 @@ def test_import_pulls_in_no_jax():
     )
     env = {k: v for k, v in os.environ.items() if k != "PYTHONPATH"}
     subprocess.run([sys.executable, "-c", code], cwd=REPO, env=env, check=True, timeout=120)
+
+
+# ---- the launch geometry and sizes of K5 and K7 ------------------------------------------
+
+
+def _pr6_model_traces_smem(n_sources, m):
+    """Shared memory of one K5 block as the one-block-per-bin kernel sized it, the bound of its size contract."""
+    frames = 8 * (32 // m)
+    return (n_sources * (3 * m * m + 1) + frames * m * (3 * m + 1)) * 8 + 4 * n_sources * frames
+
+
+@pytest.mark.parametrize("m", range(1, 17))
+def test_model_traces_takes_every_size_it_took(m):
+    """``model_traces_takes`` accepts exactly the (N, m) that fit one block of the single-buffered kernel."""
+    for n_sources in range(1, 65):
+        assert K.model_traces_takes(n_sources, m) == (_pr6_model_traces_smem(n_sources, m) <= 232448)
+    assert not K.model_traces_takes(1, 17) and not K.model_traces_takes(1, 0)
+
+
+def test_jacobi_eigh_takes_every_n_from_2_to_32():
+    assert [n for n in range(0, 40) if K.jacobi_eigh_takes(n)] == list(range(2, 33))
+
+
+def test_model_traces_geometry_at_the_main_path():
+    """(N, I, T, m) = (8, 257, 626, 8): tiles of 32 frames, chunks of 3 tiles, 257 x 7 blocks, two buffers."""
+    geometry = K.model_traces_geometry(8, 257, 626, 8)
+    # per source H in 8 rows of 9 (+1), P and Q; per frame R^-1 in 8 rows of 9 (+1); two buffers of XX (64 + 1)
+    # per frame and Lamb
+    smem = (8 * (8 * 9 + 1 + 2 * 64) + 32 * (8 * 9 + 1) + 2 * 32 * 65) * 8 + 2 * 8 * 32 * 4
+    assert geometry == {
+        "frames_per_tile": 32, "chunk": 96, "chunks": 7, "stages": 2, "smem_bytes": smem,
+        "workspace": (2, 8, 257, 7, 8, 8),
+    }
+    assert smem == 66880 and 2 * smem <= 228 * 1024  # two blocks fit an SM
+
+
+@pytest.mark.parametrize("m", range(1, 17))
+def test_model_traces_kernel_fits_every_size_it_takes(m):
+    """The single-buffered layout is never larger than the size contract, so whatever ``takes`` accepts fits."""
+    for n_sources in range(1, 400):
+        if K.model_traces_takes(n_sources, m):
+            assert K.model_traces_smem_bytes(n_sources, m, 1) <= 232448
+
+
+@pytest.mark.parametrize(
+    "shape,chunk,chunks,stages",
+    [
+        ((8, 257, 1, 8), 32, 1, 2),  # one frame: one chunk of one tile
+        ((8, 1, 626, 8), 32, 20, 2),  # one bin: a chunk per tile
+        ((3, 5, 37, 4), 64, 1, 2),  # fewer frames than a tile
+        ((21, 3, 40, 16), 16, 3, 1),  # the largest N at m = 16: two buffers do not fit
+        ((2, 4, 130, 5), 48, 3, 2),  # 6 groups of 5 threads to a warp
+    ],
+)
+def test_model_traces_geometry_edges(shape, chunk, chunks, stages):
+    N, I, T, m = shape
+    geometry = K.model_traces_geometry(N, I, T, m)
+    assert (geometry["chunk"], geometry["chunks"], geometry["stages"]) == (chunk, chunks, stages)
+    assert geometry["chunk"] % geometry["frames_per_tile"] == 0 and (chunks - 1) * chunk < T <= chunks * chunk
+    assert geometry["smem_bytes"] == K.model_traces_smem_bytes(N, m, stages) <= 232448
+    assert geometry["workspace"] == (2, N, I, chunks, m, m)
+
+
+@pytest.mark.parametrize("outputs", ["traces", "sums"])
+def test_model_traces_outputs_are_the_full_form_halves(outputs):
+    rng = np.random.default_rng(31)
+    N, I, T, m = 3, 4, 21, 4
+    A = rng.standard_normal((2, N, I, m, m)) + 1j * rng.standard_normal((2, N, I, m, m))
+    H = torch.from_numpy((A[0] @ A[0].conj().swapaxes(-1, -2)).astype(np.complex64))
+    B = rng.standard_normal((I, T, m)) + 1j * rng.standard_normal((I, T, m))
+    XX = torch.from_numpy((B[..., :, None] * B[..., None, :].conj()).astype(np.complex64))
+    Lamb = torch.from_numpy(rng.random((N, I, T)).astype(np.float32) + 0.1)
+    full = K.model_traces_plain(Lamb, H, XX, 1e-6)
+    part = K.model_traces_plain(Lamb, H, XX, 1e-6, outputs=outputs)
+    want = full[:2] if outputs == "traces" else full[2:]
+    assert len(part) == 2 and all(torch.equal(g, w) for g, w in zip(part, want))
+    # on the CPU the wrapper takes the plain version, outputs and all, and launches nothing
+    before = K.model_traces.launches
+    assert all(torch.equal(g, w) for g, w in zip(K.model_traces(Lamb, H, XX, 1e-6, outputs=outputs), want))
+    assert K.model_traces.launches == before
+    with pytest.raises(ValueError, match="unknown outputs"):
+        K.model_traces_plain(Lamb, H, XX, outputs="t1")
+
+
+def _rr_position(span, r, x):
+    """csrc/jacobi_eigh.cu:rr_position."""
+    return 0 if x == 0 else 1 + (x - 1 + r) % span
+
+
+def _rr_player(span, r, k):
+    """csrc/jacobi_eigh.cu:rr_player (Python's % is C's for the non-negative operands it gets)."""
+    return 0 if k == 0 else 1 + (k - 1 - r) % span
+
+
+@pytest.mark.parametrize("n", range(2, 33))
+def test_jacobi_kernel_schedule_is_the_partner_table(n):
+    """The kernel's closed-form round robin (positions, players, partners) against ``partner_table``."""
+    span = n + n % 2 - 1
+    table = K.partner_table(n).tolist()
+    assert len(table) == span
+    for r, partners in enumerate(table):
+        assert sorted(_rr_player(span, r, k) for k in range(span + 1)) == list(range(span + 1))
+        for x in range(n):
+            pos = _rr_position(span, r, x)
+            assert _rr_player(span, r, pos) == x
+            y = _rr_player(span, r, span - pos)
+            assert (x if y >= n else y) == partners[x]
+        # the registers of the even-n kernel move one position per round, back in order after a sweep
+        order = [_rr_player(span, r, k) for k in range(span + 1)]
+        nxt = [_rr_player(span, (r + 1) % span, k) for k in range(span + 1)]
+        assert nxt == [order[0], order[-1]] + order[1:-1]

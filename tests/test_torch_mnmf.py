@@ -497,10 +497,10 @@ def test_complex64_paths_hand_the_kernels_what_they_take(monkeypatch):
         ("jacobi_eigh", K._check_jacobi_eigh, K.jacobi_eigh_plain, 1),
     ):
 
-        def checking(*args, _name=name, _check=check, _plain=plain, _n=n_checked):
+        def checking(*args, _name=name, _check=check, _plain=plain, _n=n_checked, **kwargs):
             _check(*args[:_n])
             checked[_name] = checked.get(_name, 0) + 1
-            return _plain(*args)
+            return _plain(*args, **kwargs)
 
         monkeypatch.setattr(K, name, checking)
 
