@@ -68,7 +68,12 @@ calls, on the default device:
 K7 is held to its plain version bit for bit, at the prox and IPA inputs
 and at the batches of the other paths (dense GaussMNMF's floor, IPSDTA's
 geometric mean, the eigh model's 160,882 matrices, compared on 4,096 at
-each end); K5 within 2e-4, and two launches of each to the bit.
+each end); K5 within 2e-4, and two launches of each to the bit. K1 is held
+within 1e-5, Hermitian to the bit and two launches to the bit, at the main
+path and at the edges of its geometry (frame counts of 1, 129 and 1,000,
+the generic instance, the size contract's largest M, N and item count);
+K3 bit for bit at every input (IPSDTA's two parts, m = 1 .. 8, 16, 17 and
+32, batches of 1, 31 and 33) and within 1e-5.
 
 Every launch count is set to 0 just before a path and read just after it,
 and each path must have launched the kernels it runs (and no other). The
@@ -175,7 +180,14 @@ N_ITER_MNMF_EIGH = 10  # the eigh route: K7 on 160,882 matrices four times per i
 N_ITER_MNMF_PLAIN_RATE = 10  # the plain fused pass takes tens of ms, three times per iteration
 N_ITER_MNMF_EIGH_RATE = 2
 GJ_INVERSE_TOL = 1e-5  # the same elimination on both sides; fused multiply-adds round differently
-GJ_INVERSE_SIZES = (16, 17, 32)  # beyond the timing shape's 4 and 5: K4's former limit, the hard tier's 17, the kernel's limit
+# beyond the timing shape's 4 and 5: every other m of the one-thread-per-system instance, K4's former
+# limit, the hard tier's 17, the kernel's limit; and batches that leave a block part-full
+GJ_INVERSE_SIZES = (1, 2, 3, 6, 7, 8, 16, 17, 32)
+GJ_INVERSE_BATCHES = (1, 31, 33)
+# (M, I, T, N) beyond the main path: frame counts that the chunks do not divide, the generic instance,
+# and the size contract's largest M, largest N and most work items
+WCOV_EDGES = ((8, 257, 1, 8), (8, 257, 129, 8), (8, 257, 1000, 8), (2, 9, 129, 2), (3, 9, 129, 5),
+              (47, 3, 129, 1), (1, 5, 129, 93), (42, 3, 129, 9))
 N_ITER_IPSDTA = 20
 N_ITER_IPSDTA_PLAIN_RATE = 5
 IPSDTA_BLOCKS = 64  # scripts/tpu_bench.py:260-277: 63 blocks of 4 bins and one of 5
@@ -684,17 +696,36 @@ def main() -> None:
     phi_scalar = fast_varphi(separate(X, W_eye)).contiguous()
     phi_bins = torch.from_numpy(rng.random((M, I, T), dtype=np.float32) + 0.1).to(device)
     wcov_abs = 0.0
-    for label, phi in (("scalar (N,T)", phi_scalar), ("per-bin (N,I,T)", phi_bins)):
-        U = K.weighted_covariance(X, phi)
-        U_ref = K.weighted_covariance_plain(X, phi)
+
+    def hold_wcov(label, X_in, phi):
+        """K1 against its plain version within WCOV_TOL, Hermitian to the bit, and two launches to the bit."""
+        U = K.weighted_covariance(X_in, phi)
+        U_2 = K.weighted_covariance(X_in, phi)
+        U_ref = K.weighted_covariance_plain(X_in, phi)
         torch.cuda.synchronize()
         abs_err = float((U - U_ref).abs().max())
         rel_err = abs_err / float(U_ref.abs().max())
         hermitian = float((U - U.transpose(-2, -1).conj()).abs().max())
-        say("K1 weighted_covariance", weights=repr(label), shape=(M, M, I, T), max_abs_err=abs_err,
-            rel_err=rel_err, tol=WCOV_TOL, hermitian_err=hermitian)
+        repeat = bool(torch.equal(U, U_2))
+        M_, I_, T_ = X_in.shape
+        geometry = K.weighted_covariance_geometry(M_, phi.shape[0], I_, T_)
+        say("K1 weighted_covariance", weights=repr(label), shape=(M_, phi.shape[0], I_, T_), max_abs_err=abs_err,
+            rel_err=rel_err, tol=WCOV_TOL, hermitian_err=hermitian, two_launches_equal=repeat,
+            instance="M = N = 8" if (M_, phi.shape[0]) == (8, 8) else "generic",
+            warps=geometry["warps"], passes=geometry["passes"])
         check(rel_err <= WCOV_TOL and all_finite(U), f"weighted_covariance {label}: rel err {rel_err}")
-        wcov_abs = max(wcov_abs, abs_err)
+        check(hermitian == 0.0 and repeat, f"weighted_covariance {label}: Hermitian {hermitian}, repeat {repeat}")
+        return abs_err
+
+    for label, phi in (("scalar (N,T)", phi_scalar), ("per-bin (N,I,T)", phi_bins)):
+        wcov_abs = max(wcov_abs, hold_wcov(label, X, phi))
+    edge_rng = np.random.default_rng(1)  # its own draws: the later phases' inputs stay as they were
+    for M_, I_, T_, N_ in WCOV_EDGES:
+        X_edge = torch.complex(*(torch.from_numpy(edge_rng.standard_normal((M_, I_, T_), dtype=np.float32))
+                                 for _ in range(2))).to(device)
+        for per_bin in (False, True):
+            phi = torch.from_numpy(edge_rng.random((N_, I_, T_) if per_bin else (N_, T_), dtype=np.float32) + 0.1)
+            hold_wcov("per-bin (N,I,T)" if per_bin else "scalar (N,T)", X_edge, phi.to(device))
     errors["weighted_covariance"] = wcov_abs
 
     # ---- 4. K1b against its exact twin (gjnp) ----------------------------------
@@ -968,7 +999,9 @@ def main() -> None:
     # IPSDTA's projected model after two iterations of fast_gauss_ipsdta at the
     # timing shape, both parts: (N, T, B, J, J) = (8, 626, 63, 4, 4) and
     # (8, 626, 1, 5, 5); a batch of zero matrices, whose pivots all take the
-    # 1e-20 floor; random positive definite systems at GJ_INVERSE_SIZES
+    # 1e-20 floor; random positive definite systems at GJ_INVERSE_SIZES, and
+    # at m = 4 and 5 in GJ_INVERSE_BATCHES. Every case must equal the plain
+    # version to the bit, and stay within GJ_INVERSE_TOL of it
     ipsdta_shapes = ipsdta_steps.part_shapes(I, IPSDTA_BLOCKS)
     _, (T_ip, V_ip), _ = fast_gauss_ipsdta(X, n_basis=N_BASIS, n_blocks=IPSDTA_BLOCKS, n_iter=2,
                                            rng=np.random.default_rng(0))
@@ -976,8 +1009,14 @@ def main() -> None:
     check([tuple(R.shape) for R in R_ipsdta] == [(M, T, B_, J_, J_) for B_, J_ in ipsdta_shapes] == [
         (M, T, 63, 4, 4), (M, T, 1, 5, 5)], f"IPSDTA models {[tuple(R.shape) for R in R_ipsdta]}")
     gj_cases = [("IPSDTA model, main part", R_ipsdta[0]), ("IPSDTA model, remainder part", R_ipsdta[1])]
-    for m in GJ_INVERSE_SIZES:
-        A_rand = random_complex((1000, m, m))
+    sizes = [(1000, m) for m in GJ_INVERSE_SIZES] + [(B_, m) for m in (4, 5) for B_ in GJ_INVERSE_BATCHES]
+    gj_rng = np.random.default_rng(2)  # the draws of the sizes added after 16, 17 and 32, apart from `rng`'s
+    for B_, m in sizes:
+        if B_ == 1000 and m in (16, 17, 32):
+            A_rand = random_complex((B_, m, m))
+        else:
+            planes = gj_rng.standard_normal((2, B_, m, m), dtype=np.float32)
+            A_rand = torch.complex(torch.from_numpy(planes[0]), torch.from_numpy(planes[1])).to(device)
         gj_cases.append((f"random positive definite m={m}", (A_rand @ A_rand.mH / m + torch.eye(m, device=device)).contiguous()))
     gj_abs = 0.0
     for label, R_in in gj_cases:
@@ -986,9 +1025,14 @@ def main() -> None:
         torch.cuda.synchronize()
         abs_err = float((R_inv - R_inv_ref).abs().max())
         rel_err = abs_err / float(R_inv_ref.abs().max())
+        bitwise = bool(torch.equal(R_inv, R_inv_ref))
+        m = R_in.shape[-1]
         say("K3 gj_inverse", input=repr(label), shape=tuple(R_in.shape), max_abs_err=abs_err, rel_err=rel_err,
-            tol=GJ_INVERSE_TOL, max_abs_R_inv=float(R_inv_ref.abs().max()))
+            tol=GJ_INVERSE_TOL, equal_to_plain=bitwise, max_abs_R_inv=float(R_inv_ref.abs().max()),
+            instance=K.gj_inverse_geometry(R_in.numel() // (m * m), m)["instance"])
         check(all_finite(R_inv) and rel_err <= GJ_INVERSE_TOL, f"gj_inverse {label}: rel err {rel_err}")
+        # every input here is finite: the kernel keeps the plain version's bits
+        check(bitwise, f"gj_inverse {label}: not bit-identical to the plain version")
         gj_abs = max(gj_abs, abs_err)
     zero = torch.zeros((M * T, 4, 4), dtype=X.dtype, device=device)
     R_inv = K.gj_inverse(zero)

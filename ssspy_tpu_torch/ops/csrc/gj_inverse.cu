@@ -15,18 +15,38 @@
 // the m rows of [R | I] at each of m steps, 16 m^3 B flops: 0.32 GFLOP there,
 // 0.005 ms at 67 TFLOP/s in f32. So bytes bound it.
 //
-// Design: the TPU kernel puts the batch in the 128 lanes, pads it to 1024
+// Design. The TPU kernel puts the batch in the 128 lanes, pads it to 1024
 // with identity systems and eliminates on the real 2m x 3m embedding,
 // because Mosaic has no complex type. Here the matrices are native
-// interleaved complex (float2), the batch is not padded, and the elimination
-// is the complex m x m one of gj_inverse.cuh. A group of m threads owns one
-// matrix, one row each, and floor(32 / m) groups share a warp (eight at
-// m = 4, six at m = 5); a block of four warps (two above m = 16) stages its
-// groups' [R | I] in shared memory with coalesced loads (the systems are
-// contiguous in memory), each group inverts its system with one __syncwarp()
-// per step, and the block writes R^-1 back with coalesced stores. At m = 4 a
-// block holds 32 systems in 9.2 KB: many blocks per SM hide the latency of
-// the elimination's chain of m dependent steps.
+// interleaved complex (float2), the batch is not padded, and the
+// elimination is the complex m x m one of gj_inverse.cuh, step by step, in
+// one of two instances chosen by m:
+// - 1 <= m <= 8 (IPSDTA's blocks of 4 and 5 bins): one thread per system,
+//   a template on m. [R | I] lives in registers and the elimination is
+//   unrolled whole: no dynamic index, no shared memory and no barrier in
+//   it. Each step floors the pivot as gj::floored_pivot, forms the
+//   divisor's ratio and reciprocal once (gj::Divisor), divides only the
+//   entries still alive (the left half after the pivot column, the right
+//   half up to it: the others are 0 or never read again, as in K5) and
+//   updates them in the other rows as gj::invert does, so R^-1 keeps the
+//   plain version's bits. 32 independent systems a warp give the chain the
+//   parallelism one system lacks. The block copies its systems' contiguous
+//   R into shared memory with 16-byte loads; each thread reads its own
+//   system there at an odd stride (m^2, padded to m^2 + 1 at even m)
+//   complex64, so the 16 threads of a half-warp hit distinct banks, and
+//   R^-1 goes back the same way.
+// - 9 <= m <= 32 (the hard tier's 16 and 17, the limit 32): a group of m
+//   threads owns one matrix, one row each, and floor(32 / m) groups share a
+//   warp; a block of four warps (two above m = 16) stages its groups'
+//   [R | I] in shared memory with coalesced loads, each group inverts its
+//   system with gj::invert (one __syncwarp() per step), and the block
+//   writes R^-1 back with coalesced stores.
+// The first design ran every m on the group kernel: at m = 4 one thread of
+// each group divided the whole pivot row while the other three waited, and
+// every row was updated in shared memory: 0.1145 ms at the timing shape,
+// 21% of the bound. This design: 0.0335 ms there (72% of the bound) and
+// 0.0082 ms on the 5,008 systems of 5 x 5, from 0.0134 ms
+// (scripts/torch_kernel_ab.py, NVIDIA H100 80GB HBM3, 700 W; PERF.md).
 
 #include <cuda_runtime.h>
 
@@ -36,8 +56,107 @@ namespace {
 
 constexpr int kWarpSize = 32;
 
+// ---- 1 <= m <= 8: one thread per system, [R | I] in registers ----------------------
+
+// systems (threads) per block: 128, or 64 from m = 7 on, so that the staged
+// systems stay in 48 KB of static shared memory (33.3 KB at m = 8)
+__host__ __device__ constexpr int systems_per_block(int m) { return m <= 6 ? 128 : 64; }
+
+template <int M>
+__global__ void __launch_bounds__(systems_per_block(M))
+    gj_inverse_kernel(const float2* __restrict__ R_in,  // (B, M, M)
+                      float2* __restrict__ Rinv_out,    // (B, M, M)
+                      int B, float tiny) {
+  constexpr int kSystems = systems_per_block(M), kMM = M * M, kLd = kMM | 1;  // odd
+  __shared__ float2 stage[kSystems * kLd];  // system g at g * kLd: R, then R^-1
+  const int tid = threadIdx.x;
+  const long long first = (long long)blockIdx.x * kSystems;
+  const int count = (int)min((long long)kSystems, (long long)B - first);
+  const int n2 = count * kMM;  // complex64 entries of the block's systems
+  const float2* src = R_in + first * kMM;
+  float2* dst = Rinv_out + first * kMM;
+  // the block's systems are contiguous: 16-byte loads where both ends are
+  // 16-byte aligned (first * kMM is even, as kSystems is)
+  const bool vec = ((reinterpret_cast<unsigned long long>(src) | reinterpret_cast<unsigned long long>(dst)) & 15) == 0;
+
+  if (vec) {
+    const float4* src4 = reinterpret_cast<const float4*>(src);
+    for (int e = tid; e < n2 / 2; e += kSystems) {
+      const float4 v = src4[e];
+      const int c0 = 2 * e, c1 = c0 + 1;
+      stage[(c0 / kMM) * kLd + c0 % kMM] = make_float2(v.x, v.y);
+      stage[(c1 / kMM) * kLd + c1 % kMM] = make_float2(v.z, v.w);
+    }
+    if ((n2 & 1) && tid == 0) stage[((n2 - 1) / kMM) * kLd + (n2 - 1) % kMM] = src[n2 - 1];
+  } else {
+    for (int e = tid; e < n2; e += kSystems) stage[(e / kMM) * kLd + e % kMM] = src[e];
+  }
+  __syncthreads();
+
+  if (tid < count) {
+    float2* own = stage + tid * kLd;
+    float2 L[M][M];  // left half, R on entry; the entries after the pivot column stay live
+    float2 Rt[M][M];  // right half; column k joins at step k
+#pragma unroll
+    for (int r = 0; r < M; ++r)
+#pragma unroll
+      for (int c = 0; c < M; ++c) L[r][c] = own[r * M + c];
+#pragma unroll
+    for (int k = 0; k < M; ++k) {
+#pragma unroll
+      for (int r = 0; r < M; ++r) Rt[r][k] = make_float2(r == k ? 1.f : 0.f, 0.f);
+      const gj::Divisor div(gj::floored_pivot(L[k][k], tiny));
+#pragma unroll
+      for (int c = 0; c < M; ++c) {
+        if (c > k) L[k][c] = div(L[k][c]);
+        if (c <= k) Rt[k][c] = div(Rt[k][c]);
+      }
+#pragma unroll
+      for (int r = 0; r < M; ++r) {
+        if (r == k) continue;
+        const float2 f = L[r][k];
+#pragma unroll
+        for (int c = 0; c < M; ++c) {
+          if (c > k) {
+            const float2 t = gj::cmul(f, L[k][c]);
+            L[r][c] = make_float2(__fsub_rn(L[r][c].x, t.x), __fsub_rn(L[r][c].y, t.y));
+          } else {
+            const float2 t = gj::cmul(f, Rt[k][c]);
+            Rt[r][c] = make_float2(__fsub_rn(Rt[r][c].x, t.x), __fsub_rn(Rt[r][c].y, t.y));
+          }
+        }
+      }
+    }
+#pragma unroll
+    for (int r = 0; r < M; ++r)
+#pragma unroll
+      for (int c = 0; c < M; ++c) own[r * M + c] = Rt[r][c];
+  }
+  __syncthreads();
+
+  if (vec) {
+    float4* dst4 = reinterpret_cast<float4*>(dst);
+    for (int e = tid; e < n2 / 2; e += kSystems) {
+      const int c0 = 2 * e, c1 = c0 + 1;
+      const float2 a = stage[(c0 / kMM) * kLd + c0 % kMM], b = stage[(c1 / kMM) * kLd + c1 % kMM];
+      dst4[e] = make_float4(a.x, a.y, b.x, b.y);
+    }
+    if ((n2 & 1) && tid == 0) dst[n2 - 1] = stage[((n2 - 1) / kMM) * kLd + (n2 - 1) % kMM];
+  } else {
+    for (int e = tid; e < n2; e += kSystems) dst[e] = stage[(e / kMM) * kLd + e % kMM];
+  }
+}
+
+template <int M>
+void launch_system(const float2* R, float2* Rinv, int B, float tiny, cudaStream_t stream) {
+  constexpr int kSystems = systems_per_block(M);
+  gj_inverse_kernel<M><<<(B + kSystems - 1) / kSystems, kSystems, 0, stream>>>(R, Rinv, B, tiny);
+}
+
+// ---- 9 <= m <= 32: a group of m threads per system, one row each -------------------
+
 __global__ void __launch_bounds__(128)
-    gj_inverse_kernel(const float2* __restrict__ R_in,  // (B, m, m)
+    gj_inverse_kernel_rows(const float2* __restrict__ R_in,  // (B, m, m)
                       float2* __restrict__ Rinv_out,    // (B, m, m)
                       int B, int m, float tiny) {
   extern __shared__ float2 aug[];  // groups x m x stride(m): [R | I], then [. | R^-1]
@@ -93,11 +212,25 @@ int gj_inverse_launch(const void* R, void* Rinv, int B, int m, float tiny, int d
   cudaError_t status = cudaSetDevice(device);
   if (status != cudaSuccess) return (int)status;
   if (B < 1 || m < 1 || m > gj::kMaxM) return (int)cudaErrorInvalidValue;
-  const int warps = warps_per_block(m);
-  const int groups = warps * (kWarpSize / m);
-  const int blocks = (B + groups - 1) / groups;
-  gj_inverse_kernel<<<blocks, warps * kWarpSize, smem_bytes(m), (cudaStream_t)stream>>>(
-      (const float2*)R, (float2*)Rinv, B, m, tiny);
+  const float2* r = (const float2*)R;
+  float2* out = (float2*)Rinv;
+  cudaStream_t s = (cudaStream_t)stream;
+  switch (m) {
+    case 1: launch_system<1>(r, out, B, tiny, s); break;
+    case 2: launch_system<2>(r, out, B, tiny, s); break;
+    case 3: launch_system<3>(r, out, B, tiny, s); break;
+    case 4: launch_system<4>(r, out, B, tiny, s); break;
+    case 5: launch_system<5>(r, out, B, tiny, s); break;
+    case 6: launch_system<6>(r, out, B, tiny, s); break;
+    case 7: launch_system<7>(r, out, B, tiny, s); break;
+    case 8: launch_system<8>(r, out, B, tiny, s); break;
+    default: {
+      const int warps = warps_per_block(m);
+      const int groups = warps * (kWarpSize / m);
+      const int blocks = (B + groups - 1) / groups;
+      gj_inverse_kernel_rows<<<blocks, warps * kWarpSize, smem_bytes(m), s>>>(r, out, B, m, tiny);
+    }
+  }
   return (int)cudaGetLastError();
 }
 

@@ -32,8 +32,17 @@ namespace gj {
 
 constexpr int kMaxM = 32;  // largest system; the group of m threads fits a warp
 
+// The products and quotients below round as PyTorch's complex64 operators
+// do on the card (c10::complex as nvcc contracts it), step for step: each
+// fused multiply-add is written out with the _rn intrinsics, so that no
+// contraction left to the compiler can differ from the plain version's.
+// (The plain forms, left to the compiler, gave other bits than PyTorch's
+// division in a share of quotients, and the inverse of a few systems in
+// 315,504 other bits than the plain version's; PERF.md.)
+
+// a * b as c10::complex<float>::operator*= rounds it
 __device__ __forceinline__ float2 cmul(float2 a, float2 b) {
-  return make_float2(a.x * b.x - a.y * b.y, a.x * b.y + a.y * b.x);
+  return make_float2(__fmaf_rn(a.x, b.x, -__fmul_rn(a.y, b.y)), __fmaf_rn(a.x, b.y, __fmul_rn(a.y, b.x)));
 }
 
 __device__ __forceinline__ float2 cmadd(float2 acc, float2 a, float2 b) {
@@ -44,16 +53,31 @@ __device__ __forceinline__ float2 cmadd(float2 acc, float2 a, float2 b) {
   return acc;
 }
 
-// a / b in the scaled form PyTorch's complex division takes (numpy's):
-// |b|^2 is never formed, so a pivot of 1e-20 divides without underflow
-__device__ __forceinline__ float2 cdiv(float2 a, float2 b) {
-  if (fabsf(b.x) >= fabsf(b.y)) {
-    const float rat = b.y / b.x, scl = 1.f / (b.x + b.y * rat);
-    return make_float2((a.x + a.y * rat) * scl, (a.y - a.x * rat) * scl);
+// The divisor b of a / b in the scaled form PyTorch's complex division
+// takes (numpy's): |b|^2 is never formed, so a pivot of 1e-20 divides
+// without underflow. Its ratio and reciprocal are formed once, for every
+// numerator a that it divides.
+struct Divisor {
+  bool wide;  // |b.x| >= |b.y|
+  float rat, scl;
+  __device__ __forceinline__ explicit Divisor(float2 b) {
+    wide = fabsf(b.x) >= fabsf(b.y);
+    if (wide) {
+      rat = __fdiv_rn(b.y, b.x);
+      scl = __frcp_rn(__fmaf_rn(b.y, rat, b.x));
+    } else {
+      rat = __fdiv_rn(b.x, b.y);
+      scl = __frcp_rn(__fmaf_rn(b.x, rat, b.y));
+    }
   }
-  const float rat = b.x / b.y, scl = 1.f / (b.y + b.x * rat);
-  return make_float2((a.x * rat + a.y) * scl, (a.y * rat - a.x) * scl);
-}
+  __device__ __forceinline__ float2 operator()(float2 a) const {
+    if (wide) return make_float2(__fmul_rn(__fmaf_rn(a.y, rat, a.x), scl), __fmul_rn(__fmaf_rn(-a.x, rat, a.y), scl));
+    return make_float2(__fmul_rn(__fmaf_rn(a.x, rat, a.y), scl), __fmul_rn(__fmaf_rn(a.y, rat, -a.x), scl));
+  }
+};
+
+// a / b as c10::complex<float>::operator/= rounds it (b != 0)
+__device__ __forceinline__ float2 cdiv(float2 a, float2 b) { return Divisor(b)(a); }
 
 __device__ __forceinline__ float2 floored_pivot(float2 p, float tiny) {
   const float mag = hypotf(p.x, p.y);
@@ -77,8 +101,8 @@ __device__ __forceinline__ void invert(float2* aug, int m, int row, bool live, f
   for (int k = 0; k < m; ++k) {
     if (live && row == k) {
       float2* pivot_row = aug + k * ld;
-      const float2 p = floored_pivot(pivot_row[k], tiny);
-      for (int c = 0; c < w; ++c) pivot_row[c] = cdiv(pivot_row[c], p);
+      const Divisor div(floored_pivot(pivot_row[k], tiny));
+      for (int c = 0; c < w; ++c) pivot_row[c] = div(pivot_row[c]);
     }
     __syncwarp();
     if (live && row != k) {
@@ -87,7 +111,7 @@ __device__ __forceinline__ void invert(float2* aug, int m, int row, bool live, f
       const float2 f = own[k];
       for (int c = 0; c < w; ++c) {
         const float2 t = cmul(f, pivot_row[c]);
-        own[c] = make_float2(own[c].x - t.x, own[c].y - t.y);
+        own[c] = make_float2(__fsub_rn(own[c].x, t.x), __fsub_rn(own[c].y, t.y));
       }
     }
   }

@@ -55,6 +55,8 @@ from . import _build
 __all__ = [
     "weighted_covariance",
     "weighted_covariance_plain",
+    "weighted_covariance_takes",
+    "weighted_covariance_geometry",
     "ip1_sweep",
     "ip1_sweep_plain",
     "gauss_jordan_solve_nopivot",
@@ -72,6 +74,7 @@ __all__ = [
     "gj_inverse",
     "gj_inverse_plain",
     "gj_inverse_takes",
+    "gj_inverse_geometry",
     "inv_sandwich",
     "inv_sandwich_takes",
     "inv_sandwich_plain",
@@ -84,8 +87,6 @@ __all__ = [
 
 # limits the kernels take, mirrored from csrc/*.cu
 _SMEM_LIMIT = 48 * 1024
-_WCOV_STRIDE = 128 + 1  # padded row of frames staged per pass
-_WCOV_MAX_ENTRIES = 1024 * 8
 _GJ_TINY = 1e-20
 _ISS1_MAX_SOURCES = 16
 _ISS1_HEADER_BYTES = 16 * 8 + 16 * 3 * 16 * 4  # v and the reduction table
@@ -187,6 +188,59 @@ def weighted_covariance_plain(X: torch.Tensor, varphi: torch.Tensor) -> torch.Te
     return torch.einsum(eq, varphi.to(X.dtype), X, X.conj()) / X.shape[-1]
 
 
+# The size contract: the (M, N) of the first kernel (one block per bin, one
+# thread per entry, a padded chunk of 128 frames of X and varphi in 48 KB).
+# The present kernel takes every one of them and no other.
+_WCOV_CONTRACT_ENTRIES = 1024 * 8
+_WCOV_CONTRACT_ROW = 128 + 1
+# the present kernel, mirrored from csrc/weighted_covariance.cu
+_WCOV_SOURCES = 8  # sources per work item
+_WCOV_PAIRS = 4  # channel pairs per work item: a 2 x 2 tile
+_WCOV_TILE_FRAMES = 128  # frames of X and varphi per cp.async buffer
+_WCOV_STAGES = 3  # cp.async buffers: two tiles in flight while one is summed
+_WCOV_MAX_WARPS = 16  # items of one block at once, a warp each
+
+
+def weighted_covariance_takes(M: int, N: int) -> bool:
+    """Whether the covariance kernel takes ``M`` channels and ``N`` sources: the first kernel's size contract."""
+    return (
+        M >= 1 and N >= 1 and N * M * (M + 1) // 2 <= _WCOV_CONTRACT_ENTRIES
+        and (2 * M + N) * _WCOV_CONTRACT_ROW * 4 <= _SMEM_LIMIT
+    )
+
+
+def weighted_covariance_geometry(M: int, N: int, I: int, T: int) -> dict:
+    """The kernel's launch for ``(M, N, I, T)``, as csrc/weighted_covariance.cu sets it up.
+
+    A work item is a 2 x 2 tile of channel pairs (``half = ceil(M / 2)``
+    channel pairs a side, ``tiles = half (half + 1) / 2``) and a group of
+    up to 8 sources (``items = tiles * ceil(N / 8)``), a warp each, its 32
+    lanes on every 32nd frame. One block per bin (``grid``) of ``warps =
+    min(items, 16)`` warps takes the items in ``passes``; the frames arrive
+    in ``frame_tiles`` tiles of 128. A staged frame holds ``x_row``
+    complex64 and ``w_row`` float32 (odd counts of 16-byte words);
+    ``smem_bytes``: three buffers of a tile.
+    """
+    half = -(-M // 2)
+    tiles = half * (half + 1) // 2
+    groups = -(-N // _WCOV_SOURCES)
+    items = tiles * groups
+    warps = min(items, _WCOV_MAX_WARPS)
+    x_row, w_row = 2 * (half | 1), groups * _WCOV_SOURCES + 4
+    return {
+        "tiles": tiles,
+        "items": items,
+        "warps": warps,
+        "passes": -(-items // warps),
+        "threads": 32 * warps,
+        "grid": (I,),
+        "frame_tiles": -(-T // _WCOV_TILE_FRAMES),
+        "x_row": x_row,
+        "w_row": w_row,
+        "smem_bytes": _WCOV_STAGES * _WCOV_TILE_FRAMES * (x_row * 8 + w_row * 4),
+    }
+
+
 def _check_weighted_covariance(X: torch.Tensor, varphi: torch.Tensor) -> None:
     name = "weighted_covariance"
     _require(X.dim() == 3, f"{name}: X must be (M, I, T), got {tuple(X.shape)}")
@@ -204,10 +258,7 @@ def _check_weighted_covariance(X: torch.Tensor, varphi: torch.Tensor) -> None:
     )
     _require(X.is_contiguous() and varphi.is_contiguous(), f"{name}: inputs must be contiguous")
     _require(min(M, I, T, N) >= 1, f"{name}: empty input {tuple(X.shape)}, N={N}")
-    _require(
-        N * M * (M + 1) // 2 <= _WCOV_MAX_ENTRIES and (2 * M + N) * _WCOV_STRIDE * 4 <= _SMEM_LIMIT,
-        f"{name}: M={M}, N={N} exceeds what one block of the kernel holds",
-    )
+    _require(weighted_covariance_takes(M, N), f"{name}: M={M}, N={N} exceeds what one block of the kernel holds")
     _check_cuda(name, X, varphi)
 
 
@@ -661,6 +712,7 @@ ipa_congruence.launches = 0
 # ---- batched Hermitian inverse (IPSDTA's model) ------------------------------------
 
 _GJ_MAX_M = 32  # a group of m threads in one warp, mirrored from csrc/gj_inverse.cuh
+_GJ_SYSTEM_MAX_M = 8  # one thread per system, [R | I] in registers (csrc/gj_inverse.cu)
 _SANDWICH_MAX_M = 16  # K4 and K5 keep each thread's row of their products in registers
 
 
@@ -679,6 +731,36 @@ def gj_inverse_plain(R: torch.Tensor, tiny: float = _GJ_TINY) -> torch.Tensor:
 def gj_inverse_takes(m: int) -> bool:
     """Whether the inverse kernel takes ``m x m`` systems: ``1 <= m <= 32``."""
     return 1 <= m <= _GJ_MAX_M
+
+
+def gj_inverse_geometry(B: int, m: int) -> dict:
+    """The launch for ``B`` systems of ``m x m``, as csrc/gj_inverse.cu chooses it.
+
+    ``instance``: ``"system"`` (``1 <= m <= 8``: one thread per system, a
+    template on m, 128 systems a block or 64 from m = 7 on, each staged at
+    an odd stride, ``m^2`` or ``m^2 + 1``) or ``"rows"`` (``9 <= m <= 32``:
+    a group of m threads per system, ``floor(32 / m)`` groups a warp, four
+    warps a block or two above m = 16, each row of ``[R | I]`` padded to
+    ``2m + 1``).
+    """
+    if not gj_inverse_takes(m):
+        raise ValueError(f"gj_inverse: the kernel takes 1 <= m <= {_GJ_MAX_M}, got m={m}")
+    if m <= _GJ_SYSTEM_MAX_M:
+        systems = 128 if m <= 6 else 64
+        threads, smem = systems, systems * (m * m | 1) * 8
+        instance = "system"
+    else:
+        warps = 2 if m > 16 else 4
+        systems, threads = warps * (32 // m), warps * 32
+        smem = systems * m * (2 * m + 1) * 8
+        instance = "rows"
+    return {
+        "instance": instance,
+        "systems_per_block": systems,
+        "threads": threads,
+        "blocks": -(-B // systems),
+        "smem_bytes": smem,
+    }
 
 
 def _check_gj_inverse(R: torch.Tensor) -> None:

@@ -50,6 +50,30 @@ def test_weighted_covariance_kernel_matches_plain(cuda_device, per_bin):
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("per_bin", [False, True], ids=["scalar", "per_bin"])
+@pytest.mark.parametrize(
+    "shape",
+    [(8, 257, 1, 8), (8, 257, 129, 8), (8, 257, 1000, 8), (2, 9, 129, 2), (3, 9, 129, 5), (47, 3, 129, 1),
+     (1, 5, 129, 93), (42, 3, 129, 9)],
+    ids=["T1", "T129", "T1000", "M2_N2", "M3_N5", "largest_M", "largest_N", "most_items"],
+)
+def test_weighted_covariance_kernel_at_the_edges_of_its_geometry(cuda_device, shape, per_bin):
+    """Chunks that do not divide T, the generic instance, the size contract's largest (M, N); two launches bit-equal."""
+    rng = np.random.default_rng(9)
+    M, I, T, N = shape
+    assert K.weighted_covariance_takes(M, N)
+    X = _complex(rng, (M, I, T), cuda_device)
+    phi = torch.from_numpy(rng.random((N, I, T) if per_bin else (N, T), dtype=np.float32) + 0.1).to(cuda_device)
+    U = K.weighted_covariance(X, phi)
+    U_2 = K.weighted_covariance(X, phi)
+    ref = K.weighted_covariance_plain(X, phi)
+    torch.cuda.synchronize()
+    assert (U - ref).abs().max() / ref.abs().max() <= 1e-5
+    assert torch.equal(U, U.transpose(-2, -1).conj())
+    assert torch.equal(U, U_2)
+
+
+@pytest.mark.cuda
 def test_ip1_sweep_kernel_matches_its_exact_twin(cuda_device):
     rng = np.random.default_rng(9)
     M, I, T, N = MAIN_PATH
@@ -409,6 +433,21 @@ def test_gj_inverse_kernel_matches_plain(cuda_device, shape):
     assert K.gj_inverse.launches == before + 1
     # the same elimination on both sides; only the rounding of fused products may differ
     assert (R_inv - R_inv_ref).abs().max() <= 1e-5 * R_inv_ref.abs().max()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("B", [1, 31, 33, 315504])
+@pytest.mark.parametrize("m", [1, 2, 3, 4, 5, 6, 7, 8, 16, 17, 32])
+def test_gj_inverse_kernel_is_the_plain_version_bit_for_bit(cuda_device, m, B):
+    """Both instances (one thread per system up to m = 8, a group of m threads above) keep the plain version's bits."""
+    generator = torch.Generator(device=cuda_device).manual_seed(1000 * m + B)
+    A = torch.randn((B, m, m), dtype=torch.complex64, device=cuda_device, generator=generator)
+    R = (A @ A.mH / m + 0.1 * torch.eye(m, device=cuda_device)).contiguous()
+    R_inv = K.gj_inverse(R)
+    R_inv_ref = K.gj_inverse_plain(R)
+    torch.cuda.synchronize()
+    assert torch.isfinite(torch.view_as_real(R_inv)).all()
+    assert torch.equal(R_inv, R_inv_ref)
 
 
 @pytest.mark.cuda

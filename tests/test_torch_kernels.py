@@ -11,6 +11,7 @@ and by ``chip_smoke.py``.
 """
 
 import os
+import re
 import stat
 import subprocess
 import sys
@@ -589,3 +590,136 @@ def test_jacobi_kernel_schedule_is_the_partner_table(n):
         order = [_rr_player(span, r, k) for k in range(span + 1)]
         nxt = [_rr_player(span, (r + 1) % span, k) for k in range(span + 1)]
         assert nxt == [order[0], order[-1]] + order[1:-1]
+
+
+# ---- the launch geometry and sizes of K1 and K3 ------------------------------------------
+
+SMEM_BLOCK_MAX = 232448  # dynamic shared memory of one block on sm_90
+
+
+def _first_weighted_covariance_takes(M, N):
+    """The size contract of the first covariance kernel: one thread per entry (8 at most), 128 padded frames in 48 KB."""
+    return N * M * (M + 1) // 2 <= 1024 * 8 and (2 * M + N) * 129 * 4 <= 48 * 1024
+
+
+def _cu_constants(name):
+    """``constexpr int kName = value;`` of ``csrc/<name>.cu``, as a dict."""
+    with open(os.path.join(_build.SOURCE_DIR, f"{name}.cu")) as f:
+        source = f.read()
+    return {k: int(v) for k, v in re.findall(r"constexpr int (k\w+) = (\d+);", source)}
+
+
+@pytest.mark.parametrize("M", range(1, 49))
+def test_weighted_covariance_takes_every_size_it_took(M):
+    """``weighted_covariance_takes`` accepts exactly the (M, N) of the first kernel's contract."""
+    for N in range(1, 129):
+        assert K.weighted_covariance_takes(M, N) == _first_weighted_covariance_takes(M, N)
+    assert not K.weighted_covariance_takes(M, 0) and not K.weighted_covariance_takes(0, 1)
+
+
+def test_weighted_covariance_geometry_mirrors_the_kernel():
+    """The Python geometry reads the kernel's constants."""
+    cu = _cu_constants("weighted_covariance")
+    assert (cu["kSources"], cu["kPairs"], cu["kTileFrames"], cu["kStages"], cu["kMaxWarps"], cu["kWarpSize"],
+            cu["kSmemMax"]) == (K._WCOV_SOURCES, K._WCOV_PAIRS, K._WCOV_TILE_FRAMES, K._WCOV_STAGES,
+                                K._WCOV_MAX_WARPS, 32, SMEM_BLOCK_MAX)
+    assert cu["kMainWarps"] == K.weighted_covariance_geometry(8, 8, 257, 626)["warps"]
+
+
+def test_weighted_covariance_geometry_at_the_main_path():
+    """(M, N, I, T) = (8, 8, 257, 626): 10 tiles of 2 x 2 pairs, a warp each, one block per bin, 5 frame tiles."""
+    geometry = K.weighted_covariance_geometry(8, 8, 257, 626)
+    # three buffers of 128 frames: X in 10 complex64 (8 and a 16-byte pad), phi in 12 float32 (8 and a pad)
+    smem = 3 * 128 * (10 * 8 + 12 * 4)
+    assert geometry == {
+        "tiles": 10, "items": 10, "warps": 10, "passes": 1, "threads": 320, "grid": (257,),
+        "frame_tiles": 5, "x_row": 10, "w_row": 12, "smem_bytes": smem,
+    }
+    assert smem == 49152 and 2 * smem <= 228 * 1024  # two blocks fit an SM
+
+
+def _tile_pairs(M):
+    """The channel pairs (p, q), p <= q < M, that the kernel's 2 x 2 tiles write, tile by tile."""
+    half = -(-M // 2)
+    tiles = [(a, b) for a in range(half) for b in range(a, half)]
+    return [(2 * a + j // 2, 2 * b + j % 2) for a, b in tiles for j in range(4)
+            if 2 * b + j % 2 < M and 2 * a + j // 2 <= 2 * b + j % 2]
+
+
+@pytest.mark.parametrize("M", range(1, 48))
+def test_weighted_covariance_tiles_write_every_pair_once(M):
+    """The 2 x 2 tiles cover the upper triangle (diagonal included) exactly once; padded and mirrored pairs are skipped."""
+    pairs = _tile_pairs(M)
+    assert sorted(pairs) == [(p, q) for p in range(M) for q in range(p, M)]
+    assert K.weighted_covariance_geometry(M, 1, 1, 1)["tiles"] == -(-M // 2) * (-(-M // 2) + 1) // 2
+
+
+@pytest.mark.parametrize("M", range(1, 17))
+def test_weighted_covariance_kernel_fits_every_size_it_takes(M):
+    """Every (M, N) the contract takes fits one block: shared memory, warps, passes over the items."""
+    for N in range(1, 17):
+        if not K.weighted_covariance_takes(M, N):
+            continue
+        geometry = K.weighted_covariance_geometry(M, N, 257, 626)
+        assert geometry["smem_bytes"] <= SMEM_BLOCK_MAX
+        assert 1 <= geometry["warps"] <= K._WCOV_MAX_WARPS and geometry["threads"] == 32 * geometry["warps"]
+        assert geometry["warps"] * geometry["passes"] >= geometry["items"] > geometry["warps"] * (geometry["passes"] - 1)
+        assert geometry["items"] == geometry["tiles"] * -(-N // 8)
+        # odd counts of 16-byte words per staged frame: a quarter-warp's eight frames in distinct banks
+        assert (geometry["x_row"] // 2) % 2 == 1 and (geometry["w_row"] // 4) % 2 == 1
+        assert geometry["x_row"] >= M and geometry["w_row"] >= N
+
+
+def test_weighted_covariance_kernel_fits_the_whole_contract():
+    """Over every (M, N) the contract takes (M <= 47, N <= 93): the largest block still fits."""
+    sizes = [(M, N) for M in range(1, 60) for N in range(1, 120) if K.weighted_covariance_takes(M, N)]
+    geometries = {size: K.weighted_covariance_geometry(*size, 3, 129) for size in sizes}
+    assert max(M for M, _ in sizes) == 47 and max(N for _, N in sizes) == 93
+    assert max(g["smem_bytes"] for g in geometries.values()) <= SMEM_BLOCK_MAX
+    # the most work items: 231 tiles x 2 source groups, 29 passes of 16 warps
+    assert max(geometries, key=lambda s: geometries[s]["items"]) == (41, 9)
+    assert geometries[(41, 9)]["items"] == 462 and geometries[(41, 9)]["passes"] == 29
+
+
+@pytest.mark.parametrize("T", [1, 127, 128, 129, 626, 5000])
+def test_weighted_covariance_frame_schedule_covers_the_frames(T):
+    """The frame tiles and, within each, the 32 lanes' frames cover the T frames with no gap or overlap."""
+    geometry = K.weighted_covariance_geometry(8, 8, 257, T)
+    tile = K._WCOV_TILE_FRAMES
+    frames = [k * tile + tt for k in range(geometry["frame_tiles"]) for lane in range(32)
+              for tt in range(lane, min(tile, T - k * tile), 32)]
+    assert sorted(frames) == list(range(T))
+    assert (geometry["frame_tiles"] - 1) * tile < T <= geometry["frame_tiles"] * tile
+
+
+def test_gj_inverse_takes_every_m_it_took():
+    assert [m for m in range(0, 40) if K.gj_inverse_takes(m)] == list(range(1, 33))
+
+
+@pytest.mark.parametrize("m", range(1, 33))
+def test_gj_inverse_instance_serving_each_m(m):
+    """m <= 8: one thread per system, staged at an odd stride; 9 <= m <= 32: a group of m threads per system."""
+    geometry = K.gj_inverse_geometry(315504, m)
+    assert geometry["smem_bytes"] <= 48 * 1024  # static shared memory, or dynamic without the opt-in
+    assert geometry["blocks"] * geometry["systems_per_block"] >= 315504 > (geometry["blocks"] - 1) * geometry["systems_per_block"]
+    if m <= 8:
+        assert geometry["instance"] == "system"
+        assert geometry["threads"] == geometry["systems_per_block"] == (128 if m <= 6 else 64)
+        # each thread's system at an odd stride of complex64: a half-warp's 16 systems in 16 bank pairs
+        stride = m * m | 1
+        assert stride % 2 == 1 and len({(2 * stride * t) % 32 for t in range(16)}) == 16
+        assert geometry["smem_bytes"] == geometry["systems_per_block"] * stride * 8
+    else:
+        assert geometry["instance"] == "rows"
+        warps = 2 if m > 16 else 4
+        assert geometry["threads"] == 32 * warps and geometry["systems_per_block"] == warps * (32 // m)
+    with pytest.raises(ValueError, match="1 <= m <= 32"):
+        K.gj_inverse_geometry(4, 33)
+
+
+def test_gj_inverse_geometry_at_the_ipsdta_timing_shape():
+    """IPSDTA's two parts: 315,504 systems of 4 x 4 and 5,008 of 5 x 5, 128 systems a block."""
+    assert K.gj_inverse_geometry(8 * 626 * 63, 4) == {
+        "instance": "system", "systems_per_block": 128, "threads": 128, "blocks": 2465, "smem_bytes": 128 * 17 * 8}
+    assert K.gj_inverse_geometry(8 * 626, 5) == {
+        "instance": "system", "systems_per_block": 128, "threads": 128, "blocks": 40, "smem_bytes": 128 * 25 * 8}
