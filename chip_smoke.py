@@ -73,14 +73,24 @@ within 1e-5, Hermitian to the bit and two launches to the bit, at the main
 path and at the edges of its geometry (frame counts of 1, 129 and 1,000,
 the generic instance, the size contract's largest M, N and item count);
 K3 bit for bit at every input (IPSDTA's two parts, m = 1 .. 8, 16, 17 and
-32, batches of 1, 31 and 33) and within 1e-5.
+32, batches of 1, 31 and 33) and within 1e-5. K1b is held within 1e-4 of
+its exact elimination twin (silent bins frozen) and K2 within 1e-4 of its
+plain version (silent bins exactly zero; at one frame to the bit), two
+launches of each to the bit, at the main path and in every variant: K1b's
+warp variant at M = 5 with a part-full block and its block variant at
+M = 17; K2's register variant at 16 sources and 384 frames and at one
+frame, its resident variant at 2,000 frames and its streamed variant on
+the long case.
 
 Every launch count is set to 0 just before a path and read just after it,
 and each path must have launched the kernels it runs (and no other). The
 outputs are held against the same iterations run through the plain
 versions on the card. Last, it times each kernel against its plain
 version, its bound and (where one exists) the one PyTorch call that
-computes the same function, and each path's iterations per second.
+computes the same function, between CUDA events and (its own duration per
+launch) by ``torch.profiler``, beside the events its session saw of those
+launched (a CUPTI session may drop some), and each path's iterations per
+second.
 
 Run from the repository root, with one CUDA device:
 
@@ -163,6 +173,11 @@ N_TIMED = 30  # timed runs per measurement, after warm-up
 SILENT_BINS = (0, 128)
 SPIN_CYCLES = 20_000_000  # ~10 ms of device spin ahead of a "queued" timing
 LONG_SHAPE = (8, 16, 4000)  # (N, I, T) whose bin exceeds shared memory: the streamed K2
+# (M, I, variant): K1b's warp variant at an odd M and a part-full last block, and the block variant at its largest M
+IP1_EDGES = ((5, 33, "warp"), (17, 9, "block"))
+# (N, I, T, variant): K2's register variant at the most frames 16 sources hold and at one frame, and the
+# resident variant past the register variant's frames
+ISS1_EDGES = ((16, 9, 384, "registers"), (3, 33, 1, "registers"), (8, 3, 2000, "resident"))
 EIGH_TOL = 1e-5  # the same 90 rounds in the same order on both sides; f32 rounding may differ
 PROX_TOL = 1e-5
 JACOBI_SIZES = (2, 3, 7, 16, 32)
@@ -641,6 +656,46 @@ def profile(step, state, n_iter: int = 20, attempts: int = 3):
     return {name: us / n_iter for name, us in per_kernel.items()}, n_ops / n_iter, attempt
 
 
+def profiled_us(fn, kernel: str, n_runs: int = N_TIMED, attempts: int = 3):
+    """Device microseconds per call of ``fn`` spent in the kernels of ``kernel`` (``<kernel>_kernel*``, as named in
+    csrc/*.cu), by ``torch.profiler`` over sessions of ``n_runs`` calls, with the events seen and the launches
+    made: ``(us, seen, made)``.
+
+    Beside the CUDA-event time of :func:`median_ms`, which also holds the ~5 us that any launch reads between
+    two events, this is the kernel's own duration. A session's CUPTI trace may drop events, its first most
+    often, so a sum divided by the calls made would read low: each session opens with a spin kernel of
+    another name, and one that saw fewer launches than were made is followed by another, up to ``attempts``.
+    A call's launches of each kernel name are its events over the calls, rounded up, and the time is each
+    name's mean over the events seen, times its launches a call. ``us`` is None when no event was seen.
+    """
+
+    def session():
+        with torch.profiler.profile(activities=[torch.profiler.ProfilerActivity.CUDA]) as prof:
+            torch.cuda._sleep(1000)
+            for _ in range(n_runs):
+                fn()
+            torch.cuda.synchronize()
+        by_name = {}
+        for event in prof.events():
+            if event.device_type == torch.autograd.DeviceType.CUDA and f"{kernel}_kernel" in event.name:
+                by_name.setdefault(event.name, []).append(event.time_range.elapsed_us())
+        return by_name
+
+    fn()
+    torch.cuda.synchronize()
+    durations = {}
+    for attempt in range(1, attempts + 1):
+        for name, us in session().items():
+            durations.setdefault(name, []).extend(us)
+        per_call = {name: -(-len(us) // (attempt * n_runs)) for name, us in durations.items()}
+        seen, made = sum(map(len, durations.values())), attempt * n_runs * sum(per_call.values())
+        if seen == made and seen:
+            break
+    if not durations:
+        return None, 0, 0
+    return sum(k * statistics.fmean(durations[name]) for name, k in per_call.items()), seen, made
+
+
 def main() -> None:
     # ---- 1. device ----------------------------------------------------------
     if not torch.cuda.is_available():
@@ -729,21 +784,43 @@ def main() -> None:
     errors["weighted_covariance"] = wcov_abs
 
     # ---- 4. K1b against its exact twin (gjnp) ----------------------------------
+    def hold_ip1(label, W_in, U_in, silent, expected):
+        """K1b within SWEEP_TOL of its exact twin on the live bins, silent bins frozen, two launches to the bit."""
+        W_new, W_2 = K.ip1_sweep(W_in, U_in, eps=FAST_EPS), K.ip1_sweep(W_in, U_in, eps=FAST_EPS)
+        W_ref = K.ip1_sweep_plain(W_in, U_in, eps=FAST_EPS, solve_impl="gjnp")
+        torch.cuda.synchronize()
+        variant = K.ip1_sweep_variant(W_in.shape[-1])
+        live = [i for i in range(W_in.shape[0]) if i not in silent]
+        frozen = all(torch.equal(W_new[i], W_in[i]) for i in silent)
+        repeat = bool(torch.equal(W_new, W_2))
+        abs_err = float((W_new[live] - W_ref[live]).abs().max())
+        rel_err = abs_err / float(W_ref[live].abs().max())
+        say("K1b ip1_sweep", case=repr(label), shape=tuple(W_in.shape), variant=variant,
+            silent_bins=tuple(silent), frozen_unchanged=frozen, max_abs_err=abs_err, rel_err=rel_err, tol=SWEEP_TOL,
+            two_launches_equal=repeat)
+        check(frozen, f"ip1_sweep {label}: a row of a silent (U = 0) bin changed")
+        check(rel_err <= SWEEP_TOL and all_finite(W_new), f"ip1_sweep {label}: rel err {rel_err}")
+        check(repeat, f"ip1_sweep {label}: two launches differ")
+        check(variant == expected, f"ip1_sweep {label}: ran the {variant} variant, expected {expected}")
+        return abs_err
+
     U = K.weighted_covariance(X, phi_scalar)
     U[list(SILENT_BINS)] = 0
     noise = rng.standard_normal((2, I, M, M)).astype(np.float32)
     W0 = W_eye + 0.1 * torch.complex(torch.from_numpy(noise[0]), torch.from_numpy(noise[1])).to(device)
-    W_new = K.ip1_sweep(W0, U, eps=FAST_EPS)
-    W_ref = K.ip1_sweep_plain(W0, U, eps=FAST_EPS, solve_impl="gjnp")
-    torch.cuda.synchronize()
-    live = [i for i in range(I) if i not in SILENT_BINS]
-    frozen = all(torch.equal(W_new[i], W0[i]) for i in SILENT_BINS)
-    sweep_abs = float((W_new[live] - W_ref[live]).abs().max())
-    sweep_rel = sweep_abs / float(W_ref[live].abs().max())
-    say("K1b ip1_sweep", shape=(I, M, M), silent_bins=SILENT_BINS, frozen_unchanged=frozen,
-        max_abs_err=sweep_abs, rel_err=sweep_rel, tol=SWEEP_TOL)
-    check(frozen, "ip1_sweep changed a row of a silent (U = 0) bin")
-    check(sweep_rel <= SWEEP_TOL and all_finite(W_new), f"ip1_sweep: rel err {sweep_rel}")
+    sweep_abs = hold_ip1("main path", W0, U, SILENT_BINS, "warp")
+    # the warp variant at an odd M (lanes of each group idle) and a part-full last block, and the block
+    # variant; their own draws
+    ip1_rng = np.random.default_rng(2)
+    for edge_M, edge_I, expected in IP1_EDGES:
+        X_edge = torch.complex(*(torch.from_numpy(ip1_rng.standard_normal((edge_M, edge_I, T), dtype=np.float32))
+                                 for _ in range(2))).to(device)
+        U_edge = K.weighted_covariance(X_edge, torch.ones((edge_M, T), device=device))
+        U_edge[[0, edge_I // 2]] = 0
+        W_edge = torch.eye(edge_M, dtype=X.dtype, device=device) + 0.1 * torch.complex(
+            *(torch.from_numpy(ip1_rng.standard_normal((edge_I, edge_M, edge_M), dtype=np.float32)) for _ in range(2))
+        ).to(device)
+        hold_ip1(f"M = {edge_M}, I = {edge_I}", W_edge, U_edge, (0, edge_I // 2), expected)
     errors["ip1_sweep"] = sweep_abs
 
     # ---- 4b. K2 against its plain version ----------------------------------------
@@ -752,28 +829,41 @@ def main() -> None:
     Y_long = torch.complex(*(torch.from_numpy(rng.standard_normal((long_N, long_I, long_T), dtype=np.float32))
                              for _ in range(2))).to(device)
     cases = [
-        ("scalar (N,T)", X, phi_scalar),
-        ("per-bin (N,I,T)", X, phi_bins),
-        ("long scalar (N,T)", Y_long, phi_scalar.new_tensor(rng.random((long_N, long_T), dtype=np.float32) + 0.1)),
-        ("long per-bin (N,I,T)", Y_long, phi_bins.new_tensor(rng.random(LONG_SHAPE, dtype=np.float32) + 0.1)),
+        ("scalar (N,T)", X, phi_scalar, "registers"),
+        ("per-bin (N,I,T)", X, phi_bins, "registers"),
+        ("long scalar (N,T)", Y_long, phi_scalar.new_tensor(rng.random((long_N, long_T), dtype=np.float32) + 0.1),
+         "streamed"),
+        ("long per-bin (N,I,T)", Y_long, phi_bins.new_tensor(rng.random(LONG_SHAPE, dtype=np.float32) + 0.1),
+         "streamed"),
     ]
-    for label, Y_in, phi in cases:
+    # the register variant at its edges and the resident variant, with their own draws: at one frame each sum
+    # is a single term, and the register variant rounds as the plain version, so the two must agree to the bit
+    iss1_rng = np.random.default_rng(3)
+    for N_, I_, T_, expected in ISS1_EDGES:
+        Y_edge = torch.complex(*(torch.from_numpy(iss1_rng.standard_normal((N_, I_, T_), dtype=np.float32))
+                                 for _ in range(2))).to(device)
+        phi_edge = torch.from_numpy(iss1_rng.random((N_, I_, T_), dtype=np.float32) + 0.1).to(device)
+        cases.append(("edge per-bin (N,I,T)", Y_edge, phi_edge, expected))
+    for label, Y_in, phi, expected in cases:
         N_, I_, T_ = Y_in.shape
         silent = (0, I_ // 2)  # SILENT_BINS at the main-path shape
         Y_in = Y_in.clone()
         Y_in[:, list(silent)] = 0
-        resident = K.iss1_sweep_resident(N_, T_, phi.dim() == 3)
-        Y_new = K.iss1_sweep(Y_in, phi, eps=ILRMA_EPS)
+        variant = K.iss1_sweep_variant(N_, T_, phi.dim() == 3)
+        Y_new, Y_2 = K.iss1_sweep(Y_in, phi, eps=ILRMA_EPS), K.iss1_sweep(Y_in, phi, eps=ILRMA_EPS)
         Y_ref = K.iss1_sweep_plain(Y_in, phi, eps=ILRMA_EPS)
         torch.cuda.synchronize()
         zero = all(int(torch.count_nonzero(Y_new[:, i])) == 0 for i in silent)
+        repeat = bool(torch.equal(Y_new, Y_2))
         abs_err = float((Y_new - Y_ref).abs().max())
         rel_err = abs_err / float(Y_ref.abs().max())
-        say("K2 iss1_sweep", weights=repr(label), shape=(N_, I_, T_), variant="resident" if resident else "streamed",
-            silent_bins=silent, silent_zero=zero, max_abs_err=abs_err, rel_err=rel_err, tol=ISS1_TOL)
+        say("K2 iss1_sweep", weights=repr(label), shape=(N_, I_, T_), variant=variant, silent_bins=silent,
+            silent_zero=zero, max_abs_err=abs_err, rel_err=rel_err, tol=ISS1_TOL, two_launches_equal=repeat)
         check(zero, f"iss1_sweep {label}: a silent (Y = 0) bin came back non-zero")
         check(rel_err <= ISS1_TOL and all_finite(Y_new), f"iss1_sweep {label}: rel err {rel_err}")
-        check(resident == (T_ == T), f"iss1_sweep {label}: unexpected {'resident' if resident else 'streamed'} variant")
+        check(repeat, f"iss1_sweep {label}: two launches differ")
+        check(variant == expected, f"iss1_sweep {label}: ran the {variant} variant, expected {expected}")
+        check(T_ > 1 or abs_err == 0.0, f"iss1_sweep {label}: one frame, {abs_err} off the plain version")
         iss1_abs = max(iss1_abs, abs_err)
     errors["iss1_sweep"] = iss1_abs
 
@@ -1558,6 +1648,7 @@ def main() -> None:
     }
     timings = {}
     for key, (weights, kernel_fn, plain_fn, library_fn, (bound, bound_by)) in timed.items():
+        profiler_us, events_seen, events_made = profiled_us(kernel_fn, key.split()[0])
         ms = median_ms(kernel_fn, queued=True)
         plain_ms = median_ms(plain_fn, queued=True) if plain_fn is not None else None
         call_ms = median_ms(kernel_fn, queued=False)
@@ -1567,7 +1658,8 @@ def main() -> None:
                         "library_ms": library_ms}
         say("time", kernel=repr(key), weights=repr(weights), card=repr(card), device_ms=ms,
             plain_device_ms=plain_ms, call_ms=call_ms, plain_call_ms=plain_call_ms, library_device_ms=library_ms,
-            bound_ms=bound, bound_by=bound_by, bound_share=bound / ms, runs=N_TIMED, stat="median")
+            bound_ms=bound, bound_by=bound_by, bound_share=bound / ms, runs=N_TIMED, stat="median",
+            profiler_us_per_launch=profiler_us, profiler_events=f"{events_seen}/{events_made}")
     # K5 as the step calls it: twice the traces alone, once the sums alone
     mode_ms = {outputs: median_ms(lambda: K.model_traces(Lamb_main, H_mnmf, XX_main, MNMF_EPS, outputs=outputs),
                                   queued=True) for outputs in ("traces", "sums")}
@@ -1585,8 +1677,10 @@ def main() -> None:
         stage_device_ms=timings["gj_inverse"]["ms"] + rem_ms, stage_bound_ms=stage_bound, runs=N_TIMED, stat="median")
     Y_long_phi = cases[3][2]
     long_ms = median_ms(lambda: K.iss1_sweep(Y_long, Y_long_phi, eps=ILRMA_EPS), queued=True)
+    long_us, events_seen, events_made = profiled_us(lambda: K.iss1_sweep(Y_long, Y_long_phi, eps=ILRMA_EPS), "iss1_sweep")
     say("time", kernel="iss1_sweep streamed", shape=LONG_SHAPE, card=repr(card), device_ms=long_ms,
-        bound_ms=iss1_bound(*LONG_SHAPE, per_bin=True)[0], runs=N_TIMED, stat="median")
+        bound_ms=iss1_bound(*LONG_SHAPE, per_bin=True)[0], runs=N_TIMED, stat="median",
+        profiler_us_per_launch=long_us, profiler_events=f"{events_seen}/{events_made}")
 
     # iterations per second of each path's fast-path step: plain, kernels, kernels, plain
     T0 = torch.from_numpy(rng.random((M, I, N_BASIS), dtype=np.float32)).to(device)

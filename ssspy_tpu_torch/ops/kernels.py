@@ -59,10 +59,14 @@ __all__ = [
     "weighted_covariance_geometry",
     "ip1_sweep",
     "ip1_sweep_plain",
+    "ip1_sweep_takes",
+    "ip1_sweep_variant",
     "gauss_jordan_solve_nopivot",
     "iss1_sweep",
     "iss1_sweep_plain",
     "iss1_sweep_resident",
+    "iss1_sweep_variant",
+    "iss1_sweep_register_warps",
     "round_pairs",
     "partner_table",
     "jacobi_sweeps",
@@ -90,6 +94,10 @@ _SMEM_LIMIT = 48 * 1024
 _GJ_TINY = 1e-20
 _ISS1_MAX_SOURCES = 16
 _ISS1_HEADER_BYTES = 16 * 8 + 16 * 3 * 16 * 4  # v and the reduction table
+# the ISS1 register variant by template width: frames a thread, most warps a bin
+_ISS1_REG_FRAMES = {2: 4, 4: 4, 8: 4, 16: 1}
+_ISS1_REG_WARPS = {2: 16, 4: 16, 8: 10, 16: 12}
+_ISS1_VARIANTS = {"streamed": 0, "resident": 1, "registers": 2}  # the launch's `variant`
 _SMEM_BLOCK_MAX = 232448  # 227 KB of dynamic shared memory per block on sm_90
 
 _VOID, _INT, _FLOAT = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
@@ -356,6 +364,31 @@ def ip1_sweep_plain(
     return W
 
 
+_IP1_WARP_MAX_M = 8  # the warp variant's largest M, mirrored from csrc/ip1_sweep.cu
+
+
+def ip1_sweep_takes(M: int) -> bool:
+    """Whether the sweep kernel takes ``N = M`` sources and channels: ``1 <= M <= 17``.
+
+    The size contract of the first kernel, which kept a bin's ``U``, ``W``
+    and ``[A | e_n]`` in 48 KB of shared memory; the block variant still does.
+    """
+    L = M + 1
+    return M >= 1 and (M * M * M + M * M + M * L + L + 2 * M) * 8 <= _SMEM_LIMIT
+
+
+def ip1_sweep_variant(M: int) -> str:
+    """The kernel variant that runs ``N = M``, as csrc/ip1_sweep.cu chooses it.
+
+    ``"warp"`` (``M <= 8``): a group of lanes of one warp per bin, its rows
+    in registers, no block barrier; ``"block"`` (``9 <= M <= 17``): one block
+    per bin, the system in shared memory.
+    """
+    if not ip1_sweep_takes(M):
+        raise ValueError(f"ip1_sweep: the kernel takes 1 <= M <= 17, got M={M}")
+    return "warp" if M <= _IP1_WARP_MAX_M else "block"
+
+
 def _check_ip1_sweep(W: torch.Tensor, U: torch.Tensor) -> None:
     name = "ip1_sweep"
     _require(W.dim() == 3, f"{name}: W must be (I, N, M), got {tuple(W.shape)}")
@@ -371,16 +404,19 @@ def _check_ip1_sweep(W: torch.Tensor, U: torch.Tensor) -> None:
     )
     _require(W.is_contiguous() and U.is_contiguous(), f"{name}: inputs must be contiguous")
     _require(I >= 1, f"{name}: no bins")
-    L = M + 1
     _require(
-        (N * M * M + N * M + M * L + L + 2 * M) * 8 <= _SMEM_LIMIT,
+        ip1_sweep_takes(M),
         f"{name}: N=M={M} exceeds what one block of the kernel holds in shared memory",
     )
     _check_cuda(name, W, U)
 
 
 def ip1_sweep(W: torch.Tensor, U: torch.Tensor, eps: float = 1e-10) -> torch.Tensor:
-    """IP1 sweep; kernel on CUDA, :func:`ip1_sweep_plain` (``"lu"``) on CPU."""
+    """IP1 sweep; kernel on CUDA, :func:`ip1_sweep_plain` (``"lu"``) on CPU.
+
+    The kernel takes complex64 and ``N = M <= 17``, in the variant
+    :func:`ip1_sweep_variant` names.
+    """
     if _on_cpu(W, U):
         return ip1_sweep_plain(W, U, eps)
     _check_ip1_sweep(W, U)
@@ -425,15 +461,39 @@ def iss1_sweep_plain(Y: torch.Tensor, varphi: torch.Tensor, eps: float = 1e-10) 
 
 
 def iss1_sweep_resident(n_sources: int, n_frames: int, per_bin: bool) -> bool:
-    """Whether the kernel keeps a bin in shared memory (else it streams it).
+    """Whether a bin fits one block's shared memory (the resident variant; else the streamed one).
 
     The resident variant holds the bin's Y (``N * T`` complex64) and, for
     per-bin weights, its weights (``N * T`` float32) in one block's
     dynamic shared memory; the streamed variant keeps Y in device memory
-    and takes any ``T`` (csrc/iss1_sweep.cu).
+    and takes any ``T`` (csrc/iss1_sweep.cu). :func:`iss1_sweep_variant`
+    asks it for the bins too long for the register variant.
     """
     per_frame = 8 + (4 if per_bin else 0)
     return _ISS1_HEADER_BYTES + n_sources * n_frames * per_frame <= _SMEM_BLOCK_MAX
+
+
+def _iss1_width(n_sources: int) -> int:
+    """The kernel's template on the sources: 2, 4, 8 or 16."""
+    return 2 if n_sources <= 2 else 4 if n_sources <= 4 else 8 if n_sources <= 8 else 16
+
+
+def iss1_sweep_register_warps(n_sources: int, n_frames: int) -> int:
+    """Warps a bin of the register variant: ``ceil(T / (32 F))``, ``F`` frames a thread."""
+    return -(-n_frames // (32 * _ISS1_REG_FRAMES[_iss1_width(n_sources)]))
+
+
+def iss1_sweep_variant(n_sources: int, n_frames: int, per_bin: bool) -> str:
+    """The kernel variant that runs a bin of ``N`` sources and ``T`` frames, as the wrapper passes it.
+
+    ``"registers"`` while :func:`iss1_sweep_register_warps` stays within the
+    template's most warps (each thread keeps its ``F`` frames of Y and of
+    the weights in registers; ``T <= 1,280`` at ``N = 8``), else
+    ``"resident"`` while :func:`iss1_sweep_resident`, else ``"streamed"``.
+    """
+    if iss1_sweep_register_warps(n_sources, n_frames) <= _ISS1_REG_WARPS[_iss1_width(n_sources)]:
+        return "registers"
+    return "resident" if iss1_sweep_resident(n_sources, n_frames, per_bin) else "streamed"
 
 
 def _check_iss1_sweep(Y: torch.Tensor, varphi: torch.Tensor) -> None:
@@ -460,7 +520,9 @@ def iss1_sweep(Y: torch.Tensor, varphi: torch.Tensor, eps: float = 1e-10) -> tor
     """ISS1 sweep; kernel on CUDA, :func:`iss1_sweep_plain` on CPU.
 
     ``Y``: complex ``(N, I, T)``; ``varphi``: ``(N, T)`` (IVA) or
-    ``(N, I, T)`` (ILRMA). Returns the new ``Y``.
+    ``(N, I, T)`` (ILRMA). Returns the new ``Y``. The kernel takes
+    complex64 and ``N <= 16``, in the variant :func:`iss1_sweep_variant`
+    names.
     """
     if _on_cpu(Y, varphi):
         return iss1_sweep_plain(Y, varphi, eps)
@@ -471,7 +533,7 @@ def iss1_sweep(Y: torch.Tensor, varphi: torch.Tensor, eps: float = 1e-10) -> tor
     Y_out = torch.empty_like(Y)
     status = launch(
         Y.data_ptr(), varphi.data_ptr(), Y_out.data_ptr(), N, I, T, int(per_bin),
-        int(iss1_sweep_resident(N, T, per_bin)), float(eps), Y.device.index, _stream(Y.device),
+        _ISS1_VARIANTS[iss1_sweep_variant(N, T, per_bin)], float(eps), Y.device.index, _stream(Y.device),
     )
     _build.check(lib, "iss1_sweep", status)
     iss1_sweep.launches += 1

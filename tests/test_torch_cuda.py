@@ -91,25 +91,88 @@ def test_ip1_sweep_kernel_matches_its_exact_twin(cuda_device):
     assert (got - ref).abs().max() / ref.abs().max() <= 1e-4
 
 
+# (N, I, T): the main path, the streamed long case, and N in {1, 2, 3, 8, 9, 16} x frame counts around the
+# register variant's limit at N = 8 (1,280), the resident one's (2,388 per-bin, 3,582 (N, T) weights) and past both
+ISS1_FRAMES = (1, 31, 255, 256, 257, 626, 1280, 1281, 2388, 2389, 3582, 3583, 4000)
+ISS1_SHAPES = [(8, 257, 626), (8, 16, 4000)] + [(N, 3, T) for N in (1, 2, 3, 8, 9, 16) for T in ISS1_FRAMES]
+
+
 @pytest.mark.cuda
 @pytest.mark.parametrize("per_bin", [False, True], ids=["scalar", "per_bin"])
-@pytest.mark.parametrize("shape", [(8, 257, 626), (8, 16, 4000)], ids=["main_path", "streamed"])
+@pytest.mark.parametrize("shape", ISS1_SHAPES, ids=["main_path", "streamed"] + [f"{N}-{I}-{T}" for N, I, T in ISS1_SHAPES[2:]])
 def test_iss1_sweep_kernel_matches_plain(cuda_device, shape, per_bin):
+    """Every variant within 1e-4 of plain, silent bins exactly zero, two launches bit-equal; at T = 1 (where the
+    update cancels to rounding noise that later sources scale up) the register variant is plain bit for bit."""
     rng = np.random.default_rng(10)
     N, I, T = shape
+    silent = [0, 5] if I > 5 else [1]
     Y = _complex(rng, (N, I, T), cuda_device)
-    Y[:, [0, 5]] = 0  # silent bins
+    Y[:, silent] = 0  # silent bins
     phi_shape = (N, I, T) if per_bin else (N, T)
     phi = torch.from_numpy(rng.random(phi_shape, dtype=np.float32) + 0.1).to(cuda_device)
-    assert K.iss1_sweep_resident(N, T, per_bin) == (T == 626)
+    variant = K.iss1_sweep_variant(N, T, per_bin)
+    assert variant == {(8, 257, 626): "registers", (8, 16, 4000): "streamed"}.get(shape, variant)
+    assert variant in ("registers", "resident", "streamed") and (T > 256 or variant == "registers")
+    assert variant != "streamed" or not K.iss1_sweep_resident(N, T, per_bin)
     before = K.iss1_sweep.launches
-    got = K.iss1_sweep(Y, phi, eps=1e-6)
+    got, got_2 = K.iss1_sweep(Y, phi, eps=1e-6), K.iss1_sweep(Y, phi, eps=1e-6)
     ref = K.iss1_sweep_plain(Y, phi, eps=1e-6)
     torch.cuda.synchronize()
-    assert K.iss1_sweep.launches == before + 1
+    assert K.iss1_sweep.launches == before + 2
     assert torch.isfinite(torch.view_as_real(got)).all()
-    assert torch.equal(got[:, [0, 5]], Y[:, [0, 5]])
+    assert torch.equal(got[:, silent], Y[:, silent])
+    assert torch.equal(got, got_2)
     # both sides sum T f32 terms in different orders over N sequential updates
+    assert (got - ref).abs().max() / ref.abs().max() <= 1e-4
+    if T == 1:
+        assert torch.equal(got, ref)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("I", [1, 33, 257])
+@pytest.mark.parametrize("M", [1, 2, 3, 5, 8, 9, 16, 17])
+def test_ip1_sweep_kernel_variants_match_the_exact_twin(cuda_device, M, I):
+    """The warp variant (M <= 8, odd M leaving lanes of a group idle, blocks part-full) and the block variant above it:
+    within 1e-4 of the gjnp twin, silent bins frozen, two launches bit-equal."""
+    rng = np.random.default_rng(12)
+    X = _complex(rng, (M, I, 64), cuda_device)
+    U = K.weighted_covariance_plain(X, torch.ones((M, 64), device=cuda_device))
+    silent = [] if I == 1 else [0, I // 2]
+    U[silent] = 0
+    W = torch.eye(M, dtype=U.dtype, device=cuda_device) + 0.1 * _complex(rng, (I, M, M), cuda_device)
+    before = K.ip1_sweep.launches
+    got, got_2 = K.ip1_sweep(W, U), K.ip1_sweep(W, U)
+    ref = K.ip1_sweep_plain(W, U, solve_impl="gjnp")
+    torch.cuda.synchronize()
+    assert K.ip1_sweep.launches == before + 2
+    assert K.ip1_sweep_variant(M) == ("warp" if M <= 8 else "block")
+    assert all(torch.equal(got[i], W[i]) for i in silent)
+    assert torch.equal(got, got_2)
+    assert torch.isfinite(torch.view_as_real(got)).all()
+    live = [i for i in range(I) if i not in silent]
+    assert (got[live] - ref[live]).abs().max() / ref[live].abs().max() <= 1e-4
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("M", [2, 5, 8])
+def test_ip1_sweep_kernel_takes_a_pivot_near_the_largest_float(cuda_device, M):
+    """Pivots above 2^126, whose reciprocals are subnormal: the warp variant updates the rows as its exact twin does
+    (a reciprocal flushed to zero would make them NaN, and the sweep would freeze them)."""
+    rng = np.random.default_rng(14)
+    I = 33
+    H = rng.standard_normal((I, M, M, M)) + 1j * rng.standard_normal((I, M, M, M))
+    U = 1.5 * 2.0**127 * (np.eye(M) + 0.005 * (H + np.conj(np.swapaxes(H, -1, -2))))
+    W = 0.5 * (np.eye(M) + 0.05 * (rng.standard_normal((I, M, M)) + 1j * rng.standard_normal((I, M, M))))
+    U = torch.from_numpy(U.astype(np.complex64)).to(cuda_device)
+    W = torch.from_numpy(W.astype(np.complex64)).to(cuda_device)
+    assert K.ip1_sweep_variant(M) == "warp"
+    got, got_2 = K.ip1_sweep(W, U, eps=1e-30), K.ip1_sweep(W, U, eps=1e-30)
+    ref = K.ip1_sweep_plain(W, U, eps=1e-30, solve_impl="gjnp")
+    torch.cuda.synchronize()
+    assert torch.isfinite(torch.view_as_real(ref)).all() and not torch.equal(ref[:, 0], W[:, 0])
+    assert torch.isfinite(torch.view_as_real(got)).all()
+    assert not torch.equal(got[:, 0], W[:, 0])
+    assert torch.equal(got, got_2)
     assert (got - ref).abs().max() / ref.abs().max() <= 1e-4
 
 

@@ -723,3 +723,211 @@ def test_gj_inverse_geometry_at_the_ipsdta_timing_shape():
         "instance": "system", "systems_per_block": 128, "threads": 128, "blocks": 2465, "smem_bytes": 128 * 17 * 8}
     assert K.gj_inverse_geometry(8 * 626, 5) == {
         "instance": "system", "systems_per_block": 128, "threads": 128, "blocks": 40, "smem_bytes": 128 * 25 * 8}
+
+
+# ---- the sweep kernels' variants (K1b, K2) -------------------------------------
+
+# frame counts around every boundary: the register variant's (1,280 at N = 8), the
+# resident variant's (2,388 per-bin and 3,582 (N, T) weights at N = 8) and the streamed case
+ISS1_FRAMES = (1, 31, 255, 256, 257, 626, 1280, 1281, 2388, 2389, 3582, 3583, 4000)
+
+
+def _first_ip1_sweep_takes(M):
+    """The size contract of the first IP1 sweep kernel: a bin's U, W and [A | e_n] in 48 KB of shared memory."""
+    L = M + 1
+    return M >= 1 and (M**3 + M * M + M * L + L + 2 * M) * 8 <= 48 * 1024
+
+
+def test_ip1_sweep_takes_every_size_it_took():
+    took = [M for M in range(0, 40) if _first_ip1_sweep_takes(M)]
+    assert [M for M in range(0, 40) if K.ip1_sweep_takes(M)] == took == list(range(1, 18))
+    with pytest.raises(ValueError, match="1 <= M <= 17"):
+        K.ip1_sweep_variant(18)
+
+
+@pytest.mark.parametrize("M", range(1, 18))
+def test_ip1_sweep_variant_serving_each_m(M):
+    """M <= 8: a group of lanes per bin (a power of two), its U staged so that a half-warp's groups hit distinct banks."""
+    cu = _cu_constants("ip1_sweep")
+    assert cu["kWarpMaxM"] == K._IP1_WARP_MAX_M == 8
+    variant = K.ip1_sweep_variant(M)
+    assert variant == ("warp" if M <= 8 else "block")
+    if variant == "warp":
+        width = 1 << (M - 1).bit_length()
+        assert M <= width <= 8
+        stride = M**3 + 2 if M % 2 == 0 else M**3  # complex64; even where 16-byte copies stage it
+        assert (32 // width) * stride * 8 <= 48 * 1024  # static shared memory of one block
+        groups = 16 // width  # in a half-warp, each reading one complex64 (a pair of banks)
+        assert len({(g * stride) % 16 for g in range(groups)}) == groups
+
+
+@pytest.mark.parametrize("solve_impl", ["lu", "gjnp"])
+@pytest.mark.parametrize("shape", [(1, 9, 7), (5, 9, 31)], ids=["M1", "M5_T31"])  # (M, I, T)
+def test_ip1_sweep_plain_matches_jax_at_the_edges(shape, solve_impl):
+    """One source, and an odd M whose group leaves lanes idle; bin 5 silent."""
+    M, I, T = shape
+    W, U = _sweep_inputs(np.random.default_rng(23), M, I, T)
+    Ws, Us = complex_to_planar(W), complex_to_planar(U)
+    Wr, Wi = ip1_sweep_sc(
+        jnp.asarray(Ws[0]), jnp.asarray(Ws[1]), jnp.asarray(Us[0]), jnp.asarray(Us[1]),
+        eps=1e-10, solve_impl=solve_impl,
+    )
+    got = K.ip1_sweep_plain(W, U, eps=1e-10, solve_impl=solve_impl)
+    assert _rel_err(complex_to_planar(got), np.stack([np.asarray(Wr), np.asarray(Wi)])) <= 1e-4
+    torch.testing.assert_close(got[5], W[5], rtol=0, atol=0)
+
+
+def test_iss1_sweep_register_variant_mirrors_the_kernel():
+    """Frames a thread and most warps a bin of the register variant, and the resident variant's header."""
+    cu = _cu_constants("iss1_sweep")
+    for width in (2, 4, 8, 16):
+        assert (K._ISS1_REG_FRAMES[width], K._ISS1_REG_WARPS[width]) == (cu[f"kRegFrames{width}"], cu[f"kRegWarps{width}"])
+    assert K._ISS1_HEADER_BYTES == cu["kMaxSources"] * 8 + cu["kMaxThreads"] // 32 * 3 * cu["kMaxSources"] * 4
+    assert K._ISS1_MAX_SOURCES == cu["kMaxSources"]
+
+
+@pytest.mark.parametrize("per_bin", [False, True], ids=["scalar", "per_bin"])
+@pytest.mark.parametrize("N", range(1, 17))
+def test_iss1_sweep_takes_every_shape_it_took(N, per_bin):
+    """Every (N <= 16, T) of the first kernel runs a variant: registers while the template's warps hold the frames,
+    then resident while the bin fits 227 KB, then streamed; the register variant's frames cover the bin."""
+    width = 2 if N <= 2 else 4 if N <= 4 else 8 if N <= 8 else 16
+    frames = K._ISS1_REG_FRAMES[width]
+    for T in ISS1_FRAMES:
+        variant = K.iss1_sweep_variant(N, T, per_bin)
+        warps = K.iss1_sweep_register_warps(N, T)
+        assert (warps - 1) * 32 * frames < T <= warps * 32 * frames
+        if warps <= K._ISS1_REG_WARPS[width]:
+            assert variant == "registers"
+        else:
+            assert variant == ("resident" if K.iss1_sweep_resident(N, T, per_bin) else "streamed")
+        assert variant in K._ISS1_VARIANTS
+
+
+def test_iss1_sweep_variant_boundaries():
+    # N = 8: 10 warps of 4 frames hold T <= 1,280; then the first kernel's boundaries
+    assert K.iss1_sweep_variant(8, 1280, True) == "registers" and K.iss1_sweep_variant(8, 1281, True) == "resident"
+    assert K.iss1_sweep_variant(8, 2388, True) == "resident" and K.iss1_sweep_variant(8, 2389, True) == "streamed"
+    assert K.iss1_sweep_variant(8, 3582, False) == "resident" and K.iss1_sweep_variant(8, 3583, False) == "streamed"
+    # N = 9 .. 16: 12 warps of one frame; N <= 4: 16 warps of 4 frames
+    assert K.iss1_sweep_variant(16, 384, True) == "registers" and K.iss1_sweep_variant(16, 385, True) == "resident"
+    assert K.iss1_sweep_variant(4, 2048, False) == "registers" and K.iss1_sweep_variant(4, 2049, False) == "resident"
+    # the main path: 5 warps of 4 frames (640 for 626), either weight layout; chip_smoke's streamed case
+    assert K.iss1_sweep_variant(8, 626, False) == K.iss1_sweep_variant(8, 626, True) == "registers"
+    assert K.iss1_sweep_register_warps(8, 626) == 5
+    assert K.iss1_sweep_variant(8, 4000, False) == K.iss1_sweep_variant(8, 4000, True) == "streamed"
+
+
+@pytest.mark.parametrize("per_bin", [False, True], ids=["scalar", "per_bin"])
+@pytest.mark.parametrize("shape", [(1, 5, 31), (3, 5, 33)], ids=["N1_T31", "N3_T33"])  # (N, I, T)
+@pytest.mark.parametrize("impl", ["xla", "interpret"])
+def test_iss1_sweep_plain_matches_jax_at_the_edges(shape, per_bin, impl):
+    """One source and odd frame counts; bin 3 silent."""
+    N, I, T = shape
+    Ys, phi = _iss1_inputs(np.random.default_rng(24), N, I, T, per_bin)
+    Yr, Yi = iss1_sweep_sc(
+        jnp.asarray(Ys[0]), jnp.asarray(Ys[1]), jnp.asarray(phi if per_bin else phi[:, None, :]), eps=1e-6, impl=impl
+    )
+    got = K.iss1_sweep_plain(planar_to_complex(Ys), torch.from_numpy(phi), eps=1e-6)
+    assert _rel_err(complex_to_planar(got), np.stack([np.asarray(Yr), np.asarray(Yi)])) <= 1e-5
+    assert torch.count_nonzero(got[:, 3]) == 0
+
+
+# ---- the timing scripts: the profiler helper and chip_smoke's sweep edges ------------------
+
+
+def _script_tree(path):
+    import ast
+
+    with open(os.path.join(REPO, path)) as f:
+        source = f.read()
+    return source, ast.parse(source)
+
+
+def _function_source(path, name):
+    import ast
+
+    source, tree = _script_tree(path)
+    node = next(n for n in tree.body if isinstance(n, ast.FunctionDef) and n.name == name)
+    return ast.get_source_segment(source, node)
+
+
+def _constant(path, name):
+    import ast
+
+    _, tree = _script_tree(path)
+    node = next(n for n in tree.body if isinstance(n, ast.Assign) and n.targets[0].id == name)
+    return ast.literal_eval(node.value)
+
+
+def test_profiled_us_is_one_helper_in_both_scripts():
+    assert _function_source("chip_smoke.py", "profiled_us") == _function_source("scripts/torch_kernel_ab.py", "profiled_us")
+
+
+class _FakeProfiler:
+    """``torch.profiler`` and ``torch.cuda`` as ``profiled_us`` uses them: each call of the timed function makes
+    ``per_call`` device events, the k-th of them named ``ssspy_sweep_kernel_<k>`` and lasting k + 1 us, and one
+    event of another kernel; the spin kernel makes one event; session s loses its first ``drops[s]`` events."""
+
+    def __init__(self, per_call, drops):
+        self.per_call, self.drops, self.sessions, self.pending = per_call, list(drops), 0, []
+
+    def call(self):
+        self.pending += [(f"ssspy_sweep_kernel_{k}", k + 1.0) for k in range(self.per_call)] + [("other", 50.0)]
+
+    def torch(self):
+        from types import SimpleNamespace
+
+        fake = self
+
+        class Session:
+            def __enter__(self):
+                fake.pending = []
+                return self
+
+            def __exit__(self, *exc):
+                drop = fake.drops[fake.sessions] if fake.sessions < len(fake.drops) else 0
+                fake.sessions += 1
+                self.seen = fake.pending[drop:]
+
+            def events(self):
+                return [SimpleNamespace(name=name, device_type="cuda",
+                                        time_range=SimpleNamespace(elapsed_us=lambda us=us: us))
+                        for name, us in self.seen]
+
+        return SimpleNamespace(
+            profiler=SimpleNamespace(profile=lambda activities: Session(),
+                                     ProfilerActivity=SimpleNamespace(CUDA="cuda")),
+            autograd=SimpleNamespace(DeviceType=SimpleNamespace(CUDA="cuda")),
+            cuda=SimpleNamespace(synchronize=lambda: None, _sleep=lambda cycles: fake.pending.append(("spin", 0.6))),
+        )
+
+
+@pytest.mark.parametrize(
+    "per_call, drops, expected",
+    [
+        (1, [], (1.0, 10, 10)),  # every session whole
+        (2, [], (3.0, 20, 20)),  # two kernels a call (K5's pass and its sums)
+        (2, [1], (3.0, 20, 20)),  # the session lost only its spin kernel
+        (2, [3, 3, 3], (3.0, 54, 60)),  # every session loses the first call's two launches: the means of the 54 events seen
+        (1, [100, 100, 100], (None, 0, 0)),  # no session saw the kernel
+    ],
+)
+def test_profiled_us_reads_the_events_its_session_saw(per_call, drops, expected):
+    fake = _FakeProfiler(per_call, drops)
+    namespace = {"torch": fake.torch(), "statistics": __import__("statistics"), "N_TIMED": 30}
+    exec(_function_source("chip_smoke.py", "profiled_us"), namespace)
+    assert namespace["profiled_us"](fake.call, "ssspy_sweep", n_runs=10) == expected
+
+
+def test_chip_smoke_sweep_edges_run_the_variants_they_name():
+    """Each edge case of chip_smoke's K1b and K2 phases names the variant the predicates choose for it, and together
+    with the main path (registers / warp) and the long case (streamed) they run every variant."""
+    ip1 = _constant("chip_smoke.py", "IP1_EDGES")
+    assert all(K.ip1_sweep_variant(M) == variant for M, _, variant in ip1)
+    assert {variant for *_, variant in ip1} | {K.ip1_sweep_variant(8)} == {"warp", "block"}
+    iss1 = _constant("chip_smoke.py", "ISS1_EDGES")
+    assert all(K.iss1_sweep_variant(N, T, True) == variant for N, _, T, variant in iss1)
+    long_N, _, long_T = _constant("chip_smoke.py", "LONG_SHAPE")
+    assert K.iss1_sweep_variant(long_N, long_T, False) == K.iss1_sweep_variant(long_N, long_T, True) == "streamed"
+    assert {variant for *_, variant in iss1} | {"streamed", K.iss1_sweep_variant(8, 626, True)} == set(K._ISS1_VARIANTS)
