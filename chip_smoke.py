@@ -80,7 +80,13 @@ launches of each to the bit, at the main path and in every variant: K1b's
 warp variant at M = 5 with a part-full block and its block variant at
 M = 17; K2's register variant at 16 sources and 384 frames and at one
 frame, its resident variant at 2,000 frames and its streamed variant on
-the long case.
+the long case. K6 is held within 1e-5 (zero bins exactly zero, two
+launches to the bit) on a random input, a sweep's first and last rounds
+and two zero bins, and at N = 2, 7 and 16 (``IPA_EDGES``); K4 bit for bit
+(two launches too) on the model after two iterations, on an edge batch
+(zero XX bins, a tiny-Lamb bin, a zero R bin floored to 1e20 I), and in
+its columns variant at m = 5 and its rows variant at m = 9 and 16
+(``SANDWICH_EDGES``).
 
 Every launch count is set to 0 just before a path and read just after it,
 and each path must have launched the kernels it runs (and no other). The
@@ -90,7 +96,11 @@ version, its bound and (where one exists) the one PyTorch call that
 computes the same function, between CUDA events and (its own duration per
 launch) by ``torch.profiler``, beside the events its session saw of those
 launched (a CUPTI session may drop some), and each path's iterations per
-second.
+second and device time per iteration by ``torch.profiler``, read the
+same way (each session opens with a spin kernel, and the events seen are
+printed beside those its steps make; kernel names whose events do not
+divide by the steps are listed apart, with the time read without
+rounding them up).
 
 Run from the repository root, with one CUDA device:
 
@@ -178,6 +188,10 @@ IP1_EDGES = ((5, 33, "warp"), (17, 9, "block"))
 # (N, I, T, variant): K2's register variant at the most frames 16 sources hold and at one frame, and the
 # resident variant past the register variant's frames
 ISS1_EDGES = ((16, 9, 384, "registers"), (3, 33, 1, "registers"), (8, 3, 2000, "resident"))
+# (N, S, I): K6's instances at two channels (eight items a warp), at an odd N (lanes of 8 bytes) and at its largest N
+IPA_EDGES = ((2, 2, 257), (7, 7, 257), (16, 16, 33))
+# (m, B, variant): K4's columns variant at an odd m (8-byte copies) and its rows variant at both ends of its sizes
+SANDWICH_EDGES = ((5, 4099, "columns"), (9, 4099, "rows"), (16, 2053, "rows"))
 EIGH_TOL = 1e-5  # the same 90 rounds in the same order on both sides; f32 rounding may differ
 PROX_TOL = 1e-5
 JACOBI_SIZES = (2, 3, 7, 16, 32)
@@ -634,26 +648,38 @@ def eigh_errors(A, lamb, V, lamb_ref):
 
 
 def profile(step, state, n_iter: int = 20, attempts: int = 3):
-    """Device microseconds per step by kernel name, and device operations per step (``torch.profiler``).
+    """Device microseconds per step by kernel name, device operations per step, the events seen and made, the
+    sessions taken, and the names whose events do not divide by the steps (``torch.profiler`` over ``n_iter``
+    chained steps): ``(per_kernel, ops, seen, made, sessions, uneven)``.
 
-    The CUPTI trace of a short session now and then comes back without a device event, so a session
-    that saw none is repeated, up to ``attempts`` times. Returns the attempts taken; the dicts are
-    empty when every session came back empty.
+    Read as :func:`profiled_us` reads one kernel, since a session's CUPTI trace may drop events (its first most
+    often, or all of them): each session opens with a spin kernel (``torch.cuda._sleep``, left out of the
+    sums); a name's launches a step are its events over the steps, rounded up, and its time a step is its mean
+    over the events seen times those launches; a session that saw fewer events than that makes is pooled with
+    another, up to ``attempts``. ``per_kernel`` is empty when no session saw an event. A name launched a
+    varying number of times a step cannot be told from one that lost events, so each name whose events are
+    not a whole number a step is also given in ``uneven`` as ``(events, steps, us)``, ``us`` its time a step as
+    seen, without the rounding up.
     """
     chain(step, state, 2)
     torch.cuda.synchronize()
+    durations = {}
     for attempt in range(1, attempts + 1):
         with torch.profiler.profile(activities=[torch.profiler.ProfilerActivity.CUDA]) as prof:
+            torch.cuda._sleep(1000)
             chain(step, state, n_iter)
             torch.cuda.synchronize()
-        per_kernel, n_ops = {}, 0
         for event in prof.events():
-            if event.device_type == torch.autograd.DeviceType.CUDA:
-                per_kernel[event.name] = per_kernel.get(event.name, 0.0) + event.time_range.elapsed_us()
-                n_ops += 1
-        if per_kernel:
+            if event.device_type == torch.autograd.DeviceType.CUDA and "spin_kernel" not in event.name:
+                durations.setdefault(event.name, []).append(event.time_range.elapsed_us())
+        per_step = {name: -(-len(us) // (attempt * n_iter)) for name, us in durations.items()}
+        seen, made = sum(map(len, durations.values())), attempt * n_iter * sum(per_step.values())
+        if seen == made and seen:
             break
-    return {name: us / n_iter for name, us in per_kernel.items()}, n_ops / n_iter, attempt
+    steps = attempt * n_iter
+    per_kernel = {name: k * statistics.fmean(durations[name]) for name, k in per_step.items()}
+    uneven = {name: (len(us), steps, sum(us) / steps) for name, us in durations.items() if len(us) % steps}
+    return per_kernel, sum(per_step.values()), seen, made, attempt, uneven
 
 
 def profiled_us(fn, kernel: str, n_runs: int = N_TIMED, attempts: int = 3):
@@ -975,22 +1001,37 @@ def main() -> None:
     check(len(rounds) == M and tuple(rounds[-1][1].shape) == (I, M, M, M), f"recorded {len(rounds)} congruence rounds")
     U_silent = U_rand.clone()
     U_silent[list(SILENT_BINS)] = 0
-    congruence_cases = [("random", (T_rand, U_rand, G_rand)), ("sweep, first round", rounds[0]),
-                        ("sweep, last round", rounds[-1]), ("two zero bins", (rounds[-1][0], U_silent, G_rand))]
+    congruence_cases = [("random", (T_rand, U_rand, G_rand), ()),
+                        ("sweep, first round", rounds[0], ()), ("sweep, last round", rounds[-1], ()),
+                        ("two zero bins", (rounds[-1][0], U_silent, G_rand), SILENT_BINS)]
+    # the kernel's instances at other N, with their own draws: T near the identity, two zero bins
+    ipa_rng = np.random.default_rng(4)
+    for N_, S_, I_ in IPA_EDGES:
+        T_e, G_e, U_e = (
+            torch.complex(*(torch.from_numpy(ipa_rng.standard_normal(shape, dtype=np.float32)) for _ in range(2)))
+            .to(device) for shape in ((I_, N_, N_), (I_, N_, N_), (I_, S_, N_, N_)))
+        T_e = torch.eye(N_, dtype=X.dtype, device=device) + 0.1 * T_e
+        U_e[[0, I_ // 2]] = 0
+        congruence_cases.append((f"N = {N_}, S = {S_}, two zero bins", (T_e, U_e, G_e), (0, I_ // 2)))
     congruence_abs = 0.0
-    for label, (T_in, U_in, G_in) in congruence_cases:
+    for label, (T_in, U_in, G_in), zero_bins in congruence_cases:
         U_new, G_new = K.ipa_congruence(T_in, U_in, G_in)
+        U_2, G_2 = K.ipa_congruence(T_in, U_in, G_in)
         U_ref, G_ref = K.ipa_congruence_plain(T_in, U_in, G_in)
         torch.cuda.synchronize()
         abs_err = max(float((U_new - U_ref).abs().max()), float((G_new - G_ref).abs().max()))
         rel_err = max(float((U_new - U_ref).abs().max() / U_ref.abs().max()),
                       float((G_new - G_ref).abs().max() / G_ref.abs().max()))
-        silent_zero = all(int(torch.count_nonzero(U_new[i])) == 0 for i in SILENT_BINS) if label == "two zero bins" else None
-        say("K6 ipa_congruence", input=repr(label), shape=(I, M, M, M), max_abs_err=abs_err, rel_err=rel_err,
-            tol=IPA_TOL, max_abs_T=float(T_in.abs().max()), silent_zero=silent_zero)
+        silent_zero = all(int(torch.count_nonzero(U_new[i])) == 0 for i in zero_bins) if zero_bins else None
+        repeatable = torch.equal(U_new, U_2) and torch.equal(G_new, G_2)
+        say("K6 ipa_congruence", input=repr(label), shape=tuple(U_in.shape), max_abs_err=abs_err, rel_err=rel_err,
+            tol=IPA_TOL, max_abs_T=float(T_in.abs().max()), silent_zero=silent_zero, two_launches_equal=repeatable,
+            equal_to_plain=torch.equal(U_new, U_ref) and torch.equal(G_new, G_ref))
         check(all_finite(U_new, G_new) and rel_err <= IPA_TOL, f"ipa_congruence {label}: rel err {rel_err}")
-        check(silent_zero is not False, "ipa_congruence: a zero bin of U came back non-zero")
-        congruence_abs = max(congruence_abs, abs_err)
+        check(silent_zero is not False, f"ipa_congruence {label}: a zero bin of U came back non-zero")
+        check(repeatable, f"ipa_congruence {label}: two launches differ")
+        if U_in.shape[-1] == M:
+            congruence_abs = max(congruence_abs, abs_err)
     errors["ipa_congruence"] = congruence_abs
     T_sweep, U_sweep, G_sweep = rounds[-1]
 
@@ -1022,8 +1063,13 @@ def main() -> None:
     for label, R_in, C_in in (("model after 2 iterations", R_main, XX_main),
                               ("two zero XX bins, a tiny-Lamb bin, a zero R bin", R_edge, XX_edge)):
         R_inv, S = K.inv_sandwich(R_in, C_in)
+        R_inv_2, S_2 = K.inv_sandwich(R_in, C_in)
         R_inv_ref, S_ref = K.inv_sandwich_plain(R_in, C_in)
         torch.cuda.synchronize()
+        # the same elimination, rounded as gj_inverse_plain rounds it, and the products summed in torch.matmul's
+        # order: bit for bit (PERF.md, section 6), as two launches must be
+        equal = torch.equal(R_inv, R_inv_ref) and torch.equal(S, S_ref)
+        repeatable = torch.equal(R_inv, R_inv_2) and torch.equal(S, S_2)
         edge = label.startswith("two")
         bins = regular if edge else list(range(I))
         errs = (relative_error(R_inv[bins], R_inv_ref[bins]), relative_error(S[bins], S_ref[bins]))
@@ -1035,13 +1081,41 @@ def main() -> None:
                 zero_R_bin_floor=bool(torch.equal(R_inv[zero_R_bin], R_inv_ref[zero_R_bin]))
                 and bool(torch.equal(R_inv[zero_R_bin][0], floor_inverse * torch.eye(M, dtype=X.dtype, device=device))),
             )
-        say("K4 inv_sandwich", input=repr(label), shape=tuple(R_in.shape), rel_err=errs, tol=INV_SANDWICH_TOL,
-            max_abs_R_inv=float(R_inv_ref[bins].abs().max()), **fields)
+        say("K4 inv_sandwich", input=repr(label), shape=tuple(R_in.shape), variant=K.inv_sandwich_variant(M),
+            rel_err=errs, tol=INV_SANDWICH_TOL, max_abs_R_inv=float(R_inv_ref[bins].abs().max()),
+            equal_to_plain=equal, two_launches_equal=repeatable, **fields)
         check(all_finite(R_inv, S), f"inv_sandwich {label}: non-finite output")
         check(max(errs) <= INV_SANDWICH_TOL, f"inv_sandwich {label}: rel err {errs}")
         check(all(v is True or max(v) <= INV_SANDWICH_TOL for v in fields.values()), f"inv_sandwich {label}: {fields}")
+        check(equal, f"inv_sandwich {label}: not equal to the plain version")
+        check(repeatable, f"inv_sandwich {label}: two launches differ")
         if not edge:
             sandwich_abs = max(float((R_inv - R_inv_ref).abs().max()), float((S - S_ref).abs().max()))
+    # the columns variant at an odd m and the rows variant (the first design, 9 <= m <= 16), with their own draws:
+    # Hermitian positive definite pairs, system 1 all zero (its pivots floored, R^-1 = 1e20 I, S = 0) and the C
+    # of system 2 zero
+    sandwich_rng = np.random.default_rng(5)
+    for m_, B_, expected in SANDWICH_EDGES:
+        planes = sandwich_rng.standard_normal((4, B_, m_, m_), dtype=np.float32)
+        eye = torch.eye(m_, dtype=X.dtype, device=device)
+        R_in, C_in = (torch.complex(torch.from_numpy(planes[k]), torch.from_numpy(planes[k + 1])).to(device)
+                      for k in (0, 2))
+        R_in, C_in = ((A @ A.mH / m_ + 0.1 * eye).contiguous() for A in (R_in, C_in))
+        R_in[1], C_in[1], C_in[2] = 0, 0, 0
+        variant = K.inv_sandwich_variant(m_)
+        R_inv, S = K.inv_sandwich(R_in, C_in)
+        R_inv_2, S_2 = K.inv_sandwich(R_in, C_in)
+        R_inv_ref, S_ref = K.inv_sandwich_plain(R_in, C_in)
+        torch.cuda.synchronize()
+        equal = torch.equal(R_inv, R_inv_ref) and torch.equal(S, S_ref)
+        repeatable = torch.equal(R_inv, R_inv_2) and torch.equal(S, S_2)
+        floored = bool(torch.equal(R_inv[1], floor_inverse * eye)) and not bool(S[[1, 2]].any())
+        say("K4 inv_sandwich", input=repr(f"m = {m_}: a zero system, a zero C"), shape=(B_, m_, m_), variant=variant,
+            equal_to_plain=equal, two_launches_equal=repeatable, zero_R_floor_zero_S=floored)
+        check(variant == expected, f"inv_sandwich m = {m_}: ran the {variant} variant, expected {expected}")
+        check(all_finite(R_inv, S) and equal, f"inv_sandwich m = {m_}: not equal to the plain version")
+        check(repeatable, f"inv_sandwich m = {m_}: two launches differ")
+        check(floored, f"inv_sandwich m = {m_}: the zero system's floor or the zero sandwiches")
     errors["inv_sandwich"] = sandwich_abs
 
     traces_abs = 0.0
@@ -1737,12 +1811,13 @@ def main() -> None:
             ipsdta_steps.vcd_sweep(W_p, RXX_p, eps=IPSDTA_EPS)
         return s
 
-    sweep_per_kernel, sweep_ops, _ = profile(sweeps_only, None, 10)
+    sweep_per_kernel, sweep_ops, sweep_seen, sweep_made, _, _ = profile(sweeps_only, None, 10)
     sweep_us = sum(sweep_per_kernel.values())
 
     # where the device time of one iteration goes (torch.profiler)
     for label, (step, state) in steps.items():
-        per_kernel, ops_per_iter, sessions = profile(step, state, min(20, n_steps.get(label, (N_ITER,))[0]))
+        per_kernel, ops_per_iter, seen, made, sessions, uneven = profile(step, state,
+                                                                         min(20, n_steps.get(label, (N_ITER,))[0]))
         device_us = sum(per_kernel.values())
         if not device_us:
             # the rate above already timed these steps with CUDA events, idle gaps included
@@ -1757,8 +1832,13 @@ def main() -> None:
         extra = {}
         if label in ("GaussIPSDTA", "TIPSDTA") and sweep_us:
             extra = dict(vcd_sweep_us_per_iter=sweep_us, vcd_sweep_ops_per_iter=sweep_ops,
-                         vcd_sweep_share=sweep_us / device_us)
-        say("profile", path=repr(label), card=repr(card), sessions=sessions, device_us_per_iter=device_us,
+                         vcd_sweep_share=sweep_us / device_us, vcd_sweep_events=f"{sweep_seen}/{sweep_made}")
+        # the same without rounding up the names whose events do not divide by the steps: the least it can be
+        seen_us = device_us - sum(per_kernel[name] - us for name, (_, _, us) in uneven.items())
+        say("profile", path=repr(label), card=repr(card), sessions=sessions, profiler_events=f"{seen}/{made}",
+            device_us_per_iter=device_us, device_us_seen_per_iter=seen_us, uneven_names=len(uneven),
+            uneven=repr([(name[:40], f"{events}/{steps}") for name, (events, steps, _) in
+                         sorted(uneven.items(), key=lambda kv: -kv[1][2])[:4]]),
             device_ops_per_iter=ops_per_iter, device_busy_share=device_us * 1e-6 * rates[label],
             kernel_shares=repr({name: round(share, 4) for name, share in shares.items() if share}),
             top=repr([(name[:48], round(us, 3)) for name, us in top]), **extra)

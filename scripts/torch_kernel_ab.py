@@ -13,12 +13,14 @@ for the two other kernels on the shared elimination (``gj_inverse.cuh``),
 the inverse sandwich K4 and the fused model pass K5 on dense GaussMNMF's
 model after two iterations (160,882 systems of 8 x 8); the IPA
 congruence round (K6) and the Jacobi eigh (K7) on seeded random inputs of
-the shapes chip_smoke times them at. Each time is the median of 30 runs
+the shapes chip_smoke times them at, and K6 also at every other N = S up
+to 16. Each time is the median of 30 runs
 between CUDA events, the card kept busy first (chip_smoke's
 ``device_ms``), beside the kernel's own duration per launch by
 ``torch.profiler`` over 30 launches (``profiler_us``, beside the events
 its session saw of those launched, ``profiler_events``) and, for the two
-sweeps, the time with the L2 cache flushed before each run (``cold_ms``);
+sweeps, the inverse sandwich and the congruence round, the time with the
+L2 cache flushed before each run (``cold_ms``);
 beside them, a one-element fill under the same timing, the least any
 launch reads. The IP1 sweep also runs on chip_smoke's own sweep input (two
 silent bins), held against its exact elimination twin. The ISS1 sweep runs each variant that can take a shape
@@ -31,7 +33,9 @@ card, run both in one call, in turns:
     python3 scripts/torch_kernel_ab.py --root _tree/parent --label parent
     python3 scripts/torch_kernel_ab.py --label change
 
-Prints one JSON line per run, beside the card's name and power limit.
+``--only PREFIX`` times only the rows whose name starts with it (and
+skips the sweep checks and the ISS1 variants). Prints one JSON line per
+run, beside the card's name and power limit.
 """
 
 import argparse
@@ -121,6 +125,7 @@ def main():
     parser = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     parser.add_argument("--root", default=os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
     parser.add_argument("--label", default="tree")
+    parser.add_argument("--only", default="", help="time only the rows whose name starts with this")
     args = parser.parse_args()
     if not torch.cuda.is_available():
         raise SystemExit("torch_kernel_ab: needs a CUDA device")
@@ -196,8 +201,16 @@ def main():
         "gj_inverse (8,626,1,5,5)": (lambda: K.gj_inverse(R_ip[1]), lambda: torch.linalg.inv_ex(R_ip[1]),
                                      gj_bound(R_ip[1])),
     }
-    # unchanged kernels that share gj_inverse.cuh: their times alone
-    rows["inv_sandwich (160882,8,8)"] = (lambda: K.inv_sandwich(R_mn, XX), None, None)
+    # the inverse sandwich (against inv_ex and two matmul, chip_smoke's library call) and the fused model
+    # pass, on the dense-MNMF model
+    B_mn = R_mn.numel() // (M * M)
+
+    def library_inv_sandwich():
+        R_inv = torch.linalg.inv_ex(R_mn)[0]
+        return R_inv, (R_inv @ XX) @ R_inv
+
+    rows["inv_sandwich (160882,8,8)"] = (lambda: K.inv_sandwich(R_mn, XX), library_inv_sandwich,
+                                         bound_ms(4 * B_mn * M * M * 8, 32 * B_mn * M**3))
     rows["model_traces (8,257,626,8)"] = (lambda: K.model_traces(Lamb, H_mn, XX, 1e-10), None, None)
     # K6 and K7 on seeded random inputs of chip_smoke's shapes: a congruence near the identity, and symmetric
     # matrices (a fixed count of Jacobi rounds, so the time hardly depends on the values)
@@ -211,32 +224,50 @@ def main():
     U_c = random_complex((I, M, M, M))
     U_c = (U_c + U_c.mH).contiguous()
     G_c = random_complex((I, M, M))
-    rows["ipa_congruence (257,8,8,8)"] = (lambda: K.ipa_congruence(T_c, U_c, G_c), None, None)
+    rows["ipa_congruence (257,8,8,8)"] = (
+        lambda: K.ipa_congruence(T_c, U_c, G_c),
+        lambda: (torch.matmul(torch.matmul(T_c[:, None], U_c), T_c.mH[:, None]), torch.matmul(T_c, G_c)),
+        bound_ms(I * M * M * 8 * (2 * M + 3), I * 8 * M**3 * (2 * M + 1)),
+    )
     for B, n in ((257, 16), (257, 14), (2056, 16), (4032, 8), (160882, 16)):
         A = torch.from_numpy(ab_rng.standard_normal((B, n, n), dtype=np.float32)).to(device)
         A = (A + A.transpose(-1, -2)).contiguous()
         rows[f"jacobi_eigh ({B},{n},{n})"] = (lambda A=A: K.jacobi_eigh(A), None, None)
+    # K6 at every other channel count the kernel takes, N = S, on the same kind of input
+    for n in (n for n in range(1, 17) if n != M):
+        T_n = torch.eye(n, dtype=X.dtype, device=device) + 0.1 * random_complex((I, n, n))
+        U_n = random_complex((I, n, n, n))
+        U_n = (U_n + U_n.mH).contiguous()
+        G_n = random_complex((I, n, n))
+        rows[f"ipa_congruence ({I},{n},{n},{n})"] = (
+            lambda T_n=T_n, U_n=U_n, G_n=G_n: K.ipa_congruence(T_n, U_n, G_n),
+            lambda T_n=T_n, U_n=U_n, G_n=G_n: (torch.matmul(torch.matmul(T_n[:, None], U_n), T_n.mH[:, None]),
+                                               torch.matmul(T_n, G_n)),
+            bound_ms(I * n * n * 8 * (2 * n + 3), I * 8 * n**3 * (2 * n + 1)),
+        )
+    rows = {key: row for key, row in rows.items() if key.startswith(args.only)}
     out = {"label": args.label, "root": args.root, "card": card, "torch": torch.__version__, "ptxas": ptxas}
     flush = torch.empty(64 * 2**20, dtype=torch.float32, device=device)  # 256 MB, five times the L2 cache
-    # K1b on chip_smoke's own sweep input (the same draws: W near the identity, bins 0 and 128 silent),
-    # against its exact elimination twin (gjnp) on the live bins, with the twin's own float32 error
-    rng = np.random.default_rng(0)
-    rng.random((M, I, T), dtype=np.float32)  # chip_smoke's per-bin weights come first
-    noise = rng.standard_normal((2, I, M, M)).astype(np.float32)
-    W0 = W_eye + 0.1 * torch.complex(torch.from_numpy(noise[0]), torch.from_numpy(noise[1])).to(device)
-    U_silent = U_main.clone()
-    U_silent[[0, 128]] = 0
-    live = [i for i in range(I) if i not in (0, 128)]
-    twin = K.ip1_sweep_plain(W0, U_silent, solve_impl="gjnp")
-    twin64 = K.ip1_sweep_plain(W0.to(torch.complex128), U_silent.to(torch.complex128), solve_impl="gjnp")
-    got = K.ip1_sweep(W0, U_silent)
-    out["ip1_sweep silent bins"] = {
-        "ms": median_ms(lambda: K.ip1_sweep(W0, U_silent)),
-        "rel_err_vs_gjnp_twin": float((got[live] - twin[live]).abs().max() / twin[live].abs().max()),
-        "twin_rel_err_vs_complex128": float((twin[live].to(torch.complex128) - twin64[live]).abs().max()
-                                            / twin64[live].abs().max()),
-        "frozen": bool(torch.equal(got[0], W0[0]) and torch.equal(got[128], W0[128])),
-    }
+    if not args.only:  # with --only, the named rows alone
+        # K1b on chip_smoke's own sweep input (the same draws: W near the identity, bins 0 and 128 silent),
+        # against its exact elimination twin (gjnp) on the live bins, with the twin's own float32 error
+        rng = np.random.default_rng(0)
+        rng.random((M, I, T), dtype=np.float32)  # chip_smoke's per-bin weights come first
+        noise = rng.standard_normal((2, I, M, M)).astype(np.float32)
+        W0 = W_eye + 0.1 * torch.complex(torch.from_numpy(noise[0]), torch.from_numpy(noise[1])).to(device)
+        U_silent = U_main.clone()
+        U_silent[[0, 128]] = 0
+        live = [i for i in range(I) if i not in (0, 128)]
+        twin = K.ip1_sweep_plain(W0, U_silent, solve_impl="gjnp")
+        twin64 = K.ip1_sweep_plain(W0.to(torch.complex128), U_silent.to(torch.complex128), solve_impl="gjnp")
+        got = K.ip1_sweep(W0, U_silent)
+        out["ip1_sweep silent bins"] = {
+            "ms": median_ms(lambda: K.ip1_sweep(W0, U_silent)),
+            "rel_err_vs_gjnp_twin": float((got[live] - twin[live]).abs().max() / twin[live].abs().max()),
+            "twin_rel_err_vs_complex128": float((twin[live].to(torch.complex128) - twin64[live]).abs().max()
+                                                / twin64[live].abs().max()),
+            "frozen": bool(torch.equal(got[0], W0[0]) and torch.equal(got[128], W0[128])),
+        }
     # the least that one launch reads under this timing: a one-element fill
     one = torch.zeros(1, device=device)
     out["one_element_fill_ms"] = median_ms(one.zero_)
@@ -244,12 +275,16 @@ def main():
         ms = median_ms(kernel)
         us, seen, made = profiled_us(kernel, key.split()[0])
         out[key] = {"ms": ms, "profiler_us": us, "profiler_events": f"{seen}/{made}"}
-        if key.startswith(("ip1", "iss1")):
+        if key.startswith(("ip1", "iss1", "inv_sandwich", "ipa_congruence")):
             out[key]["cold_ms"] = median_ms(kernel, flush=flush)
         if bound is not None:
             out[key].update(bound_ms=bound, bound_share=bound / ms)
         if library is not None:
             out[key]["library_ms"] = median_ms(library)
+    if args.only:
+        print(json.dumps(out), flush=True)
+        print(card, flush=True)
+        return
     # the ISS1 sweep's variants on both sides of their boundaries at N = 8, each launched as the launch's
     # `variant` names it (a variant that cannot take the shape returns an error, which raises)
     lib, launch = K._entry("iss1_sweep")

@@ -82,6 +82,7 @@ __all__ = [
     "inv_sandwich",
     "inv_sandwich_takes",
     "inv_sandwich_plain",
+    "inv_sandwich_variant",
     "model_traces",
     "model_traces_plain",
     "model_traces_takes",
@@ -128,7 +129,7 @@ _SIGNATURES = {
     ),
     "inv_sandwich": (
         "inv_sandwich_launch",
-        [_VOID, _VOID, _VOID, _VOID, _INT, _INT, _FLOAT, _INT, _VOID],
+        [_VOID, _VOID, _VOID, _VOID, _INT, _INT, _FLOAT, _INT, _INT, _VOID],
     ),
     "model_traces": (
         "model_traces_launch",
@@ -740,6 +741,7 @@ def _check_ipa_congruence(T: torch.Tensor, U: torch.Tensor, G: torch.Tensor) -> 
         1 <= N <= _IPA_MAX_N and 1 <= S <= _IPA_MAX_N,
         f"{name}: the kernel takes N, S <= {_IPA_MAX_N}, got N={N}, S={S}",
     )
+    _require(I * (S + 1) < 2**31, f"{name}: {I} bins of {S} sources")
     _check_cuda(name, T, U, G)
 
 
@@ -776,6 +778,8 @@ ipa_congruence.launches = 0
 _GJ_MAX_M = 32  # a group of m threads in one warp, mirrored from csrc/gj_inverse.cuh
 _GJ_SYSTEM_MAX_M = 8  # one thread per system, [R | I] in registers (csrc/gj_inverse.cu)
 _SANDWICH_MAX_M = 16  # K4 and K5 keep each thread's row of their products in registers
+_SANDWICH_COLUMNS_MAX_M = 8  # the columns variant's largest m, mirrored from csrc/inv_sandwich.cu
+_SANDWICH_VARIANTS = {"rows": 0, "columns": 1}  # the launch's `variant`
 
 
 def gj_inverse_plain(R: torch.Tensor, tiny: float = _GJ_TINY) -> torch.Tensor:
@@ -884,6 +888,20 @@ def inv_sandwich_takes(m: int) -> bool:
     return 1 <= m <= _SANDWICH_MAX_M
 
 
+def inv_sandwich_variant(m: int) -> str:
+    """The kernel variant that runs ``m x m`` systems, as the wrapper passes it.
+
+    ``"columns"`` (``m <= 8``): a group of lanes per system, lane c holding
+    column c of the live ``[R | I]`` and of C in registers, tiles of
+    systems staged by ``cp.async`` in two stages a warp; ``"rows"``
+    (``9 <= m <= 16``): a group of m threads per system, ``[R | I]`` and C
+    in shared memory (the first design).
+    """
+    if not inv_sandwich_takes(m):
+        raise ValueError(f"inv_sandwich: the kernel takes 1 <= m <= {_SANDWICH_MAX_M}, got m={m}")
+    return "columns" if m <= _SANDWICH_COLUMNS_MAX_M else "rows"
+
+
 def _check_inv_sandwich(R: torch.Tensor, C: torch.Tensor) -> None:
     name = "inv_sandwich"
     _require(
@@ -906,8 +924,8 @@ def inv_sandwich(
 ) -> Tuple[torch.Tensor, torch.Tensor]:
     """``(R^-1, R^-1 C R^-1)`` for Hermitian ``(..., m, m)`` pairs; kernel on CUDA, :func:`inv_sandwich_plain` on CPU.
 
-    The kernel takes complex64 and ``m <= 16``; the batch axes are
-    flattened.
+    The kernel takes complex64 and ``m <= 16``, in the variant
+    :func:`inv_sandwich_variant` names; the batch axes are flattened.
     """
     if _on_cpu(R, C):
         return inv_sandwich_plain(R, C, tiny)
@@ -917,7 +935,7 @@ def inv_sandwich(
     Rinv, S = torch.empty_like(R), torch.empty_like(R)
     status = launch(
         R.data_ptr(), C.data_ptr(), Rinv.data_ptr(), S.data_ptr(), R.numel() // (m * m), m, float(tiny),
-        R.device.index, _stream(R.device),
+        _SANDWICH_VARIANTS[inv_sandwich_variant(m)], R.device.index, _stream(R.device),
     )
     _build.check(lib, "inv_sandwich", status)
     inv_sandwich.launches += 1

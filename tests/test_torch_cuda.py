@@ -278,6 +278,30 @@ def test_ipa_congruence_kernel_matches_plain(cuda_device, shape):
     assert (G_new - G_ref).abs().max() <= 1e-5 * G_ref.abs().max()
 
 
+IPA_SOURCES = (1, 2, 3, 7, 8, 9, 16)  # powers of two and not, the limit
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("S", IPA_SOURCES)
+@pytest.mark.parametrize("N", range(1, 17))
+def test_ipa_congruence_kernel_at_every_size(cuda_device, N, S):
+    """The kernel's instance at every N: within 1e-5 of plain, zero bins exactly zero and two launches bit-equal,
+    at I = 1, 5 and 257 bins (a part-full last block, and groups of a warp past the last item)."""
+    rng = np.random.default_rng(20 + N * 17 + S)
+    for I in (1, 5, 257):
+        T, U, G = _complex(rng, (I, N, N), cuda_device), _complex(rng, (I, S, N, N), cuda_device), _complex(rng, (I, N, N), cuda_device)
+        U[[0, I // 2]] = 0
+        U_new, G_new = K.ipa_congruence(T, U, G)
+        U_2, G_2 = K.ipa_congruence(T, U, G)
+        U_ref, G_ref = K.ipa_congruence_plain(T, U, G)
+        torch.cuda.synchronize()
+        assert torch.equal(U_new, U_2) and torch.equal(G_new, G_2)
+        assert not U_new[[0, I // 2]].any()
+        # N-term f32 complex sums, in another order on each side
+        assert (U_new - U_ref).abs().max() <= 1e-5 * U_ref.abs().max()
+        assert (G_new - G_ref).abs().max() <= 1e-5 * G_ref.abs().max()
+
+
 @pytest.mark.cuda
 def test_ipa_congruence_kernel_rejects_what_it_does_not_take(cuda_device):
     T = torch.zeros((4, 3, 3), dtype=torch.complex64, device=cuda_device)
@@ -345,6 +369,27 @@ def test_inv_sandwich_kernel_floors_the_pivot_of_a_zero_system(cuda_device):
     assert torch.equal(R_inv[[3, 11]], R_inv_ref[[3, 11]])
     assert torch.equal(R_inv[3], torch.eye(8, dtype=R.dtype, device=cuda_device) / torch.tensor(1e-20, device=cuda_device))
     assert not S[[3, 11]].any()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("m", [1, 2, 3, 4, 5, 6, 7, 8, 9, 15, 16])
+def test_inv_sandwich_kernel_equals_plain_at_every_variant_and_size(cuda_device, m):
+    """Bit for bit with plain (the same elimination, the products in torch.matmul's order), two launches bit-equal,
+    a zero system floored to 1e20 I with a zero sandwich, and a zero C's sandwich zero, at B = 1 .. 160,882."""
+    rng = np.random.default_rng(40 + m)
+    for B in (1, 31, 33, 4099, 160882):
+        R, C = _psd(rng, (B, m, m), cuda_device), _psd(rng, (B, m, m), cuda_device)
+        if B > 2:
+            R[1], C[1], C[2] = 0, 0, 0
+        R_inv, S = K.inv_sandwich(R, C)
+        R_inv_2, S_2 = K.inv_sandwich(R, C)
+        R_inv_ref, S_ref = K.inv_sandwich_plain(R, C)
+        torch.cuda.synchronize()
+        assert torch.equal(R_inv, R_inv_ref) and torch.equal(S, S_ref)
+        assert torch.equal(R_inv, R_inv_2) and torch.equal(S, S_2)
+        if B > 2:
+            floor = torch.eye(m, dtype=R.dtype, device=cuda_device) / torch.tensor(1e-20, device=cuda_device)
+            assert torch.equal(R_inv[1], floor) and not S[[1, 2]].any()
 
 
 @pytest.mark.cuda

@@ -833,6 +833,163 @@ def test_iss1_sweep_plain_matches_jax_at_the_edges(shape, per_bin, impl):
     assert torch.count_nonzero(got[:, 3]) == 0
 
 
+# ---- the congruence round (K6) and the inverse sandwich (K4): variants and launch ----------------
+
+
+# csrc/ipa_congruence.cu's layout functions, as the source writes them; _ipa_layout copies them into Python
+_IPA_LAYOUT_SOURCE = (
+    "constexpr int row_lanes_most(int n) { return n < kWarpSize / n ? n : kWarpSize / n; }",
+    "const int columns = (n + row_lanes_most(n) - 1) / row_lanes_most(n);",
+    "return n % 2 == 0 && columns % 2 == 1 && columns > 1 ? columns + 1 : columns;",
+    "constexpr int row_lanes(int n) { return (n + lane_columns(n) - 1) / lane_columns(n); }",
+    "constexpr bool paired(int n) { return n % 2 == 0 && lane_columns(n) % 2 == 0; }",
+    "constexpr int row_stride(int n) { return paired(n) ? (n % 4 == 0 ? n + 2 : n + 4) : (n | 1); }",
+    "constexpr int group_lanes(int n) { return n * row_lanes(n); }",
+    "constexpr int warp_groups(int n) { return kWarpSize / group_lanes(n); }",
+    "__shared__ __align__(16) float2 stage[kBlockWarps][GW * kRegion];",
+)
+
+
+def _ipa_layout(N):
+    """csrc/ipa_congruence.cu's layout at ``N``: lanes a row, columns a lane, items a warp, the staged row stride,
+    whether a lane's columns go in 16-byte pairs, and a block's static shared memory (T, U and A of each item)."""
+    most = min(N, 32 // N)
+    columns = -(-N // most)
+    columns += N % 2 == 0 and columns % 2 == 1 and columns > 1
+    lanes = -(-N // columns)
+    paired = N % 2 == 0 and columns % 2 == 0
+    stride = (N + 2 if N % 4 == 0 else N + 4) if paired else N | 1
+    groups = 32 // (N * lanes)
+    return {"row_lanes": lanes, "lane_columns": columns, "items_per_warp": groups, "paired": paired,
+            "row_stride": stride, "smem_bytes": _cu_constants("ipa_congruence")["kBlockWarps"] * groups * 3 * N * stride * 8}
+
+
+def test_ipa_congruence_layout_mirrors_the_kernel():
+    """The wrapper's size limit is the kernel's, and the layout functions copied into _ipa_layout are the source's."""
+    cu = _cu_constants("ipa_congruence")
+    assert (cu["kMaxN"], cu["kWarpSize"], cu["kBlockWarps"]) == (K._IPA_MAX_N, 32, 4)
+    with open(os.path.join(_build.SOURCE_DIR, "ipa_congruence.cu")) as f:
+        source = f.read()
+    assert all(line in source for line in _IPA_LAYOUT_SOURCE)
+    assert all(f"case {N}: return launch<{N}>(" in source for N in range(1, K._IPA_MAX_N + 1))
+
+
+@pytest.mark.parametrize("N", range(1, 17))
+def test_ipa_congruence_takes_every_size_it_took(N):
+    """Every ``N <= 16`` the first kernel took has an instance whose item lies in one warp, whose lanes cover each
+    row once, and whose block's static shared memory fits without an opt-in; at N = 8 four lanes a row."""
+    layout = _ipa_layout(N)
+    lanes, columns = layout["row_lanes"], layout["lane_columns"]
+    assert N * lanes * layout["items_per_warp"] <= 32 and layout["items_per_warp"] >= 1
+    assert lanes * columns >= N > (lanes - 1) * columns
+    assert layout["row_stride"] >= N and layout["smem_bytes"] <= 48 * 1024
+    if layout["paired"]:
+        assert columns % 2 == 0 and layout["row_stride"] % 2 == 0  # 16-byte accesses stay aligned
+    if N == 8:
+        assert (lanes, columns, layout["items_per_warp"], layout["row_stride"]) == (4, 2, 1, 10)
+
+
+def _quads(rows, stride, column):
+    """16-byte bank quads (of 8) of the complex64 pair at ``column`` of each staged row."""
+    return [((row * stride + column) * 8 // 16) % 8 for row in rows]
+
+
+def test_ipa_congruence_reads_on_distinct_banks():
+    """The staged rows spread over the banks: where lanes read in 16-byte pairs, eight consecutive rows start on
+    eight distinct bank quads (at N = 8, a quarter-warp's reads of rows of T or A, the rows j of T and the column
+    pairs of a row of U each on distinct quads); where they read 8 bytes, sixteen consecutive rows start on
+    distinct bank pairs."""
+    for N in range(1, 17):
+        layout = _ipa_layout(N)
+        stride = layout["row_stride"]
+        if layout["paired"]:
+            assert len(set(_quads(range(8), stride, 0))) == 8
+        else:
+            assert stride % 2 == 1 and len({(row * stride) % 16 for row in range(16)}) == 16
+    stride = _ipa_layout(8)["row_stride"]
+    for p in range(4):
+        for column in range(0, 8, 2):
+            assert len(set(_quads((2 * p, 2 * p + 1), stride, column))) == 2
+    for column in range(0, 8, 2):
+        assert len(set(_quads(range(0, 8, 2), stride, column))) == 4
+        assert len(set(_quads(range(1, 8, 2), stride, column))) == 4
+    for k in range(8):
+        assert len({((k * stride + 2 * q) * 8 // 16) % 8 for q in range(4)}) == 4
+
+
+# csrc/inv_sandwich.cu's layout functions, as the source writes them; the tests below copy them into Python
+_SANDWICH_LAYOUT_SOURCE = (
+    "constexpr int group_width(int M) { return M <= 1 ? 1 : M <= 2 ? 2 : M <= 4 ? 4 : 8; }",
+    "constexpr int stage_stride(int M) { return M * M + ((M - M * M) % 16 + 16) % 16; }",
+)
+
+
+def _sandwich_layout(m):
+    """The block csrc/inv_sandwich.cu launches for ``m x m`` systems, from its constants and (in Python) its layout
+    functions: lanes a system, systems a warp, the staged stride, threads and shared memory a block."""
+    cu = _cu_constants("inv_sandwich")
+    if m <= cu["kColumnsMaxM"]:
+        lanes = 1 << (m - 1).bit_length()  # group_width
+        stride = m * m + (m - m * m) % 16  # stage_stride
+        per_warp = 32 // lanes
+        smem = cu["kColumnsWarps"] * cu["kStages"] * 2 * per_warp * stride * 8  # R and C of each stage of each warp
+        return {"variant": "columns", "lanes": lanes, "systems_per_warp": per_warp, "stage_stride": stride,
+                "threads": 32 * cu["kColumnsWarps"], "smem_bytes": smem}
+    groups = cu["kRowsWarps"] * (32 // m)
+    # each group's [R | I] at gj::stride(m) = 2m + 1 a row, and its C
+    return {"variant": "rows", "threads": 32 * cu["kRowsWarps"], "smem_bytes": groups * m * (3 * m + 1) * 8}
+
+
+def test_inv_sandwich_variant_mirrors_the_kernel():
+    """The predicate's boundary is the kernel's, and the layout functions copied here are the source's."""
+    cu = _cu_constants("inv_sandwich")
+    assert (cu["kMaxM"], cu["kColumnsMaxM"], cu["kWarpSize"]) == (K._SANDWICH_MAX_M, K._SANDWICH_COLUMNS_MAX_M, 32)
+    with open(os.path.join(_build.SOURCE_DIR, "inv_sandwich.cu")) as f:
+        source = f.read()
+    assert all(line in source for line in _SANDWICH_LAYOUT_SOURCE)
+    with open(os.path.join(_build.SOURCE_DIR, "gj_inverse.cuh")) as f:
+        assert "return 2 * m + 1;" in f.read()  # gj::stride
+
+
+def test_inv_sandwich_takes_every_m_it_took():
+    assert [m for m in range(0, 20) if K.inv_sandwich_takes(m)] == list(range(1, 17))
+    assert [K.inv_sandwich_variant(m) for m in range(1, 17)] == ["columns"] * 8 + ["rows"] * 8
+    with pytest.raises(ValueError, match="1 <= m <= 16"):
+        K.inv_sandwich_variant(17)
+
+
+def _column_read_wavefronts(m, lanes, stride):
+    """Bank wavefronts of a warp's read of row k of every staged system (lane c of group g reads column min(c, m - 1)),
+    and the least any layout needs: the most distinct 4-byte words on one bank, and the words over 32."""
+    result = []
+    for k in range(m):
+        words = set()
+        for g in range(32 // lanes):
+            for c in range(lanes):
+                address = 2 * (g * stride + k * m + min(c, m - 1))
+                words |= {address, address + 1}
+        banks = {}
+        for word in words:
+            banks.setdefault(word % 32, set()).add(word)
+        result.append((max(map(len, banks.values())), -(-len(words) // 32)))
+    return result
+
+
+@pytest.mark.parametrize("m", range(1, 17))
+def test_inv_sandwich_variant_serving_each_m(m):
+    """m <= 8: the columns variant, its staged systems read on the fewest bank wavefronts; 9 <= m <= 16: the rows
+    variant. Either way the block's threads and static or dynamic shared memory fit without an opt-in."""
+    layout = _sandwich_layout(m)
+    assert layout["variant"] == K.inv_sandwich_variant(m)
+    assert layout["threads"] <= 1024 and layout["smem_bytes"] <= 48 * 1024
+    if layout["variant"] == "columns":
+        lanes, stride = layout["lanes"], layout["stage_stride"]
+        assert m <= lanes <= 8 and lanes & (lanes - 1) == 0
+        assert stride >= m * m and stride % 16 == m % 16 and stride < m * m + 16
+        assert stride % 2 == 0 or m % 2 == 1  # 16-byte copies keep an even stride
+        assert all(seen == least for seen, least in _column_read_wavefronts(m, lanes, stride))
+
+
 # ---- the timing scripts: the profiler helper and chip_smoke's sweep edges ------------------
 
 
@@ -920,6 +1077,59 @@ def test_profiled_us_reads_the_events_its_session_saw(per_call, drops, expected)
     assert namespace["profiled_us"](fake.call, "ssspy_sweep", n_runs=10) == expected
 
 
+class _FakeStepProfiler(_FakeProfiler):
+    """As :class:`_FakeProfiler`, for ``chip_smoke.profile``: each step makes one ``gemm`` event of 4 us and two
+    ``ssspy_sweep_kernel_k`` events (k + 1 us), and with ``alternate`` a ``reduce`` event of 6 us every other step;
+    the spin kernel is named as PyTorch names it."""
+
+    def __init__(self, per_call, drops, alternate=False):
+        super().__init__(per_call, drops)
+        self.alternate, self.steps = alternate, 0
+
+    def call(self):
+        self.pending += [("gemm", 4.0)] + [(f"ssspy_sweep_kernel_{k}", k + 1.0) for k in range(self.per_call)]
+        self.steps += 1
+        if self.alternate and self.steps % 2:
+            self.pending.append(("reduce", 6.0))
+
+    def torch(self):
+        fake = super().torch()
+        fake.cuda._sleep = lambda cycles: self.pending.append(("at::cuda::(anonymous namespace)::spin_kernel(long)", 0.6))
+        return fake
+
+
+@pytest.mark.parametrize(
+    "drops, alternate, expected",
+    [
+        ([], False, (7.0, 3, 30, 30, 1, {})),  # whole: three operations a step, 7 us
+        ([1], False, (7.0, 3, 30, 30, 1, {})),  # the session lost only its spin kernel
+        # two sessions lose the spin and the first step's gemm: three pooled, the gemm's 28 events of 30 steps
+        # rounded up to one a step and given apart
+        ([2, 2], False, (7.0, 3, 88, 90, 3, {"gemm": (28, 30, 28 * 4.0 / 30)})),
+        ([100, 100, 100], False, ({}, 0, 0, 0, 3, {})),  # no session saw an event
+        # a kernel launched every other step: rounded up to one a step, never whole, and given apart as seen
+        ([], True, (13.0, 4, 105, 120, 3, {"reduce": (15, 30, 3.0)})),
+    ],
+)
+def test_path_profile_reads_the_events_its_session_saw(drops, alternate, expected):
+    """chip_smoke's path profile: per kernel name its mean over the events seen times its launches a step, summed;
+    the spin kernel left out; the events seen beside those the steps make; sessions pooled until one is whole;
+    the names whose events do not divide by the steps given apart, with their time a step as seen."""
+    fake = _FakeStepProfiler(2, drops, alternate)
+    namespace = {"torch": fake.torch(), "statistics": __import__("statistics"), "N_ITER": 100}
+    exec(_function_source("chip_smoke.py", "chain"), namespace)
+    exec(_function_source("chip_smoke.py", "profile"), namespace)
+
+    def step(state):
+        fake.call()
+        return state
+
+    per_kernel, ops, seen, made, sessions, uneven = namespace["profile"](step, None, n_iter=10)
+    device_us = sum(per_kernel.values()) if per_kernel else per_kernel
+    assert (device_us, ops, seen, made, sessions, uneven) == pytest.approx(expected)
+    assert all("spin_kernel" not in name for name in per_kernel)
+
+
 def test_chip_smoke_sweep_edges_run_the_variants_they_name():
     """Each edge case of chip_smoke's K1b and K2 phases names the variant the predicates choose for it, and together
     with the main path (registers / warp) and the long case (streamed) they run every variant."""
@@ -931,3 +1141,13 @@ def test_chip_smoke_sweep_edges_run_the_variants_they_name():
     long_N, _, long_T = _constant("chip_smoke.py", "LONG_SHAPE")
     assert K.iss1_sweep_variant(long_N, long_T, False) == K.iss1_sweep_variant(long_N, long_T, True) == "streamed"
     assert {variant for *_, variant in iss1} | {"streamed", K.iss1_sweep_variant(8, 626, True)} == set(K._ISS1_VARIANTS)
+
+
+def test_chip_smoke_sandwich_and_congruence_edges_run_what_they_name():
+    """chip_smoke's K4 edges name the variant the predicate chooses for each, and with the main path (m = 8) they
+    run both; its K6 edges are sizes the kernel takes, at N other than the main path's 8."""
+    sandwich = _constant("chip_smoke.py", "SANDWICH_EDGES")
+    assert all(K.inv_sandwich_variant(m) == variant for m, _, variant in sandwich)
+    assert {variant for *_, variant in sandwich} | {K.inv_sandwich_variant(8)} == set(K._SANDWICH_VARIANTS)
+    congruence = _constant("chip_smoke.py", "IPA_EDGES")
+    assert all(1 <= N <= K._IPA_MAX_N and 1 <= S <= K._IPA_MAX_N and N != 8 for N, S, _ in congruence)
