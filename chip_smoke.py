@@ -63,15 +63,45 @@ calls, on the default device:
   same draws; and ``GaussIPSDTA`` in complex64 on the hard scenario of
   tests/test_hard_fidelity.py:352-400 (4 channels, 257 bins in 16 blocks of
   16 and 17 bins), where K3 takes m = 17 and the 34 x 34 embedded eigh takes
-  ``torch.linalg.eigh``, held to its fidelity pin.
+  ``torch.linalg.eigh``, held to its fidelity pin;
+- FastGaussMNMF (``n_basis=4``) on the mixture's first 4 channels, as
+  bench.py:230-252 runs it: ``FastGaussMNMF`` and ``fast_gauss_mnmf``, 100
+  iterations each, the weighted covariance K1 with per-channel weights
+  ``(4, 257, 626)`` and the IP1 sweep K1b (``M = 4``, its warp variant) once
+  per iteration; the class must equal the fast path from the same draws;
+- cACGMM on all 8 channels (N = M = 8), as bench.py:255-274 runs it:
+  ``CACGMM`` (aligned by its posterior score) and ``fast_cacgmm`` (aligned
+  by amplitude correlation), 100 iterations each, the Jacobi eigh K7 on the
+  E-step's and the M-step's embedded 16 x 16 pencils (``B = N I = 2,056``)
+  twice per iteration; unaligned, the class must equal the fast path from
+  the same draws; the EM once more with TF32 allowed, whose masks are
+  printed against full float32; ``impl="chol"`` and the K1 covariance
+  option run and are timed beside the default;
+- both on the hard scenario at the STFT of tests/test_hard_fidelity.py:67
+  (4096/1024, 2,049 bins, 4 channels): ``fast_cacgmm`` (50 iterations)
+  within 0.1 dB of the pin ``hard_cacgmm`` and ``fast_gauss_mnmf`` (40)
+  within 0.5 dB of ``hard_fast_gauss_mnmf``, and ``FastGaussMNMF`` once
+  more in complex128, with how much of the float32 gap the basis and
+  activation carry;
+- the routers of K1, K1b, K2 and K6 on the card: AuxLaplaceIVA-IP1,
+  GaussILRMA-ISS1 and AuxLaplaceIVA-IPA on a complex128 input (the plain
+  versions, each within 1e-6 of the same class on the CPU), ``separate`` on
+  a float64 waveform with GaussILRMA-ISS1, and ``fast_auxiva`` on 18
+  channels (K1, and the plain IP1 sweep past K1b's 17); each prints the
+  route it took;
+- the waveform entry points ``fast_auxiva_wave`` and
+  ``fast_gauss_ilrma_wave`` (IP1), each against ``stft``, the spectrogram
+  path and ``istft`` on the same card.
 
 K7 is held to its plain version bit for bit, at the prox and IPA inputs
 and at the batches of the other paths (dense GaussMNMF's floor, IPSDTA's
 geometric mean, the eigh model's 160,882 matrices, compared on 4,096 at
 each end); K5 within 2e-4, and two launches of each to the bit. K1 is held
 within 1e-5, Hermitian to the bit and two launches to the bit, at the main
-path and at the edges of its geometry (frame counts of 1, 129 and 1,000,
-the generic instance, the size contract's largest M, N and item count);
+path, at the edges of its geometry (frame counts of 1, 129 and 1,000,
+the generic instance, the size contract's largest M, N and item count) and
+at FastGaussMNMF's per-channel weights; K7 also at cACGMM's E-step and
+M-step pencils, and K1b at FastGaussMNMF's diagonalizer (M = 4);
 K3 bit for bit at every input (IPSDTA's two parts, m = 1 .. 8, 16, 17 and
 32, batches of 1, 31 and 33) and within 1e-5. K1b is held within 1e-4 of
 its exact elimination twin (silent bins frozen) and K2 within 1e-4 of its
@@ -108,7 +138,8 @@ Run from the repository root, with one CUDA device:
 
 Each phase prints one line; any failure exits non-zero. The last three
 lines are the kernels' JSON summary, the card as ``nvidia-smi`` names it,
-and ``{"ok": true, "device": {...}}``. Imports nothing of JAX.
+and ``{"ok": true, "device": {...}}``, after a ``[done]`` line with the
+script's seconds. Imports nothing of JAX.
 """
 
 import contextlib
@@ -127,10 +158,12 @@ import torch
 from ssspy_tpu_torch import separate as separate_waveform
 from ssspy_tpu_torch.bss import (
     ADMMIVA,
+    CACGMM,
     GGDILRMA,
     HVA,
     PDSIVA,
     AuxLaplaceIVA,
+    FastGaussMNMF,
     GaussILRMA,
     GaussIPSDTA,
     GaussMNMF,
@@ -140,8 +173,12 @@ from ssspy_tpu_torch.bss import (
 from ssspy_tpu_torch.fast import (
     fast_admm_iva,
     fast_auxiva,
+    fast_auxiva_wave,
+    fast_cacgmm,
     fast_gauss_ilrma,
+    fast_gauss_ilrma_wave,
     fast_gauss_ipsdta,
+    fast_gauss_mnmf,
     fast_gauss_mnmf_dense,
     fast_hva,
     fast_pds_iva,
@@ -149,7 +186,7 @@ from ssspy_tpu_torch.fast import (
 )
 from ssspy_tpu_torch.ops import _build
 from ssspy_tpu_torch.ops import kernels as K
-from ssspy_tpu_torch.ops import ipsdta_steps, prox_steps
+from ssspy_tpu_torch.ops import cacgmm_steps, fast_mnmf_steps, ipsdta_steps, prox_steps
 from ssspy_tpu_torch.ops.ilrma_steps import ilrma_ip_step, ilrma_iss_step, ilrma_loss
 from ssspy_tpu_torch.ops.mnmf_steps import (
     gauss_mnmf_loss,
@@ -225,6 +262,16 @@ IPSDTA_EPS = 1e-10  # the IPSDTA step's floor and ridge, class and fast path
 # the hard scenario of tests/test_hard_fidelity.py:352-400 and its pin (tests/fidelity_pins.json:36)
 HARD_N_FFT, HARD_HOP, HARD_BLOCKS, HARD_BASIS, HARD_ITER, HARD_SEED = 512, 256, 16, 2, 5, 29
 HARD_PIN_DB, HARD_PIN_TOL_DB = -11.41965, 0.1
+FAST_MNMF_CHANNELS, FAST_MNMF_BASIS = 4, 4  # bench.py:230-252: the first 4 channels, n_basis = 4
+N_ITER_CACGMM_PLAIN_RATE = 10  # the plain Jacobi eigh takes ~60 ms, twice per EM step
+# the hard tier of tests/test_hard_fidelity.py:67, :252-283 and :448-493 and its pins (tests/fidelity_pins.json)
+HARD_TIER_N_FFT, HARD_TIER_HOP = 4096, 1024
+HARD_CACGMM_ITER, HARD_CACGMM_SEED, HARD_CACGMM_PIN_DB, HARD_CACGMM_TOL_DB = 50, 3, -1.088889, 0.1
+HARD_FAST_MNMF_ITER, HARD_FAST_MNMF_SEED, HARD_FAST_MNMF_BASIS = 40, 23, 4
+HARD_FAST_MNMF_PIN_DB, HARD_FAST_MNMF_TOL_DB = -5.776799, 0.5
+ROUTE_LOSS_TOL = 1e-6  # a complex128 class on the card's plain routes against the same class on the CPU
+ROUTE_ITER = 10
+WAVE_TOL = 1e-4  # a waveform entry point against stft -> the spectrogram path -> istft on the same card
 
 # the card's peaks for the bound: NVIDIA H100 SXM data sheet, at 700 W
 HBM_BYTES_PER_S = 3.35e12
@@ -484,6 +531,28 @@ def model_traces_bound(N, I, T, m):
 # ---- the paths' helpers ----------------------------------------------------------------
 
 
+def cacgmm_start(rng, n_channels, n_bins, device, n_sources=None):
+    """``(alpha (N, I), B (N, I, M, M))``: ``fast_cacgmm``'s start from ``rng``, float32 and complex64 on ``device``."""
+    n_sources = n_channels if n_sources is None else n_sources
+    alpha = rng.random((n_sources, n_bins))
+    B_diag = rng.random((n_sources, n_bins, n_channels))
+    B = (B_diag / B_diag.sum(axis=-1, keepdims=True))[..., None] * np.eye(n_channels)
+    return (torch.from_numpy((alpha / alpha.sum(axis=0)).astype(np.float32)).to(device),
+            torch.from_numpy(B.astype(np.float32)).to(device=device, dtype=torch.complex64))
+
+
+class FixedRng:
+    """Hands out fixed draws in order, as tests/test_hard_fidelity.py:469-476 does for ``fast_gauss_mnmf``."""
+
+    def __init__(self, *draws):
+        self.draws = list(draws)
+
+    def random(self, shape):
+        value = self.draws.pop(0)
+        check(value.shape == tuple(shape), f"fixed draw {value.shape} for {tuple(shape)}")
+        return value
+
+
 def fast_varphi(Y):
     """``fast_auxiva``'s Laplace weight ``(N, T)``."""
     return 1.0 / torch.clamp(torch.linalg.vector_norm(Y, dim=1), min=FAST_EPS)
@@ -724,6 +793,7 @@ def profiled_us(fn, kernel: str, n_runs: int = N_TIMED, attempts: int = 3):
 
 def main() -> None:
     # ---- 1. device ----------------------------------------------------------
+    started = time.perf_counter()
     if not torch.cuda.is_available():
         fail("torch.cuda.is_available() is False: this script needs an NVIDIA GPU")
     device = torch.device("cuda", 0)
@@ -1231,6 +1301,38 @@ def main() -> None:
     n_model = A_model.shape[0]
     hold_eigh(f"eigh model's R, first {EIGH_SLICE}", A_model, slice(0, EIGH_SLICE), accuracy=False)
     hold_eigh(f"eigh model's R, last {EIGH_SLICE}", A_model, slice(n_model - EIGH_SLICE, n_model), accuracy=False)
+
+    # ---- 4i. K1, K1b and K7 at the shapes of FastGaussMNMF and cACGMM -------------------------
+    # FastGaussMNMF's diagonalizer update in its third iteration from fast_gauss_mnmf's draws (4 channels): K1
+    # with per-channel weights (M, I, T) = (4, 257, 626) and K1b at M = 4, its warp variant; cACGMM's E-step and
+    # M-step embedded pencils in its third EM iteration from fast_cacgmm's draws: K7 at (N I, 2M, 2M) = (2056, 16, 16)
+    X4 = X[:FAST_MNMF_CHANNELS].contiguous()
+    M4 = FAST_MNMF_CHANNELS
+    _, (T_f, V_f, Q_f, D_f) = fast_gauss_mnmf(X4, n_basis=FAST_MNMF_BASIS, n_iter=2, rng=np.random.default_rng(0))
+    diagonalizer_inputs = []
+    with recording(fast_mnmf_steps, "covariance", lambda X_in, phi: diagonalizer_inputs.append(phi)), recording(
+            fast_mnmf_steps, "ip1_update", lambda W_in, U_in, **kw: diagonalizer_inputs.append((W_in, U_in))):
+        fast_mnmf_steps.fast_gauss_mnmf_step(X4, Q_f, T_f, V_f, D_f)
+    phi_mnmf, (Q_in, U_in) = diagonalizer_inputs
+    check(tuple(phi_mnmf.shape) == (M4, I, T) and tuple(U_in.shape) == (I, M4, M4, M4),
+          f"FastGaussMNMF diagonalizer inputs {tuple(phi_mnmf.shape)}, {tuple(U_in.shape)}")
+    phi_mnmf, Q_in, U_in = phi_mnmf.contiguous(), Q_in.contiguous(), U_in.contiguous()
+    errors["weighted_covariance"] = max(errors["weighted_covariance"],
+                                        hold_wcov("per-channel (M,I,T), FastGaussMNMF", X4, phi_mnmf))
+    errors["ip1_sweep"] = max(errors["ip1_sweep"], hold_ip1("FastGaussMNMF diagonalizer", Q_in, U_in, (), "warp"))
+
+    Z8 = X / torch.clamp(torch.linalg.vector_norm(X, dim=0), min=1e-10)
+    cacgmm_state = cacgmm_start(np.random.default_rng(0), M, I, device)
+    for _ in range(2):
+        cacgmm_state = cacgmm_steps.step(Z8, *cacgmm_state)
+    cacgmm_eighs = []
+    with recording_jacobi(cacgmm_eighs, keep=True):
+        cacgmm_steps.step(Z8, *cacgmm_state)
+    A_estep, A_mstep = cacgmm_eighs
+    check(tuple(A_estep.shape) == tuple(A_mstep.shape) == (M * I, 2 * M, 2 * M),
+          f"cACGMM pencils {tuple(A_estep.shape)}, {tuple(A_mstep.shape)}")
+    hold_eigh("cACGMM E-step pencil", A_estep, accuracy=False)
+    hold_eigh("cACGMM M-step projection", A_mstep, accuracy=False)
     errors["jacobi_eigh"] = eigh_abs
 
     # ---- 5. main path: AuxIVA-IP1 -------------------------------------------------
@@ -1607,6 +1709,173 @@ def main() -> None:
           f"hard tier: K3 sizes {sorted(set(k3_sizes))}, eigh sizes {sorted(set(eigh_sizes))}")
     check(abs(hard_db - HARD_PIN_DB) <= HARD_PIN_TOL_DB, f"hard tier: {hard_db:.5f} dB against the pin {HARD_PIN_DB}")
 
+    # ---- 5f. FastGaussMNMF (4 channels): K1 with per-channel weights and K1b, once each per iteration ----------
+    def fast_mnmf_paths():
+        method = FastGaussMNMF(n_basis=FAST_MNMF_BASIS, rng=np.random.default_rng(0))
+        Y_class = method(X4, n_iter=N_ITER)
+        return method, Y_class, fast_gauss_mnmf(X4, n_basis=FAST_MNMF_BASIS, n_iter=N_ITER, rng=np.random.default_rng(0))
+
+    def fast_mnmf_loss_of(factors):
+        T_, V_, Q_, D_ = factors
+        return float(fast_mnmf_steps.fast_gauss_mnmf_loss(X4, Q_, T_, V_, D_))
+
+    label = f"FastGaussMNMF ({M4} ch)"
+    method, Y_class, (Y_fast, factors) = drive(label, fast_mnmf_paths, ("weighted_covariance", "ip1_sweep"), totals,
+                                               least=2 * N_ITER, exact=True)
+    plain_method, Y_class_plain, (Y_fast_plain, factors_plain) = run_plain(fast_mnmf_paths)
+    same = bool(torch.equal(Y_class, Y_fast)) and all(
+        torch.equal(a, b) for a, b in zip((method.basis, method.activation, method.diagonalizer, method.spatial), factors))
+    say("path vs fast path", path=repr("FastGaussMNMF"), equal=same, max_abs_diff=float((Y_class - Y_fast).abs().max()))
+    check(same, "FastGaussMNMF differs from fast_gauss_mnmf from the same draws")
+    hold_class(f"{label} class", method, Y_class, plain_method, Y_class_plain)
+    hold(f"fast_gauss_mnmf ({M4} ch)", Y_fast, Y_fast_plain, fast_mnmf_loss_of(factors), fast_mnmf_loss_of(factors_plain),
+         loss_first=method.loss[0])
+
+    # ---- 5g. cACGMM (8 channels): K7 on the E-step's and the M-step's pencils, twice per iteration --------------
+    # the class (posterior-score alignment, a loss per iteration: three K7 launches an iteration and one for the
+    # last posterior) and the fast path (amplitude-correlation alignment: two an iteration and one)
+    def cacgmm_paths():
+        method = CACGMM(rng=np.random.default_rng(0))
+        Y_class = method(X, n_iter=N_ITER)
+        return method, Y_class, fast_cacgmm(X, n_iter=N_ITER, rng=np.random.default_rng(0))
+
+    cacgmm_uses = {"jacobi_eigh": (3 * N_ITER + 2) + (2 * N_ITER + 1)}
+    batches.clear()
+    with recording_jacobi(batches):
+        method, Y_class, Y_fast = drive("cACGMM (8 ch)", cacgmm_paths, cacgmm_uses, totals, exact=True)
+    check(set(batches) == {M * I}, f"cACGMM: K7 batches {sorted(set(batches))}, expected {M * I}")
+    start = time.perf_counter()
+    plain_method, Y_class_plain, Y_fast_plain = run_plain(cacgmm_paths)
+    say("path", path=repr("cACGMM, plain versions"), seconds=f"{time.perf_counter() - start:.3f}")
+    hold_class("CACGMM class", method, Y_class, plain_method, Y_class_plain)
+    hold_sdr("fast_cacgmm", Y_fast, Y_fast_plain)
+    check(tuple(Y_fast.shape) == (M, I, T), f"fast_cacgmm output {tuple(Y_fast.shape)}")
+
+    def cacgmm_unaligned(**kw):
+        gmm = CACGMM(rng=np.random.default_rng(0), permutation_alignment=False, **kw)
+        return gmm, gmm(X, n_iter=N_ITER)
+
+    gmm, Y_unaligned = cacgmm_unaligned()
+    same = bool(torch.equal(Y_unaligned, fast_cacgmm(X, n_iter=N_ITER, permutation_alignment=False,
+                                                     rng=np.random.default_rng(0))))
+    say("path vs fast path", path=repr("CACGMM, unaligned"), equal=same, loss_last=gmm.loss[-1],
+        aligned_class_loss_last=method.loss[-1])
+    check(same, "CACGMM differs from fast_cacgmm from the same draws")
+    # the masks with TF32 allowed, against full float32 (the path itself keeps it off)
+    torch.backends.cuda.matmul.allow_tf32 = True
+    gmm_tf32, _ = cacgmm_unaligned(record_loss=False)
+    torch.backends.cuda.matmul.allow_tf32 = False
+    tf32_rel_l2 = float(torch.linalg.vector_norm(gmm_tf32.posterior - gmm.posterior) / torch.linalg.vector_norm(gmm.posterior))
+    say("precision", path=repr("cACGMM masks, 100 EM iterations"), tf32_vs_full_f32_rel_l2=tf32_rel_l2,
+        matmul_allow_tf32=torch.backends.cuda.matmul.allow_tf32)
+    for label, kw in (("CACGMM(impl='chol')", dict(impl="chol")),
+                      ("CACGMM(covariance_impl='kernel')", dict(covariance_impl="kernel"))):
+        uses = {"weighted_covariance": N_ITER, "jacobi_eigh": 3 * N_ITER + 2} if "kernel" in label else {}
+        gmm_route, Y_route = drive(label, lambda: cacgmm_unaligned(**kw), uses, totals, exact=True)
+        say("path", path=repr(label), loss_first=gmm_route.loss[0], loss_last=gmm_route.loss[-1],
+            loss_rel_diff_to_eigh=abs(gmm_route.loss[-1] - gmm.loss[-1]) / abs(gmm.loss[-1]),
+            min_si_sdr_db_vs_eigh=min_si_sdr(Y_route, Y_unaligned))
+        check(all_finite(Y_route) and gmm_route.loss[-1] < gmm_route.loss[0], f"{label}: non-finite or no descent")
+
+    # ---- 5h. the hard tier of FastGaussMNMF and cACGMM (4 channels, STFT 4096/1024) ----------------------------
+    X_wide = stft(hard_mix, n_fft=HARD_TIER_N_FFT, hop_length=HARD_TIER_HOP)  # complex128
+    wide_M, wide_I, wide_T = X_wide.shape
+
+    def quality(Y):
+        y = istft(Y.to(torch.complex128), n_fft=HARD_TIER_N_FFT, hop_length=HARD_TIER_HOP, length=images.shape[-1])
+        return best_permutation_si_sdr(y.cpu().numpy(), images[:, 0])
+
+    Y_hard = drive("fast_cacgmm, hard tier", lambda: fast_cacgmm(X_wide, n_iter=HARD_CACGMM_ITER,
+                                                                rng=np.random.default_rng(HARD_CACGMM_SEED)),
+                   {"jacobi_eigh": 2 * HARD_CACGMM_ITER + 1}, totals, exact=True)
+    hard_db = quality(Y_hard)
+    say("path", path=repr("fast_cacgmm, hard tier"), shape=tuple(X_wide.shape), si_sdr_db=hard_db,
+        pin_db=HARD_CACGMM_PIN_DB, tol_db=HARD_CACGMM_TOL_DB)
+    check(all_finite(Y_hard) and abs(hard_db - HARD_CACGMM_PIN_DB) <= HARD_CACGMM_TOL_DB,
+          f"fast_cacgmm hard tier: {hard_db:.5f} dB against the pin {HARD_CACGMM_PIN_DB}")
+
+    draws = np.random.default_rng(HARD_FAST_MNMF_SEED)
+    hard_draws = (draws.random((wide_M, wide_I, HARD_FAST_MNMF_BASIS)), draws.random((wide_M, HARD_FAST_MNMF_BASIS, wide_T)),
+                  draws.random((wide_I, wide_M, wide_M)))
+    Y_hard, f32_factors = drive("fast_gauss_mnmf, hard tier", lambda: fast_gauss_mnmf(
+        X_wide, n_basis=HARD_FAST_MNMF_BASIS, n_iter=HARD_FAST_MNMF_ITER, rng=FixedRng(*hard_draws)),
+        ("weighted_covariance", "ip1_sweep"), totals, least=HARD_FAST_MNMF_ITER, exact=True)
+    f32_db = quality(Y_hard)
+    # once more in complex128 (the class: the plain routes, the reference's floor 1e-10)
+    f64 = FastGaussMNMF(n_basis=HARD_FAST_MNMF_BASIS, rng=FixedRng(*hard_draws), record_loss=False)
+    Y_f64 = drive("FastGaussMNMF complex128, hard tier", lambda: f64(X_wide, n_iter=HARD_FAST_MNMF_ITER), {}, totals,
+                  exact=True)
+    f64_db = quality(Y_f64)
+    T32, V32, Q32, D32 = (a.to(torch.complex128 if a.is_complex() else torch.float64) for a in f32_factors)
+    T64, V64, Q64, D64 = f64.basis, f64.activation, f64.diagonalizer, f64.spatial
+    # the gap carried by T and V: separate with the float32 run's T and V and the complex128 run's Q and D
+    tv32_db = quality(fast_mnmf_steps.fast_mnmf_separate(X_wide, T32, V32, Q64, D64))
+    qd32_db = quality(fast_mnmf_steps.fast_mnmf_separate(X_wide, T64, V64, Q32, D32))
+
+    def rel_l2(a, b):
+        return float(torch.linalg.vector_norm(a - b) / torch.linalg.vector_norm(b))
+
+    say("path", path=repr("fast_gauss_mnmf, hard tier"), shape=tuple(X_wide.shape), si_sdr_db=f32_db,
+        pin_db=HARD_FAST_MNMF_PIN_DB, tol_db=HARD_FAST_MNMF_TOL_DB, complex128_si_sdr_db=f64_db,
+        float32_gap_db=f32_db - f64_db, f32_T_V_with_f64_Q_D_db=tv32_db, f64_T_V_with_f32_Q_D_db=qd32_db,
+        share_of_gap_in_T_V=(tv32_db - f64_db) / (f32_db - f64_db) if f32_db != f64_db else None,
+        T_rel_l2=rel_l2(T32, T64), V_rel_l2=rel_l2(V32, V64), Q_rel_l2=rel_l2(Q32, Q64), D_rel_l2=rel_l2(D32, D64))
+    check(all_finite(Y_hard, Y_f64) and abs(f32_db - HARD_FAST_MNMF_PIN_DB) <= HARD_FAST_MNMF_TOL_DB,
+          f"fast_gauss_mnmf hard tier: {f32_db:.5f} dB against the pin {HARD_FAST_MNMF_PIN_DB}")
+
+    # ---- 5i. the routers on the card: complex128 classes, a float64 waveform, 18 channels --------------------
+    X128 = stft(wave[:4, : 2 * 16000].to(torch.float64), n_fft=N_FFT, hop_length=HOP)
+    for label, make in (
+        ("AuxLaplaceIVA(IP1)", lambda device: AuxLaplaceIVA(spatial_algorithm="IP", device=device)),
+        ("GaussILRMA(ISS1)", lambda device: GaussILRMA(n_basis=2, spatial_algorithm="ISS1",
+                                                       rng=np.random.default_rng(0), device=device)),
+        ("AuxLaplaceIVA(IPA)", lambda device: AuxLaplaceIVA(spatial_algorithm="IPA", device=device)),
+    ):
+        card_method = make(device)
+        Y = drive(f"{label}, complex128", lambda: card_method(X128, n_iter=ROUTE_ITER), {}, totals, exact=True)
+        host_method = make("cpu")
+        host_method(X128.cpu(), n_iter=ROUTE_ITER)
+        rel = abs(card_method.loss[-1] - host_method.loss[-1]) / abs(host_method.loss[-1])
+        say("route", path=repr(f"{label}, complex128"), shape=tuple(X128.shape), route=repr("plain versions"),
+            loss=card_method.loss[-1], cpu_loss=host_method.loss[-1], loss_rel_diff=rel, tol=ROUTE_LOSS_TOL)
+        check(all_finite(Y) and Y.dtype == torch.complex128 and rel <= ROUTE_LOSS_TOL, f"{label} complex128: {rel}")
+    wave64 = wave[:4, : 2 * 16000].cpu().numpy().astype(np.float64)
+    y_route = drive("separate (float64 waveform), GaussILRMA-ISS1", lambda: separate_waveform(
+        wave64, GaussILRMA(n_basis=2, spatial_algorithm="ISS1", rng=np.random.default_rng(0)), n_iter=ROUTE_ITER,
+        n_fft=N_FFT, hop_length=HOP), {}, totals, exact=True)
+    say("route", path=repr("separate (float64 waveform), GaussILRMA-ISS1"), dtype=y_route.dtype,
+        route=repr("plain versions (complex128)"))
+    check(all_finite(y_route) and y_route.dtype == torch.float64 and tuple(y_route.shape) == wave64.shape,
+          "separate on a float64 waveform")
+    wave18 = torch.from_numpy(make_mixture(seed=1, n_channels=18, duration_s=2.0)).to(device=device, dtype=torch.float32)
+    X18 = stft(wave18, n_fft=N_FFT, hop_length=HOP)
+    Y18, W18 = drive("fast_auxiva(IP1), 18 channels",
+                     lambda: fast_auxiva(X18, n_iter=ROUTE_ITER, scale_restoration=False),
+                     {"weighted_covariance": ROUTE_ITER}, totals, exact=True)
+    loss_first = float(iva_laplace_loss(X18, torch.eye(18, dtype=X18.dtype, device=device).expand(X18.shape[1], -1, -1)))
+    loss_last = float(iva_laplace_loss(X18, W18))
+    say("route", path=repr("fast_auxiva(IP1), 18 channels"), shape=tuple(X18.shape),
+        route=repr("K1 kernel; IP1 sweep plain (K1b takes M <= 17)"), k1b_takes=K.ip1_sweep_takes(18),
+        loss_first=loss_first, loss_last=loss_last)
+    check(all_finite(Y18, W18) and loss_last < loss_first, "fast_auxiva, 18 channels: non-finite or no descent")
+
+    # ---- 5j. the waveform entry points against the spectrogram path between the transforms ------------------
+    for label, entry, spectrogram_path, uses in (
+        ("fast_auxiva_wave(IP1)", lambda: fast_auxiva_wave(wave, n_iter=N_ITER, n_fft=N_FFT, hop_length=HOP),
+         lambda X_in: fast_auxiva(X_in, n_iter=N_ITER)[0], ("weighted_covariance", "ip1_sweep")),
+        ("fast_gauss_ilrma_wave(IP1)", lambda: fast_gauss_ilrma_wave(wave, n_basis=N_BASIS, n_iter=N_ITER, n_fft=N_FFT,
+                                                                     hop_length=HOP, rng=np.random.default_rng(0)),
+         lambda X_in: fast_gauss_ilrma(X_in, n_basis=N_BASIS, n_iter=N_ITER, rng=np.random.default_rng(0))[0],
+         ("weighted_covariance", "ip1_sweep")),
+    ):
+        y = drive(label, entry, uses, totals)
+        y_ref = istft(spectrogram_path(stft(wave, n_fft=N_FFT, hop_length=HOP)), n_fft=N_FFT, hop_length=HOP,
+                      length=wave.shape[-1])
+        rel = relative_error(y, y_ref)
+        say("path vs spectrogram path", path=repr(label), shape=tuple(y.shape), device=y.device, rel_err=rel, tol=WAVE_TOL)
+        check(all_finite(y) and tuple(y.shape) == tuple(wave.shape) and y.is_cuda and rel <= WAVE_TOL,
+              f"{label}: {rel} from the spectrogram path")
+
     # ---- 6. times --------------------------------------------------------------
     U_main = K.weighted_covariance(X, phi_scalar)
     phi_c, phi_bins_c, X_conj = phi_scalar.to(X.dtype), phi_bins.to(X.dtype), X.conj().resolve_conj()
@@ -1710,6 +1979,27 @@ def main() -> None:
             lambda: torch.linalg.inv_ex(R_ipsdta[0]),
             gj_inverse_bound(R_ipsdta[0].numel() // 16, 4),
         ),
+        "weighted_covariance FastGaussMNMF": (
+            "per-channel (M,I,T), FastGaussMNMF (4,257,626)",
+            lambda: K.weighted_covariance(X4, phi_mnmf),
+            lambda: K.weighted_covariance_plain(X4, phi_mnmf),
+            lambda: torch.einsum("nit,pit,qit->inpq", phi_mnmf.to(X4.dtype), X4, X4.conj().resolve_conj()),
+            wcov_bound(M4, I, T, M4, per_bin=True),
+        ),
+        "ip1_sweep FastGaussMNMF": (
+            "FastGaussMNMF diagonalizer (257,4,4)",
+            lambda: K.ip1_sweep(Q_in, U_in),
+            lambda: K.ip1_sweep_plain(Q_in, U_in, solve_impl="lu"),
+            None,
+            ip1_bound(I, M4, M4),
+        ),
+        "jacobi_eigh cACGMM": (
+            "cACGMM E-step pencil (2056,16,16)",
+            lambda: K.jacobi_eigh(A_estep),
+            lambda: K.jacobi_eigh_plain(A_estep),
+            lambda: eigh_in_batches(A_estep),
+            jacobi_bound(*A_estep.shape[:2]),
+        ),
         "ipa_congruence": (
             "a sweep's last round (257,8,8,8)",
             lambda: K.ipa_congruence(T_sweep, U_sweep, G_sweep),
@@ -1757,6 +2047,14 @@ def main() -> None:
         profiler_us_per_launch=long_us, profiler_events=f"{events_seen}/{events_made}")
 
     # iterations per second of each path's fast-path step: plain, kernels, kernels, plain
+    def fast_mnmf_start():
+        """``(Q, T, V, D)``: ``fast_gauss_mnmf``'s start from ``default_rng(0)`` on the 4 channels."""
+        draws = np.random.default_rng(0)
+        T_, V_ = draws.random((M4, I, FAST_MNMF_BASIS)), draws.random((M4, FAST_MNMF_BASIS, T))
+        D_ = np.maximum(draws.random((I, M4, M4)), 1e-10)
+        return (torch.eye(M4, dtype=X.dtype, device=device).expand(I, -1, -1).contiguous(),
+                *(torch.from_numpy(a.astype(np.float32)).to(device) for a in (T_, V_, D_)))
+
     T0 = torch.from_numpy(rng.random((M, I, N_BASIS), dtype=np.float32)).to(device)
     V0 = torch.from_numpy(rng.random((M, N_BASIS, T), dtype=np.float32)).to(device)
     steps = {
@@ -1776,6 +2074,12 @@ def main() -> None:
                                  (T_start, V_start, H_start)),
         "GaussIPSDTA": (lambda s: ipsdta_steps.ipsdta_vcd_step(X, *s, eps=IPSDTA_EPS), ipsdta_start()),
         "TIPSDTA": (lambda s: ipsdta_steps.ipsdta_vcd_step(X, *s, dof=IPSDTA_DOF, eps=IPSDTA_EPS), ipsdta_start()),
+        "FastGaussMNMF 4ch": (lambda s: fast_mnmf_steps.fast_gauss_mnmf_step(X4, *s), fast_mnmf_start()),
+        "cACGMM": (lambda s: cacgmm_steps.step(Z8, *s), cacgmm_start(np.random.default_rng(0), M, I, device)),
+        "cACGMM chol": (lambda s: cacgmm_steps.step(Z8, *s, impl="chol"),
+                        cacgmm_start(np.random.default_rng(0), M, I, device)),
+        "cACGMM K1 covariance": (lambda s: cacgmm_steps.step(Z8, *s, covariance_impl="kernel"),
+                                 cacgmm_start(np.random.default_rng(0), M, I, device)),
     }
     XX_eigh = instant_covariance(X, eps=MNMF_EPS, psd_impl="eigh")
     # (kernel, plain) chained steps where the default N_ITER of each would take too long
@@ -1786,6 +2090,8 @@ def main() -> None:
         "GaussMNMF-dense eigh": (N_ITER_MNMF_EIGH_RATE, N_ITER_MNMF_EIGH_RATE),
         "GaussIPSDTA": (N_ITER_IPSDTA, N_ITER_IPSDTA_PLAIN_RATE),
         "TIPSDTA": (N_ITER_IPSDTA, N_ITER_IPSDTA_PLAIN_RATE),
+        "cACGMM": (N_ITER, N_ITER_CACGMM_PLAIN_RATE),
+        "cACGMM K1 covariance": (N_ITER, N_ITER_CACGMM_PLAIN_RATE),
     }
     rates = {}
     for label, (step, state) in steps.items():
@@ -1796,7 +2102,8 @@ def main() -> None:
         with plain_versions():
             plain_b = iterations_per_s(step, state, n_plain)
         rates[label] = statistics.mean((kernel_a, kernel_b))
-        say("time", path=repr(f"{label} 8ch 10s, {n_kernel} chained fast-path steps"), card=repr(card),
+        say("time", path=repr(f"{label}{'' if label.endswith('ch') else ' 8ch'} 10s, {n_kernel} chained fast-path steps"),
+            card=repr(card),
             kernels_iters_per_s=(kernel_a, kernel_b), plain_iters_per_s=(plain_a, plain_b), plain_steps=n_plain)
 
     # the VCD sweeps of one IPSDTA iteration alone (PyTorch operations, no
@@ -1843,6 +2150,7 @@ def main() -> None:
             kernel_shares=repr({name: round(share, 4) for name, share in shares.items() if share}),
             top=repr([(name[:48], round(us, 3)) for name, us in top]), **extra)
 
+    say("done", card=repr(card), seconds=f"{time.perf_counter() - started:.1f}")
     summary = [
         {
             "name": name,

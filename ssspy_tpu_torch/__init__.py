@@ -13,8 +13,13 @@ API and :func:`fast.fast_gauss_ilrma`, :func:`fast.fast_t_ilrma`,
 HVA and ADMMIVA (class API, the PDS/ADMM base classes and
 :func:`fast.fast_pds_iva`, :func:`fast.fast_hva`,
 :func:`fast.fast_admm_iva`); dense GaussMNMF (class API and
-:func:`fast.fast_gauss_mnmf_dense`); STFT/iSTFT, projection back, minimal
-distortion principle and the waveform-to-waveform :func:`separate`. Every
+:func:`fast.fast_gauss_mnmf_dense`); IPSDTA (class API and
+:func:`fast.fast_gauss_ipsdta`, :func:`fast.fast_t_ipsdta`); FastGaussMNMF
+(class API and :func:`fast.fast_gauss_mnmf`); cACGMM (class API and
+:func:`fast.fast_cacgmm`) with the permutation solvers; STFT/iSTFT,
+projection back, minimal distortion principle, the waveform-to-waveform
+:func:`separate`, :func:`fast.fast_auxiva_wave` and
+:func:`fast.fast_gauss_ilrma_wave`. Every
 entry point runs on the card unless the caller passes ``device="cpu"``.
 """
 

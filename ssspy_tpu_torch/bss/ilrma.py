@@ -7,8 +7,8 @@ source model (MM or ME updates, optionally the shared-basis
 ``"ISS"``/``"ISS1"`` or, for ``GaussILRMA``, ``"IPA"`` (demix-free), and
 power or projection-back normalization. One iteration is
 ``source model -> spatial model -> normalization``; the spatial update
-goes through the kernel wrappers of :mod:`ssspy_tpu_torch.ops.kernels`
-(the weighted covariance with per-bin weights and the IP1 sweep, the
+goes through the routers of :mod:`ssspy_tpu_torch.ops.iva_steps` to the
+kernels (the weighted covariance with per-bin weights and the IP1 sweep, the
 ISS1 sweep, or the IPA sweep of :mod:`ssspy_tpu_torch.ops.ipa_steps`).
 IP2 and ISS2 are not ported yet (ROADMAP.md, Queue 1, item 5).
 """
@@ -18,7 +18,6 @@ from typing import Callable, List, Optional, Union
 import numpy as np
 import torch
 
-from ..ops import kernels
 from ..ops.ilrma_steps import (
     ilrma_mm_core,
     ilrma_mm_core_partitioning,
@@ -28,7 +27,7 @@ from ..ops.ilrma_steps import (
     reconstruct_nmf,
 )
 from ..ops.ipa_steps import ipa_sweep
-from ..ops.iva_steps import clogabsdet, ls_demix
+from ..ops.iva_steps import clogabsdet, covariance, ip1_update, iss1_update, ls_demix
 from ..ops.iva_steps import separate as _separate
 from ..special.flooring import identity, sweep_eps
 from ..utils.device import DEFAULT_DEVICE
@@ -219,12 +218,11 @@ class ILRMABase(SeparatorBase):
                 model, Y2, R, p, params.get("nu"), params.get("beta"), flooring_fn
             )
             if uses_demix_filter:
-                U = kernels.weighted_covariance(state["X"], varphi)
-                state["W"] = kernels.ip1_sweep(state["W"], U, eps=eps)
+                state["W"] = ip1_update(state["W"], covariance(state["X"], varphi), eps=eps)
             elif uses_ipa:
                 state["Y"] = ipa_sweep(state["Y"], varphi, eps=eps, **ipa)
             else:
-                state["Y"] = kernels.iss1_sweep(state["Y"], varphi, eps=eps)
+                state["Y"] = iss1_update(state["Y"], varphi, eps=eps)
             return normalize(state)
 
         return step

@@ -6,17 +6,18 @@ with ``spatial_algorithm="IP"``/``"IP1"`` (demixing filters),
 ``"ISS"``/``"ISS1"`` and ``"IPA"`` (demix-free: the state is the separated
 spectrogram), ``AuxLaplaceIVA``, and the proximal-splitting factories
 ``PDSIVA`` and ``ADMMIVA``. The separator runs on its ``device`` (the card
-by default); its step goes through the same kernel wrappers as the
-``fast_*`` entry points of :mod:`ssspy_tpu_torch.fast` (``ops.kernels``).
+by default); its step goes through the same routers as the ``fast_*``
+entry points of :mod:`ssspy_tpu_torch.fast` (``ops.iva_steps.covariance``,
+``ip1_update`` and ``iss1_update``), which send complex64 to the kernels
+and complex128 to their plain versions.
 """
 
 from typing import Callable, List, Optional, Union
 
 import torch
 
-from ..ops import kernels
 from ..ops.ipa_steps import ipa_sweep
-from ..ops.iva_steps import ls_demix
+from ..ops.iva_steps import covariance, ip1_update, iss1_update, ls_demix
 from ..ops.iva_steps import separate as _separate
 from ..special.flooring import sweep_eps
 from ..utils.device import DEFAULT_DEVICE
@@ -147,7 +148,8 @@ class AuxIVA(AuxIVABase):
     sweep of :func:`ssspy_tpu_torch.ops.ipa_steps.ipa_sweep`, with the
     keywords ``lqpqm_normalization`` (default True) and ``newton_iter``
     (default 1), which no other spatial algorithm takes. All through the
-    kernel wrappers of :mod:`ssspy_tpu_torch.ops.kernels`. IP2 and ISS2 are
+    routers of :mod:`ssspy_tpu_torch.ops.iva_steps` and
+    :mod:`ssspy_tpu_torch.ops.ipa_steps`. IP2 and ISS2 are
     not ported yet (ROADMAP.md, Queue 1, item 5).
     """
 
@@ -216,8 +218,8 @@ class AuxIVA(AuxIVABase):
 
             def step(state):
                 X, W = state["X"], state["W"]
-                U = kernels.weighted_covariance(X, varphi_of(_separate(X, W)))
-                return {**state, "W": kernels.ip1_sweep(W, U, eps=eps)}
+                U = covariance(X, varphi_of(_separate(X, W)))
+                return {**state, "W": ip1_update(W, U, eps=eps)}
 
         elif self.spatial_algorithm == "IPA":
             lqpqm_normalization, newton_iter = self.lqpqm_normalization, self.newton_iter
@@ -233,7 +235,7 @@ class AuxIVA(AuxIVABase):
 
             def step(state):
                 Y = state["Y"]
-                return {**state, "Y": kernels.iss1_sweep(Y, varphi_of(Y), eps=eps)}
+                return {**state, "Y": iss1_update(Y, varphi_of(Y), eps=eps)}
 
         return step
 

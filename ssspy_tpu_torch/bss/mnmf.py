@@ -1,4 +1,4 @@
-"""Multichannel NMF with dense spatial covariances: ``MNMFBase``, ``MNMF`` and ``GaussMNMF``.
+"""Multichannel NMF: ``MNMFBase``, ``MNMF`` and ``GaussMNMF`` (dense spatial covariances), ``FastMNMFBase`` and ``FastGaussMNMF``.
 
 Counterpart of :mod:`ssspy_tpu.bss.mnmf` (parity target
 ssspy/bss/mnmf.py:21-1073) for the full-rank spatial-covariance model: per
@@ -8,8 +8,14 @@ covariance ``H_n``, the sources are separated by the multichannel Wiener
 filter, and there is no demixing matrix. One iteration is
 :func:`ssspy_tpu_torch.ops.mnmf_steps.gauss_mnmf_step`, whose routes follow
 the input's dtype: complex64 runs the fused model pass K5 and the Jacobi
-eigh K7, complex128 the reference's eigh model. FastGaussMNMF is not ported
-yet (ROADMAP.md, Queue 1).
+eigh K7, complex128 the reference's eigh model.
+
+FastGaussMNMF (parity target ssspy/bss/mnmf.py:1076-1675) jointly
+diagonalizes the spatial covariances, ``R_n = Q^-1 diag(Lamb_n d_n) Q^-H``:
+one iteration is
+:func:`ssspy_tpu_torch.ops.fast_mnmf_steps.fast_gauss_mnmf_step`, whose
+diagonalizer update runs the weighted covariance K1 and the IP1 sweep K1b
+in complex64 and their plain versions in complex128.
 """
 
 from typing import Callable, List, Optional, Union
@@ -17,13 +23,14 @@ from typing import Callable, List, Optional, Union
 import numpy as np
 import torch
 
+from ..ops.fast_mnmf_steps import check_diagonalizer, fast_gauss_mnmf_loss, fast_gauss_mnmf_step, fast_mnmf_separate
 from ..ops.ilrma_steps import reconstruct_nmf
 from ..ops.mnmf_steps import _model, gauss_mnmf_loss, gauss_mnmf_step, instant_covariance, wiener_separate
-from ..special.flooring import EPS, dtype_flooring, resolve_flooring_spec, sweep_eps
+from ..special.flooring import EPS, F32_EPS, dtype_flooring, resolve_flooring_spec, sweep_eps
 from ..utils.device import DEFAULT_DEVICE
 from .base import IterativeMethodBase, config_repr
 
-__all__ = ["MNMFBase", "MNMF", "GaussMNMF"]
+__all__ = ["MNMFBase", "MNMF", "GaussMNMF", "FastMNMFBase", "FastGaussMNMF"]
 
 
 def mnmf_eps(flooring_fn: Callable) -> float:
@@ -94,12 +101,7 @@ class MNMFBase(IterativeMethodBase):
         if self.n_sources is None:
             self.n_sources = n_channels
         self.n_channels, self.n_bins, self.n_frames = n_channels, n_bins, n_frames
-        self._init_instant_covariance()
         self._init_nmf()
-
-    def _init_instant_covariance(self) -> None:
-        """``XX[i,t] = x x^H``, projected as the step projects (parity: ssspy/bss/mnmf.py:167-188)."""
-        self.instant_covariance = instant_covariance(self.input, eps=mnmf_eps(self.flooring_fn))
 
     def _init_nmf(self) -> None:
         """Random NMF factors where none is set (ssspy_tpu/bss/mnmf.py:215-252)."""
@@ -138,6 +140,14 @@ class MNMF(MNMFBase):
     ``spatial`` starts at ``I / M`` for every source and bin, or from the
     warm start ``spatial=``.
     """
+
+    def _reset(self, **kwargs) -> None:
+        super()._reset(**kwargs)
+        self._init_instant_covariance()
+
+    def _init_instant_covariance(self) -> None:
+        """``XX[i,t] = x x^H``, projected as the step projects (parity: ssspy/bss/mnmf.py:167-188)."""
+        self.instant_covariance = instant_covariance(self.input, eps=mnmf_eps(self.flooring_fn))
 
     def _init_nmf(self) -> None:
         super()._init_nmf()
@@ -207,5 +217,140 @@ class GaussMNMF(MNMF):
 
         def loss(state):
             return gauss_mnmf_loss(state["XX"], state["T"], state["V"], state["H"], Z=state.get("Z"), eps=eps)
+
+        return loss
+
+
+class FastMNMFBase(MNMFBase):
+    """Base of FastMNMF (parity: ssspy/bss/mnmf.py:417-678): a diagonalizer per bin and diagonal loadings.
+
+    The start, where no warm start is set, is drawn in the JAX class's order
+    (ssspy_tpu/bss/mnmf.py:573-584): the basis ``(N, I, K)``, the activation
+    ``(N, K, T)``, then the loadings ``spatial (I, N, M)``; the diagonalizer
+    starts at the identity. complex128 floors each draw with ``flooring_fn``,
+    as the JAX complex class does; complex64 starts as
+    :func:`ssspy_tpu_torch.fast.fast_gauss_mnmf` and the JAX class's float32
+    engine do (ssspy_tpu/bss/mnmf.py:805-833): the basis and activation as
+    drawn, the loadings floored at 1e-10, all cast to float32. Warm start
+    through ``basis=``, ``activation=``, ``diagonalizer=`` and ``spatial=``.
+    """
+
+    def _init_nmf(self) -> None:
+        real, device = self.input.real.dtype, self.input.device
+        shapes = {
+            "basis": (self.n_sources, self.n_bins, self.n_basis),
+            "activation": (self.n_sources, self.n_basis, self.n_frames),
+            "spatial": (self.n_bins, self.n_sources, self.n_channels),
+        }
+        for name, shape in shapes.items():
+            if hasattr(self, name):
+                value = getattr(self, name).to(dtype=real).contiguous().clone()
+            else:
+                draw = self.rng.random(shape)
+                if real == torch.float32:
+                    draw = np.maximum(draw, 1e-10) if name == "spatial" else draw
+                    value = torch.from_numpy(draw.astype(np.float32)).to(device)
+                else:
+                    value = self.flooring_fn(torch.as_tensor(draw, dtype=real, device=device))
+            setattr(self, name, value)
+        if hasattr(self, "diagonalizer"):
+            Q = self.diagonalizer.to(dtype=self.input.dtype).contiguous().clone()
+        else:
+            Q = torch.eye(self.n_channels, dtype=self.input.dtype, device=device)
+            Q = Q.expand(self.n_bins, -1, -1).contiguous()
+        self.diagonalizer = Q
+
+
+class FastGaussMNMF(FastMNMFBase):
+    """FastMNMF with joint diagonalization (parity: ssspy/bss/mnmf.py:1076-1675).
+
+    The dense covariances become ``R_n = Q^-1 diag(Lamb_n d_n) Q^-H``; ``Q``
+    is updated by IP1 over per-channel weighted covariances. One iteration
+    is :func:`~ssspy_tpu_torch.ops.fast_mnmf_steps.fast_gauss_mnmf_step` at
+    the ``eps`` of ``flooring_fn`` (1e-10 in complex128 and 1e-6 in
+    complex64 under ``"dtype"``, the float32 engine's floor), so that in
+    complex64 the class equals :func:`ssspy_tpu_torch.fast.fast_gauss_mnmf`
+    from the same draws. ``separate`` is the Wiener filter in the
+    diagonalized space, on the device
+    (:func:`~ssspy_tpu_torch.ops.fast_mnmf_steps.fast_mnmf_separate`).
+    ``diagonalizer_algorithm="IP2"`` (and its ``pair_selector``) is not
+    ported yet and raises; ``partitioning`` is not supported, as in the
+    reference.
+    """
+
+    def __init__(
+        self,
+        n_basis: int,
+        n_sources: Optional[int] = None,
+        diagonalizer_algorithm: str = "IP",
+        partitioning: bool = False,
+        flooring_fn: Union[str, Callable, None] = "dtype",
+        pair_selector: Optional[Callable] = None,
+        callbacks: Optional[Union[Callable, List[Callable]]] = None,
+        normalization: bool = True,
+        record_loss: bool = True,
+        reference_id: int = 0,
+        rng: Optional[np.random.Generator] = None,
+        device=DEFAULT_DEVICE,
+    ) -> None:
+        check_diagonalizer(diagonalizer_algorithm)
+        if partitioning:
+            raise ValueError("partitioning function is not supported.")
+        super().__init__(
+            n_basis, n_sources=n_sources, partitioning=partitioning, flooring_fn=flooring_fn, callbacks=callbacks,
+            normalization=normalization, record_loss=record_loss, reference_id=reference_id, rng=rng, device=device,
+        )
+        self.diagonalizer_algorithm = diagonalizer_algorithm
+        self.pair_selector = pair_selector
+
+    def __repr__(self) -> str:
+        keys = ["n_basis"]
+        if self.n_sources is not None:
+            keys += ["n_sources"]
+        if hasattr(self, "n_channels"):
+            keys += ["n_channels"]
+        keys += ["diagonalizer_algorithm", "partitioning", "record_loss", "reference_id"]
+        return config_repr(self, "FastGaussMNMF", keys)
+
+    def _eps(self) -> float:
+        """The step's floor: ``flooring_fn``'s eps, and in complex64 at least 1e-6 (ssspy_tpu/bss/_sc_engine.py:68-86)."""
+        eps = sweep_eps(self.flooring_fn, self.input.dtype)
+        return max(eps, F32_EPS) if self.input.dtype == torch.complex64 else eps
+
+    # ---- state plumbing ----------------------------------------------------
+
+    def init_state(self):
+        return {"X": self.input, "T": self.basis, "V": self.activation, "Q": self.diagonalizer, "D": self.spatial}
+
+    def commit_state(self, state) -> None:
+        self._state = state
+        self.basis, self.activation = state["T"], state["V"]
+        self.diagonalizer, self.spatial = state["Q"], state["D"]
+
+    def separate(self, input):
+        """Wiener filter in the diagonalized space, reference channel row (parity: ssspy/bss/mnmf.py:1174-1217)."""
+        X = torch.as_tensor(input, device=self.input.device)
+        return fast_mnmf_separate(X, self.basis, self.activation, self.diagonalizer, self.spatial,
+                                  reference_id=self.reference_id)
+
+    # ---- one iteration and the loss -------------------------------------------
+
+    def make_step(self):
+        eps, normalization, algorithm = self._eps(), bool(self.normalization), self.diagonalizer_algorithm
+
+        def step(state):
+            Q, T, V, D = fast_gauss_mnmf_step(
+                state["X"], state["Q"], state["T"], state["V"], state["D"], eps=eps, normalization=normalization,
+                diagonalizer=algorithm,
+            )
+            return {**state, "Q": Q, "T": T, "V": V, "D": D}
+
+        return step
+
+    def make_loss(self):
+        eps = self._eps()
+
+        def loss(state):
+            return fast_gauss_mnmf_loss(state["X"], state["Q"], state["T"], state["V"], state["D"], eps=eps)
 
         return loss

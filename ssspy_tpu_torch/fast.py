@@ -12,6 +12,9 @@ on complex64 tensors through the hand-written kernels
 >>> from ssspy_tpu_torch.bss import PDSIVA
 >>> Y, W = fast_pds_iva(PDSIVA().normalize_by_spectral_norm(spectrogram), n_iter=100)
 >>> Y, (T, V, H) = fast_gauss_mnmf_dense(spectrogram, n_basis=8, n_iter=100)
+>>> Y, (T, V, Q, D) = fast_gauss_mnmf(spectrogram, n_basis=4, n_iter=100)
+>>> Y = fast_cacgmm(spectrogram, n_iter=100)                        # (N, I, T)
+>>> y = fast_auxiva_wave(waveform, n_iter=100)                       # (N, n_samples)
 >>> Y, (T_parts, V), W = fast_gauss_ipsdta(spectrogram, n_basis=8, n_blocks=64, n_iter=100)
 """
 
@@ -20,16 +23,21 @@ from typing import Optional, Tuple
 import numpy as np
 import torch
 
-from .algorithm import projection_back
+from .algorithm import permutation_align, projection_back
+from .ops import cacgmm_steps
+from .ops.fast_mnmf_steps import check_diagonalizer, fast_gauss_mnmf_step, fast_mnmf_separate
 from .ops.ilrma_steps import ilrma_ip_step, ilrma_iss_step
 from .ops.ipsdta_steps import ipsdta_vcd_step, normalize_psdtf, part_shapes, random_psdtf
 from .ops.iva_steps import auxiva_ip1_step, auxiva_ipa_step, auxiva_iss1_step, separate
 from .ops.mnmf_steps import gauss_mnmf_step, instant_covariance, wiener_separate
 from .ops.prox_steps import admm_iva_step, admm_quad_inv, hva_pds_step, pds_iva_step
+from .transform import istft, stft
 from .utils.device import DEFAULT_DEVICE, resolve_device
 
 __all__ = [
     "fast_auxiva",
+    "fast_auxiva_wave",
+    "fast_gauss_ilrma_wave",
     "fast_gauss_ilrma",
     "fast_t_ilrma",
     "fast_ggd_ilrma",
@@ -37,6 +45,8 @@ __all__ = [
     "fast_admm_iva",
     "fast_hva",
     "fast_gauss_mnmf_dense",
+    "fast_gauss_mnmf",
+    "fast_cacgmm",
     "fast_gauss_ipsdta",
     "fast_t_ipsdta",
 ]
@@ -110,6 +120,61 @@ def fast_auxiva(
     if scale_restoration:
         Y = projection_back(Y, reference=X, reference_id=reference_id)
     return Y, None
+
+
+def _wave(waveform, n_fft: int, hop_length: Optional[int], device):
+    """``(x, X, hop)``: the waveform as float32 ``(n_channels, n_samples)`` on ``device`` and its STFT, complex64."""
+    x = torch.as_tensor(waveform, device=resolve_device(device)).to(torch.float32)
+    if x.dim() != 2:
+        raise ValueError("waveform must be (n_channels, n_samples)")
+    hop = n_fft // 2 if hop_length is None else hop_length
+    return x, stft(x, n_fft=n_fft, hop_length=hop).contiguous(), hop
+
+
+def fast_auxiva_wave(
+    waveform,
+    n_iter: int = 100,
+    algorithm: str = "IP1",
+    n_fft: int = 512,
+    hop_length: Optional[int] = None,
+    device=DEFAULT_DEVICE,
+) -> torch.Tensor:
+    """Waveform-to-waveform AuxLaplaceIVA in complex64 (fast.py:770-848), end to end on ``device``.
+
+    ``waveform``: real ``(n_channels, n_samples)``, a tensor or an array,
+    taken as float32. The STFT (cuFFT on the card), :func:`fast_auxiva`'s
+    iterations (``"IP1"``, ``"ISS1"`` or ``"IPA"``, through the kernels'
+    routers), projection back onto channel 0 and the iSTFT all run on
+    ``device``: nothing crosses to the host before the output. Returns the
+    separated waveforms ``(n_sources, n_samples)``, float32.
+    """
+    _check_algorithm("fast_auxiva_wave", algorithm)
+    x, X, hop = _wave(waveform, n_fft, hop_length, device)
+    Y, _ = fast_auxiva(X, n_iter=n_iter, algorithm=algorithm, device=X.device)
+    return istft(Y, n_fft=n_fft, hop_length=hop, length=x.shape[-1])
+
+
+def fast_gauss_ilrma_wave(
+    waveform,
+    n_basis: int,
+    n_iter: int = 100,
+    algorithm: str = "IP1",
+    n_fft: int = 512,
+    hop_length: Optional[int] = None,
+    rng: Optional[np.random.Generator] = None,
+    device=DEFAULT_DEVICE,
+) -> torch.Tensor:
+    """Waveform-to-waveform GaussILRMA (MM, power normalization) in complex64 (fast.py:1017-1123), end to end on ``device``.
+
+    The ILRMA twin of :func:`fast_auxiva_wave`: ``algorithm`` ``"IP1"`` or
+    ``"ISS1"``; ``rng`` draws the basis, then the activation, at the
+    STFT's shape, as the JAX package does. Returns ``(n_sources,
+    n_samples)``, float32.
+    """
+    _check_algorithm("fast_gauss_ilrma_wave", algorithm, ("IP1", "ISS1"))
+    x, X, hop = _wave(waveform, n_fft, hop_length, device)
+    Y, _, _ = fast_gauss_ilrma(X, n_basis=n_basis, n_iter=n_iter, algorithm=algorithm, rng=rng, device=X.device)
+    return istft(Y, n_fft=n_fft, hop_length=hop, length=x.shape[-1])
 
 
 def _fast_ilrma(
@@ -346,6 +411,89 @@ def fast_gauss_mnmf_dense(
     for _ in range(n_iter):
         T, V, H = gauss_mnmf_step(XX, T, V, H)
     return wiener_separate(X, T @ V, H, reference_id=reference_id), (T, V, H)
+
+
+def fast_gauss_mnmf(
+    spectrogram,
+    n_basis: int,
+    n_iter: int = 100,
+    n_sources: Optional[int] = None,
+    diagonalizer_algorithm: str = "IP1",
+    reference_id: int = 0,
+    rng: Optional[np.random.Generator] = None,
+    device=DEFAULT_DEVICE,
+):
+    """FastGaussMNMF (jointly diagonalized spatial model) in complex64 (fast.py:708-768).
+
+    Draws ``T0``, then ``V0`` as ``rng.random(...)`` and ``D0`` as
+    ``max(rng.random(...), 1e-10)``, all in float32, and starts from ``Q0 =
+    I``, as the JAX package does. ``n_iter`` steps of
+    :func:`~ssspy_tpu_torch.ops.fast_mnmf_steps.fast_gauss_mnmf_step` at
+    ``eps = 1e-6`` (one launch each of the weighted covariance K1, with
+    per-channel weights, and of the IP1 sweep K1b per step), then the Wiener
+    filter in the diagonalized space at ``reference_id``
+    (:func:`~ssspy_tpu_torch.ops.fast_mnmf_steps.fast_mnmf_separate`), all on
+    ``device``, where the JAX package runs the filter on the host. The IP2
+    diagonalizer is not ported yet and raises. Returns
+    ``(separated (N, I, T), (T, V, Q, D))``.
+    """
+    check_diagonalizer(diagonalizer_algorithm)
+    X = _spectrogram(spectrogram, device)
+    n_channels, n_bins, n_frames = X.shape
+    n_sources = n_channels if n_sources is None else n_sources
+    rng = np.random.default_rng() if rng is None else rng
+    T = rng.random((n_sources, n_bins, n_basis))
+    V = rng.random((n_sources, n_basis, n_frames))
+    D = np.maximum(rng.random((n_bins, n_sources, n_channels)), 1e-10)
+    T, V, D = (torch.from_numpy(draw.astype(np.float32)).to(X.device) for draw in (T, V, D))
+    Q = _identity_filters(X)
+    for _ in range(n_iter):
+        Q, T, V, D = fast_gauss_mnmf_step(X, Q, T, V, D, diagonalizer=diagonalizer_algorithm)
+    return fast_mnmf_separate(X, T, V, Q, D, reference_id=reference_id), (T, V, Q, D)
+
+
+def fast_cacgmm(
+    spectrogram,
+    n_iter: int = 100,
+    n_sources: Optional[int] = None,
+    permutation_alignment: bool = True,
+    reference_id: int = 0,
+    rng: Optional[np.random.Generator] = None,
+    device=DEFAULT_DEVICE,
+) -> torch.Tensor:
+    """cACGMM in complex64 (fast.py:1124-1174): EM, posterior masks and their alignment, on ``device``.
+
+    The observations are the mixture over its norm across channels (floored
+    at 1e-10). Draws the mixing weights ``(N, I)``, normalized over
+    sources, then the covariances' diagonals ``(N, I, M)``, normalized over
+    channels, as the JAX package does; ``n_sources`` may exceed the number
+    of channels. ``n_iter`` EM steps of
+    :func:`~ssspy_tpu_torch.ops.cacgmm_steps.step` at ``eps = 1e-10`` (the
+    embedded eigh K7 twice per step; the class :class:`~ssspy_tpu_torch.bss.CACGMM`
+    also takes the step's other routes), the posterior of the final parameters, the soft masks applied
+    to the ``reference_id`` channel and, with ``permutation_alignment``, the
+    masked spectrograms aligned by amplitude correlation
+    (:func:`~ssspy_tpu_torch.algorithm.permutation_alignment.permutation_align`),
+    where the JAX package aligns on the host. Returns the separated
+    spectrograms ``(n_sources, n_bins, n_frames)``.
+    """
+    X = _spectrogram(spectrogram, device)
+    n_channels, n_bins, _ = X.shape
+    n_sources = n_channels if n_sources is None else n_sources
+    rng = np.random.default_rng() if rng is None else rng
+    Z = X / torch.clamp(torch.linalg.vector_norm(X, dim=0), min=1e-10)
+    alpha = rng.random((n_sources, n_bins))
+    B_diag = rng.random((n_sources, n_bins, n_channels))
+    B = (B_diag / B_diag.sum(axis=-1, keepdims=True))[..., None] * np.eye(n_channels)
+    alpha = torch.from_numpy((alpha / alpha.sum(axis=0)).astype(np.float32)).to(X.device)
+    B = torch.from_numpy(B.astype(np.float32)).to(device=X.device, dtype=X.dtype)
+    for _ in range(n_iter):
+        alpha, B = cacgmm_steps.step(Z, alpha, B)
+    gamma = cacgmm_steps.posterior(Z, alpha, B)
+    Y = gamma.to(X.dtype) * X[reference_id]  # (N, I, T)
+    if permutation_alignment:
+        Y = permutation_align(Y.transpose(0, 1)).transpose(0, 1)
+    return Y
 
 
 def fast_gauss_ipsdta(

@@ -1,0 +1,137 @@
+"""FastGaussMNMF (jointly diagonalized spatial model) on native complex tensors: the iteration, its loss and the Wiener filter.
+
+Counterparts of ``ssspy_tpu/ops/splitc.py``'s ``fast_gauss_mnmf_step_sc``
+(:2389-2475) and ``fast_gauss_mnmf_loss_sc`` (:4334-4351), and of the
+Wiener filter of ``ssspy_tpu/fast.py:752-767`` (parity:
+ssspy/bss/mnmf.py:1076-1675). Each source's spatial covariance is
+``R_n = Q^-1 diag(Lamb_n d_n) Q^-H`` with one diagonalizer ``Q (I, M, M)``
+per bin, NMF powers ``Lamb_n = T_n V_n`` and diagonal loadings
+``D (I, N, M)``. Apart from the projection ``QX`` (one complex ``Q @ X``
+per bin) and the diagonalizer's IP1 sweep, the iteration is real
+arithmetic on the powers ``|QX|^2``.
+
+The diagonalizer update is the per-channel weighted covariance with
+weights ``1 / (Lamb D)`` of shape ``(M, I, T)`` and the IP1 sweep, through
+the routers :func:`~ssspy_tpu_torch.ops.iva_steps.covariance` (K1) and
+:func:`~ssspy_tpu_torch.ops.iva_steps.ip1_update` (K1b): the kernels in
+complex64, their plain versions in complex128 and past the kernels' sizes.
+The IP2 diagonalizer is not ported yet (ROADMAP.md, Queue 1, item 5).
+"""
+
+from typing import Tuple
+
+import torch
+
+from .iva_steps import clogabsdet, covariance, ip1_update
+
+__all__ = ["DIAGONALIZERS", "fast_gauss_mnmf_step", "fast_gauss_mnmf_loss", "fast_mnmf_separate"]
+
+DIAGONALIZERS = ("IP", "IP1", "IP2")
+
+
+def check_diagonalizer(diagonalizer: str) -> None:
+    """Raise for an unknown diagonalizer update, and for IP2 (not ported yet)."""
+    if diagonalizer not in DIAGONALIZERS:
+        raise ValueError(f"unsupported option: {diagonalizer}.")
+    if diagonalizer == "IP2":
+        raise NotImplementedError(
+            "the IP2 diagonalizer is not ported to ssspy_tpu_torch yet (ROADMAP.md, Queue 1, item 5); use 'IP1'."
+        )
+
+
+def _powers(Xb: torch.Tensor, Q: torch.Tensor) -> torch.Tensor:
+    """``|QX|^2`` as ``(I, T, M)``, ``Xb`` the mixture as ``(I, M, T)``."""
+    QX = Q @ Xb
+    return (QX.real**2 + QX.imag**2).transpose(-2, -1)
+
+
+def _model(T, V, D, eps):
+    """``(Lamb (N, I, T), LambD (I, T, M))``: the NMF powers and ``sum_n Lamb_n d_n``, each floored at ``eps``."""
+    Lamb = torch.clamp(T @ V, min=eps)
+    return Lamb, torch.clamp(torch.einsum("nit,inm->itm", Lamb, D), min=eps)
+
+
+def _mm_terms(QX2, LambD, Db):
+    """``(sum_m d QX2 / LambD^2, sum_m d / LambD)``, each ``(N, I, T)``: the numerator and denominator of the NMF MM updates."""
+    return (torch.einsum("nim,itm->nit", Db, QX2 / LambD**2), torch.einsum("nim,itm->nit", Db, 1 / LambD))
+
+
+def fast_gauss_mnmf_step(
+    X: torch.Tensor,
+    Q: torch.Tensor,
+    T: torch.Tensor,
+    V: torch.Tensor,
+    D: torch.Tensor,
+    eps: float = 1e-6,
+    normalization: bool = True,
+    diagonalizer: str = "IP1",
+) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor, torch.Tensor]:
+    """One FastGaussMNMF iteration; returns ``(Q, T, V, D)``.
+
+    ``X``: mixture ``(M, I, T)``; ``Q``: diagonalizer ``(I, M, M)``; ``T``:
+    basis ``(N, I, K)``; ``V``: activation ``(N, K, T)``; ``D``: loadings
+    ``(I, N, M)``, real. The basis, then the activation MM update
+    (``max(., eps)``, the denominator floored at 1e-30 so that a silent bin
+    gives no 0/0), the diagonalizer's IP1 sweep over the per-channel
+    weighted covariances ``mean_t x x^H / max(Lamb D, eps)``, the loadings'
+    MM update and, with ``normalization``, the power normalization of ``Q``
+    and ``D`` by ``psi_m = max(sqrt(mean |QX_m|^2), eps)``.
+    """
+    check_diagonalizer(diagonalizer)
+    Xb = X.transpose(0, 1)  # (I, M, T)
+    Db = D.transpose(0, 1)  # (N, I, M)
+
+    QX2 = _powers(Xb, Q)
+    _, LambD = _model(T, V, D, eps)
+    num, denom = _mm_terms(QX2, LambD, Db)
+    T = torch.clamp(T * torch.sqrt(torch.einsum("nkt,nit->nik", V, num) / torch.clamp(
+        torch.einsum("nkt,nit->nik", V, denom), min=1e-30)), min=eps)
+
+    _, LambD = _model(T, V, D, eps)
+    num, denom = _mm_terms(QX2, LambD, Db)
+    V = torch.clamp(V * torch.sqrt(torch.einsum("nik,nit->nkt", T, num) / torch.clamp(
+        torch.einsum("nik,nit->nkt", T, denom), min=1e-30)), min=eps)
+
+    Lamb = torch.clamp(T @ V, min=eps)
+    varphi = 1 / torch.clamp(torch.einsum("nit,inm->mit", Lamb, D), min=eps)  # (M, I, T)
+    Q = ip1_update(Q, covariance(X, varphi), eps=eps)
+
+    QX2 = _powers(Xb, Q)
+    Lamb, LambD = _model(T, V, D, eps)
+    Lambb = Lamb.transpose(0, 1)  # (I, N, T)
+    num = torch.einsum("int,itm->inm", Lambb, QX2 / LambD**2)
+    denom = torch.einsum("int,itm->inm", Lambb, 1 / LambD)
+    D = torch.sqrt(num / denom) * D
+
+    if normalization:
+        psi = torch.clamp(torch.sqrt(torch.mean(_powers(Xb, Q), dim=(0, 1))), min=eps)  # (M,)
+        Q = Q / psi[None, :, None]
+        D = D / psi**2
+    return Q, T, V, D
+
+
+def fast_gauss_mnmf_loss(X, Q, T, V, D, eps: float = 1e-6) -> torch.Tensor:
+    """FastGaussMNMF negative log-likelihood, a 0-dim tensor on the input's device.
+
+    ``sum_i [mean_t sum_m (|QX|^2 / LambD + log LambD) - 2 log|det Q_i|]``
+    with ``LambD`` floored at ``eps``.
+    """
+    _, LambD = _model(T, V, D, eps)
+    value = torch.sum(_powers(X.transpose(0, 1), Q) / LambD + torch.log(LambD), dim=-1)  # (I, T)
+    return torch.sum(torch.mean(value, dim=-1) - 2 * clogabsdet(Q))
+
+
+def fast_mnmf_separate(X, T, V, Q, D, reference_id: int = 0, eps: float = 1e-10) -> torch.Tensor:
+    """The multichannel Wiener filter in the diagonalized space, at ``reference_id``: ``(N, I, T)``.
+
+    ``Q^-1`` by ``inv_ex``; ``R_n = Q^-1 diag(Lamb_n d_n) Q^-H`` with
+    ``Lamb`` floored at ``eps``; ``W_n = R^-1 R_n`` by ``solve_ex``; the
+    reference row of ``W_n^H`` applied to ``X``. On the input's device.
+    """
+    Lamb = torch.clamp(T @ V, min=eps)  # (N, I, T)
+    Q_inv = torch.linalg.inv_ex(Q)[0]  # (I, M, M)
+    LambD = torch.einsum("nit,nim->nitm", Lamb, D.transpose(0, 1)).to(X.dtype)
+    R_n = torch.einsum("ipm,nitm,iqm->nitpq", Q_inv, LambD, Q_inv.conj())
+    W = torch.linalg.solve_ex(R_n.sum(dim=0)[None], R_n)[0]
+    W_ref = W.transpose(-2, -1).conj()[..., reference_id, :]  # (N, I, T, M)
+    return torch.einsum("nitm,mit->nit", W_ref, X)

@@ -5,10 +5,10 @@ Counterparts of the generic ILRMA engine in ``ssspy_tpu/ops/splitc.py``
 on native complex tensors. The NMF products ``T @ V`` and the
 multiplicative-update contractions are plain matrix products, as in the
 JAX package, where they stay outside any Pallas kernel. The spatial update
-goes through the kernels of :mod:`ssspy_tpu_torch.ops.kernels`: the
-weighted covariance with per-bin weights ``(N, I, T)`` and the IP1 sweep,
-the ISS1 sweep, or the IPA sweep of :mod:`ssspy_tpu_torch.ops.ipa_steps`
-(Gauss only).
+goes through the routers of :mod:`ssspy_tpu_torch.ops.iva_steps` to the
+kernels of :mod:`ssspy_tpu_torch.ops.kernels`: the weighted covariance with
+per-bin weights ``(N, I, T)`` and the IP1 sweep, the ISS1 sweep, or the IPA
+sweep of :mod:`ssspy_tpu_torch.ops.ipa_steps` (Gauss only).
 
 ``model`` is ``"gauss"``, ``"t"`` (``dof`` = nu) or ``"ggd"`` (``shape`` =
 beta); ``p`` is the domain parameter; ``me=True`` selects the ME source
@@ -23,9 +23,8 @@ from typing import Callable, Optional, Tuple
 
 import torch
 
-from . import kernels
 from .ipa_steps import ipa_sweep
-from .iva_steps import clogabsdet, ls_demix, separate
+from .iva_steps import clogabsdet, covariance, ip1_update, iss1_update, ls_demix, separate
 
 __all__ = [
     "power",
@@ -249,7 +248,7 @@ def ilrma_ip_step(
     _check_ported(spatial, "IP1")
     Y2 = power(separate(X, W))
     T, V, Z, varphi = _source_model(Y2, T, V, Z, model=model, p=domain, eps=eps, dof=dof, shape=shape, me=me)
-    W = kernels.ip1_sweep(W, kernels.weighted_covariance(X, varphi), eps=eps)
+    W = ip1_update(W, covariance(X, varphi), eps=eps)
     psi, T, Z = _power_normalize(separate(X, W), T, Z, domain, eps)
     return (W / psi[None, :, None], *_factors(T, V, Z))
 
@@ -289,7 +288,7 @@ def ilrma_iss_step(
     if spatial == "IPA":
         Y = ipa_sweep(Y, varphi, eps=eps, lqpqm_normalization=lqpqm_normalization, newton_iter=newton_iter)
     else:
-        Y = kernels.iss1_sweep(Y, varphi, eps=eps)
+        Y = iss1_update(Y, varphi, eps=eps)
     psi, T, Z = _power_normalize(Y, T, Z, domain, eps)
     return (Y / psi[:, None, None], *_factors(T, V, Z))
 

@@ -41,9 +41,10 @@ from ..linalg.lqpqm import _find_largest_root_real, solve_equation
 from ..special.flooring import max_flooring
 from ..special.psd import eigh_in_batches, hermitize, psd_inv, to_psd
 from . import kernels
+from .iva_steps import covariance
 from .prox_steps import herm_eigh_embed
 
-__all__ = ["lqpqm2", "ipa_qp", "ipa_sweep_direct", "ipa_sweep_congruence", "ipa_sweep"]
+__all__ = ["lqpqm2", "ipa_qp", "congruence_round", "ipa_sweep_direct", "ipa_sweep_congruence", "ipa_sweep"]
 
 _F32_REL = 1e-6  # relative ridge of the float32 sweep (splitc.py:1792-1793)
 
@@ -181,7 +182,20 @@ def ipa_qp(
 
 def _covariance_stack(Y: torch.Tensor, varphi: torch.Tensor) -> torch.Tensor:
     """``U[i, s] = mean_t varphi[s, (i,) t] y_it y_it^H``, hermitized: ``(I, S, N, N)``."""
-    return hermitize(kernels.weighted_covariance(Y, varphi))
+    return hermitize(covariance(Y, varphi))
+
+
+def congruence_round(T: torch.Tensor, U: torch.Tensor, G: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
+    """``(T U[s] T^H for every s, T G)`` per bin, routed by dtype and shape.
+
+    K6 (:func:`~ssspy_tpu_torch.ops.kernels.ipa_congruence`) for complex64
+    with ``N, S <= 16``
+    (:func:`~ssspy_tpu_torch.ops.kernels.ipa_congruence_takes`);
+    :func:`~ssspy_tpu_torch.ops.kernels.ipa_congruence_plain` otherwise.
+    """
+    if T.dtype == U.dtype == G.dtype == torch.complex64 and kernels.ipa_congruence_takes(U.shape[-1], U.shape[1]):
+        return kernels.ipa_congruence(T.contiguous(), U.contiguous(), G.contiguous())
+    return kernels.ipa_congruence_plain(T, U, G)
 
 
 def _reference_lqpqm2(H, v, z, eps, max_iter):
@@ -249,12 +263,12 @@ def ipa_sweep_congruence(
     as ``U[s] <- T_n U[s] T_n^H`` with no pass over the spectrogram:
 
     - the full stack ``(I, S, N, N)`` once, by the weighted covariance
-      kernel (:func:`~ssspy_tpu_torch.ops.kernels.weighted_covariance`),
+      (:func:`~ssspy_tpu_torch.ops.iva_steps.covariance`: the kernel K1),
       hermitized;
     - per source: the ridge ``eps + rel tr(U[s]) / N`` from the stack's own
       trace, ``a`` and ``b`` as entries of the stack, the ridged inverse
       (``inv_ex``), :func:`ipa_qp`, ``T_n`` by two rank-one terms, the
-      congruence round (:func:`~ssspy_tpu_torch.ops.kernels.ipa_congruence`),
+      congruence round (:func:`congruence_round`: the kernel K6),
       and the stack hermitized again against rounding drift;
     - one ``Y <- G Y`` with the accumulated ``G = T_{N-1} ... T_0``.
 
@@ -293,7 +307,7 @@ def ipa_sweep_congruence(
             + _insert(q.conj(), n, 0.0)[:, :, None] * e_n
             + e_n[:, None] * p.conj()[:, None, :]
         )
-        U, G = kernels.ipa_congruence(T_n.contiguous(), U.contiguous(), G)
+        U, G = congruence_round(T_n, U, G)
         U = hermitize(U)
 
     return torch.einsum("inm,mit->nit", G, Y).contiguous()

@@ -4,6 +4,15 @@ Counterparts of the split-complex functions in ``ssspy_tpu/ops/splitc.py``;
 the port carries complex tensors, so the ``[real, imag]`` planes and the
 ``_sc`` suffix are gone. The kernels are looked up on
 :mod:`ssspy_tpu_torch.ops.kernels` at each call.
+
+Three of them are reached only through a router of this module, which
+chooses by dtype and shape before any launch, on every device alike:
+:func:`covariance` (K1), :func:`ip1_update` (K1b) and :func:`iss1_update`
+(K2). complex64 within the kernel's sizes goes to the kernel wrapper (the
+kernel on the card, its plain version on the CPU); complex128, and any
+size the kernel does not take, goes to the plain version on the same
+device. No kernel failure is caught: a wrapper still refuses what its
+kernel does not take, and only the routers decide.
 """
 
 from typing import Optional
@@ -13,6 +22,9 @@ import torch
 from . import kernels
 
 __all__ = [
+    "covariance",
+    "ip1_update",
+    "iss1_update",
     "separate",
     "auxiva_ip1_step",
     "auxiva_iss1_step",
@@ -33,6 +45,62 @@ def separate(X: torch.Tensor, W: torch.Tensor) -> torch.Tensor:
     return torch.einsum("inm,mit->nit", W, X).contiguous()
 
 
+def covariance(X: torch.Tensor, varphi: torch.Tensor) -> torch.Tensor:
+    """``U[i,n] = mean_t varphi[n,(i),t] x_it x_it^H``, ``(I, N, M, M)``, routed by dtype and shape.
+
+    K1 (:func:`~ssspy_tpu_torch.ops.kernels.weighted_covariance`) for
+    complex64 ``X`` with float32 weights within
+    :func:`~ssspy_tpu_torch.ops.kernels.weighted_covariance_takes` (``N M
+    (M + 1) / 2 <= 8,192``); the einsum
+    (:func:`~ssspy_tpu_torch.ops.kernels.weighted_covariance_plain`)
+    otherwise, as the JAX package falls back by shape
+    (pallas_kernels.py:167-177).
+    """
+    if (
+        X.dtype == torch.complex64
+        and varphi.dtype == torch.float32
+        and kernels.weighted_covariance_takes(X.shape[0], varphi.shape[0])
+    ):
+        return kernels.weighted_covariance(X.contiguous(), varphi.contiguous())
+    return kernels.weighted_covariance_plain(X, varphi)
+
+
+def ip1_update(W: torch.Tensor, U: torch.Tensor, eps: float = 1e-10) -> torch.Tensor:
+    """The sequential IP1 sweep of ``W (I, N, M)`` over ``U (I, N, M, M)``, routed by dtype and shape.
+
+    K1b (:func:`~ssspy_tpu_torch.ops.kernels.ip1_sweep`) for complex64 with
+    ``N = M <= 17`` (:func:`~ssspy_tpu_torch.ops.kernels.ip1_sweep_takes`);
+    :func:`~ssspy_tpu_torch.ops.kernels.ip1_sweep_plain` with its ``"lu"``
+    solve (``solve_ex``) otherwise, the route the CPU classes meet the
+    fixtures with.
+    """
+    n_sources, n_channels = W.shape[-2:]
+    if (
+        W.dtype == U.dtype == torch.complex64
+        and n_sources == n_channels
+        and kernels.ip1_sweep_takes(n_channels)
+    ):
+        return kernels.ip1_sweep(W.contiguous(), U.contiguous(), eps=eps)
+    return kernels.ip1_sweep_plain(W, U, eps=eps)
+
+
+def iss1_update(Y: torch.Tensor, varphi: torch.Tensor, eps: float = 1e-10) -> torch.Tensor:
+    """The sequential ISS1 sweep of ``Y (N, I, T)`` with weights ``(N, T)`` or ``(N, I, T)``, routed by dtype and shape.
+
+    K2 (:func:`~ssspy_tpu_torch.ops.kernels.iss1_sweep`) for complex64 ``Y``
+    with float32 weights and ``N <= 16``
+    (:func:`~ssspy_tpu_torch.ops.kernels.iss1_sweep_takes`);
+    :func:`~ssspy_tpu_torch.ops.kernels.iss1_sweep_plain` otherwise.
+    """
+    if (
+        Y.dtype == torch.complex64
+        and varphi.dtype == torch.float32
+        and kernels.iss1_sweep_takes(Y.shape[0])
+    ):
+        return kernels.iss1_sweep(Y.contiguous(), varphi.contiguous(), eps=eps)
+    return kernels.iss1_sweep_plain(Y, varphi, eps=eps)
+
+
 def _laplace_varphi(Y: torch.Tensor, eps: float) -> torch.Tensor:
     """Laplace weight ``1 / max(||y_n(., t)||, eps)`` with the norm over bins: ``(N, T)``."""
     return 1.0 / torch.clamp(torch.linalg.vector_norm(Y, dim=1), min=eps)
@@ -46,8 +114,7 @@ def auxiva_ip1_step(X: torch.Tensor, W: torch.Tensor, eps: float = 1e-10) -> tor
     the weighted covariance, then the IP1 sweep. Counterpart of
     ``splitc.auxiva_ip1_step_sc`` (splitc.py:256-278).
     """
-    U = kernels.weighted_covariance(X, _laplace_varphi(separate(X, W), eps))
-    return kernels.ip1_sweep(W, U, eps=eps)
+    return ip1_update(W, covariance(X, _laplace_varphi(separate(X, W), eps)), eps=eps)
 
 
 def auxiva_iss1_step(Y: torch.Tensor, eps: float = 1e-10) -> torch.Tensor:
@@ -57,7 +124,7 @@ def auxiva_iss1_step(Y: torch.Tensor, eps: float = 1e-10) -> torch.Tensor:
     ISS1 sweep. Counterpart of ``splitc.auxiva_iss1_step_sc``
     (splitc.py:401-411).
     """
-    return kernels.iss1_sweep(Y, _laplace_varphi(Y, eps), eps=eps)
+    return iss1_update(Y, _laplace_varphi(Y, eps), eps=eps)
 
 
 def auxiva_ipa_step(

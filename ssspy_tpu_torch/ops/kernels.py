@@ -40,8 +40,11 @@ its kernel for CUDA tensors, which must be complex64/float32 and
 contiguous; anything else raises. ``<wrapper>.launches`` counts kernel
 launches (never plain calls). Where a kernel takes a bounded size, the
 predicate ``<wrapper>_takes`` says whether it takes a shape, so that a
-caller can choose its route by shape before any launch (the routes are
-listed in PERF.md).
+caller can choose its route by shape before any launch: one named router
+per operation does (``iva_steps.covariance``, ``ip1_update`` and
+``iss1_update``, ``ipa_steps.congruence_round``, ``prox_steps.symm_eigh``,
+``ipsdta_steps.hermitian_inverse``, ``mnmf_steps._inv_sandwich`` and
+``_fused``; PERF.md lists the sizes).
 """
 
 import ctypes
@@ -64,6 +67,7 @@ __all__ = [
     "gauss_jordan_solve_nopivot",
     "iss1_sweep",
     "iss1_sweep_plain",
+    "iss1_sweep_takes",
     "iss1_sweep_resident",
     "iss1_sweep_variant",
     "iss1_sweep_register_warps",
@@ -75,6 +79,7 @@ __all__ = [
     "jacobi_eigh_takes",
     "ipa_congruence",
     "ipa_congruence_plain",
+    "ipa_congruence_takes",
     "gj_inverse",
     "gj_inverse_plain",
     "gj_inverse_takes",
@@ -461,6 +466,11 @@ def iss1_sweep_plain(Y: torch.Tensor, varphi: torch.Tensor, eps: float = 1e-10) 
     return Y
 
 
+def iss1_sweep_takes(n_sources: int) -> bool:
+    """Whether the sweep kernel takes ``N`` sources: ``1 <= N <= 16``, any number of frames."""
+    return 1 <= n_sources <= _ISS1_MAX_SOURCES
+
+
 def iss1_sweep_resident(n_sources: int, n_frames: int, per_bin: bool) -> bool:
     """Whether a bin fits one block's shared memory (the resident variant; else the streamed one).
 
@@ -513,7 +523,7 @@ def _check_iss1_sweep(Y: torch.Tensor, varphi: torch.Tensor) -> None:
     )
     _require(Y.is_contiguous() and varphi.is_contiguous(), f"{name}: inputs must be contiguous")
     _require(min(N, I, T) >= 1, f"{name}: empty input {tuple(Y.shape)}")
-    _require(N <= _ISS1_MAX_SOURCES, f"{name}: N={N} sources exceeds the kernel's {_ISS1_MAX_SOURCES}")
+    _require(iss1_sweep_takes(N), f"{name}: N={N} sources exceeds the kernel's {_ISS1_MAX_SOURCES}")
     _check_cuda(name, Y, varphi)
 
 
@@ -719,6 +729,11 @@ def ipa_congruence_plain(
     return torch.einsum("isnp,iqp->isnq", TU, T.conj()), torch.einsum("inm,imp->inp", T, G)
 
 
+def ipa_congruence_takes(N: int, S: int) -> bool:
+    """Whether the congruence kernel takes ``N`` channels and ``S`` sources per bin: ``1 <= N, S <= 16``."""
+    return 1 <= N <= _IPA_MAX_N and 1 <= S <= _IPA_MAX_N
+
+
 def _check_ipa_congruence(T: torch.Tensor, U: torch.Tensor, G: torch.Tensor) -> None:
     name = "ipa_congruence"
     _require(T.dim() == 3 and T.shape[-1] == T.shape[-2], f"{name}: T must be (I, N, N), got {tuple(T.shape)}")
@@ -738,7 +753,7 @@ def _check_ipa_congruence(T: torch.Tensor, U: torch.Tensor, G: torch.Tensor) -> 
     )
     _require(I >= 1, f"{name}: no bins")
     _require(
-        1 <= N <= _IPA_MAX_N and 1 <= S <= _IPA_MAX_N,
+        ipa_congruence_takes(N, S),
         f"{name}: the kernel takes N, S <= {_IPA_MAX_N}, got N={N}, S={S}",
     )
     _require(I * (S + 1) < 2**31, f"{name}: {I} bins of {S} sources")

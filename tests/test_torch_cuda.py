@@ -621,3 +621,145 @@ def test_vcd_sweep_freezes_only_the_rows_of_a_silent_bin(cuda_device):
     assert torch.isfinite(torch.view_as_real(W)).all()
     assert torch.equal(W[1, 2], W0[1, 2])
     assert not torch.equal(W[1, 1], W0[1, 1]) and not torch.equal(W[0, 2], W0[0, 2])
+
+
+# ---- the routers of K1, K1b, K2 and K6: complex128 and oversized inputs take the plain versions ----------------
+
+
+def _mixture_spectrogram(n_channels, seed, duration_s=0.5, n_fft=256):
+    from ssspy_tpu_torch.utils import host_stft, make_mixture
+
+    return host_stft(make_mixture(seed=seed, n_channels=n_channels, duration_s=duration_s), n_fft=n_fft, hop=n_fft // 2)
+
+
+def _launches():
+    return {name: getattr(K, name).launches for name in ("weighted_covariance", "ip1_sweep", "iss1_sweep", "ipa_congruence")}
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("label", ["AuxIVA-IP1", "GaussILRMA-ISS1", "AuxIVA-IPA"])
+def test_complex128_classes_run_on_the_plain_routes(cuda_device, label):
+    """A complex128 class on the card launches none of the four kernels and ends within 1e-6 of the same class on the CPU."""
+    from ssspy_tpu_torch.bss import AuxLaplaceIVA, GaussILRMA
+
+    def make(device):
+        if label == "GaussILRMA-ISS1":
+            return GaussILRMA(n_basis=2, spatial_algorithm="ISS1", rng=np.random.default_rng(30), device=device)
+        return AuxLaplaceIVA(spatial_algorithm="IPA" if label.endswith("IPA") else "IP", device=device)
+
+    X = torch.from_numpy(_mixture_spectrogram(3, seed=29))
+    before = _launches()
+    card = make("cuda")
+    Y = card(X, n_iter=5)
+    torch.cuda.synchronize()
+    assert _launches() == before
+    host = make("cpu")
+    host(X, n_iter=5)
+    assert Y.device.type == "cuda" and Y.dtype == torch.complex128
+    assert torch.isfinite(torch.view_as_real(Y)).all()
+    assert abs(card.loss[-1] - host.loss[-1]) <= 1e-6 * abs(host.loss[-1])
+
+
+@pytest.mark.cuda
+def test_separate_on_a_float64_waveform_runs_on_the_card(cuda_device):
+    """The pipeline's docstring example: a float64 numpy mixture through GaussILRMA-ISS1, complex128 on the plain route."""
+    from ssspy_tpu_torch import separate
+    from ssspy_tpu_torch.bss import GaussILRMA
+    from ssspy_tpu_torch.utils import make_mixture
+
+    x = make_mixture(seed=31, n_channels=2, duration_s=0.5)
+    before = _launches()
+    y = separate(x, GaussILRMA(n_basis=2, spatial_algorithm="ISS1", rng=np.random.default_rng(32)), n_iter=5)
+    torch.cuda.synchronize()
+    assert _launches() == before
+    assert y.device.type == "cuda" and y.dtype == torch.float64 and tuple(y.shape) == x.shape
+    assert torch.isfinite(y).all()
+
+
+@pytest.mark.cuda
+def test_fast_auxiva_past_the_ip1_limit_takes_the_plain_sweep(cuda_device):
+    """18 channels: K1 takes the covariance, the IP1 sweep (K1b to 17) runs plain."""
+    from ssspy_tpu_torch.fast import fast_auxiva
+
+    X = _mixture_spectrogram(18, seed=33, duration_s=0.3, n_fft=128)
+    before = _launches()
+    Y, W = fast_auxiva(X, n_iter=2)
+    torch.cuda.synchronize()
+    after = {name: count - before[name] for name, count in _launches().items()}
+    assert after == {"weighted_covariance": 2, "ip1_sweep": 0, "iss1_sweep": 0, "ipa_congruence": 0}
+    assert torch.isfinite(torch.view_as_real(Y)).all() and torch.isfinite(torch.view_as_real(W)).all()
+
+
+# ---- FastGaussMNMF and cACGMM -----------------------------------------------------------------
+
+
+@pytest.mark.cuda
+def test_fast_gauss_mnmf_runs_through_k1_and_k1b_and_equals_its_class(cuda_device):
+    from ssspy_tpu_torch.bss import FastGaussMNMF
+    from ssspy_tpu_torch.fast import fast_gauss_mnmf
+
+    X = _mixture_spectrogram(4, seed=34).astype(np.complex64)
+    before = _launches()
+    Y, (T, V, Q, D) = fast_gauss_mnmf(X, n_basis=2, n_iter=5, rng=np.random.default_rng(35))
+    torch.cuda.synchronize()
+    after = {name: count - before[name] for name, count in _launches().items()}
+    assert after == {"weighted_covariance": 5, "ip1_sweep": 5, "iss1_sweep": 0, "ipa_congruence": 0}
+    assert Y.device.type == "cuda" and torch.isfinite(torch.view_as_real(Y)).all()
+    mnmf = FastGaussMNMF(n_basis=2, rng=np.random.default_rng(35))
+    assert torch.equal(mnmf(X, n_iter=5), Y)
+    assert torch.equal(mnmf.diagonalizer, Q) and torch.equal(mnmf.spatial, D)
+
+
+@pytest.mark.cuda
+def test_fast_cacgmm_runs_through_k7_and_equals_its_class(cuda_device):
+    from ssspy_tpu_torch.bss import CACGMM
+    from ssspy_tpu_torch.fast import fast_cacgmm
+
+    X = _mixture_spectrogram(3, seed=36).astype(np.complex64)
+    before = K.jacobi_eigh.launches
+    Y = fast_cacgmm(X, n_iter=5, permutation_alignment=False, rng=np.random.default_rng(37))
+    torch.cuda.synchronize()
+    assert K.jacobi_eigh.launches - before == 2 * 5 + 1
+    gmm = CACGMM(permutation_alignment=False, rng=np.random.default_rng(37))
+    assert torch.equal(gmm(X, n_iter=5), Y)
+    for impl in ("eigh", "chol"):
+        before = K.weighted_covariance.launches
+        Y_route = CACGMM(impl=impl, covariance_impl="kernel", rng=np.random.default_rng(37))(X, n_iter=5)
+        torch.cuda.synchronize()
+        assert K.weighted_covariance.launches - before == 5
+        assert Y_route.device.type == "cuda" and torch.isfinite(torch.view_as_real(Y_route)).all()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("N", [2, 3, 4])
+def test_permutation_solvers_choose_on_the_card_what_they_choose_on_the_cpu(cuda_device, N):
+    from ssspy_tpu_torch.algorithm import (
+        correlation_based_permutation_solver,
+        permutation_align,
+        score_based_permutation_solver,
+    )
+
+    rng = np.random.default_rng(38 + N)
+    env = rng.random((N, 40)) ** 3
+    seq = np.stack([env[rng.permutation(N)] * (1 + 0.3 * rng.random((N, 40))) for _ in range(33)])
+    index = torch.from_numpy(np.tile(np.arange(N), (33, 1)))
+    for solve in (correlation_based_permutation_solver, score_based_permutation_solver, permutation_align):
+        _, on_cpu = solve(torch.from_numpy(seq), index)
+        _, on_card = solve(torch.from_numpy(seq).to(cuda_device), index.to(cuda_device))
+        assert torch.equal(on_card.cpu(), on_cpu)
+
+
+@pytest.mark.cuda
+def test_waveform_entry_points_equal_the_spectrogram_path(cuda_device):
+    from ssspy_tpu_torch.fast import fast_auxiva, fast_auxiva_wave, fast_gauss_ilrma, fast_gauss_ilrma_wave
+    from ssspy_tpu_torch.transform import istft, stft
+    from ssspy_tpu_torch.utils import make_mixture
+
+    x = make_mixture(seed=39, n_channels=2, duration_s=0.5)
+    xt = torch.from_numpy(x).to(cuda_device, torch.float32)
+    y = fast_auxiva_wave(x, n_iter=5)
+    ref = istft(fast_auxiva(stft(xt), n_iter=5)[0], length=x.shape[-1])
+    assert y.device.type == "cuda" and (y - ref).abs().max() <= 1e-4 * ref.abs().max()
+    y = fast_gauss_ilrma_wave(x, n_basis=2, n_iter=5, rng=np.random.default_rng(40))
+    ref = istft(fast_gauss_ilrma(stft(xt), n_basis=2, n_iter=5, rng=np.random.default_rng(40))[0], length=x.shape[-1])
+    assert (y - ref).abs().max() <= 1e-4 * ref.abs().max()
