@@ -91,7 +91,34 @@ calls, on the default device:
   route it took;
 - the waveform entry points ``fast_auxiva_wave`` and
   ``fast_gauss_ilrma_wave`` (IP1), each against ``stft``, the spectrogram
-  path and ``istft`` on the same card.
+  path and ``istft`` on the same card;
+- the pairwise updates: AuxIVA-IP2 and AuxIVA-ISS2 (``AuxLaplaceIVA`` and
+  ``fast_auxiva``) and GaussILRMA-IP2 and GaussILRMA-ISS2 (``n_basis=8``,
+  ``GaussILRMA`` and ``fast_gauss_ilrma``), 100 iterations each: IP2
+  launches the weighted covariance K1 at two sources once a pair (eight
+  times an iteration) in AuxIVA and once an iteration in ILRMA, and never
+  the IP1 sweep K1b; ISS2 launches no kernel;
+- FastIVA and FasterIVA (``FastIVA``/``FasterIVA`` and ``fast_fast_iva``/
+  ``fast_faster_iva``), 100 iterations each: the whitening and the polar
+  factor on the Jacobi eigh K7 (257 x 16 x 16), FasterIVA's per-source
+  covariance on K1 and its top eigenvectors on K7 (2,056 x 16 x 16);
+- GradIVA and NaturalGradIVA (Laplace, holonomic: ``GradLaplaceIVA``,
+  ``NaturalGradLaplaceIVA`` and ``fast_grad_iva``), 100 iterations, no
+  kernel;
+- FastGaussMNMF with the IP2 diagonalizer (4 channels, ``n_basis=4``): K1
+  once an iteration and four pair updates, no K1b;
+- ``NaturalGradLaplaceICA`` on bench.py:370's configuration (the mixture's
+  first two channels, float32, 100 iterations), no kernel, and on
+  ``natural_grad_laplace_ica.npz`` in float64 within its 1e-6.
+
+Each class there runs with the fast path's floor (``flooring_fn="f64"``
+where its floor differs) and must equal its fast path to the bit; each path
+that runs a kernel is held against its plain twin; each path that runs
+none (ISS2, gradient IVA, ICA) is held to its easy-tier fidelity pin
+(tests/fidelity_pins.json, on tests/test_fast_fidelity.py's mixture and
+STFT) or fixture, and prints its loss against its complex128 (float64) run
+on the card. AuxIVA-IP2 and FasterIVA also run once with TF32 allowed, and
+print how far that moves their output.
 
 K7 is held to its plain version bit for bit, at the prox and IPA inputs
 and at the batches of the other paths (dense GaussMNMF's floor, IPSDTA's
@@ -100,8 +127,10 @@ each end); K5 within 2e-4, and two launches of each to the bit. K1 is held
 within 1e-5, Hermitian to the bit and two launches to the bit, at the main
 path, at the edges of its geometry (frame counts of 1, 129 and 1,000,
 the generic instance, the size contract's largest M, N and item count) and
-at FastGaussMNMF's per-channel weights; K7 also at cACGMM's E-step and
-M-step pencils, and K1b at FastGaussMNMF's diagonalizer (M = 4);
+at FastGaussMNMF's per-channel weights and at IP2's pair weights (N = 2,
+``(2, T)`` and ``(2, I, T)``); K7 also at cACGMM's E-step and M-step
+pencils and at FasterIVA's top-eigenvector and polar inputs, and K1b at
+FastGaussMNMF's diagonalizer (M = 4);
 K3 bit for bit at every input (IPSDTA's two parts, m = 1 .. 8, 16, 17 and
 32, batches of 1, 31 and 33) and within 1e-5. K1b is held within 1e-4 of
 its exact elimination twin (silent bins frozen) and K2 within 1e-4 of its
@@ -146,6 +175,7 @@ import contextlib
 import functools
 import itertools
 import json
+import os
 import statistics
 import subprocess
 import sys
@@ -163,11 +193,16 @@ from ssspy_tpu_torch.bss import (
     HVA,
     PDSIVA,
     AuxLaplaceIVA,
+    FasterIVA,
     FastGaussMNMF,
+    FastIVA,
     GaussILRMA,
     GaussIPSDTA,
     GaussMNMF,
+    GradLaplaceIVA,
     MaskingADMMHVA,
+    NaturalGradLaplaceICA,
+    NaturalGradLaplaceIVA,
     TILRMA,
 )
 from ssspy_tpu_torch.fast import (
@@ -175,6 +210,9 @@ from ssspy_tpu_torch.fast import (
     fast_auxiva,
     fast_auxiva_wave,
     fast_cacgmm,
+    fast_fast_iva,
+    fast_faster_iva,
+    fast_grad_iva,
     fast_gauss_ilrma,
     fast_gauss_ilrma_wave,
     fast_gauss_ipsdta,
@@ -186,7 +224,7 @@ from ssspy_tpu_torch.fast import (
 )
 from ssspy_tpu_torch.ops import _build
 from ssspy_tpu_torch.ops import kernels as K
-from ssspy_tpu_torch.ops import cacgmm_steps, fast_mnmf_steps, ipsdta_steps, prox_steps
+from ssspy_tpu_torch.ops import cacgmm_steps, fast_mnmf_steps, fixed_point_iva_steps, ipsdta_steps, prox_steps
 from ssspy_tpu_torch.ops.ilrma_steps import ilrma_ip_step, ilrma_iss_step, ilrma_loss
 from ssspy_tpu_torch.ops.mnmf_steps import (
     gauss_mnmf_loss,
@@ -197,14 +235,17 @@ from ssspy_tpu_torch.ops.mnmf_steps import (
 )
 from ssspy_tpu_torch.ops.iva_steps import (
     auxiva_ip1_step,
+    auxiva_ip2_step,
     auxiva_ipa_step,
     auxiva_iss1_step,
+    auxiva_iss2_step,
+    grad_laplace_iva_step,
     iva_laplace_loss,
     separate,
 )
 from ssspy_tpu_torch.special.psd import eigh_in_batches
 from ssspy_tpu_torch.transform import istft, stft
-from ssspy_tpu_torch.utils.dataset import HOP, N_FFT, hard_speech_mixture, make_mixture
+from ssspy_tpu_torch.utils.dataset import HOP, N_FFT, hard_speech_mixture, make_mixture, sample_speech_mixture
 
 N_ITER = 100
 N_ITER_MODELS = 10  # TILRMA / GGDILRMA
@@ -238,7 +279,15 @@ N_ITER_IPA_CLASSES = 10
 N_ITER_IPA_PLAIN_RATE = 10  # the plain Jacobi eigh takes ~30 ms, eight times per IPA iteration
 IPA_TOL = 1e-5  # 8-term f32 complex sums, in another order on each side
 IPA_PERTURBATION = 1e-7  # relative noise on the control run's input: one f32 ulp
-IPA_VS_ISS1_TOL = 1e-2  # how far IPA's final loss may stay above ISS1's (same model, same start, 100 iterations)
+# the SI-SDR gate against the plain twin holds where the control run keeps this much more than MIN_SI_SDR_DB
+# under IPA_PERTURBATION on its input; below that (IPA, IP2 and FasterIVA in float32) the path is held on its loss
+SENSITIVITY_MARGIN_DB = 10.0
+# a path held on its loss alone: its final loss within this of the plain twin's. The sound paths' largest gap is
+# 6.3e-5 (FasterIVA) and one ulp of noise on the input moves GaussILRMA-IPA's loss by 6.1e-5 (PERF.md, section 6)
+SENSITIVE_LOSS_TOL = 3e-4
+# how far such a path's final loss may stay above its anchor's: the same model from the same start with a one-row
+# update (IPA against ISS1, ILRMA's IP2 against IP1), 100 iterations
+ANCHOR_TOL = 1e-2
 MNMF_EPS = 1e-10  # the dense-MNMF step's floor and ridge, class and fast path
 INV_SANDWICH_TOL = 1e-5  # the same elimination on both sides, sums in another order
 MODEL_TRACES_TOL = 2e-4  # relative to max, the JAX package's own tolerance for this pass (tests/ops/test_pallas_kernels.py:101-105)
@@ -264,6 +313,10 @@ HARD_N_FFT, HARD_HOP, HARD_BLOCKS, HARD_BASIS, HARD_ITER, HARD_SEED = 512, 256, 
 HARD_PIN_DB, HARD_PIN_TOL_DB = -11.41965, 0.1
 FAST_MNMF_CHANNELS, FAST_MNMF_BASIS = 4, 4  # bench.py:230-252: the first 4 channels, n_basis = 4
 N_ITER_CACGMM_PLAIN_RATE = 10  # the plain Jacobi eigh takes ~60 ms, twice per EM step
+N_ITER_FIXED_POINT_PLAIN_RATE = 10  # FastIVA and FasterIVA: the plain Jacobi eigh once (B = 257) or twice (and 2,056) a step
+N_ITER_PROX_PLAIN_RATE = 20  # the prox family's plain twins run at ~14 it/s (the plain Jacobi eigh once a step)
+N_ITER_PAIRWISE_RATE = 10  # IP2 and ISS2 launch ~1,400 device operations a step (~40 it/s, host-paced): rate and profile
+N_ITER_PROFILE = 10  # chained steps a profiler session traces; the host-paced paths take seconds a session to trace
 # the hard tier of tests/test_hard_fidelity.py:67, :252-283 and :448-493 and its pins (tests/fidelity_pins.json)
 HARD_TIER_N_FFT, HARD_TIER_HOP = 4096, 1024
 HARD_CACGMM_ITER, HARD_CACGMM_SEED, HARD_CACGMM_PIN_DB, HARD_CACGMM_TOL_DB = 50, 3, -1.088889, 0.1
@@ -272,6 +325,13 @@ HARD_FAST_MNMF_PIN_DB, HARD_FAST_MNMF_TOL_DB = -5.776799, 0.5
 ROUTE_LOSS_TOL = 1e-6  # a complex128 class on the card's plain routes against the same class on the CPU
 ROUTE_ITER = 10
 WAVE_TOL = 1e-4  # a waveform entry point against stft -> the spectrogram path -> istft on the same card
+# the easy tier of tests/test_fast_fidelity.py:34, :62-75 and its pins (tests/fidelity_pins.json): the paths without a
+# kernel (ISS2, gradient IVA) are held there, within 0.1 dB
+EASY_N_FFT, EASY_HOP, EASY_PIN_TOL_DB = 256, 128, 0.1
+EASY_ITER, EASY_GRAD_ITER = 30, 100  # tests/test_fast_fidelity.py:108, :213
+ICA_CHANNELS = 2  # bench.py:589: NaturalGradLaplaceICA on the mixture's first two channels
+ICA_FIXTURE_TOL = 1e-6  # tests/regression/test_regression.py:179-186
+REPO = os.path.dirname(os.path.abspath(__file__))
 
 # the card's peaks for the bound: NVIDIA H100 SXM data sheet, at 700 W
 HBM_BYTES_PER_S = 3.35e12
@@ -450,6 +510,41 @@ def hold(label: str, Y, Y_plain, loss, loss_plain, **extra) -> None:
     check(all_finite(Y), f"{label}: non-finite output")
     check(rel <= LOSS_TOL, f"{label}: loss {loss} vs plain {loss_plain}")
     check(sdr >= MIN_SI_SDR_DB, f"{label}: output vs plain {sdr:.2f} dB")
+
+
+def hold_sensitive(label: str, Y, Y_plain, perturbed, loss, loss_plain, loss_first=None, anchor=None, **extra) -> None:
+    """Gate a path that may amplify rounding: ``hold`` where the output keeps MIN_SI_SDR_DB against the plain
+    twin's. Below that, ``perturbed()`` gives ``(Y, loss)`` of the path (or its plain twin) run again on its input
+    times (1 + IPA_PERTURBATION noise): where that output keeps MIN_SI_SDR_DB + SENSITIVITY_MARGIN_DB against the
+    plain twin's, ``hold`` fails as it should; otherwise the SI-SDR cannot tell a kernel's fault from one ulp of
+    rounding, both SI-SDRs are printed, and the loss alone is gated: it falls below ``loss_first`` (where given),
+    it ends within SENSITIVE_LOSS_TOL of the plain twin's, and with ``anchor = (name, loss)`` no higher (by more
+    than ANCHOR_TOL) than where the anchor takes the same model from the same start."""
+    if loss_first is not None:
+        extra["loss_first"] = loss_first
+    sdr = min_si_sdr(Y, Y_plain)
+    if sdr >= MIN_SI_SDR_DB:
+        hold(label, Y, Y_plain, loss, loss_plain, **extra)
+        return
+    Y_perturbed, loss_perturbed = perturbed()
+    control = min_si_sdr(Y_perturbed, Y_plain)
+    if control >= MIN_SI_SDR_DB + SENSITIVITY_MARGIN_DB:
+        hold(label, Y, Y_plain, loss, loss_plain, perturbed_input_min_si_sdr_db=control, **extra)
+        return
+    rel = abs(loss - loss_plain) / abs(loss_plain)
+    if anchor is not None:
+        extra.update(anchor=repr(anchor[0]), anchor_loss=anchor[1],
+                     loss_rel_diff_to_anchor=(loss - anchor[1]) / abs(anchor[1]))
+    say("path vs plain", path=repr(label), loss=loss, plain_loss=loss_plain, loss_rel_diff=rel, min_si_sdr_db=sdr,
+        perturbed_input_loss=loss_perturbed,
+        perturbed_input_loss_rel_diff=abs(loss_perturbed - loss_plain) / abs(loss_plain),
+        perturbed_input_min_si_sdr_db=control, input_perturbation=IPA_PERTURBATION, gate=repr("loss"),
+        **extra)
+    check(all_finite(Y), f"{label}: non-finite output")
+    check(loss_first is None or loss < loss_first, f"{label}: loss did not fall: {loss_first} -> {loss}")
+    check(rel <= SENSITIVE_LOSS_TOL, f"{label}: loss {loss} vs plain {loss_plain}")
+    check(anchor is None or loss <= anchor[1] + ANCHOR_TOL * abs(anchor[1]),
+          f"{label}: loss {loss} above {anchor and anchor[0]}'s {anchor and anchor[1]}")
 
 
 def hold_class(label: str, method, Y, plain_method, Y_plain) -> None:
@@ -1333,6 +1428,24 @@ def main() -> None:
           f"cACGMM pencils {tuple(A_estep.shape)}, {tuple(A_mstep.shape)}")
     hold_eigh("cACGMM E-step pencil", A_estep, accuracy=False)
     hold_eigh("cACGMM M-step projection", A_mstep, accuracy=False)
+
+    # ---- 4j. K1 at IP2's pair weights, K7 at FasterIVA's top eigenvector and polar inputs ----------------------
+    # AuxIVA-IP2's first pair from W = I: N = 2 weights (2, T) over the main path's mixture, and per-bin pair
+    # weights (2, I, T); FasterIVA's first step on the whitened mixture: K7 at (N I, 2M, 2M) = (2056, 16, 16)
+    # and on the polar factor's Gram (257, 16, 16)
+    phi_pair = fast_varphi(separate(X, W_eye[:, :2])).contiguous()
+    phi_pair_bins = phi_bins[:2].contiguous()
+    for label, phi in (("pair (2,T), AuxIVA-IP2", phi_pair), ("per-bin pair (2,I,T)", phi_pair_bins)):
+        errors["weighted_covariance"] = max(errors["weighted_covariance"], hold_wcov(label, X, phi))
+    Z_main = fixed_point_iva_steps.whiten_spectrogram(X)
+    faster_eighs = []
+    with recording_jacobi(faster_eighs, keep=True):
+        fixed_point_iva_steps.faster_iva_step(Z_main, W_eye)
+    A_top, A_polar = faster_eighs
+    check(tuple(A_top.shape) == (M * I, 2 * M, 2 * M) and tuple(A_polar.shape) == (I, 2 * M, 2 * M),
+          f"FasterIVA eigh inputs {tuple(A_top.shape)}, {tuple(A_polar.shape)}")
+    hold_eigh("FasterIVA top eigenvectors", A_top, accuracy=False)
+    hold_eigh("FastIVA/FasterIVA polar factor's Gram", A_polar, accuracy=False)
     errors["jacobi_eigh"] = eigh_abs
 
     # ---- 5. main path: AuxIVA-IP1 -------------------------------------------------
@@ -1382,6 +1495,8 @@ def main() -> None:
         check(all_finite(Y_class, *fast[:1], *fast[1]), f"{label}: non-finite output")
         hold_class(f"{label} class", method, Y_class, plain_method, Y_class_plain)
         hold(f"{label} fast", fast[0], fast_plain[0], fast_ilrma_loss(fast), fast_ilrma_loss(fast_plain))
+        if spatial == "IP":
+            ilrma_ip1_loss = method.loss[-1]  # IP2's anchor (5k): the same model from the same start
 
     def ilrma_iss1_waveform():
         method = GaussILRMA(n_basis=N_BASIS, spatial_algorithm="ISS1", rng=np.random.default_rng(0))
@@ -1425,8 +1540,8 @@ def main() -> None:
     # 1e-7 in its input into an output that agrees to a few dB, while the
     # loss moves by 1e-4. So the control below runs the kernels on the input
     # times (1 + 1e-7 noise) and prints both SI-SDRs side by side; what is
-    # gated is the loss: it falls, it ends within LOSS_TOL of the plain run's,
-    # and no higher (by more than IPA_VS_ISS1_TOL) than where ISS1 takes the
+    # gated is the loss: it falls, it ends within SENSITIVE_LOSS_TOL of the plain run's,
+    # and no higher (by more than ANCHOR_TOL) than where ISS1 takes the
     # same model from the same start.
     ipa_uses = {"weighted_covariance": 2 * N_ITER, "jacobi_eigh": 2 * M * N_ITER, "ipa_congruence": 2 * M * N_ITER}
     noise = torch.from_numpy(np.random.default_rng(1).standard_normal((M, I, T)).astype(np.float32)).to(device)
@@ -1450,18 +1565,12 @@ def main() -> None:
             rel_diff=float((Y_one - Y_one_perturbed).abs().max() / Y_one.abs().max()), max_abs_output=float(Y_one.abs().max()))
         check(all_finite(Y_one, Y_one_perturbed), f"{label}: non-finite sweep")
 
-    def hold_ipa(label, Y, raw, raw_plain, raw_perturbed, loss_of, loss_start, loss_iss1):
-        loss, loss_plain, loss_perturbed = loss_of(raw), loss_of(raw_plain), loss_of(raw_perturbed)
-        rel = abs(loss - loss_plain) / abs(loss_plain)
-        say("path vs plain", path=repr(label), loss_first=loss_start, loss=loss, plain_loss=loss_plain,
-            loss_rel_diff=rel, perturbed_input_loss=loss_perturbed, iss1_loss=loss_iss1,
-            loss_rel_diff_to_iss1=abs(loss - loss_iss1) / abs(loss_iss1),
-            min_si_sdr_db_vs_plain=min_si_sdr(raw[0], raw_plain[0]),
-            min_si_sdr_db_vs_perturbed_input=min_si_sdr(raw[0], raw_perturbed[0]), input_perturbation=IPA_PERTURBATION)
-        check(all_finite(Y, raw[0]) and tuple(Y.shape) == (M, I, T), f"{label}: non-finite output")
-        check(loss < loss_start, f"{label}: loss did not fall: {loss_start} -> {loss}")
-        check(rel <= LOSS_TOL, f"{label}: loss {loss} vs plain {loss_plain}")
-        check(loss <= loss_iss1 + IPA_VS_ISS1_TOL * abs(loss_iss1), f"{label}: loss {loss} above ISS1's {loss_iss1}")
+    def hold_ipa(label, restored, raw, raw_plain, run_perturbed, loss_of, loss_start, loss_iss1):
+        """The fast path as a user calls it (``restored``) must be finite; ``raw``, without scale restoration, is
+        held by ``hold_sensitive`` with ISS1 as its anchor."""
+        check(all_finite(restored) and tuple(restored.shape) == (M, I, T), f"{label}: non-finite output")
+        hold_sensitive(label, raw[0], raw_plain[0], lambda: (lambda out: (out[0], loss_of(out)))(run_perturbed()),
+                       loss_of(raw), loss_of(raw_plain), loss_first=loss_start, anchor=("ISS1", loss_iss1))
 
     def auxiva_ipa(X_in=X, restored=True):
         """``(as a user calls it, or None; without scale restoration)``."""
@@ -1474,7 +1583,7 @@ def main() -> None:
     restored, raw = drive("AuxIVA-IPA", auxiva_ipa, ipa_uses, totals)
     _, raw_plain = run_plain(lambda: auxiva_ipa(restored=False))
     iss1_raw = fast_auxiva(X, n_iter=N_ITER, algorithm="ISS1", scale_restoration=False)
-    hold_ipa("AuxIVA-IPA fast", restored[0], raw, raw_plain, auxiva_ipa(X_perturbed, restored=False)[1],
+    hold_ipa("AuxIVA-IPA fast", restored[0], raw, raw_plain, lambda: auxiva_ipa(X_perturbed, restored=False)[1],
              iva_loss_of, float(iva_laplace_loss(X, Y=X)), iva_loss_of(iss1_raw))
 
     def gauss_ilrma_ipa(X_in=X, restored=True, algorithm="IPA"):
@@ -1488,8 +1597,9 @@ def main() -> None:
     T_start = torch.from_numpy(draws.random((M, I, N_BASIS)).astype(np.float32)).to(device)
     V_start = torch.from_numpy(draws.random((M, N_BASIS, T)).astype(np.float32)).to(device)
     check(all_finite(*raw[1]) and raw[2] is None, "GaussILRMA-IPA: non-finite factors")
-    hold_ipa("GaussILRMA-IPA fast", restored[0], raw, raw_plain, gauss_ilrma_ipa(X_perturbed, restored=False)[1],
-             fast_ilrma_loss, float(ilrma_loss(X, T_start, V_start, Y=X)),
+    ilrma_loss_start = float(ilrma_loss(X, T_start, V_start, Y=X))
+    hold_ipa("GaussILRMA-IPA fast", restored[0], raw, raw_plain, lambda: gauss_ilrma_ipa(X_perturbed, restored=False)[1],
+             fast_ilrma_loss, ilrma_loss_start,
              fast_ilrma_loss(gauss_ilrma_ipa(restored=False, algorithm="ISS1")[1]))
 
     # the classes. AuxLaplaceIVA floors at 1e-6 in complex64 ("dtype"), where the
@@ -1876,6 +1986,214 @@ def main() -> None:
         check(all_finite(y) and tuple(y.shape) == tuple(wave.shape) and y.is_cuda and rel <= WAVE_TOL,
               f"{label}: {rel} from the spectrogram path")
 
+    # ---- 5k. IP2, ISS2, FastIVA, FasterIVA, gradient IVA, FastGaussMNMF-IP2, time-domain ICA ------------------
+    # Each class runs with its fast path's floor and without scale restoration, and must equal the fast path to
+    # the bit; each fast path that runs a kernel is held against its plain twin; those that run none are held to
+    # their easy-tier pin and print their loss against their complex128 run on the card
+    with open(os.path.join(REPO, "tests", "fidelity_pins.json")) as f:
+        pins = json.load(f)
+    easy_images, _ = sample_speech_mixture(n_sources=2, max_duration=2.0, conv=True, seed=0)
+    easy_mix = easy_images.sum(axis=0)
+    X_easy = stft(torch.from_numpy(easy_mix).to(device), n_fft=EASY_N_FFT, hop_length=EASY_HOP)  # complex128
+    X_c128 = X.to(torch.complex128)
+    check(tuple(X_easy.shape) == (2, 129, 251), f"easy-tier STFT {tuple(X_easy.shape)}")
+
+    def hold_pin(label, key, Y):
+        y = istft(Y.to(torch.complex128), n_fft=EASY_N_FFT, hop_length=EASY_HOP, length=easy_mix.shape[-1])
+        got = best_permutation_si_sdr(y.cpu().numpy(), easy_images[:, 0])
+        say("pin", path=repr(label), shape=tuple(X_easy.shape), si_sdr_db=got, pin=repr(key), pin_db=pins[key],
+            tol_db=EASY_PIN_TOL_DB)
+        check(all_finite(Y) and abs(got - pins[key]) <= EASY_PIN_TOL_DB, f"{label}: {got:.5f} dB against {pins[key]}")
+
+    def hold_equal(label, Y_class, Y_fast):
+        same = bool(torch.equal(Y_class, Y_fast))
+        say("path vs fast path", path=repr(label), equal=same, max_abs_diff=float((Y_class - Y_fast).abs().max()))
+        check(same, f"{label}: the class differs from its fast path")
+
+    def say_complex128(label, loss, loss_c128):
+        say("path vs complex128", path=repr(label), loss=loss, complex128_loss=loss_c128,
+            loss_rel_diff=abs(loss - loss_c128) / abs(loss_c128))
+
+    def tf32_rel_l2(label, run, Y):
+        torch.backends.cuda.matmul.allow_tf32 = True
+        try:
+            Y_tf32 = run()
+        finally:
+            torch.backends.cuda.matmul.allow_tf32 = False
+        rel = float(torch.linalg.vector_norm(Y_tf32 - Y) / torch.linalg.vector_norm(Y))
+        say("precision", path=repr(label), tf32_vs_full_f32_rel_l2=rel, matmul_allow_tf32=torch.backends.cuda.matmul.allow_tf32)
+
+    def iva_loss_start():
+        return float(iva_laplace_loss(X, W_eye))
+
+    # AuxIVA-IP2 and AuxIVA-ISS2
+    def auxiva_pairwise(algorithm, X_in=X):
+        method = AuxLaplaceIVA(spatial_algorithm=algorithm, flooring_fn="f64", scale_restoration=False)
+        return method, method(X_in, n_iter=N_ITER), fast_auxiva(X_in, n_iter=N_ITER, algorithm=algorithm,
+                                                                 scale_restoration=False)
+
+    method, Y_class, (Y_fast, W_fast) = drive("AuxIVA-IP2", lambda: auxiva_pairwise("IP2"),
+                                              {"weighted_covariance": 2 * M * N_ITER}, totals, exact=True)
+    hold_equal("AuxLaplaceIVA(IP2)", Y_class, Y_fast)
+    Y_plain, W_plain = run_plain(lambda: fast_auxiva(X, n_iter=N_ITER, algorithm="IP2", scale_restoration=False))
+    def auxiva_ip2_perturbed():
+        Y_perturbed, W_perturbed = run_plain(lambda: fast_auxiva(X_perturbed, n_iter=N_ITER, algorithm="IP2",
+                                                                 scale_restoration=False))
+        return Y_perturbed, float(iva_laplace_loss(X, W_perturbed))
+
+    hold_sensitive("fast_auxiva(IP2)", Y_fast, Y_plain, auxiva_ip2_perturbed, float(iva_laplace_loss(X, W_fast)),
+                   float(iva_laplace_loss(X, W_plain)), loss_first=iva_loss_start())
+    check(method.loss[-1] < method.loss[0], "AuxLaplaceIVA(IP2): loss did not decrease")
+    tf32_rel_l2("fast_auxiva(IP2), 100 iterations",
+                lambda: fast_auxiva(X, n_iter=N_ITER, algorithm="IP2", scale_restoration=False)[0], Y_fast)
+    hold_pin("fast_auxiva(IP2), easy tier", "auxiva_IP2", fast_auxiva(X_easy, n_iter=EASY_ITER, algorithm="IP2")[0])
+
+    method, Y_class, (Y_fast, _) = drive("AuxIVA-ISS2", lambda: auxiva_pairwise("ISS2"), {}, totals, exact=True)
+    hold_equal("AuxLaplaceIVA(ISS2)", Y_class, Y_fast)
+    check(all_finite(Y_fast) and method.loss[-1] < method.loss[0], "AuxLaplaceIVA(ISS2): non-finite or no descent")
+    hold_pin("fast_auxiva(ISS2), easy tier", "auxiva_ISS2", fast_auxiva(X_easy, n_iter=EASY_ITER, algorithm="ISS2")[0])
+    method_c128 = auxiva_pairwise("ISS2", X_c128)[0]
+    say_complex128("AuxLaplaceIVA(ISS2)", method.loss[-1], method_c128.loss[-1])
+
+    # GaussILRMA-IP2 and GaussILRMA-ISS2 (n_basis = 8): the class as a user calls it, the fast path without scale
+    # restoration, whose loss (the model's own state) is compared
+    def ilrma_pairwise(spatial, X_in=X):
+        method = GaussILRMA(n_basis=N_BASIS, spatial_algorithm=spatial, rng=np.random.default_rng(0))
+        Y_class = method(X_in, n_iter=N_ITER)
+        return method, Y_class, fast_gauss_ilrma(X_in, n_basis=N_BASIS, n_iter=N_ITER, algorithm=spatial,
+                                                 scale_restoration=False, rng=np.random.default_rng(0))
+
+    for spatial, uses in (("IP2", {"weighted_covariance": 2 * N_ITER}), ("ISS2", {})):
+        label = f"GaussILRMA-{spatial}"
+        method, Y_class, fast = drive(label, lambda: ilrma_pairwise(spatial), uses, totals, exact=True)
+        check(all_finite(Y_class, fast[0], *fast[1]), f"{label}: non-finite output")
+        check(method.loss[-1] < method.loss[0], f"{label}: class loss did not decrease")
+        if uses:
+            plain_method, Y_class_plain, fast_plain = run_plain(lambda: ilrma_pairwise(spatial))
+            control = functools.lru_cache(lambda: run_plain(lambda: ilrma_pairwise(spatial, X_perturbed)))
+            anchor = ("GaussILRMA-IP1 class", ilrma_ip1_loss)
+            hold_sensitive(f"{label} class", Y_class, Y_class_plain, lambda: (control()[1], control()[0].loss[-1]),
+                           method.loss[-1], plain_method.loss[-1], loss_first=method.loss[0], anchor=anchor,
+                           first_divergent_iteration=first_divergence(method.loss, plain_method.loss, LOSS_TOL))
+            hold_sensitive(f"{label} fast", fast[0], fast_plain[0],
+                           lambda: (control()[2][0], fast_ilrma_loss(control()[2])), fast_ilrma_loss(fast),
+                           fast_ilrma_loss(fast_plain), loss_first=ilrma_loss_start, anchor=anchor)
+        else:
+            method_c128 = GaussILRMA(n_basis=N_BASIS, spatial_algorithm=spatial, rng=np.random.default_rng(0))
+            method_c128(X_c128, n_iter=N_ITER)
+            say_complex128(f"GaussILRMA({spatial})", method.loss[-1], method_c128.loss[-1])
+        rng_pin = np.random.default_rng(11)  # tests/test_fast_fidelity.py:133-135
+        draws = FixedRng(rng_pin.random((2, X_easy.shape[1], 2)), rng_pin.random((2, 2, X_easy.shape[2])))
+        hold_pin(f"fast_gauss_ilrma({spatial}), easy tier", f"gauss_ilrma_{spatial}",
+                 fast_gauss_ilrma(X_easy, n_basis=2, n_iter=EASY_ITER, algorithm=spatial, rng=draws)[0])
+
+    # FastIVA and FasterIVA: per run K7 once for the whitening, then FastIVA K7 once a step (the polar factor)
+    # and FasterIVA K1 once and K7 twice (the top eigenvectors, the polar factor)
+    def laplace_contrast(y):
+        return 2 * torch.linalg.vector_norm(y, dim=1)
+
+    def laplace_d_contrast(y):
+        return 2 * torch.ones_like(y)
+
+    def fixed_point(variant):
+        if variant == "FastIVA":
+            method = FastIVA(contrast_fn=laplace_contrast, d_contrast_fn=laplace_d_contrast,
+                             dd_contrast_fn=lambda y: torch.zeros_like(y), flooring_fn="f64", scale_restoration=False)
+            fast = fast_fast_iva
+        else:
+            method = FasterIVA(contrast_fn=laplace_contrast, d_contrast_fn=laplace_d_contrast, flooring_fn="f64",
+                               scale_restoration=False)
+            fast = fast_faster_iva
+        return method, method(X, n_iter=N_ITER), fast(X, n_iter=N_ITER, scale_restoration=False)
+
+    def whitened_loss(Y):
+        return float(laplace_contrast(Y).mean(dim=-1).sum())
+
+    for variant, uses, fast in (
+        ("FastIVA", {"jacobi_eigh": 2 * (N_ITER + 1)}, fast_fast_iva),
+        ("FasterIVA", {"weighted_covariance": 2 * N_ITER, "jacobi_eigh": 2 * (2 * N_ITER + 1)}, fast_faster_iva),
+    ):
+        batches.clear()
+        with recording_jacobi(batches):
+            method, Y_class, Y_fast = drive(variant, functools.partial(fixed_point, variant), uses, totals, exact=True)
+        expected = {I, M * I} if variant == "FasterIVA" else {I}
+        check(set(batches) == expected, f"{variant}: K7 batches {sorted(set(batches))}, expected {sorted(expected)}")
+        hold_equal(variant, Y_class, Y_fast)
+        start = time.perf_counter()
+        Y_plain = run_plain(lambda: fast(X, n_iter=N_ITER, scale_restoration=False))
+        plain_seconds = f"{time.perf_counter() - start:.3f}"
+
+        def fixed_point_perturbed():
+            Y_perturbed = run_plain(lambda: fast(X_perturbed, n_iter=N_ITER, scale_restoration=False))
+            return Y_perturbed, whitened_loss(Y_perturbed)
+
+        hold_sensitive(f"{variant} fast", Y_fast, Y_plain, fixed_point_perturbed, whitened_loss(Y_fast),
+                       whitened_loss(Y_plain), loss_first=whitened_loss(Z_main), plain_seconds=plain_seconds)
+        if variant == "FasterIVA":
+            tf32_rel_l2("fast_faster_iva, 100 iterations", lambda: fast(X, n_iter=N_ITER, scale_restoration=False),
+                        Y_fast)
+        key = "fixed_point_iva_fast" if variant == "FastIVA" else "fixed_point_iva_faster"
+        hold_pin(f"{fast.__name__}, easy tier", key, fast(X_easy, n_iter=EASY_ITER))
+
+    # GradIVA and NaturalGradIVA (Laplace, holonomic): no kernel
+    for natural, cls in ((False, GradLaplaceIVA), (True, NaturalGradLaplaceIVA)):
+        label = cls.__name__
+
+        def grad_paths(X_in=X):
+            method = cls(flooring_fn="f64", scale_restoration=False)
+            return method, method(X_in, n_iter=N_ITER), fast_grad_iva(X_in, n_iter=N_ITER, natural=natural,
+                                                                       scale_restoration=False)
+
+        method, Y_class, (Y_fast, W_fast) = drive(label, grad_paths, {}, totals, exact=True)
+        hold_equal(label, Y_class, Y_fast)
+        check(all_finite(Y_fast) and method.loss[-1] < method.loss[0], f"{label}: non-finite or no descent")
+        hold_pin(f"fast_grad_iva(natural={natural}), easy tier", f"grad_iva_natural={natural}",
+                 fast_grad_iva(X_easy, n_iter=EASY_GRAD_ITER, natural=natural)[0])
+        say_complex128(label, method.loss[-1], grad_paths(X_c128)[0].loss[-1])
+
+    # FastGaussMNMF with the IP2 diagonalizer (4 channels): K1 once an iteration, M4 pair updates, no K1b
+    def fast_mnmf_ip2():
+        method = FastGaussMNMF(n_basis=FAST_MNMF_BASIS, diagonalizer_algorithm="IP2", rng=np.random.default_rng(0))
+        Y_class = method(X4, n_iter=N_ITER)
+        return method, Y_class, fast_gauss_mnmf(X4, n_basis=FAST_MNMF_BASIS, n_iter=N_ITER, diagonalizer_algorithm="IP2",
+                                                rng=np.random.default_rng(0))
+
+    label = f"FastGaussMNMF-IP2 ({M4} ch)"
+    method, Y_class, (Y_fast, factors) = drive(label, fast_mnmf_ip2, {"weighted_covariance": 2 * N_ITER}, totals,
+                                               exact=True)
+    hold_equal(label, Y_class, Y_fast)
+
+    def fast_mnmf_ip2_plain(X_in):
+        return fast_gauss_mnmf(X_in, n_basis=FAST_MNMF_BASIS, n_iter=N_ITER, diagonalizer_algorithm="IP2",
+                               rng=np.random.default_rng(0))
+
+    def fast_mnmf_ip2_perturbed():
+        Y_perturbed, factors_perturbed = run_plain(lambda: fast_mnmf_ip2_plain(X_perturbed[:M4].contiguous()))
+        return Y_perturbed, fast_mnmf_loss_of(factors_perturbed)
+
+    Y_plain, factors_plain = run_plain(lambda: fast_mnmf_ip2_plain(X4))
+    hold_sensitive(f"fast_gauss_mnmf(IP2) ({M4} ch)", Y_fast, Y_plain, fast_mnmf_ip2_perturbed,
+                   fast_mnmf_loss_of(factors), fast_mnmf_loss_of(factors_plain), loss_first=method.loss[0])
+    check(method.loss[-1] < method.loss[0], f"{label}: class loss did not decrease")
+
+    # time-domain ICA: NaturalGradLaplaceICA on bench.py:370's configuration, and its fixture in float64
+    wave_ica = wave[:ICA_CHANNELS].contiguous()
+    ica = NaturalGradLaplaceICA()
+    y_ica = drive("NaturalGradLaplaceICA (2 ch)", lambda: ica(wave_ica, n_iter=N_ITER), {}, totals, exact=True)
+    ica_f64 = NaturalGradLaplaceICA()
+    ica_f64(wave_ica.double(), n_iter=N_ITER)
+    check(all_finite(y_ica) and tuple(y_ica.shape) == tuple(wave_ica.shape) and ica.loss[-1] < ica.loss[0],
+          "NaturalGradLaplaceICA: non-finite output or no descent")
+    say_complex128("NaturalGradLaplaceICA (float32 against float64)", ica.loss[-1], ica_f64.loss[-1])
+    fixtures = os.path.join(REPO, "tests", "regression", "fixtures")
+    waveform = np.load(os.path.join(fixtures, "input_time.npz"))["waveform"]
+    target = np.load(os.path.join(fixtures, "natural_grad_laplace_ica.npz"))["target"]
+    y_fixture = NaturalGradLaplaceICA(step_size=0.05)(waveform, n_iter=20)
+    fixture_err = float(np.abs(y_fixture.cpu().numpy() - target).max())
+    say("fixture", path=repr("NaturalGradLaplaceICA, natural_grad_laplace_ica.npz (float64)"), max_abs_err=fixture_err,
+        tol=ICA_FIXTURE_TOL, device=y_fixture.device)
+    check(y_fixture.is_cuda and fixture_err <= ICA_FIXTURE_TOL, f"ICA fixture: {fixture_err}")
+
     # ---- 6. times --------------------------------------------------------------
     U_main = K.weighted_covariance(X, phi_scalar)
     phi_c, phi_bins_c, X_conj = phi_scalar.to(X.dtype), phi_bins.to(X.dtype), X.conj().resolve_conj()
@@ -2000,6 +2318,34 @@ def main() -> None:
             lambda: eigh_in_batches(A_estep),
             jacobi_bound(*A_estep.shape[:2]),
         ),
+        "weighted_covariance pair": (
+            "pair (2,T), AuxIVA-IP2 (8,257,626)",
+            lambda: K.weighted_covariance(X, phi_pair),
+            lambda: K.weighted_covariance_plain(X, phi_pair),
+            lambda: torch.einsum("nt,pit,qit->inpq", phi_pair.to(X.dtype), X, X_conj),
+            wcov_bound(M, I, T, 2, per_bin=False),
+        ),
+        "weighted_covariance pair per-bin": (
+            "per-bin pair (2,I,T) (8,257,626)",
+            lambda: K.weighted_covariance(X, phi_pair_bins),
+            lambda: K.weighted_covariance_plain(X, phi_pair_bins),
+            lambda: torch.einsum("nit,pit,qit->inpq", phi_pair_bins.to(X.dtype), X, X_conj),
+            wcov_bound(M, I, T, 2, per_bin=True),
+        ),
+        "jacobi_eigh FasterIVA": (
+            "FasterIVA top eigenvectors (2056,16,16)",
+            lambda: K.jacobi_eigh(A_top),
+            lambda: K.jacobi_eigh_plain(A_top),
+            lambda: eigh_in_batches(A_top),
+            jacobi_bound(*A_top.shape[:2]),
+        ),
+        "jacobi_eigh polar": (
+            "FastIVA polar factor's Gram (257,16,16)",
+            lambda: K.jacobi_eigh(A_polar),
+            lambda: K.jacobi_eigh_plain(A_polar),
+            lambda: eigh_in_batches(A_polar),
+            jacobi_bound(*A_polar.shape[:2]),
+        ),
         "ipa_congruence": (
             "a sweep's last round (257,8,8,8)",
             lambda: K.ipa_congruence(T_sweep, U_sweep, G_sweep),
@@ -2080,18 +2426,38 @@ def main() -> None:
                         cacgmm_start(np.random.default_rng(0), M, I, device)),
         "cACGMM K1 covariance": (lambda s: cacgmm_steps.step(Z8, *s, covariance_impl="kernel"),
                                  cacgmm_start(np.random.default_rng(0), M, I, device)),
+        "AuxIVA-IP2": (lambda s: (auxiva_ip2_step(X, s[0]),), (W_eye,)),
+        "AuxIVA-ISS2": (lambda s: (auxiva_iss2_step(s[0]),), (X,)),
+        "GaussILRMA-IP2": (lambda s: ilrma_ip_step(X, *s, spatial="IP2"), (W_eye, T0, V0)),
+        "GaussILRMA-ISS2": (lambda s: ilrma_iss_step(*s, spatial="ISS2"), (X, T0, V0)),
+        "FastIVA": (lambda s: (fixed_point_iva_steps.fast_iva_step(Z_main, s[0]),), (W_eye,)),
+        "FasterIVA": (lambda s: (fixed_point_iva_steps.faster_iva_step(Z_main, s[0]),), (W_eye,)),
+        "GradIVA": (lambda s: (grad_laplace_iva_step(X, s[0]),), (W_eye,)),
+        "NaturalGradIVA": (lambda s: (grad_laplace_iva_step(X, s[0], natural=True),), (W_eye,)),
+        "FastGaussMNMF-IP2 4ch": (lambda s: fast_mnmf_steps.fast_gauss_mnmf_step(X4, *s, diagonalizer="IP2"),
+                                  fast_mnmf_start()),
+        "NaturalGradLaplaceICA 2ch": (lambda s: (ica_step({"X": wave_ica, "W": s[0]})["W"],),
+                                      (torch.eye(ICA_CHANNELS, device=device),)),
     }
+    ica_step = ica.make_step()
     XX_eigh = instant_covariance(X, eps=MNMF_EPS, psd_impl="eigh")
     # (kernel, plain) chained steps where the default N_ITER of each would take too long
     n_steps = {
         "AuxIVA-IPA": (N_ITER, N_ITER_IPA_PLAIN_RATE),
         "GaussILRMA-IPA": (N_ITER, N_ITER_IPA_PLAIN_RATE),
+        "PDSIVA": (N_ITER, N_ITER_PROX_PLAIN_RATE),
+        "HVA": (N_ITER, N_ITER_PROX_PLAIN_RATE),
+        "ADMMIVA": (N_ITER, N_ITER_PROX_PLAIN_RATE),
         "GaussMNMF-dense": (N_ITER, N_ITER_MNMF_PLAIN_RATE),
         "GaussMNMF-dense eigh": (N_ITER_MNMF_EIGH_RATE, N_ITER_MNMF_EIGH_RATE),
         "GaussIPSDTA": (N_ITER_IPSDTA, N_ITER_IPSDTA_PLAIN_RATE),
         "TIPSDTA": (N_ITER_IPSDTA, N_ITER_IPSDTA_PLAIN_RATE),
         "cACGMM": (N_ITER, N_ITER_CACGMM_PLAIN_RATE),
         "cACGMM K1 covariance": (N_ITER, N_ITER_CACGMM_PLAIN_RATE),
+        "FastIVA": (N_ITER, N_ITER_FIXED_POINT_PLAIN_RATE),
+        "FasterIVA": (N_ITER, N_ITER_FIXED_POINT_PLAIN_RATE),
+        **{label: (N_ITER_PAIRWISE_RATE, N_ITER_PAIRWISE_RATE) for label in (
+            "AuxIVA-IP2", "AuxIVA-ISS2", "GaussILRMA-IP2", "GaussILRMA-ISS2", "FastGaussMNMF-IP2 4ch")},
     }
     rates = {}
     for label, (step, state) in steps.items():
@@ -2123,8 +2489,10 @@ def main() -> None:
 
     # where the device time of one iteration goes (torch.profiler)
     for label, (step, state) in steps.items():
-        per_kernel, ops_per_iter, seen, made, sessions, uneven = profile(step, state,
-                                                                         min(20, n_steps.get(label, (N_ITER,))[0]))
+        start = time.perf_counter()
+        n_profiled = min(N_ITER_PROFILE, n_steps.get(label, (N_ITER,))[0])
+        per_kernel, ops_per_iter, seen, made, sessions, uneven = profile(step, state, n_profiled)
+        profile_seconds = f"{time.perf_counter() - start:.1f}"
         device_us = sum(per_kernel.values())
         if not device_us:
             # the rate above already timed these steps with CUDA events, idle gaps included
@@ -2142,7 +2510,8 @@ def main() -> None:
                          vcd_sweep_share=sweep_us / device_us, vcd_sweep_events=f"{sweep_seen}/{sweep_made}")
         # the same without rounding up the names whose events do not divide by the steps: the least it can be
         seen_us = device_us - sum(per_kernel[name] - us for name, (_, _, us) in uneven.items())
-        say("profile", path=repr(label), card=repr(card), sessions=sessions, profiler_events=f"{seen}/{made}",
+        say("profile", path=repr(label), card=repr(card), sessions=sessions, seconds=profile_seconds,
+            profiler_events=f"{seen}/{made}",
             device_us_per_iter=device_us, device_us_seen_per_iter=seen_us, uneven_names=len(uneven),
             uneven=repr([(name[:40], f"{events}/{steps}") for name, (events, steps, _) in
                          sorted(uneven.items(), key=lambda kv: -kv[1][2])[:4]]),

@@ -2,8 +2,10 @@
 """Dense GaussMNMF in float32 with and without a floor on H, against complex128.
 
 Runs ``fast_gauss_mnmf_dense``'s iteration (``ops.mnmf_steps.gauss_mnmf_step``)
-on the 8-channel synthetic mixture (STFT 512/256), ``n_basis = 8``, from the
-fast path's draws of ``default_rng(0)``: once in complex128 (the reference
+on the 8-channel synthetic mixture (STFT 512/256) or, with ``--mixture
+hard``, on the hard scenario of tests/test_hard_fidelity.py:352-400 (4
+formant pseudo-speech sources in rooms of RT60 0.35 s, 4 channels, the same
+STFT), ``n_basis = 8``, from the fast path's draws of ``default_rng(0)``: once in complex128 (the reference
 route) and once in complex64 for each way of keeping the new spatial
 covariances definite that is given (in place of
 ``ops.mnmf_steps.spatial_projection``): an eigenvalue floor at each
@@ -18,6 +20,7 @@ Imports nothing of JAX.
 
     python3 scripts/torch_mnmf_float32_floor.py --duration 10 --device cuda --eig-floor 0 1e-6
     python3 scripts/torch_mnmf_float32_floor.py --duration 10 --device cuda --ridge 1e-5 --eig-floor 1e-5 1e-6 1e-7 --chol-floor 1e-6
+    python3 scripts/torch_mnmf_float32_floor.py --mixture hard --device cuda --eig-floor 0 1e-7 1e-6 1e-5 --ridge 1e-5
 
 On the card the complex128 run's eighs go through
 ``special.psd.spectral``, which hands cuSOLVER at most ``CUDA_EIGH_BATCH``
@@ -39,7 +42,7 @@ from ssspy_tpu_torch.ops import mnmf_steps
 from ssspy_tpu_torch.ops.prox_steps import _extract, block_embed
 from ssspy_tpu_torch.special.psd import hermitize
 from ssspy_tpu_torch.transform import stft
-from ssspy_tpu_torch.utils.dataset import HOP, N_FFT, make_mixture
+from ssspy_tpu_torch.utils.dataset import HOP, N_FFT, hard_speech_mixture, make_mixture
 
 N_BASIS = 8
 
@@ -122,7 +125,9 @@ def min_si_sdr(est, ref):
 
 def main():
     parser = argparse.ArgumentParser(description=__doc__.splitlines()[0])
-    parser.add_argument("--duration", type=float, default=10.0, help="seconds of the 16 kHz mixture")
+    parser.add_argument("--mixture", choices=("synthetic", "hard"), default="synthetic",
+                        help="the 8-channel synthetic mixture, or the 4-channel hard scenario (10 s)")
+    parser.add_argument("--duration", type=float, default=10.0, help="seconds of the 16 kHz synthetic mixture")
     parser.add_argument("--device", default="cuda")
     parser.add_argument("--iterations", type=int, default=100)
     parser.add_argument("--eig-floor", type=float, nargs="*", default=[0.0, mnmf_steps.F32_SPATIAL_REL])
@@ -136,9 +141,12 @@ def main():
             ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"], capture_output=True, text=True
         ).stdout.strip()
         print(f"card: {card}", flush=True)
-    wave = torch.from_numpy(make_mixture(seed=0, duration_s=args.duration)).to(device)
+    if args.mixture == "hard":
+        wave = torch.from_numpy(hard_speech_mixture()[0].sum(axis=0)).to(device)
+    else:
+        wave = torch.from_numpy(make_mixture(seed=0, duration_s=args.duration)).to(device)
     X = stft(wave, n_fft=N_FFT, hop_length=HOP)
-    print(f"X {tuple(X.shape)} on {device}", flush=True)
+    print(f"mixture {args.mixture}: X {tuple(X.shape)} on {device}", flush=True)
     Y_ref, losses, done, seconds = iterate(X, None, args.iterations)
     print(f"complex128: iterations={done} losses={losses} seconds={seconds:.2f}", flush=True)
     variants = ([("eigh", v) for v in args.eig_floor] + [("ridge", v) for v in args.ridge]

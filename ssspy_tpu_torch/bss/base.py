@@ -28,19 +28,20 @@ from ..algorithm import (
 from ..ops.iva_steps import ls_demix, separate
 from ..special.flooring import resolve_flooring_spec
 from ..utils.device import DEFAULT_DEVICE, resolve_device
+from ..utils.select_pair import sequential_pair_selector
 
 __all__ = [
     "IterativeMethodBase",
     "SeparatorBase",
     "config_repr",
     "SPATIAL_ALGORITHMS",
-    "PORTED_SPATIAL_ALGORITHMS",
     "check_spatial_algorithm",
+    "default_pair_selector",
     "ipa_keywords",
 ]
 
 SPATIAL_ALGORITHMS = ("IP", "IP1", "IP2", "ISS", "ISS1", "ISS2", "IPA")
-PORTED_SPATIAL_ALGORITHMS = ("IP", "IP1", "ISS", "ISS1", "IPA")
+PAIRWISE_ALGORITHMS = ("IP2", "ISS2")
 # these carry the separated spectrograms and no demixing filters
 DEMIX_FREE_ALGORITHMS = ("ISS", "ISS1", "ISS2", "IPA")
 
@@ -52,14 +53,16 @@ def config_repr(obj, name: str, keys) -> str:
 
 
 def check_spatial_algorithm(spatial_algorithm: str) -> None:
-    """Raise for an unknown spatial update, and for one not ported yet (IP2, ISS2)."""
+    """Raise for an unknown spatial update."""
     if spatial_algorithm not in SPATIAL_ALGORITHMS:
         raise ValueError(f"unsupported option: {spatial_algorithm}.")
-    if spatial_algorithm not in PORTED_SPATIAL_ALGORITHMS:
-        raise NotImplementedError(
-            f"spatial_algorithm={spatial_algorithm!r} is not ported to ssspy_tpu_torch yet "
-            f"(ROADMAP.md, Queue 1, item 5); use one of {PORTED_SPATIAL_ALGORITHMS}."
-        )
+
+
+def default_pair_selector(spatial_algorithm: str, pair_selector):
+    """The pair schedule of IP2 and ISS2: ``pair_selector``, or the sequential one (ssspy_tpu/bss/iva.py:887-891)."""
+    if pair_selector is None and spatial_algorithm in PAIRWISE_ALGORITHMS:
+        return sequential_pair_selector
+    return pair_selector
 
 
 IPA_DEFAULTS = {"lqpqm_normalization": True, "newton_iter": 1}

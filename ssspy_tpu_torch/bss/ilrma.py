@@ -3,14 +3,14 @@
 Counterpart of :mod:`ssspy_tpu.bss.ilrma` (parity target
 ssspy/bss/ilrma.py) for ``ILRMABase``, ``GaussILRMA``, ``TILRMA`` and ``GGDILRMA`` with the NMF
 source model (MM or ME updates, optionally the shared-basis
-``partitioning``), spatial ``"IP"``/``"IP1"`` (demixing filters),
-``"ISS"``/``"ISS1"`` or, for ``GaussILRMA``, ``"IPA"`` (demix-free), and
-power or projection-back normalization. One iteration is
+``partitioning``), spatial ``"IP"``/``"IP1"``/``"IP2"`` (demixing filters),
+``"ISS"``/``"ISS1"``/``"ISS2"`` or, for ``GaussILRMA``, ``"IPA"``
+(demix-free), and power or projection-back normalization. One iteration is
 ``source model -> spatial model -> normalization``; the spatial update
 goes through the routers of :mod:`ssspy_tpu_torch.ops.iva_steps` to the
-kernels (the weighted covariance with per-bin weights and the IP1 sweep, the
-ISS1 sweep, or the IPA sweep of :mod:`ssspy_tpu_torch.ops.ipa_steps`).
-IP2 and ISS2 are not ported yet (ROADMAP.md, Queue 1, item 5).
+kernels (the weighted covariance with per-bin weights, then the IP1 sweep
+or the IP2 pair updates over ``pair_selector``'s pairs; the ISS1 sweep;
+the ISS2 sweep; or the IPA sweep of :mod:`ssspy_tpu_torch.ops.ipa_steps`).
 """
 
 from typing import Callable, List, Optional, Union
@@ -27,11 +27,11 @@ from ..ops.ilrma_steps import (
     reconstruct_nmf,
 )
 from ..ops.ipa_steps import ipa_sweep
-from ..ops.iva_steps import clogabsdet, covariance, ip1_update, iss1_update, ls_demix
+from ..ops.iva_steps import clogabsdet, covariance, ip1_update, ip2_update, iss1_update, iss2_sweep, ls_demix
 from ..ops.iva_steps import separate as _separate
 from ..special.flooring import identity, sweep_eps
 from ..utils.device import DEFAULT_DEVICE
-from .base import SeparatorBase, check_spatial_algorithm, config_repr, ipa_keywords
+from .base import SeparatorBase, check_spatial_algorithm, config_repr, default_pair_selector, ipa_keywords
 
 __all__ = ["ILRMABase", "GaussILRMA", "TILRMA", "GGDILRMA"]
 
@@ -62,6 +62,7 @@ class ILRMABase(SeparatorBase):
         domain: float = 2,
         partitioning: bool = False,
         flooring_fn: Union[str, Callable, None] = "dtype",
+        pair_selector: Optional[Callable] = None,
         callbacks: Optional[Union[Callable, List[Callable]]] = None,
         normalization: Optional[Union[bool, str]] = True,
         scale_restoration: Union[bool, str] = True,
@@ -98,6 +99,7 @@ class ILRMABase(SeparatorBase):
 
         self.n_basis = n_basis
         self.spatial_algorithm = spatial_algorithm
+        self.pair_selector = default_pair_selector(spatial_algorithm, pair_selector)
         self.source_algorithm = source_algorithm
         self.domain = domain
         self.partitioning = partitioning
@@ -199,8 +201,8 @@ class ILRMABase(SeparatorBase):
         model, p, flooring_fn = self._model, self.domain, self.flooring_fn
         params = self._model_params()
         eps = sweep_eps(flooring_fn, self.input.dtype)
-        uses_demix_filter, uses_ipa = self._uses_demix_filter, self.spatial_algorithm == "IPA"
-        ipa = {key: getattr(self, key) for key in ("lqpqm_normalization", "newton_iter")} if uses_ipa else {}
+        algorithm, pair_selector = self.spatial_algorithm, self.pair_selector
+        ipa = {key: getattr(self, key) for key in ("lqpqm_normalization", "newton_iter")} if algorithm == "IPA" else {}
         normalize = self._normalizer()
 
         def step(state):
@@ -217,10 +219,14 @@ class ILRMABase(SeparatorBase):
             varphi = ilrma_model_varphi(
                 model, Y2, R, p, params.get("nu"), params.get("beta"), flooring_fn
             )
-            if uses_demix_filter:
+            if algorithm == "IP2":
+                state["W"] = ip2_update(state["W"], covariance(state["X"], varphi), eps=eps, pair_selector=pair_selector)
+            elif "W" in state:
                 state["W"] = ip1_update(state["W"], covariance(state["X"], varphi), eps=eps)
-            elif uses_ipa:
+            elif algorithm == "IPA":
                 state["Y"] = ipa_sweep(state["Y"], varphi, eps=eps, **ipa)
+            elif algorithm == "ISS2":
+                state["Y"] = iss2_sweep(state["Y"], varphi, eps=eps, pair_selector=pair_selector)
             else:
                 state["Y"] = iss1_update(state["Y"], varphi, eps=eps)
             return normalize(state)

@@ -28,7 +28,7 @@ from ..ops.ilrma_steps import reconstruct_nmf
 from ..ops.mnmf_steps import _model, gauss_mnmf_loss, gauss_mnmf_step, instant_covariance, wiener_separate
 from ..special.flooring import EPS, F32_EPS, dtype_flooring, resolve_flooring_spec, sweep_eps
 from ..utils.device import DEFAULT_DEVICE
-from .base import IterativeMethodBase, config_repr
+from .base import IterativeMethodBase, config_repr, default_pair_selector
 
 __all__ = ["MNMFBase", "MNMF", "GaussMNMF", "FastMNMFBase", "FastGaussMNMF"]
 
@@ -273,9 +273,9 @@ class FastGaussMNMF(FastMNMFBase):
     from the same draws. ``separate`` is the Wiener filter in the
     diagonalized space, on the device
     (:func:`~ssspy_tpu_torch.ops.fast_mnmf_steps.fast_mnmf_separate`).
-    ``diagonalizer_algorithm="IP2"`` (and its ``pair_selector``) is not
-    ported yet and raises; ``partitioning`` is not supported, as in the
-    reference.
+    ``diagonalizer_algorithm="IP2"`` runs the IP2 pair updates over
+    ``pair_selector``'s pairs (sequential by default) on the same
+    covariances; ``partitioning`` is not supported, as in the reference.
     """
 
     def __init__(
@@ -301,7 +301,7 @@ class FastGaussMNMF(FastMNMFBase):
             normalization=normalization, record_loss=record_loss, reference_id=reference_id, rng=rng, device=device,
         )
         self.diagonalizer_algorithm = diagonalizer_algorithm
-        self.pair_selector = pair_selector
+        self.pair_selector = default_pair_selector(diagonalizer_algorithm, pair_selector)
 
     def __repr__(self) -> str:
         keys = ["n_basis"]
@@ -337,11 +337,12 @@ class FastGaussMNMF(FastMNMFBase):
 
     def make_step(self):
         eps, normalization, algorithm = self._eps(), bool(self.normalization), self.diagonalizer_algorithm
+        pair_selector = self.pair_selector
 
         def step(state):
             Q, T, V, D = fast_gauss_mnmf_step(
                 state["X"], state["Q"], state["T"], state["V"], state["D"], eps=eps, normalization=normalization,
-                diagonalizer=algorithm,
+                diagonalizer=algorithm, pair_selector=pair_selector,
             )
             return {**state, "Q": Q, "T": T, "V": V, "D": D}
 

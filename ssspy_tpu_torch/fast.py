@@ -8,7 +8,10 @@ on complex64 tensors through the hand-written kernels
 ``inv_ex``, where the JAX package does it on the host.
 
 >>> Y, W = fast_auxiva(spectrogram, n_iter=100)                   # (N,I,T), (I,N,M)
+>>> Y, W = fast_auxiva(spectrogram, n_iter=100, algorithm="IP2")
 >>> Y, (T, V), W = fast_gauss_ilrma(spectrogram, n_basis=8, n_iter=100)
+>>> Y = fast_fast_iva(spectrogram, n_iter=100)                      # or fast_faster_iva
+>>> Y, W = fast_grad_iva(spectrogram, n_iter=100, natural=True)
 >>> from ssspy_tpu_torch.bss import PDSIVA
 >>> Y, W = fast_pds_iva(PDSIVA().normalize_by_spectral_norm(spectrogram), n_iter=100)
 >>> Y, (T, V, H) = fast_gauss_mnmf_dense(spectrogram, n_basis=8, n_iter=100)
@@ -28,7 +31,16 @@ from .ops import cacgmm_steps
 from .ops.fast_mnmf_steps import check_diagonalizer, fast_gauss_mnmf_step, fast_mnmf_separate
 from .ops.ilrma_steps import ilrma_ip_step, ilrma_iss_step
 from .ops.ipsdta_steps import ipsdta_vcd_step, normalize_psdtf, part_shapes, random_psdtf
-from .ops.iva_steps import auxiva_ip1_step, auxiva_ipa_step, auxiva_iss1_step, separate
+from .ops.fixed_point_iva_steps import fast_iva_step, faster_iva_step, whiten_spectrogram
+from .ops.iva_steps import (
+    auxiva_ip1_step,
+    auxiva_ip2_step,
+    auxiva_ipa_step,
+    auxiva_iss1_step,
+    auxiva_iss2_step,
+    grad_laplace_iva_step,
+    separate,
+)
 from .ops.mnmf_steps import gauss_mnmf_step, instant_covariance, wiener_separate
 from .ops.prox_steps import admm_iva_step, admm_quad_inv, hva_pds_step, pds_iva_step
 from .transform import istft, stft
@@ -36,6 +48,9 @@ from .utils.device import DEFAULT_DEVICE, resolve_device
 
 __all__ = [
     "fast_auxiva",
+    "fast_fast_iva",
+    "fast_faster_iva",
+    "fast_grad_iva",
     "fast_auxiva_wave",
     "fast_gauss_ilrma_wave",
     "fast_gauss_ilrma",
@@ -52,20 +67,21 @@ __all__ = [
 ]
 
 _ALGORITHMS = ("IP1", "IP2", "ISS1", "ISS2", "IPA")
-_PORTED_ALGORITHMS = ("IP1", "ISS1", "IPA")
+_AUXIVA_STEPS = {
+    "IP1": auxiva_ip1_step,
+    "IP2": auxiva_ip2_step,
+    "ISS1": auxiva_iss1_step,
+    "ISS2": auxiva_iss2_step,
+    "IPA": auxiva_ipa_step,
+}
 
 
-def _check_algorithm(name: str, algorithm: str, ported=_PORTED_ALGORITHMS) -> None:
-    """Raise for an unknown ``algorithm``, for IP2 and ISS2 (not ported yet) and for one that ``name`` does not have."""
+def _check_algorithm(name: str, algorithm: str, allowed=_ALGORITHMS) -> None:
+    """Raise for an unknown ``algorithm`` and for one that ``name`` does not have, as its JAX twin does."""
     if algorithm not in _ALGORITHMS:
         raise ValueError(f"unsupported option: {algorithm}.")
-    if algorithm not in _PORTED_ALGORITHMS:
-        raise NotImplementedError(
-            f"{name}(algorithm={algorithm!r}) is not ported to ssspy_tpu_torch yet "
-            f"(ROADMAP.md, Queue 1, item 5); use one of {ported}."
-        )
-    if algorithm not in ported:
-        raise ValueError(f"{name} has no {algorithm} spatial update; use one of {ported}.")
+    if algorithm not in allowed:
+        raise ValueError(f"{name} has no {algorithm} spatial update; use one of {allowed}.")
 
 
 def _spectrogram(spectrogram, device) -> torch.Tensor:
@@ -96,30 +112,99 @@ def fast_auxiva(
     """AuxLaplaceIVA in complex64 (counterpart of ``ssspy_tpu.fast.fast_auxiva``, fast.py:96-132).
 
     ``spectrogram``: complex ``(n_channels, n_bins, n_frames)``, a tensor
-    or an array. ``algorithm``: ``"IP1"`` (demixing filters), ``"ISS1"`` or
-    ``"IPA"`` (demix-free). ``device``: the card by default; ``"cpu"`` runs
-    on the CPU. Every iteration floors with ``eps=1e-10``, as the JAX fast
-    path does. With ``scale_restoration``, IP1 rescales each filter row by
-    ``W^{-1}`` at ``reference_id`` and ISS1 and IPA project ``Y`` back onto
-    that channel of the mixture (fast.py:60-72). Returns
-    ``(separated (N, I, T), demix_filter (I, N, M) or None)``.
+    or an array. ``algorithm``: ``"IP1"`` or ``"IP2"`` (demixing filters;
+    IP2 over the sequential pairs, K1 once a pair), ``"ISS1"``, ``"ISS2"``
+    or ``"IPA"`` (demix-free). ``device``: the card by default; ``"cpu"``
+    runs on the CPU. Every iteration floors with ``eps=1e-10``, as the JAX
+    fast path does. With ``scale_restoration``, IP1 and IP2 rescale each
+    filter row by ``W^{-1}`` at ``reference_id`` and the demix-free
+    algorithms project ``Y`` back onto that channel of the mixture
+    (fast.py:60-72). Returns ``(separated (N, I, T), demix_filter (I, N, M)
+    or None)``.
     """
     _check_algorithm("fast_auxiva", algorithm)
     X = _spectrogram(spectrogram, device)
+    step = _AUXIVA_STEPS[algorithm]
 
-    if algorithm == "IP1":
+    if algorithm in ("IP1", "IP2"):
         W = _identity_filters(X)
         for _ in range(n_iter):
-            W = auxiva_ip1_step(X, W)
+            W = step(X, W)
         return _restored(X, W, scale_restoration, reference_id)
 
-    step = auxiva_ipa_step if algorithm == "IPA" else auxiva_iss1_step
     Y = X
     for _ in range(n_iter):
         Y = step(Y)
     if scale_restoration:
         Y = projection_back(Y, reference=X, reference_id=reference_id)
     return Y, None
+
+
+def _fast_fixed_point_iva(spectrogram, n_iter, step, scale_restoration, reference_id, device) -> torch.Tensor:
+    """Whitening, ``n_iter`` steps from ``W = I``, separation and projection back, all on ``device`` (fast.py:486-510)."""
+    X = _spectrogram(spectrogram, device)
+    Z = whiten_spectrogram(X)
+    W = _identity_filters(X)
+    for _ in range(n_iter):
+        W = step(Z, W)
+    Y = separate(Z, W)
+    if scale_restoration:
+        Y = projection_back(Y, reference=X, reference_id=reference_id)
+    return Y
+
+
+def fast_fast_iva(
+    spectrogram, n_iter: int = 100, scale_restoration: bool = True, reference_id: int = 0, device=DEFAULT_DEVICE
+) -> torch.Tensor:
+    """FastIVA (whitened fixed point, Laplace contrast) in complex64 (fast.py:542-557).
+
+    The whitening (one launch of the Jacobi eigh K7), ``n_iter`` steps of
+    :func:`~ssspy_tpu_torch.ops.fixed_point_iva_steps.fast_iva_step` at
+    ``eps = 1e-10`` (K7 once per step, the polar factor) from ``W = I``, the
+    separation and, with ``scale_restoration``, projection back onto the
+    ``reference_id`` channel of the unwhitened input, all on ``device``.
+    Returns the separated spectrograms ``(N, I, T)``.
+    """
+    return _fast_fixed_point_iva(spectrogram, n_iter, fast_iva_step, scale_restoration, reference_id, device)
+
+
+def fast_faster_iva(
+    spectrogram, n_iter: int = 100, scale_restoration: bool = True, reference_id: int = 0, device=DEFAULT_DEVICE
+) -> torch.Tensor:
+    """FasterIVA (top-eigenvector update, Laplace contrast) in complex64 (fast.py:560-573).
+
+    As :func:`fast_fast_iva`, with
+    :func:`~ssspy_tpu_torch.ops.fixed_point_iva_steps.faster_iva_step`: per
+    step the weighted covariance K1 (``(N, T)`` weights) and K7 twice (the
+    top eigenvectors at ``(I N, 2M, 2M)``, the polar factor). Returns the
+    separated spectrograms ``(N, I, T)``.
+    """
+    return _fast_fixed_point_iva(spectrogram, n_iter, faster_iva_step, scale_restoration, reference_id, device)
+
+
+def fast_grad_iva(
+    spectrogram,
+    n_iter: int = 100,
+    step_size: float = 1e-1,
+    natural: bool = False,
+    is_holonomic: bool = True,
+    scale_restoration: bool = True,
+    reference_id: int = 0,
+    device=DEFAULT_DEVICE,
+) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Grad/NaturalGrad Laplace IVA in complex64 (fast.py:576-622).
+
+    ``n_iter`` steps of :func:`~ssspy_tpu_torch.ops.iva_steps.grad_laplace_iva_step`
+    at ``eps = 1e-10`` from ``W = I`` (no kernel: the vanilla gradient's
+    ``W^-H`` is a ``solve_ex``), then the filters rescaled by ``W^-1`` at
+    ``reference_id`` with ``scale_restoration``. Returns
+    ``(separated (N, I, T), demix_filter (I, N, M))`` on ``device``.
+    """
+    X = _spectrogram(spectrogram, device)
+    W = _identity_filters(X)
+    for _ in range(n_iter):
+        W = grad_laplace_iva_step(X, W, step_size=step_size, is_holonomic=is_holonomic, natural=natural)
+    return _restored(X, W, scale_restoration, reference_id)
 
 
 def _wave(waveform, n_fft: int, hop_length: Optional[int], device):
@@ -143,7 +228,7 @@ def fast_auxiva_wave(
 
     ``waveform``: real ``(n_channels, n_samples)``, a tensor or an array,
     taken as float32. The STFT (cuFFT on the card), :func:`fast_auxiva`'s
-    iterations (``"IP1"``, ``"ISS1"`` or ``"IPA"``, through the kernels'
+    iterations (every ``algorithm`` it takes, through the kernels'
     routers), projection back onto channel 0 and the iSTFT all run on
     ``device``: nothing crosses to the host before the output. Returns the
     separated waveforms ``(n_sources, n_samples)``, float32.
@@ -167,7 +252,7 @@ def fast_gauss_ilrma_wave(
     """Waveform-to-waveform GaussILRMA (MM, power normalization) in complex64 (fast.py:1017-1123), end to end on ``device``.
 
     The ILRMA twin of :func:`fast_auxiva_wave`: ``algorithm`` ``"IP1"`` or
-    ``"ISS1"``; ``rng`` draws the basis, then the activation, at the
+    ``"ISS1"``, as its JAX twin takes (fast.py:1043); ``rng`` draws the basis, then the activation, at the
     STFT's shape, as the JAX package does. Returns ``(n_sources,
     n_samples)``, float32.
     """
@@ -187,10 +272,12 @@ def _fast_ilrma(
     JAX package does; with ``partitioning`` the latent ``Z0`` (divided by
     its sum over sources) comes first and all three are floored at 1e-10
     (fast.py:402-406). Then it iterates :func:`ilrma_ip_step` or
-    :func:`ilrma_iss_step` (ISS1, IPA) with their f32 ``eps = 1e-6``; the
-    factors come back as ``(T, V)`` or ``(T, V, Z)``.
+    :func:`ilrma_iss_step` (ISS1, ISS2, IPA) with their f32 ``eps = 1e-6``;
+    the factors come back as ``(T, V)`` or ``(T, V, Z)``. The t and GGD
+    models take IP1, IP2, ISS1 and ISS2, as the JAX package's do
+    (fast.py:474).
     """
-    _check_algorithm(name, algorithm, _PORTED_ALGORITHMS if model["model"] == "gauss" else ("IP1", "ISS1"))
+    _check_algorithm(name, algorithm, _ALGORITHMS if model["model"] == "gauss" else ("IP1", "IP2", "ISS1", "ISS2"))
     X = _spectrogram(spectrogram, device)
     n_channels, n_bins, n_frames = X.shape
     rng = np.random.default_rng() if rng is None else rng
@@ -202,10 +289,10 @@ def _fast_ilrma(
         draws = [rng.random((n_channels, n_bins, n_basis)), rng.random((n_channels, n_basis, n_frames))]
     factors = tuple(torch.from_numpy(draw.astype(np.float32)).to(X.device) for draw in draws)
 
-    if algorithm == "IP1":
+    if algorithm in ("IP1", "IP2"):
         W = _identity_filters(X)
         for _ in range(n_iter):
-            W, *factors = ilrma_ip_step(X, W, *factors, **model)
+            W, *factors = ilrma_ip_step(X, W, *factors, spatial=algorithm, **model)
         Y, W = _restored(X, W, scale_restoration, reference_id)
         return Y, tuple(factors), W
 
@@ -231,8 +318,8 @@ def fast_gauss_ilrma(
 ):
     """GaussILRMA (MM/ME, power normalization) in complex64 (fast.py:196-259).
 
-    ``algorithm``: ``"IP1"``, ``"ISS1"`` or ``"IPA"``; ``source_algorithm``:
-    MM or ME. ``rng`` draws the NMF factors. ``partitioning=True`` selects
+    ``algorithm``: ``"IP1"``, ``"IP2"``, ``"ISS1"``, ``"ISS2"`` or ``"IPA"``;
+    ``source_algorithm``: MM or ME. ``rng`` draws the NMF factors. ``partitioning=True`` selects
     the shared-basis latent model (fast.py:390-455). Returns
     ``(separated, (basis, activation), demix_filter or None)``, with
     ``(basis, activation, latent)`` under ``partitioning``, tensors on
@@ -260,7 +347,7 @@ def fast_t_ilrma(
 ):
     """TILRMA (Student's-t with ``dof`` degrees of freedom, MM/ME) in complex64 (fast.py:328-357).
 
-    ``algorithm``: ``"IP1"`` or ``"ISS1"``. Returns
+    ``algorithm``: ``"IP1"``, ``"IP2"``, ``"ISS1"`` or ``"ISS2"``. Returns
     ``(separated, (basis, activation), demix_filter or None)``.
     """
     if source_algorithm not in ("MM", "ME"):
@@ -284,7 +371,7 @@ def fast_ggd_ilrma(
 ):
     """GGDILRMA (generalized Gaussian of shape ``beta`` in (0, 2), MM) in complex64 (fast.py:360-387).
 
-    ``algorithm``: ``"IP1"`` or ``"ISS1"``. Returns
+    ``algorithm``: ``"IP1"``, ``"IP2"``, ``"ISS1"`` or ``"ISS2"``. Returns
     ``(separated, (basis, activation), demix_filter or None)``.
     """
     if not 0 < beta < 2:
@@ -429,12 +516,12 @@ def fast_gauss_mnmf(
     ``max(rng.random(...), 1e-10)``, all in float32, and starts from ``Q0 =
     I``, as the JAX package does. ``n_iter`` steps of
     :func:`~ssspy_tpu_torch.ops.fast_mnmf_steps.fast_gauss_mnmf_step` at
-    ``eps = 1e-6`` (one launch each of the weighted covariance K1, with
-    per-channel weights, and of the IP1 sweep K1b per step), then the Wiener
-    filter in the diagonalized space at ``reference_id``
+    ``eps = 1e-6`` (one launch of the weighted covariance K1, with
+    per-channel weights, per step, then the IP1 sweep K1b or, with
+    ``diagonalizer_algorithm="IP2"``, M sequential pair updates), then the
+    Wiener filter in the diagonalized space at ``reference_id``
     (:func:`~ssspy_tpu_torch.ops.fast_mnmf_steps.fast_mnmf_separate`), all on
-    ``device``, where the JAX package runs the filter on the host. The IP2
-    diagonalizer is not ported yet and raises. Returns
+    ``device``, where the JAX package runs the filter on the host. Returns
     ``(separated (N, I, T), (T, V, Q, D))``.
     """
     check_diagonalizer(diagonalizer_algorithm)

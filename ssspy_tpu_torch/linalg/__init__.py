@@ -1,6 +1,7 @@
-"""Linear-algebra helpers of the port: the proximal operators of the prox family and IPA's LQPQM solver."""
+"""Linear-algebra helpers of the port: the proximal operators of the prox family, IPA's LQPQM solver and the closed-form 2 x 2 generalized eigenproblem of IP2 and ISS2."""
 
-from . import lqpqm, prox
+from . import eigh, lqpqm, prox
+from .eigh import gevd2
 from .lqpqm import lqpqm2
 
-__all__ = ["lqpqm", "lqpqm2", "prox"]
+__all__ = ["eigh", "gevd2", "lqpqm", "lqpqm2", "prox"]

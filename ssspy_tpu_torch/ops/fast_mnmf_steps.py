@@ -7,22 +7,24 @@ ssspy/bss/mnmf.py:1076-1675). Each source's spatial covariance is
 ``R_n = Q^-1 diag(Lamb_n d_n) Q^-H`` with one diagonalizer ``Q (I, M, M)``
 per bin, NMF powers ``Lamb_n = T_n V_n`` and diagonal loadings
 ``D (I, N, M)``. Apart from the projection ``QX`` (one complex ``Q @ X``
-per bin) and the diagonalizer's IP1 sweep, the iteration is real
-arithmetic on the powers ``|QX|^2``.
+per bin) and the diagonalizer's IP1 sweep or IP2 pair updates, the
+iteration is real arithmetic on the powers ``|QX|^2``.
 
 The diagonalizer update is the per-channel weighted covariance with
 weights ``1 / (Lamb D)`` of shape ``(M, I, T)`` and the IP1 sweep, through
 the routers :func:`~ssspy_tpu_torch.ops.iva_steps.covariance` (K1) and
 :func:`~ssspy_tpu_torch.ops.iva_steps.ip1_update` (K1b): the kernels in
 complex64, their plain versions in complex128 and past the kernels' sizes.
-The IP2 diagonalizer is not ported yet (ROADMAP.md, Queue 1, item 5).
+The IP2 diagonalizer takes the same covariances (K1 once) and runs
+:func:`~ssspy_tpu_torch.ops.iva_steps.ip2_update`'s pair updates over a
+``pair_selector`` (M sequential pairs by default) instead of K1b.
 """
 
 from typing import Tuple
 
 import torch
 
-from .iva_steps import clogabsdet, covariance, ip1_update
+from .iva_steps import clogabsdet, covariance, ip1_update, ip2_update
 
 __all__ = ["DIAGONALIZERS", "fast_gauss_mnmf_step", "fast_gauss_mnmf_loss", "fast_mnmf_separate"]
 
@@ -30,13 +32,9 @@ DIAGONALIZERS = ("IP", "IP1", "IP2")
 
 
 def check_diagonalizer(diagonalizer: str) -> None:
-    """Raise for an unknown diagonalizer update, and for IP2 (not ported yet)."""
+    """Raise for an unknown diagonalizer update."""
     if diagonalizer not in DIAGONALIZERS:
         raise ValueError(f"unsupported option: {diagonalizer}.")
-    if diagonalizer == "IP2":
-        raise NotImplementedError(
-            "the IP2 diagonalizer is not ported to ssspy_tpu_torch yet (ROADMAP.md, Queue 1, item 5); use 'IP1'."
-        )
 
 
 def _powers(Xb: torch.Tensor, Q: torch.Tensor) -> torch.Tensor:
@@ -65,6 +63,7 @@ def fast_gauss_mnmf_step(
     eps: float = 1e-6,
     normalization: bool = True,
     diagonalizer: str = "IP1",
+    pair_selector=None,
 ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor, torch.Tensor]:
     """One FastGaussMNMF iteration; returns ``(Q, T, V, D)``.
 
@@ -72,10 +71,11 @@ def fast_gauss_mnmf_step(
     basis ``(N, I, K)``; ``V``: activation ``(N, K, T)``; ``D``: loadings
     ``(I, N, M)``, real. The basis, then the activation MM update
     (``max(., eps)``, the denominator floored at 1e-30 so that a silent bin
-    gives no 0/0), the diagonalizer's IP1 sweep over the per-channel
-    weighted covariances ``mean_t x x^H / max(Lamb D, eps)``, the loadings'
-    MM update and, with ``normalization``, the power normalization of ``Q``
-    and ``D`` by ``psi_m = max(sqrt(mean |QX_m|^2), eps)``.
+    gives no 0/0), the diagonalizer's IP1 sweep (``"IP"``, ``"IP1"``) or IP2
+    pair updates over ``pair_selector``'s pairs (``"IP2"``) on the
+    per-channel weighted covariances ``mean_t x x^H / max(Lamb D, eps)``,
+    the loadings' MM update and, with ``normalization``, the power
+    normalization of ``Q`` and ``D`` by ``psi_m = max(sqrt(mean |QX_m|^2), eps)``.
     """
     check_diagonalizer(diagonalizer)
     Xb = X.transpose(0, 1)  # (I, M, T)
@@ -94,7 +94,11 @@ def fast_gauss_mnmf_step(
 
     Lamb = torch.clamp(T @ V, min=eps)
     varphi = 1 / torch.clamp(torch.einsum("nit,inm->mit", Lamb, D), min=eps)  # (M, I, T)
-    Q = ip1_update(Q, covariance(X, varphi), eps=eps)
+    U = covariance(X, varphi)
+    if diagonalizer == "IP2":
+        Q = ip2_update(Q, U, eps=eps, pair_selector=pair_selector)
+    else:
+        Q = ip1_update(Q, U, eps=eps)
 
     QX2 = _powers(Xb, Q)
     Lamb, LambD = _model(T, V, D, eps)

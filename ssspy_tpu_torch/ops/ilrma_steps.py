@@ -1,4 +1,4 @@
-"""The ILRMA iterations (Gauss, t and GGD source models; IP1, ISS1 and IPA) and their loss.
+"""The ILRMA iterations (Gauss, t and GGD source models; IP1, IP2, ISS1, ISS2 and IPA) and their loss.
 
 Counterparts of the generic ILRMA engine in ``ssspy_tpu/ops/splitc.py``
 (splitc.py:414-449, :477-520, :589-693, :712-803, :2267-2328, :4210-4261)
@@ -7,16 +7,17 @@ multiplicative-update contractions are plain matrix products, as in the
 JAX package, where they stay outside any Pallas kernel. The spatial update
 goes through the routers of :mod:`ssspy_tpu_torch.ops.iva_steps` to the
 kernels of :mod:`ssspy_tpu_torch.ops.kernels`: the weighted covariance with
-per-bin weights ``(N, I, T)`` and the IP1 sweep, the ISS1 sweep, or the IPA
-sweep of :mod:`ssspy_tpu_torch.ops.ipa_steps` (Gauss only).
+per-bin weights ``(N, I, T)`` and the IP1 sweep or the IP2 pair updates,
+the ISS1 sweep, the ISS2 sweep (no kernel), or the IPA sweep of
+:mod:`ssspy_tpu_torch.ops.ipa_steps` (Gauss only). The pairwise updates
+take any ``pair_selector`` (sequential by default).
 
 ``model`` is ``"gauss"``, ``"t"`` (``dof`` = nu) or ``"ggd"`` (``shape`` =
 beta); ``p`` is the domain parameter; ``me=True`` selects the ME source
 update (Gauss and t, ``p == 2``). With a latent ``Z (N, K)`` the sources
 share one basis ``T (I, K)`` and one activation ``V (K, T)`` (the
 partitioned model, ``r_nit = sum_k z_nk t_ik v_kt``), and each step also
-returns the new ``Z``. IP2 and ISS2 are not ported yet (ROADMAP.md, Queue
-1, item 5).
+returns the new ``Z``.
 """
 
 from typing import Callable, Optional, Tuple
@@ -24,7 +25,16 @@ from typing import Callable, Optional, Tuple
 import torch
 
 from .ipa_steps import ipa_sweep
-from .iva_steps import clogabsdet, covariance, ip1_update, iss1_update, ls_demix, separate
+from .iva_steps import (
+    clogabsdet,
+    covariance,
+    ip1_update,
+    ip2_update,
+    iss1_update,
+    iss2_sweep,
+    ls_demix,
+    separate,
+)
 
 __all__ = [
     "power",
@@ -37,7 +47,9 @@ __all__ = [
     "ilrma_ip_step",
     "ilrma_iss_step",
     "gauss_ilrma_ip1_step",
+    "gauss_ilrma_ip2_step",
     "gauss_ilrma_iss1_step",
+    "gauss_ilrma_iss2_step",
     "gauss_ilrma_ipa_step",
     "ilrma_loss",
 ]
@@ -186,17 +198,8 @@ def power_normalize_partitioning(psi: torch.Tensor, T: torch.Tensor, Z: torch.Te
     return T * scale, Z_psi / scale
 
 
-_UNPORTED_SPATIAL = ("IP2", "ISS2")
-
-
-def _check_ported(spatial: str, ported: str) -> None:
-    """Raise for the spatial updates of the JAX engine that the port does not run yet."""
-    if spatial in _UNPORTED_SPATIAL:
-        raise NotImplementedError(
-            f"spatial={spatial!r} is not ported to ssspy_tpu_torch yet "
-            f"(ROADMAP.md, Queue 1, item 5); use {ported!r}."
-        )
-    if spatial != ported:
+def _check_spatial(spatial: str, allowed) -> None:
+    if spatial not in allowed:
         raise ValueError(f"unsupported option: {spatial}.")
 
 
@@ -236,19 +239,25 @@ def ilrma_ip_step(
     dof: Optional[float] = None,
     shape: Optional[float] = None,
     me: bool = False,
+    pair_selector=None,
 ):
-    """One ILRMA MM/ME + IP1 iteration; returns ``(W, T, V)``, or ``(W, T, V, Z)`` with a latent ``Z``.
+    """One ILRMA MM/ME + IP1/IP2 iteration; returns ``(W, T, V)``, or ``(W, T, V, Z)`` with a latent ``Z``.
 
     ``X``: mixture ``(M, I, T)``; ``W``: demixing filters ``(I, N, M)``.
-    Source model, per-bin weights, the weighted covariance and the IP1
-    sweep, then power normalization of ``W`` and the factors. Counterpart
-    of ``splitc.ilrma_ip_step_sc`` with ``spatial="IP1"``
-    (splitc.py:712-760); ``spatial="IP2"`` raises.
+    Source model, per-bin weights, the weighted covariance (once per
+    iteration, all sources) and the IP1 sweep or, with ``spatial="IP2"``,
+    the pair updates over ``pair_selector``'s pairs, each reading its two
+    rows of the covariances; then power normalization of ``W`` and the
+    factors. Counterpart of ``splitc.ilrma_ip_step_sc`` (splitc.py:696-760).
     """
-    _check_ported(spatial, "IP1")
+    _check_spatial(spatial, ("IP1", "IP2"))
     Y2 = power(separate(X, W))
     T, V, Z, varphi = _source_model(Y2, T, V, Z, model=model, p=domain, eps=eps, dof=dof, shape=shape, me=me)
-    W = ip1_update(W, covariance(X, varphi), eps=eps)
+    U = covariance(X, varphi)
+    if spatial == "IP1":
+        W = ip1_update(W, U, eps=eps)
+    else:
+        W = ip2_update(W, U, eps=eps, pair_selector=pair_selector)
     psi, T, Z = _power_normalize(separate(X, W), T, Z, domain, eps)
     return (W / psi[None, :, None], *_factors(T, V, Z))
 
@@ -267,26 +276,29 @@ def ilrma_iss_step(
     me: bool = False,
     lqpqm_normalization: bool = True,
     newton_iter: int = 1,
+    pair_selector=None,
 ):
     """One demix-free ILRMA MM/ME iteration on the separated spectrograms; returns ``(Y, T, V[, Z])``.
 
     Twin of :func:`ilrma_ip_step` without demixing filters: the ISS1 sweep
-    with per-bin weights (``spatial="ISS1"``) or, on the Gauss model, the
-    IPA sweep (``spatial="IPA"``, with its ``lqpqm_normalization`` and
+    with per-bin weights (``spatial="ISS1"``), the ISS2 sweep over
+    ``pair_selector``'s pairs (``spatial="ISS2"``) or, on the Gauss model,
+    the IPA sweep (``spatial="IPA"``, with its ``lqpqm_normalization`` and
     ``newton_iter``), then power normalization of ``Y`` and the factors.
     Counterpart of ``splitc.ilrma_iss_step_sc`` (splitc.py:763-803) and
-    ``splitc.gauss_ilrma_ipa_step_sc`` (splitc.py:2267-2328);
-    ``spatial="ISS2"`` raises.
+    ``splitc.gauss_ilrma_ipa_step_sc`` (splitc.py:2267-2328).
     """
     if spatial == "IPA":
         if model != "gauss":
             raise ValueError("only the Gauss source model has an IPA spatial update.")
     else:
-        _check_ported(spatial, "ISS1")
+        _check_spatial(spatial, ("ISS1", "ISS2"))
     Y2 = power(Y)
     T, V, Z, varphi = _source_model(Y2, T, V, Z, model=model, p=domain, eps=eps, dof=dof, shape=shape, me=me)
     if spatial == "IPA":
         Y = ipa_sweep(Y, varphi, eps=eps, lqpqm_normalization=lqpqm_normalization, newton_iter=newton_iter)
+    elif spatial == "ISS2":
+        Y = iss2_sweep(Y, varphi, eps=eps, pair_selector=pair_selector)
     else:
         Y = iss1_update(Y, varphi, eps=eps)
     psi, T, Z = _power_normalize(Y, T, Z, domain, eps)
@@ -301,6 +313,23 @@ def gauss_ilrma_ip1_step(X, W, T, V, domain: float = 2.0, eps: float = 1e-6):
     step runs in f32 (splitc.py:491-495).
     """
     return ilrma_ip_step(X, W, T, V, model="gauss", domain=domain, eps=eps)
+
+
+def gauss_ilrma_ip2_step(X, W, T, V, domain: float = 2.0, eps: float = 1e-6):
+    """One GaussILRMA MM + IP2 iteration; returns ``(W, T, V)``.
+
+    Counterpart of ``splitc.gauss_ilrma_ip2_step_sc`` (splitc.py:523-562):
+    the covariances of every source once, then the sequential pairs.
+    """
+    return ilrma_ip_step(X, W, T, V, model="gauss", spatial="IP2", domain=domain, eps=eps)
+
+
+def gauss_ilrma_iss2_step(Y, T, V, domain: float = 2.0, eps: float = 1e-6):
+    """One GaussILRMA MM + ISS2 iteration; returns ``(Y, T, V)``.
+
+    Counterpart of ``splitc.gauss_ilrma_iss2_step_sc`` (splitc.py:565-586).
+    """
+    return ilrma_iss_step(Y, T, V, model="gauss", spatial="ISS2", domain=domain, eps=eps)
 
 
 def gauss_ilrma_iss1_step(Y, T, V, domain: float = 2.0, eps: float = 1e-6):

@@ -35,16 +35,20 @@ def complex_to_planar(t: torch.Tensor) -> np.ndarray:
 # the state keys of the JAX classes and fast paths, by kind
 _COMPLEX_KEYS = (
     "X", "W", "Y",  # spectrograms and demixing filters
+    "Xw",  # the fixed-point IVA classes' whitened spectrogram
     "dual",  # PDS dual
     "V1", "V2", "Y1", "Y2", "quad_inv",  # ADMM fast-path auxiliaries, duals, (X X^H + I)^-1
     "auxiliary1", "auxiliary2", "dual1", "dual2",  # ADMM class auxiliaries and duals
     "H", "XX",  # dense MNMF spatial and instant covariances
 )
-_REAL_KEYS = ("T", "V", "Z")  # NMF basis, activation and latent (ILRMA and MNMF)
+_REAL_KEYS = (
+    "T", "V", "Z",  # NMF basis, activation and latent (ILRMA and MNMF); FastICA's whitened waveform
+    "variance",  # the Gaussian source model of AuxGaussIVA and GradGaussIVA
+)
 _COMPLEX_LIST_KEYS = ("T_parts",)  # IPSDTA's PSDTF basis, one entry per block part
 
 
-def from_jax_state(state: Dict, device=None) -> Dict[str, Union[torch.Tensor, List[torch.Tensor]]]:
+def from_jax_state(state: Dict, device=None, real_keys=()) -> Dict[str, Union[torch.Tensor, List[torch.Tensor]]]:
     """Convert a JAX class or fast-path state dict (e.g. ``{"X": Xs, "W": Ws}``).
 
     The kind of each entry is decided by its key, never by its shape:
@@ -53,8 +57,13 @@ def from_jax_state(state: Dict, device=None) -> Dict[str, Union[torch.Tensor, Li
     ``dual1`` and ``dual2``, and dense MNMF's ``H`` and ``XX`` are
     complex and arrive either complex (class
     state) or planar ``(2, ...)`` real (fast-path state, through
-    :func:`planar_to_complex`); ``T``, ``V`` and ``Z`` are real and keep
-    their dtype, whatever their leading axis. ``T_parts``, IPSDTA's basis,
+    :func:`planar_to_complex`), and so is the fixed-point classes' ``Xw``;
+    ``T``, ``V``, ``Z`` and the Gaussian models' ``variance`` are real and
+    keep their dtype, whatever their leading axis. The keys named in
+    ``real_keys`` are real as well: the ICA classes' waveform ``X`` and
+    demixing matrix ``W`` are real, so their state converts with
+    ``real_keys=("X", "W")`` (a real ``(2, ...)`` array is never read as
+    planar then). ``T_parts``, IPSDTA's basis,
     is a list (or tuple) of complex parts ``(N, K, B_p, J_p, J_p)``, each
     complex or planar ``(2, N, K, B_p, J_p, J_p)`` (the JAX fast path's
     ``T0``, ``T1``), and becomes a list of complex tensors. Any other key
@@ -73,9 +82,9 @@ def from_jax_state(state: Dict, device=None) -> Dict[str, Union[torch.Tensor, Li
             out[key] = [as_complex(part) for part in value]
             continue
         a = np.asarray(value)
-        if key in _COMPLEX_KEYS:
+        if key in _COMPLEX_KEYS and key not in real_keys:
             out[key] = as_complex(a)
-        elif key in _REAL_KEYS:
+        elif key in _REAL_KEYS or key in real_keys:
             if np.iscomplexobj(a):
                 raise ValueError(f"state entry {key!r} must be real, got {a.dtype}")
             out[key] = torch.from_numpy(a.copy()).to(device)

@@ -1,11 +1,13 @@
 """Synthetic inputs: the main path's 8-channel, 10 s, 16 kHz convolutive mixture and the hard scenario.
 
 numpy-only copies of ``bench.make_mixture`` / ``bench.host_stft``
-(bench.py:45-75), the ``np.convolve`` branch, and of
+(bench.py:45-75), the ``np.convolve`` branch, of
+``ssspy_tpu.utils.dataset.download_sample_speech_data``'s synthetic
+mixture (the easy tier of tests/test_fast_fidelity.py) and of
 ``ssspy_tpu.utils.dataset.hard_speech_mixture`` with its helpers
-(ssspy_tpu/utils/dataset/__init__.py:17-22, :133-282), without its file
-cache, so that the port and ``chip_smoke.py`` build these inputs without
-the JAX package.
+(ssspy_tpu/utils/dataset/__init__.py:17-67, :70-118, :133-282), without
+their file cache, so that the port and ``chip_smoke.py`` build these
+inputs without the JAX package.
 """
 
 from typing import Tuple
@@ -15,6 +17,7 @@ import numpy as np
 __all__ = [
     "make_mixture",
     "host_stft",
+    "sample_speech_mixture",
     "hard_speech_mixture",
     "SAMPLE_RATE",
     "N_CHANNELS",
@@ -54,6 +57,63 @@ def host_stft(x: np.ndarray, n_fft: int = N_FFT, hop: int = HOP) -> np.ndarray:
     idx = np.arange(n_frames)[:, None] * hop + np.arange(n_fft)[None, :]
     frames = x[..., idx] * win
     return np.fft.rfft(frames, axis=-1).swapaxes(-2, -1) / win.sum()
+
+
+# ---- the easy tier: syllabic pseudo-speech through sparse echoes ----------------------
+
+
+def _synthetic_speech_like(rng: np.random.Generator, n_samples: int, sample_rate: int) -> np.ndarray:
+    """Harmonics and a wideband burst under one sparse syllabic envelope, peak 1."""
+    t = np.arange(n_samples) / sample_rate
+    f0 = rng.uniform(90.0, 250.0)
+    smooth = int(0.12 * sample_rate)
+    env = 0.15 + 0.85 * _sparse_envelope(rng, n_samples, 4.0, sample_rate, smooth)
+    sig = np.zeros(n_samples)
+    for k in range(1, 6):
+        sig += np.sin(2 * np.pi * k * f0 * t + rng.uniform(0, 2 * np.pi)) / k
+    sig += 0.5 * rng.standard_normal(n_samples)
+    sig = env * sig
+    return sig / np.max(np.abs(sig))
+
+
+def _synthetic_rir(rng: np.random.Generator, n_channels: int, n_taps: int, decay: float = 0.995) -> np.ndarray:
+    """A direct path and 24 exponentially decaying echoes per channel."""
+    rir = np.zeros((n_channels, n_taps))
+    for ch in range(n_channels):
+        direct = rng.integers(4, 16)
+        rir[ch, direct] = 1.0
+        pos = rng.integers(direct + 1, n_taps, size=24)
+        rir[ch, pos] += rng.standard_normal(24) * (decay**pos) * 0.5
+    return rir
+
+
+def sample_speech_mixture(
+    n_sources: int = 3,
+    max_duration: float = 10.0,
+    conv: bool = True,
+    seed: int = 42,
+    sample_rate: int = 16000,
+) -> Tuple[np.ndarray, int]:
+    """The synthetic sample mixture: ``(waveform_src_img (n_sources, n_channels, n_samples), sample_rate)``.
+
+    ``n_sources`` speech-like sources, convolved with sparse echo responses
+    (``conv``) or mixed instantaneously, ``n_channels == n_sources``; the
+    draws of the JAX package's ``download_sample_speech_data``, in its
+    order, so the same arguments give the same mixture.
+    """
+    n_samples = int(max_duration * sample_rate)
+    rng = np.random.default_rng(seed + 1000 * n_sources + (1 if conv else 0))
+    sources = np.stack([_synthetic_speech_like(rng, n_samples, sample_rate) for _ in range(n_sources)])
+    if not conv:
+        mixing = rng.standard_normal((n_sources, n_sources))
+        return mixing.T[:, :, None] * sources[:, None, :], sample_rate
+    n_taps = min(2048, n_samples // 4)
+    images = np.zeros((n_sources, n_sources, n_samples))
+    for src in range(n_sources):
+        rir = _synthetic_rir(rng, n_sources, n_taps)
+        for ch in range(n_sources):
+            images[src, ch] = np.convolve(sources[src], rir[ch])[:n_samples]
+    return images, sample_rate
 
 
 # ---- the hard scenario: formant pseudo-speech in reverberant rooms ----------------------

@@ -378,10 +378,19 @@ def test_fast_auxiva_wave_is_the_spectrogram_path_between_the_transforms(wave):
 
 
 def test_waveform_entry_points_raise_for_what_is_not_ported(wave):
+    """IP2 and ISS2 are ported since: ``fast_auxiva_wave`` runs them as stft, the spectrogram path and istft;
+    ``fast_gauss_ilrma_wave`` takes IP1 and ISS1 only, as its JAX twin (fast.py:1043)."""
+    from ssspy_tpu_torch.fast import fast_auxiva
+    from ssspy_tpu_torch.transform import istft, stft
+
+    x = torch.from_numpy(wave).to(torch.float32)
     for algorithm in ("IP2", "ISS2"):
-        with pytest.raises(NotImplementedError, match="Queue 1, item 5"):
-            fast_auxiva_wave(wave, n_iter=1, algorithm=algorithm, device="cpu")
-    with pytest.raises(NotImplementedError, match="Queue 1, item 5"):
+        y = fast_auxiva_wave(wave, n_iter=1, algorithm=algorithm, n_fft=256, device="cpu")
+        Y, _ = fast_auxiva(stft(x, n_fft=256), n_iter=1, algorithm=algorithm, device="cpu")
+        assert torch.equal(y, istft(Y, n_fft=256, length=wave.shape[-1]))
+    with pytest.raises(ValueError, match="no IP2"):
         fast_gauss_ilrma_wave(wave, n_basis=2, n_iter=1, algorithm="IP2", device="cpu")
+    with pytest.raises(AssertionError):
+        jax_fast_gauss_ilrma_wave(wave, n_basis=2, n_iter=1, algorithm="IP2")
     with pytest.raises(ValueError, match="no IPA|IP1"):
         fast_gauss_ilrma_wave(wave, n_basis=2, n_iter=1, algorithm="IPA", device="cpu")

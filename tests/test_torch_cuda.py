@@ -763,3 +763,181 @@ def test_waveform_entry_points_equal_the_spectrogram_path(cuda_device):
     y = fast_gauss_ilrma_wave(x, n_basis=2, n_iter=5, rng=np.random.default_rng(40))
     ref = istft(fast_gauss_ilrma(stft(xt), n_basis=2, n_iter=5, rng=np.random.default_rng(40))[0], length=x.shape[-1])
     assert (y - ref).abs().max() <= 1e-4 * ref.abs().max()
+
+
+# ---- IP2, ISS2, the fixed-point and gradient IVA classes, time-domain ICA --------------------------------------
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("per_bin", [False, True], ids=["scalar", "per_bin"])
+def test_weighted_covariance_kernel_at_two_sources(cuda_device, per_bin):
+    """K1 at IP2's pair weights: N = 2 over the main path's mixture, within 1e-5, Hermitian and two launches to the bit."""
+    rng = np.random.default_rng(41)
+    M, I, T, _ = MAIN_PATH
+    X = _complex(rng, (M, I, T), cuda_device)
+    phi = torch.from_numpy(rng.random((2, I, T) if per_bin else (2, T), dtype=np.float32) + 0.1).to(cuda_device)
+    before = K.weighted_covariance.launches
+    U, U2 = K.weighted_covariance(X, phi), K.weighted_covariance(X, phi)
+    ref = K.weighted_covariance_plain(X, phi)
+    torch.cuda.synchronize()
+    assert K.weighted_covariance.launches == before + 2
+    assert U.shape == (I, 2, M, M)
+    assert (U - ref).abs().max() / ref.abs().max() <= 1e-5
+    assert torch.equal(U, U.transpose(-2, -1).conj()) and torch.equal(U, U2)
+
+
+@pytest.mark.cuda
+def test_jacobi_eigh_kernel_at_the_faster_iva_top_eigenvector_input(cuda_device):
+    """K7 on FasterIVA's embedded per-source covariances, (I N, 2M, 2M) = (2056, 16, 16): the plain version's bits."""
+    from ssspy_tpu_torch.ops.prox_steps import _symmetrised, block_embed
+
+    rng = np.random.default_rng(42)
+    M, I, T, N = MAIN_PATH
+    X = _complex(rng, (M, I, T), cuda_device)
+    phi = torch.from_numpy(rng.random((N, T), dtype=np.float32) + 0.1).to(cuda_device)
+    U = K.weighted_covariance_plain(X, phi)
+    A = _symmetrised(block_embed(U)).reshape(-1, 2 * M, 2 * M).contiguous()
+    assert A.shape == (2056, 16, 16)
+    lamb, V = K.jacobi_eigh(A)
+    lamb_ref, V_ref = K.jacobi_eigh_plain(A)
+    assert torch.equal(lamb, lamb_ref) and torch.equal(V, V_ref)
+
+
+def _new_path_launches():
+    return {name: getattr(K, name).launches for name in ("weighted_covariance", "ip1_sweep", "iss1_sweep",
+                                                         "ipa_congruence", "jacobi_eigh")}
+
+
+def _launched(before):
+    torch.cuda.synchronize()
+    return {name: count - before[name] for name, count in _new_path_launches().items()}
+
+
+@pytest.mark.cuda
+def test_ip2_and_iss2_paths_run_through_their_kernels_and_equal_their_classes(cuda_device):
+    """AuxIVA-IP2: K1 once a pair, no K1b; ISS2: no kernel; FastGaussMNMF-IP2: K1 once a step, no K1b; each class
+    equals its fast path."""
+    from ssspy_tpu_torch.bss import AuxLaplaceIVA, FastGaussMNMF
+    from ssspy_tpu_torch.fast import fast_auxiva, fast_gauss_mnmf
+
+    X = _mixture_spectrogram(4, seed=43).astype(np.complex64)
+    zero = dict.fromkeys(("weighted_covariance", "ip1_sweep", "iss1_sweep", "ipa_congruence", "jacobi_eigh"), 0)
+    for algorithm, k1 in (("IP2", 4 * 3), ("ISS2", 0)):
+        before = _new_path_launches()
+        Y, _ = fast_auxiva(X, n_iter=3, algorithm=algorithm, scale_restoration=False)
+        assert _launched(before) == {**zero, "weighted_covariance": k1}
+        iva = AuxLaplaceIVA(spatial_algorithm=algorithm, flooring_fn="f64", scale_restoration=False)
+        assert torch.equal(iva(X, n_iter=3), Y)
+        assert Y.device.type == "cuda" and torch.isfinite(torch.view_as_real(Y)).all()
+    before = _new_path_launches()
+    Y, (T, V, Q, D) = fast_gauss_mnmf(X, n_basis=2, n_iter=3, diagonalizer_algorithm="IP2", rng=np.random.default_rng(44))
+    assert _launched(before) == {**zero, "weighted_covariance": 3}
+    mnmf = FastGaussMNMF(n_basis=2, diagonalizer_algorithm="IP2", rng=np.random.default_rng(44))
+    assert torch.equal(mnmf(X, n_iter=3), Y) and torch.equal(mnmf.diagonalizer, Q)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("label", ["AuxIVA-IP2", "AuxIVA-ISS2", "GaussILRMA-IP2", "GaussILRMA-ISS2", "FastGaussMNMF-IP2"])
+def test_complex128_ip2_and_iss2_classes_on_the_card_equal_the_cpu(cuda_device, label):
+    from ssspy_tpu_torch.bss import AuxLaplaceIVA, FastGaussMNMF, GaussILRMA
+
+    def make(device):
+        family, algorithm = label.split("-")
+        if family == "AuxIVA":
+            return AuxLaplaceIVA(spatial_algorithm=algorithm, device=device)
+        if family == "GaussILRMA":
+            return GaussILRMA(n_basis=2, spatial_algorithm=algorithm, rng=np.random.default_rng(45), device=device)
+        return FastGaussMNMF(n_basis=2, diagonalizer_algorithm="IP2", rng=np.random.default_rng(45), device=device)
+
+    X = torch.from_numpy(_mixture_spectrogram(3, seed=46))
+    before = _new_path_launches()
+    card = make("cuda")
+    Y = card(X, n_iter=5)
+    assert all(count == 0 for count in _launched(before).values())  # complex128: every router's plain route
+    host = make("cpu")
+    Y_host = host(X, n_iter=5)
+    assert Y.device.type == "cuda" and Y.dtype == torch.complex128
+    assert abs(card.loss[-1] - host.loss[-1]) <= 1e-6 * abs(host.loss[-1])
+    assert (Y.cpu() - Y_host).abs().max() <= 1e-6 * Y_host.abs().max()
+
+
+@pytest.mark.cuda
+def test_fixed_point_and_gradient_paths_run_through_their_kernels_and_equal_their_classes(cuda_device):
+    """FastIVA: K7 once for the whitening and once a step; FasterIVA: K1 and K7 twice a step; gradient IVA: none."""
+    from ssspy_tpu_torch.bss import FasterIVA, FastIVA, GradLaplaceIVA, NaturalGradLaplaceIVA
+    from ssspy_tpu_torch.fast import fast_fast_iva, fast_faster_iva, fast_grad_iva
+
+    def contrast(y):
+        return 2 * torch.linalg.vector_norm(y, dim=1)
+
+    def d_contrast(y):
+        return 2 * torch.ones_like(y)
+
+    X = _mixture_spectrogram(4, seed=47).astype(np.complex64)
+    zero = dict.fromkeys(("weighted_covariance", "ip1_sweep", "iss1_sweep", "ipa_congruence", "jacobi_eigh"), 0)
+    before = _new_path_launches()
+    Y = fast_fast_iva(X, n_iter=3)
+    assert _launched(before) == {**zero, "jacobi_eigh": 4}
+    fast = FastIVA(contrast_fn=contrast, d_contrast_fn=d_contrast, dd_contrast_fn=lambda y: torch.zeros_like(y),
+                   flooring_fn="f64")
+    assert torch.equal(fast(X, n_iter=3), Y)
+    before = _new_path_launches()
+    Y = fast_faster_iva(X, n_iter=3)
+    assert _launched(before) == {**zero, "weighted_covariance": 3, "jacobi_eigh": 7}
+    assert torch.equal(FasterIVA(contrast_fn=contrast, d_contrast_fn=d_contrast, flooring_fn="f64")(X, n_iter=3), Y)
+    assert torch.isfinite(torch.view_as_real(Y)).all()
+    for natural, cls in ((False, GradLaplaceIVA), (True, NaturalGradLaplaceIVA)):
+        before = _new_path_launches()
+        Y, _ = fast_grad_iva(X, n_iter=3, natural=natural)
+        assert _launched(before) == zero
+        assert torch.equal(cls(flooring_fn="f64")(X, n_iter=3), Y)
+
+
+@pytest.mark.cuda
+def test_natural_grad_laplace_ica_meets_its_fixture_on_the_card(cuda_device):
+    """tests/regression/test_regression.py:179-186 on the card, float64: within 1e-6, no kernel."""
+    import os
+
+    from ssspy_tpu_torch.bss import NaturalGradLaplaceICA
+
+    fixtures = os.path.join(os.path.dirname(os.path.abspath(__file__)), "regression", "fixtures")
+    waveform = np.load(os.path.join(fixtures, "input_time.npz"))["waveform"]
+    target = np.load(os.path.join(fixtures, "natural_grad_laplace_ica.npz"))["target"]
+    before = _new_path_launches()
+    Y = NaturalGradLaplaceICA(step_size=0.05)(waveform, n_iter=20)
+    assert all(count == 0 for count in _launched(before).values())
+    assert Y.device.type == "cuda" and Y.dtype == torch.float64
+    np.testing.assert_allclose(Y.cpu().numpy(), target, atol=1e-6)
+
+
+def _transform_layout(kind, rng):
+    """A mixed float64/complex128 input in one of the reference's four layouts, with its channel axis."""
+    A = rng.standard_normal((3, 3))
+    if kind == "2d-real":
+        return np.einsum("mn,nt->mt", A, rng.laplace(size=(3, 500))), 0
+    if kind == "3d-real":
+        return np.einsum("mn,bnt->bmt", A, rng.laplace(size=(4, 3, 500))), 1
+    s = rng.standard_normal((3, 5, 200)) + 1j * rng.standard_normal((3, 5, 200))
+    if kind == "3d-complex":
+        return np.einsum("mn,nit->mit", A, s), 0
+    return np.einsum("mn,bnit->bmit", A, np.stack([s, 2 * s[::-1]])), 1
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("name", ["pca", "whiten"])
+@pytest.mark.parametrize("kind", ["2d-real", "3d-complex", "3d-real", "4d-complex"])
+def test_pca_and_whiten_run_on_the_card_and_equal_the_cpu(cuda_device, name, kind):
+    """The transforms' default device is the card; there they equal the CPU up to each eigenvector's sign or phase."""
+    from ssspy_tpu_torch import transform
+
+    fn = getattr(transform, name)
+    x, ch_axis = _transform_layout(kind, np.random.default_rng(11))
+    Y = fn(x)
+    assert Y.device.type == "cuda" and Y.shape == x.shape
+    got, ref = Y.cpu().numpy(), fn(x, device="cpu").numpy()
+    inner = np.sum(got * ref.conj(), axis=-1, keepdims=True)  # one sign or phase a slice and component
+    np.testing.assert_allclose(got * (inner / np.abs(inner)).conj(), ref, atol=1e-10 * np.abs(ref).max())
+    if name == "whiten":
+        Z = np.moveaxis(got, ch_axis, -1)
+        cov = np.einsum("...tm,...tn->...mn", Z, Z.conj()) / Z.shape[-2]
+        np.testing.assert_allclose(cov, np.broadcast_to(np.eye(3), cov.shape), atol=1e-10)

@@ -21,6 +21,7 @@ import numpy as np
 import pytest
 import torch
 
+from ssspy_tpu.bss.mnmf import FastGaussMNMF as JaxFastGaussMNMF
 from ssspy_tpu.fast import fast_gauss_mnmf as jax_fast_gauss_mnmf
 from ssspy_tpu.ops.splitc import fast_gauss_mnmf_loss_sc, fast_gauss_mnmf_step_sc
 from ssspy_tpu_torch.bss import FastGaussMNMF, FastMNMFBase
@@ -176,8 +177,11 @@ def test_class_attributes_warm_start_and_what_raises():
     quiet = FastGaussMNMF(n_basis=2, record_loss=False, rng=np.random.default_rng(38), device="cpu")
     quiet(X, n_iter=1)
     assert quiet.loss is None
-    with pytest.raises(NotImplementedError, match="Queue 1, item 5"):
-        FastGaussMNMF(n_basis=2, diagonalizer_algorithm="IP2", device="cpu")
+    # the IP2 diagonalizer is ported since: it runs and equals the JAX class from the same draws
+    ip2 = FastGaussMNMF(n_basis=2, diagonalizer_algorithm="IP2", rng=np.random.default_rng(38), device="cpu")
+    ref = JaxFastGaussMNMF(n_basis=2, diagonalizer_algorithm="IP2", rng=np.random.default_rng(38))
+    np.testing.assert_allclose(ip2(X, n_iter=2).numpy(), np.asarray(ref(X.numpy().copy(), n_iter=2)), atol=1e-9)
+    np.testing.assert_allclose(ip2.loss, ref.loss, rtol=1e-9)
     with pytest.raises(ValueError, match="partitioning"):
         FastGaussMNMF(n_basis=2, partitioning=True, device="cpu")
     with pytest.raises(ValueError, match="unsupported"):
@@ -206,8 +210,11 @@ def test_fast_gauss_mnmf_matches_the_jax_fast_path():
     sdr = min(_si_sdr_db(Y[n].numpy().astype(np.complex128), Y_jax[n]) for n in range(3))
     assert sdr >= 40.0  # the JAX package's float32 scan, another order of sums: far inside 0.1 dB
     assert _rel_err(Q.numpy(), Q_jax) <= 1e-3
-    with pytest.raises(NotImplementedError, match="Queue 1, item 5"):
-        fast_gauss_mnmf(X, n_basis=2, n_iter=1, diagonalizer_algorithm="IP2", device="cpu")
+    # the IP2 diagonalizer, ported since: the JAX fast path's within the same 40 dB
+    Y2, _ = fast_gauss_mnmf(X, n_basis=2, n_iter=5, diagonalizer_algorithm="IP2", rng=np.random.default_rng(40),
+                            device="cpu")
+    Y2_jax, _ = jax_fast_gauss_mnmf(X, n_basis=2, n_iter=5, diagonalizer_algorithm="IP2", rng=np.random.default_rng(40))
+    assert min(_si_sdr_db(Y2[n].numpy().astype(np.complex128), Y2_jax[n]) for n in range(3)) >= 40.0
 
 
 def test_fast_gauss_mnmf_meets_the_fidelity_pin(tmp_path):

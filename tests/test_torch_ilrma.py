@@ -303,16 +303,28 @@ def test_unported_ilrma_options_raise(algorithm):
         with pytest.raises(ValueError, match="Gauss"):
             ilrma_iss_step(X, T, V, model="t", dof=100.0, spatial="IPA")
         return
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        GaussILRMA(n_basis=2, spatial_algorithm=algorithm, device="cpu")
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        fast_gauss_ilrma(np.zeros((2, 3, 4), np.complex64), n_basis=2, algorithm=algorithm, device="cpu")
-    for call in (
-        lambda: ilrma_ip_step(X, W, T, V, spatial=algorithm),
-        lambda: ilrma_iss_step(X, T, V, spatial=algorithm),
-    ):
-        with pytest.raises(NotImplementedError, match="ROADMAP"):
-            call()
+    # ported since: the class and fast_gauss_ilrma run on the CPU and match their JAX twins
+    Xs = _spectrogram(seed=66)
+    init = {"basis": np.random.default_rng(67).random((3, 33, 2)), "activation": np.random.default_rng(68).random((3, 2, 40))}
+    ref = JaxGaussILRMA(n_basis=2, spatial_algorithm=algorithm)
+    Y_jax = np.asarray(ref(Xs.copy(), n_iter=3, **init))
+    ilrma = GaussILRMA(n_basis=2, spatial_algorithm=algorithm, device="cpu")
+    Y = ilrma(torch.from_numpy(Xs.copy()), n_iter=3, **init)
+    np.testing.assert_allclose(Y.numpy(), Y_jax, atol=1e-9)
+    np.testing.assert_allclose(ilrma.loss, ref.loss, rtol=1e-9)
+    Y_fast_jax = jax_fast_gauss_ilrma(Xs, n_basis=2, n_iter=3, algorithm=algorithm, rng=np.random.default_rng(69))[0]
+    Y_fast = fast_gauss_ilrma(Xs, n_basis=2, n_iter=3, algorithm=algorithm, rng=np.random.default_rng(69),
+                              device="cpu")[0]
+    assert _rel_err(Y_fast.numpy(), Y_fast_jax) <= 1e-3
+    # each step takes its own family of spatial updates only
+    if algorithm == "IP2":
+        assert ilrma_ip_step(X + 1, W, T, V, spatial=algorithm)[0].shape == W.shape
+        with pytest.raises(ValueError, match="unsupported option"):
+            ilrma_iss_step(X, T, V, spatial=algorithm)
+    else:
+        assert ilrma_iss_step(X + 1, T, V, spatial=algorithm)[0].shape == X.shape
+        with pytest.raises(ValueError, match="unsupported option"):
+            ilrma_ip_step(X, W, T, V, spatial=algorithm)
 
 
 def test_ilrma_entry_points_run_on_the_card_unless_asked_for_the_cpu():

@@ -600,15 +600,27 @@ def test_ipa_options_that_do_not_exist_raise():
 
 @pytest.mark.parametrize("algorithm", ["IP2", "ISS2"])
 def test_ip2_and_iss2_still_raise(algorithm):
-    X = np.zeros((2, 3, 4), np.complex64)
-    for call in (
-        lambda: AuxLaplaceIVA(spatial_algorithm=algorithm, device="cpu"),
-        lambda: GaussILRMA(n_basis=2, spatial_algorithm=algorithm, device="cpu"),
-        lambda: fast_auxiva(X, algorithm=algorithm, device="cpu"),
-        lambda: fast_gauss_ilrma(X, n_basis=2, algorithm=algorithm, partitioning=True, device="cpu"),
-    ):
-        with pytest.raises(NotImplementedError, match="item 5"):
-            call()
+    """Ported since: every entry point that raised here runs on the CPU and matches its JAX twin."""
+    X = _spectrogram(seed=71)
+    ref = JaxGaussILRMA(n_basis=2, spatial_algorithm=algorithm)
+    init = {"basis": np.random.default_rng(72).random((3, 33, 2)), "activation": np.random.default_rng(73).random((3, 2, 40))}
+    Y_jax = np.asarray(ref(X.copy(), n_iter=2, **init))
+    Y = GaussILRMA(n_basis=2, spatial_algorithm=algorithm, device="cpu")(torch.from_numpy(X.copy()), n_iter=2, **init)
+    np.testing.assert_allclose(Y.numpy(), Y_jax, atol=1e-9)
+    Y_iva = AuxLaplaceIVA(spatial_algorithm=algorithm, device="cpu")(torch.from_numpy(X.copy()), n_iter=2)
+    assert Y_iva.shape == X.shape and bool(torch.isfinite(torch.view_as_real(Y_iva)).all())
+    Y_fast, _ = fast_auxiva(X, n_iter=2, algorithm=algorithm, device="cpu")
+    assert _rel_err(Y_fast.numpy(), jax_fast_auxiva(X, n_iter=2, algorithm=algorithm)[0]) <= 1e-3
+    rng = functools.partial(np.random.default_rng, 74)
+    Y_part, factors, _ = fast_gauss_ilrma(X, n_basis=2, n_iter=2, algorithm=algorithm, partitioning=True, rng=rng(),
+                                          device="cpu")
+    Y_part_jax, factors_jax, _ = jax_fast_gauss_ilrma(X, n_basis=2, n_iter=2, algorithm=algorithm, partitioning=True,
+                                                      rng=rng())
+    assert len(factors) == len(factors_jax) == 3
+    # two float32 runs of the partitioned model, sums in another order (complex128: tests/test_torch_ip2.py)
+    err = Y_part.numpy().astype(np.complex128) - Y_part_jax
+    snr = [10 * np.log10(np.sum(np.abs(Y_part_jax[n]) ** 2) / np.sum(np.abs(err[n]) ** 2)) for n in range(3)]
+    assert min(snr) >= 40.0
 
 
 def test_ipa_entry_points_run_on_the_card_unless_asked_for_the_cpu():

@@ -277,10 +277,18 @@ def test_unported_spatial_algorithms_raise(algorithm):
         with pytest.raises(ValueError, match="Invalid keywords"):
             AuxLaplaceIVA(spatial_algorithm="IP", device="cpu", newton_iter=2)
         return
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        AuxLaplaceIVA(spatial_algorithm=algorithm, device="cpu")
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        fast_auxiva(np.zeros((2, 3, 4), np.complex64), algorithm=algorithm, device="cpu")
+    # ported since: the class and fast_auxiva run on the CPU and match their JAX twins
+    X = _spectrogram(seed=26)
+    jax_iva, torch_iva = _jax_class(algorithm), _torch_class(algorithm)
+    Y_jax = np.asarray(jax_iva(X.copy(), n_iter=3))
+    Y_torch = torch_iva(torch.from_numpy(X.copy()), n_iter=3)
+    np.testing.assert_allclose(Y_torch.numpy(), Y_jax, atol=1e-9)
+    np.testing.assert_allclose(torch_iva.loss, jax_iva.loss, rtol=1e-9)
+    assert (torch_iva.demix_filter is None) == (algorithm == "ISS2")
+    Y_fast_jax, _ = jax_fast_auxiva(X, n_iter=3, algorithm=algorithm)
+    Y_fast, W_fast = fast_auxiva(X, n_iter=3, algorithm=algorithm, device="cpu")
+    assert Y_fast.dtype == torch.complex64 and (W_fast is None) == (algorithm == "ISS2")
+    assert _rel_err(Y_fast.numpy(), Y_fast_jax) <= 1e-3
 
 
 def test_flooring_without_a_max_eps_is_refused():
