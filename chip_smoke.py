@@ -109,7 +109,25 @@ calls, on the default device:
   once an iteration and four pair updates, no K1b;
 - ``NaturalGradLaplaceICA`` on bench.py:370's configuration (the mixture's
   first two channels, float32, 100 iterations), no kernel, and on
-  ``natural_grad_laplace_ica.npz`` in float64 within its 1e-6.
+  ``natural_grad_laplace_ica.npz`` in float64 within its 1e-6;
+- FDICA: ``AuxLaplaceFDICA`` and ``fast_aux_fdica``, IP1 (K1 with per-scalar
+  weights ``(8, 257, 626)`` and K1b once an iteration) and IP2 (K1 at two
+  sources once a pair), 100 iterations, aligned across bins at 8 sources
+  and projected back as a user calls them, and once unaligned and unscaled,
+  held against the plain twin; ``GradLaplaceFDICA`` and
+  ``NaturalGradLaplaceFDICA`` with ``fast_grad_fdica`` (holonomic and not),
+  no kernel; each class's last iterate equals its fast path's to the bit;
+  the easy-tier pins of all four, and ``fast_aux_fdica`` (IP1, 50
+  iterations) on the hard scenario at STFT 4096/1024 within 0.4 dB of
+  ``hard_aux_fdica_IP1``;
+- the eigendecomposition-free routes, each from the same input as its eigh
+  route: one IPA sweep's secular roots (``secular_impl="solve"``) against
+  the root on K7's spectrum, and 10 iterations of AuxIVA-IPA with it against
+  the eigh route's loss; the QDWH polar factor on FastIVA's input; the
+  shift-invert top eigenvectors on FasterIVA's covariances against K7's top
+  eigenvalues; and FastIVA (``polar_impl="qdwh"``) and FasterIVA
+  (``eig_impl="solve"``: shift-invert and the QDWH polar, no K7) over 100
+  steps with their launch counts, each against its eigh route's loss.
 
 Each class there runs with the fast path's floor (``flooring_fn="f64"``
 where its floor differs) and must equal its fast path to the bit; each path
@@ -127,8 +145,9 @@ each end); K5 within 2e-4, and two launches of each to the bit. K1 is held
 within 1e-5, Hermitian to the bit and two launches to the bit, at the main
 path, at the edges of its geometry (frame counts of 1, 129 and 1,000,
 the generic instance, the size contract's largest M, N and item count) and
-at FastGaussMNMF's per-channel weights and at IP2's pair weights (N = 2,
-``(2, T)`` and ``(2, I, T)``); K7 also at cACGMM's E-step and M-step
+at FastGaussMNMF's per-channel weights, at IP2's pair weights (N = 2,
+``(2, T)`` and ``(2, I, T)``) and at FDICA's per-scalar weights (IP1's
+``(8, I, T)``, IP2's ``(2, I, T)``), and K1b on FDICA's covariances; K7 also at cACGMM's E-step and M-step
 pencils and at FasterIVA's top-eigenvector and polar inputs, and K1b at
 FastGaussMNMF's diagonalizer (M = 4);
 K3 bit for bit at every input (IPSDTA's two parts, m = 1 .. 8, 16, 17 and
@@ -186,12 +205,14 @@ import numpy as np
 import torch
 
 from ssspy_tpu_torch import separate as separate_waveform
+from ssspy_tpu_torch.algorithm import correlation_based_permutation_solver, permutation_align
 from ssspy_tpu_torch.bss import (
     ADMMIVA,
     CACGMM,
     GGDILRMA,
     HVA,
     PDSIVA,
+    AuxLaplaceFDICA,
     AuxLaplaceIVA,
     FasterIVA,
     FastGaussMNMF,
@@ -199,14 +220,17 @@ from ssspy_tpu_torch.bss import (
     GaussILRMA,
     GaussIPSDTA,
     GaussMNMF,
+    GradLaplaceFDICA,
     GradLaplaceIVA,
     MaskingADMMHVA,
+    NaturalGradLaplaceFDICA,
     NaturalGradLaplaceICA,
     NaturalGradLaplaceIVA,
     TILRMA,
 )
 from ssspy_tpu_torch.fast import (
     fast_admm_iva,
+    fast_aux_fdica,
     fast_auxiva,
     fast_auxiva_wave,
     fast_cacgmm,
@@ -218,13 +242,23 @@ from ssspy_tpu_torch.fast import (
     fast_gauss_ipsdta,
     fast_gauss_mnmf,
     fast_gauss_mnmf_dense,
+    fast_grad_fdica,
     fast_hva,
     fast_pds_iva,
     fast_t_ipsdta,
 )
+from ssspy_tpu_torch.linalg import eig_free
 from ssspy_tpu_torch.ops import _build
 from ssspy_tpu_torch.ops import kernels as K
-from ssspy_tpu_torch.ops import cacgmm_steps, fast_mnmf_steps, fixed_point_iva_steps, ipsdta_steps, prox_steps
+from ssspy_tpu_torch.ops import (
+    cacgmm_steps,
+    fast_mnmf_steps,
+    fdica_steps,
+    fixed_point_iva_steps,
+    ipa_steps,
+    ipsdta_steps,
+    prox_steps,
+)
 from ssspy_tpu_torch.ops.ilrma_steps import ilrma_ip_step, ilrma_iss_step, ilrma_loss
 from ssspy_tpu_torch.ops.mnmf_steps import (
     gauss_mnmf_loss,
@@ -330,6 +364,23 @@ WAVE_TOL = 1e-4  # a waveform entry point against stft -> the spectrogram path -
 EASY_N_FFT, EASY_HOP, EASY_PIN_TOL_DB = 256, 128, 0.1
 EASY_ITER, EASY_GRAD_ITER = 30, 100  # tests/test_fast_fidelity.py:108, :213
 ICA_CHANNELS = 2  # bench.py:589: NaturalGradLaplaceICA on the mixture's first two channels
+# the hard tier of FDICA (tests/test_hard_fidelity.py:206-248): IP1, aligned and projected back, and its pin
+HARD_FDICA_ITER, HARD_FDICA_PIN_DB, HARD_FDICA_TOL_DB = 50, 5.560804, 0.4
+# the eigendecomposition-free routes against their eigh routes: the secular roots within the JAX package's own
+# float32 bound at 12 trips (splitc.py:1541-1546), the QDWH polar unitary and near the eigh polar, the shift-invert
+# top eigenvector's Rayleigh quotient near K7's top eigenvalue
+SECULAR_ROOT_TOL = 1.2e-3
+QDWH_UNITARY_TOL, QDWH_POLAR_TOL, TOP_EIGVEC_TOL = 1e-5, 1e-4, 1e-5
+# FDICA's bins iterate apart, and over 100 float32 iterations one ulp of input noise moves its loss past
+# SENSITIVE_LOSS_TOL (AuxFDICA-IP2: 5.5e-4 on the card, PERF.md section 6): the kernel paths are held
+# against their plain twins at this depth; at 100 iterations the kernel path's loss gap to the plain twin is held
+# to FDICA_CONTROL_MULTIPLE times the one-ulp control's (the readings: IP1 3.4x, IP2 1.5x, PERF.md section 6)
+N_ITER_FDICA_HOLD = 10
+FDICA_CONTROL_MULTIPLE = 10.0
+# the free routes' chained steps for a rate and a profile: AuxIVA-IPA with secular_impl="solve" issues ~50,000 device
+# operations a step (~0.9 s, and a profiler session of 10 steps took ~95 s), FasterIVA's and FastIVA's ~3,000 and ~750
+N_ITER_FREE_RATE = {"AuxIVA-IPA solve": 1, "FasterIVA solve": 5, "FastIVA qdwh": 10}
+N_ITER_IPA_RATE = 20  # AuxIVA-IPA and GaussILRMA-IPA: chained steps a rate reads (cut from 100 for time)
 ICA_FIXTURE_TOL = 1e-6  # tests/regression/test_regression.py:179-186
 REPO = os.path.dirname(os.path.abspath(__file__))
 
@@ -931,7 +982,7 @@ def main() -> None:
 
     # main-path input, made on the host from a seed and transformed on the card
     wave = torch.from_numpy(make_mixture(seed=0)).to(device=device, dtype=torch.float32)
-    X = stft(wave, n_fft=N_FFT, hop_length=HOP)
+    X = stft(wave, n_fft=N_FFT, hop_length=HOP, device=device)
     check(tuple(X.shape) == (8, 257, 626) and X.dtype == torch.complex64, f"main-path STFT {tuple(X.shape)} {X.dtype}")
     M, I, T = X.shape
     rng = np.random.default_rng(0)
@@ -1448,6 +1499,24 @@ def main() -> None:
     hold_eigh("FastIVA/FasterIVA polar factor's Gram", A_polar, accuracy=False)
     errors["jacobi_eigh"] = eigh_abs
 
+    # ---- 4k. K1 and K1b at FDICA's per-scalar weights ---------------------------------------------------------------
+    # AuxFDICA-IP1's third iteration from W = I: K1 with the per-scalar Laplace weights (N, I, T) = (8, 257, 626),
+    # which reach 1 / eps = 1e6 in near-silent cells; K1b on the covariances of its first iteration (by the third,
+    # the float32 twin itself sits ~1e-4 from the exact elimination); AuxFDICA-IP2's first pair: K1 at two sources
+    # with per-scalar weights (2, I, T)
+    phi_first = fdica_steps.scalar_laplace_varphi(X, fdica_steps.AUX_EPS).contiguous()
+    errors["ip1_sweep"] = max(errors["ip1_sweep"], hold_ip1("AuxFDICA-IP1, first iteration", W_eye,
+                                                            K.weighted_covariance(X, phi_first).contiguous(), (), "warp"))
+    W_fdica = W_eye
+    for _ in range(2):
+        W_fdica = fdica_steps.aux_laplace_fdica_ip1_step(X, W_fdica)
+    phi_fdica = fdica_steps.scalar_laplace_varphi(separate(X, W_fdica), fdica_steps.AUX_EPS).contiguous()
+    errors["weighted_covariance"] = max(errors["weighted_covariance"],
+                                        hold_wcov("per-scalar (N,I,T), AuxFDICA-IP1", X, phi_fdica))
+    phi_fdica_pair = fdica_steps.scalar_laplace_varphi(separate(X, W_eye[:, :2]), fdica_steps.AUX_EPS).contiguous()
+    errors["weighted_covariance"] = max(errors["weighted_covariance"],
+                                        hold_wcov("per-scalar pair (2,I,T), AuxFDICA-IP2", X, phi_fdica_pair))
+
     # ---- 5. main path: AuxIVA-IP1 -------------------------------------------------
 
     def auxiva_ip1():
@@ -1795,7 +1864,7 @@ def main() -> None:
     # m = 16 and 17, K7 on the 32 x 32 embedding, torch.linalg.eigh on the 34 x 34
     images, _ = hard_speech_mixture()
     hard_mix = torch.from_numpy(images.sum(axis=0)).to(device)
-    X_hard = stft(hard_mix, n_fft=HARD_N_FFT, hop_length=HARD_HOP).to(torch.complex64)
+    X_hard = stft(hard_mix, n_fft=HARD_N_FFT, hop_length=HARD_HOP, device=device).to(torch.complex64)
     hard_M, hard_I, hard_T = X_hard.shape
     draws = np.random.default_rng(HARD_SEED)
     hard_basis = tuple(draws.random((hard_M, HARD_BASIS, B_, J_))[..., None] * np.eye(J_)
@@ -1810,7 +1879,8 @@ def main() -> None:
     with recording(ipsdta_steps, "hermitian_inverse", size_of(k3_sizes)), recording(prox_steps, "symm_eigh", size_of(eigh_sizes)):
         Y_hard = drive("GaussIPSDTA, hard tier (complex64, J = 16 and 17)", hard_tier,
                        {"gj_inverse": 6 * HARD_ITER, "jacobi_eigh": HARD_ITER}, totals, exact=True)
-    y_hard = istft(Y_hard.to(torch.complex128), n_fft=HARD_N_FFT, hop_length=HARD_HOP, length=images.shape[-1])
+    y_hard = istft(Y_hard.to(torch.complex128), n_fft=HARD_N_FFT, hop_length=HARD_HOP, length=images.shape[-1],
+                   device=device)
     hard_db = best_permutation_si_sdr(y_hard.cpu().numpy(), images[:, 0])
     say("path", path=repr("GaussIPSDTA, hard tier"), shape=tuple(X_hard.shape), k3_sizes=sorted(set(k3_sizes)),
         eigh_sizes=sorted(set(eigh_sizes)), si_sdr_db=hard_db, pin_db=HARD_PIN_DB, tol_db=HARD_PIN_TOL_DB)
@@ -1888,11 +1958,12 @@ def main() -> None:
         check(all_finite(Y_route) and gmm_route.loss[-1] < gmm_route.loss[0], f"{label}: non-finite or no descent")
 
     # ---- 5h. the hard tier of FastGaussMNMF and cACGMM (4 channels, STFT 4096/1024) ----------------------------
-    X_wide = stft(hard_mix, n_fft=HARD_TIER_N_FFT, hop_length=HARD_TIER_HOP)  # complex128
+    X_wide = stft(hard_mix, n_fft=HARD_TIER_N_FFT, hop_length=HARD_TIER_HOP, device=device)  # complex128
     wide_M, wide_I, wide_T = X_wide.shape
 
     def quality(Y):
-        y = istft(Y.to(torch.complex128), n_fft=HARD_TIER_N_FFT, hop_length=HARD_TIER_HOP, length=images.shape[-1])
+        y = istft(Y.to(torch.complex128), n_fft=HARD_TIER_N_FFT, hop_length=HARD_TIER_HOP, length=images.shape[-1],
+                  device=device)
         return best_permutation_si_sdr(y.cpu().numpy(), images[:, 0])
 
     Y_hard = drive("fast_cacgmm, hard tier", lambda: fast_cacgmm(X_wide, n_iter=HARD_CACGMM_ITER,
@@ -1934,7 +2005,7 @@ def main() -> None:
           f"fast_gauss_mnmf hard tier: {f32_db:.5f} dB against the pin {HARD_FAST_MNMF_PIN_DB}")
 
     # ---- 5i. the routers on the card: complex128 classes, a float64 waveform, 18 channels --------------------
-    X128 = stft(wave[:4, : 2 * 16000].to(torch.float64), n_fft=N_FFT, hop_length=HOP)
+    X128 = stft(wave[:4, : 2 * 16000].to(torch.float64), n_fft=N_FFT, hop_length=HOP, device=device)
     for label, make in (
         ("AuxLaplaceIVA(IP1)", lambda device: AuxLaplaceIVA(spatial_algorithm="IP", device=device)),
         ("GaussILRMA(ISS1)", lambda device: GaussILRMA(n_basis=2, spatial_algorithm="ISS1",
@@ -1958,7 +2029,7 @@ def main() -> None:
     check(all_finite(y_route) and y_route.dtype == torch.float64 and tuple(y_route.shape) == wave64.shape,
           "separate on a float64 waveform")
     wave18 = torch.from_numpy(make_mixture(seed=1, n_channels=18, duration_s=2.0)).to(device=device, dtype=torch.float32)
-    X18 = stft(wave18, n_fft=N_FFT, hop_length=HOP)
+    X18 = stft(wave18, n_fft=N_FFT, hop_length=HOP, device=device)
     Y18, W18 = drive("fast_auxiva(IP1), 18 channels",
                      lambda: fast_auxiva(X18, n_iter=ROUTE_ITER, scale_restoration=False),
                      {"weighted_covariance": ROUTE_ITER}, totals, exact=True)
@@ -1979,8 +2050,8 @@ def main() -> None:
          ("weighted_covariance", "ip1_sweep")),
     ):
         y = drive(label, entry, uses, totals)
-        y_ref = istft(spectrogram_path(stft(wave, n_fft=N_FFT, hop_length=HOP)), n_fft=N_FFT, hop_length=HOP,
-                      length=wave.shape[-1])
+        y_ref = istft(spectrogram_path(stft(wave, n_fft=N_FFT, hop_length=HOP, device=device)), n_fft=N_FFT,
+                      hop_length=HOP, length=wave.shape[-1], device=device)
         rel = relative_error(y, y_ref)
         say("path vs spectrogram path", path=repr(label), shape=tuple(y.shape), device=y.device, rel_err=rel, tol=WAVE_TOL)
         check(all_finite(y) and tuple(y.shape) == tuple(wave.shape) and y.is_cuda and rel <= WAVE_TOL,
@@ -1994,12 +2065,12 @@ def main() -> None:
         pins = json.load(f)
     easy_images, _ = sample_speech_mixture(n_sources=2, max_duration=2.0, conv=True, seed=0)
     easy_mix = easy_images.sum(axis=0)
-    X_easy = stft(torch.from_numpy(easy_mix).to(device), n_fft=EASY_N_FFT, hop_length=EASY_HOP)  # complex128
+    X_easy = stft(easy_mix, n_fft=EASY_N_FFT, hop_length=EASY_HOP, device=device)  # complex128
     X_c128 = X.to(torch.complex128)
     check(tuple(X_easy.shape) == (2, 129, 251), f"easy-tier STFT {tuple(X_easy.shape)}")
 
     def hold_pin(label, key, Y):
-        y = istft(Y.to(torch.complex128), n_fft=EASY_N_FFT, hop_length=EASY_HOP, length=easy_mix.shape[-1])
+        y = istft(Y.to(torch.complex128), n_fft=EASY_N_FFT, hop_length=EASY_HOP, length=easy_mix.shape[-1], device=device)
         got = best_permutation_si_sdr(y.cpu().numpy(), easy_images[:, 0])
         say("pin", path=repr(label), shape=tuple(X_easy.shape), si_sdr_db=got, pin=repr(key), pin_db=pins[key],
             tol_db=EASY_PIN_TOL_DB)
@@ -2193,6 +2264,241 @@ def main() -> None:
     say("fixture", path=repr("NaturalGradLaplaceICA, natural_grad_laplace_ica.npz (float64)"), max_abs_err=fixture_err,
         tol=ICA_FIXTURE_TOL, device=y_fixture.device)
     check(y_fixture.is_cuda and fixture_err <= ICA_FIXTURE_TOL, f"ICA fixture: {fixture_err}")
+
+    # ---- 5l. FDICA: AuxLaplaceFDICA IP1 and IP2, the gradient classes, the hard tier ---------------------------------
+    # Each class runs as a user calls it (aligned across bins, projected back; AuxFDICA at the fast path's float32
+    # floor, the gradient classes at its 1e-10) and its last iterate must equal the fast path's to the bit; the fast
+    # paths run as a user calls them and once unaligned and unscaled. That run is held against its plain twin after
+    # N_ITER_FDICA_HOLD iterations (hold_sensitive); after 100 its loss gap to the plain twin is held to
+    # FDICA_CONTROL_MULTIPLE times a one-ulp control's, and IP2 ends no higher than IP1 from the same start (ANCHOR_TOL). The easy tier's pins hold each fast path as
+    # tests/test_fast_fidelity.py runs it
+    raw = dict(permutation_alignment=False, scale_restoration=False)
+
+    def fdica_loss(W_):
+        return float(fdica_steps.fdica_laplace_loss(X, W_))
+
+    fdica_loss_start = fdica_loss(W_eye)
+
+    def hold_last_iterate(label, method, W_raw):
+        same = bool(torch.equal(method._state["W"], W_raw))
+        say("path vs fast path", path=repr(label), last_iterate_equal=same,
+            max_abs_diff=float((method._state["W"] - W_raw).abs().max()))
+        check(same, f"{label}: the class's last iterate differs from its fast path's")
+
+    def aligners(label, Y_raw, W_raw, flooring_fn):
+        """Alignment at 8 sources on the card: the fast path's (float64 amplitudes) timed alone, and the bins where the
+        class's (the input's precision) takes another permutation."""
+        torch.cuda.synchronize()
+        start = time.perf_counter()
+        Y_fast_aligned, _ = permutation_align(Y_raw.transpose(0, 1), W_raw)
+        torch.cuda.synchronize()
+        seconds = time.perf_counter() - start
+        Y_class_aligned = correlation_based_permutation_solver(Y_raw.transpose(0, 1), flooring_fn=flooring_fn)
+        differ = int((Y_fast_aligned != Y_class_aligned).flatten(1).any(dim=1).sum())
+        say("alignment", path=repr(label), sources=Y_raw.shape[0], bins=Y_raw.shape[1], seconds=f"{seconds:.3f}",
+            bins_the_two_aligners_permute_otherwise=differ)
+
+    for algorithm, uses in (("IP1", {"weighted_covariance": 3 * N_ITER, "ip1_sweep": 3 * N_ITER}),
+                            ("IP2", {"weighted_covariance": 3 * M * N_ITER})):
+        label = f"AuxFDICA-{algorithm}"
+
+        def aux_fdica(algorithm=algorithm):
+            method = AuxLaplaceFDICA(spatial_algorithm=algorithm)
+            Y_class = method(X, n_iter=N_ITER)
+            return (method, Y_class, fast_aux_fdica(X, n_iter=N_ITER, algorithm=algorithm),
+                    fast_aux_fdica(X, n_iter=N_ITER, algorithm=algorithm, **raw))
+
+        method, Y_class, (Y_user, W_user), (Y_raw, W_raw) = drive(label, aux_fdica, uses, totals, exact=True)
+        hold_last_iterate(f"AuxLaplaceFDICA({algorithm})", method, W_raw)
+        check(all_finite(Y_class, Y_user, W_user) and tuple(Y_user.shape) == (M, I, T), f"{label}: non-finite output")
+        check(method.loss[-1] < method.loss[0], f"{label}: class loss did not decrease")
+
+        def fdica_raw(X_in, n_iter, algorithm=algorithm):
+            return fast_aux_fdica(X_in, n_iter=n_iter, algorithm=algorithm, **raw)
+
+        def fdica_perturbed(n_iter, algorithm=algorithm):
+            Y_p, W_p = run_plain(lambda: fdica_raw(X_perturbed, n_iter))
+            return Y_p, fdica_loss(W_p)
+
+        Y_short, W_short = fdica_raw(X, N_ITER_FDICA_HOLD)
+        Y_short_plain, W_short_plain = run_plain(lambda: fdica_raw(X, N_ITER_FDICA_HOLD))
+        hold_sensitive(f"fast_aux_fdica({algorithm}), {N_ITER_FDICA_HOLD} iterations", Y_short, Y_short_plain,
+                       lambda: fdica_perturbed(N_ITER_FDICA_HOLD), fdica_loss(W_short), fdica_loss(W_short_plain),
+                       loss_first=fdica_loss_start)
+        start = time.perf_counter()
+        Y_plain, W_plain = run_plain(lambda: fdica_raw(X, N_ITER))
+        plain_seconds = f"{time.perf_counter() - start:.3f}"
+        Y_control, loss_control = fdica_perturbed(N_ITER)
+        loss_raw, loss_plain = fdica_loss(W_raw), fdica_loss(W_plain)
+        gap_raw, gap_control = abs(loss_raw - loss_plain) / abs(loss_plain), abs(loss_control - loss_plain) / abs(loss_plain)
+        say("path vs plain", path=repr(f"fast_aux_fdica({algorithm}), {N_ITER} iterations"), loss=loss_raw,
+            plain_loss=loss_plain, loss_rel_diff=gap_raw, min_si_sdr_db=min_si_sdr(Y_raw, Y_plain),
+            perturbed_input_loss=loss_control, perturbed_input_loss_rel_diff=gap_control,
+            perturbed_input_min_si_sdr_db=min_si_sdr(Y_control, Y_plain), input_perturbation=IPA_PERTURBATION,
+            gate=repr(f"loss gap <= {FDICA_CONTROL_MULTIPLE} x the control's"), plain_seconds=plain_seconds)
+        check(all_finite(Y_raw) and loss_raw < fdica_loss_start, f"{label}: non-finite or no descent")
+        check(gap_raw <= FDICA_CONTROL_MULTIPLE * gap_control,
+              f"{label}, {N_ITER} iterations: loss gap {gap_raw} to the plain twin against the control's {gap_control}")
+        if algorithm == "IP1":
+            fdica_ip1_loss = loss_raw
+        else:
+            say("path vs anchor", path=repr(label), loss=loss_raw, anchor=repr("AuxFDICA-IP1"), anchor_loss=fdica_ip1_loss,
+                loss_rel_diff_to_anchor=(loss_raw - fdica_ip1_loss) / abs(fdica_ip1_loss), tol=ANCHOR_TOL)
+            check(loss_raw <= fdica_ip1_loss + ANCHOR_TOL * abs(fdica_ip1_loss),
+                  f"{label}: loss {loss_raw} above AuxFDICA-IP1's {fdica_ip1_loss}")
+        aligners(label, Y_raw, W_raw, method.flooring_fn)
+        tf32_rel_l2(f"fast_aux_fdica({algorithm}), 100 iterations",
+                    lambda: fast_aux_fdica(X, n_iter=N_ITER, algorithm=algorithm, **raw)[0], Y_raw)
+        hold_pin(f"fast_aux_fdica({algorithm}), easy tier", f"aux_fdica_{algorithm}",
+                 fast_aux_fdica(X_easy, n_iter=EASY_ITER, algorithm=algorithm)[0])
+
+    # GradLaplaceFDICA and NaturalGradLaplaceFDICA: no kernel. The non-holonomic step leaves the scale free, so its
+    # loss need not fall (on this mixture the gradient one climbs); the holonomic runs' must
+    for natural, cls in ((False, GradLaplaceFDICA), (True, NaturalGradLaplaceFDICA)):
+        label = cls.__name__
+
+        def grad_fdica(X_in=X, natural=natural, cls=cls):
+            method = cls(flooring_fn="f64")
+            Y_class = method(X_in, n_iter=N_ITER)
+            return (method, Y_class, fast_grad_fdica(X_in, n_iter=N_ITER, natural=natural, **raw),
+                    fast_grad_fdica(X_in, n_iter=N_ITER, natural=natural, is_holonomic=True, **raw))
+
+        method, Y_class, (Y_raw, W_raw), (Y_hol, W_hol) = drive(label, grad_fdica, {}, totals, exact=True)
+        hold_last_iterate(label, method, W_raw)
+        say("path", path=repr(label), loss_first=method.loss[0], loss_last=method.loss[-1],
+            holonomic_loss_last=fdica_loss(W_hol))
+        check(all_finite(Y_class, Y_raw, Y_hol) and fdica_loss(W_hol) < fdica_loss_start,
+              f"{label}: non-finite output, or the holonomic loss did not fall")
+        tf32_rel_l2(f"fast_grad_fdica(natural={natural}), 100 iterations",
+                    lambda: fast_grad_fdica(X, n_iter=N_ITER, natural=natural, **raw)[0], Y_raw)
+        hold_pin(f"fast_grad_fdica(natural={natural}), easy tier", f"grad_fdica_natural={natural}",
+                 fast_grad_fdica(X_easy, n_iter=EASY_GRAD_ITER, natural=natural)[0])
+        method_c128 = cls(flooring_fn="f64", **raw)
+        method_c128(X_c128, n_iter=N_ITER)
+        say_complex128(label, method.loss[-1], method_c128.loss[-1])
+
+    # the hard tier: 4 channels at STFT 4096/1024, IP1 aligned and projected back, 50 iterations
+    Y_hard, _ = drive("fast_aux_fdica(IP1), hard tier", lambda: fast_aux_fdica(X_wide, n_iter=HARD_FDICA_ITER),
+                      {"weighted_covariance": HARD_FDICA_ITER, "ip1_sweep": HARD_FDICA_ITER}, totals, exact=True)
+    hard_db = quality(Y_hard)
+    say("path", path=repr("fast_aux_fdica(IP1), hard tier"), shape=tuple(X_wide.shape), si_sdr_db=hard_db,
+        pin_db=HARD_FDICA_PIN_DB, tol_db=HARD_FDICA_TOL_DB)
+    check(all_finite(Y_hard) and abs(hard_db - HARD_FDICA_PIN_DB) <= HARD_FDICA_TOL_DB,
+          f"fast_aux_fdica hard tier: {hard_db:.5f} dB against the pin {HARD_FDICA_PIN_DB}")
+
+    # ---- 5m. the eigendecomposition-free routes, each against its eigh route from the same input ---------------------
+    # IPA's secular root (secular_impl="solve", 12 trips): one sweep's pencils on the main mixture, against the true
+    # root on K7's spectrum (bisected in float64); the eigh route's own Newton keeps the reference's normalization and
+    # solves another equation (tests/ops/test_splitc_ipa.py:192-201), so its root is printed, not compared
+    pencils = []
+    with recording(ipa_steps, "lqpqm2", lambda H_, v_, z_, **kw: pencils.append((H_, v_, z_))):
+        auxiva_ipa_step(X)
+    H_p, v_p, z_p = (torch.cat(parts) for parts in zip(*pencils))
+    check(len(pencils) == M and tuple(H_p.shape) == (M * I, M - 1, M - 1), f"IPA pencils {tuple(H_p.shape)}")
+    root_solve, _ = eig_free.secular_root_solve(H_p, v_p, z_p, trips=12)
+    phi, vsq, _ = ipa_steps._pencil_spectrum(H_p, v_p)
+    phi, vsq, z64 = phi.double(), vsq.double(), z_p.double()
+    lo, hi = phi[..., -1], torch.maximum(2 * phi[..., -1], z64 + 4 * torch.sum(phi * vsq, dim=-1))
+    for _ in range(200):
+        mid = (lo + hi) / 2
+        f = mid * mid * torch.sum(phi * vsq / (mid[..., None] - phi) ** 2, dim=-1) - mid + z64
+        lo, hi = torch.where(f > 0, mid, lo), torch.where(f > 0, hi, mid)
+    live = (torch.linalg.vector_norm(v_p, dim=-1) >= FAST_EPS) & (phi[..., -1] > 0)
+    rel = ((root_solve.double() - lo).abs() / lo)[live]
+    say("free route", route=repr("IPA secular root, secular_impl='solve'"), pencils=tuple(H_p.shape), trips=12,
+        live=int(live.sum()), worst_rel_err_vs_root_on_k7_spectrum=float(rel.max()), median_rel_err=float(rel.median()),
+        tol=SECULAR_ROOT_TOL, root_over_phi_max_min=float((lo / phi[..., -1])[live].min()))
+    check(bool(torch.isfinite(root_solve).all()) and float(rel.max()) <= SECULAR_ROOT_TOL,
+          f"IPA secular root: {float(rel.max())} from the root on K7's spectrum")
+
+    def ipa_chain(secular_impl):
+        Y_ = X
+        for _ in range(N_ITER_IPA_CLASSES):
+            Y_ = auxiva_ipa_step(Y_, secular_impl=secular_impl)
+        return Y_
+
+    Y_solve = drive("AuxIVA-IPA, secular_impl='solve'", lambda: ipa_chain("solve"),
+                    {"weighted_covariance": N_ITER_IPA_CLASSES, "ipa_congruence": M * N_ITER_IPA_CLASSES}, totals,
+                    exact=True)
+    Y_eigh = drive("AuxIVA-IPA, secular_impl='eigh'", lambda: ipa_chain("eigh"),
+                   {"weighted_covariance": N_ITER_IPA_CLASSES, "ipa_congruence": M * N_ITER_IPA_CLASSES,
+                    "jacobi_eigh": M * N_ITER_IPA_CLASSES}, totals, exact=True)
+    loss_solve, loss_eigh = float(iva_laplace_loss(X, Y=Y_solve)), float(iva_laplace_loss(X, Y=Y_eigh))
+    ipa_start = float(iva_laplace_loss(X, Y=X))
+    say("free route", route=repr("AuxIVA-IPA, secular_impl='solve'"), iterations=N_ITER_IPA_CLASSES,
+        loss_first=ipa_start, loss=loss_solve, eigh_route_loss=loss_eigh,
+        loss_rel_diff=(loss_solve - loss_eigh) / abs(loss_eigh), tol=ANCHOR_TOL,
+        min_si_sdr_db_vs_eigh_route=min_si_sdr(Y_solve, Y_eigh))
+    check(all_finite(Y_solve) and loss_solve < ipa_start and abs(loss_solve - loss_eigh) <= ANCHOR_TOL * abs(loss_eigh),
+          f"AuxIVA-IPA solve: loss {loss_solve} against the eigh route's {loss_eigh}")
+
+    # the QDWH polar factor on FastIVA's input (its first step from W = I on the whitened mixture)
+    polar_inputs = []
+    with recording(fixed_point_iva_steps, "polar", lambda W_in, **kw: polar_inputs.append(W_in)):
+        fixed_point_iva_steps.fast_iva_step(Z_main, W_eye)
+    (A_polar_in,) = polar_inputs
+    P_qdwh = fixed_point_iva_steps.polar(A_polar_in, impl="qdwh")
+    P_eigh = fixed_point_iva_steps.polar(A_polar_in)
+    P_c128 = fixed_point_iva_steps.polar(A_polar_in.to(torch.complex128)).to(torch.complex64)
+    eye_M = torch.eye(M, device=device)
+    unitary = float((P_qdwh.mH @ P_qdwh - eye_M).abs().max())
+    rel = relative_error(P_qdwh, P_eigh)
+    say("free route", route=repr("FastIVA polar, impl='qdwh'"), shape=tuple(A_polar_in.shape), unitary_err=unitary,
+        unitary_tol=QDWH_UNITARY_TOL, rel_err_vs_eigh=rel, tol=QDWH_POLAR_TOL,
+        eigh_unitary_err=float((P_eigh.mH @ P_eigh - eye_M).abs().max()),
+        qdwh_rel_err_vs_complex128=relative_error(P_qdwh, P_c128), eigh_rel_err_vs_complex128=relative_error(P_eigh, P_c128),
+        schedule_trips=len(eig_free.qdwh_schedule()))
+    check(unitary <= QDWH_UNITARY_TOL and rel <= QDWH_POLAR_TOL, f"QDWH polar: unitary {unitary}, {rel} from eigh")
+
+    # FasterIVA's top eigenvectors by shift-invert (its first step's per-source covariances)
+    top_inputs = []
+    with recording(fixed_point_iva_steps, "top_eigvec", lambda U_in, **kw: top_inputs.append(U_in)):
+        fixed_point_iva_steps.faster_iva_step(Z_main, W_eye)
+    (U_top,) = top_inputs
+    lamb_top = prox_steps.herm_eigh_embed(U_top)[0][..., -1]
+
+    def rayleigh_rel(v_):
+        quotient = torch.sum(v_.conj() * (U_top @ v_[..., None])[..., 0], dim=-1).real
+        return float(((quotient - lamb_top).abs() / lamb_top.abs().clamp(min=1e-30)).max())
+
+    top_rel = rayleigh_rel(eig_free.top_eigvec_shift_invert(U_top))
+    # the bisection's certificate, the least pivot of chol_piv (whose factor the inverse iteration then uses),
+    # against torch.linalg.cholesky_ex: the shifts (1 + d) lamb_max where the two disagree, and each one's time
+    E_top = prox_steps._symmetrised(prox_steps.block_embed(U_top))
+    eye_2M = torch.eye(2 * M, device=device)
+
+    def shifted(d):
+        return (lamb_top * (1 + d))[..., None, None] * eye_2M - E_top
+
+    disagree = {d: int((((torch.linalg.cholesky_ex(shifted(d))[1] == 0) != (eig_free.chol_piv(shifted(d))[1] > 0))).sum())
+                for d in (1e-4, 1e-6, 1e-7, 0.0, -1e-7)}
+    certificate_ms = {"cholesky_ex": median_ms(lambda: torch.linalg.cholesky_ex(shifted(0.5))[1] == 0, queued=False),
+                      "chol_piv": median_ms(lambda: eig_free.chol_piv(shifted(0.5))[1] > 0, queued=False)}
+    say("free route", route=repr("FasterIVA top eigenvectors, eig_impl='solve'"), shape=tuple(U_top.shape),
+        rayleigh_rel_err_vs_k7=top_rel, tol=TOP_EIGVEC_TOL, certificate_disagreements_by_shift=repr(disagree),
+        certificate_call_ms_cholesky_ex=certificate_ms["cholesky_ex"],
+        certificate_call_ms_chol_piv=certificate_ms["chol_piv"], card=repr(card))
+    check(top_rel <= TOP_EIGVEC_TOL, f"shift-invert top eigenvectors: {top_rel} from K7")
+
+    # both fixed-point routes over 100 chained steps, with their launches (no K7: FasterIVA's shift-invert route takes
+    # the QDWH polar), each held to its eigh route's loss within ANCHOR_TOL
+    for label, step, uses in (
+        ("FastIVA, polar_impl='qdwh'", lambda W_: fixed_point_iva_steps.fast_iva_step(Z_main, W_, polar_impl="qdwh"), {}),
+        ("FasterIVA, eig_impl='solve'", lambda W_: fixed_point_iva_steps.faster_iva_step(Z_main, W_, eig_impl="solve"),
+         {"weighted_covariance": N_ITER}),
+    ):
+        W_free = drive(label, lambda: chain(step, W_eye), uses, totals, exact=True)
+        eigh_step = fixed_point_iva_steps.fast_iva_step if label.startswith("FastIVA") else fixed_point_iva_steps.faster_iva_step
+        W_ref = chain(lambda W_: eigh_step(Z_main, W_), W_eye)
+        Y_free, Y_ref = separate(Z_main, W_free), separate(Z_main, W_ref)
+        loss_free, loss_ref = whitened_loss(Y_free), whitened_loss(Y_ref)
+        singular = torch.linalg.svdvals(W_free) if all_finite(W_free) else torch.full((1,), float("nan"))
+        say("free route", route=repr(label), iterations=N_ITER, loss=loss_free, eigh_route_loss=loss_ref,
+            loss_rel_diff=(loss_free - loss_ref) / abs(loss_ref), tol=ANCHOR_TOL,
+            min_si_sdr_db_vs_eigh_route=min_si_sdr(Y_free, Y_ref),
+            singular_values_min_max=(float(singular.min()), float(singular.max())))
+        check(all_finite(W_free) and abs(loss_free - loss_ref) <= ANCHOR_TOL * abs(loss_ref),
+              f"{label}: loss {loss_free} against the eigh route's {loss_ref}")
 
     # ---- 6. times --------------------------------------------------------------
     U_main = K.weighted_covariance(X, phi_scalar)
@@ -2438,13 +2744,23 @@ def main() -> None:
                                   fast_mnmf_start()),
         "NaturalGradLaplaceICA 2ch": (lambda s: (ica_step({"X": wave_ica, "W": s[0]})["W"],),
                                       (torch.eye(ICA_CHANNELS, device=device),)),
+        "AuxFDICA-IP1": (lambda s: (fdica_steps.aux_laplace_fdica_ip1_step(X, s[0]),), (W_eye,)),
+        "AuxFDICA-IP2": (lambda s: (fdica_steps.aux_laplace_fdica_ip2_step(X, s[0]),), (W_eye,)),
+        "GradFDICA": (lambda s: (fdica_steps.grad_laplace_fdica_step(X, s[0], is_holonomic=False),), (W_eye,)),
+        "NaturalGradFDICA": (lambda s: (fdica_steps.grad_laplace_fdica_step(X, s[0], is_holonomic=False, natural=True),),
+                             (W_eye,)),
+        "AuxIVA-IPA solve": (lambda s: (auxiva_ipa_step(s[0], secular_impl="solve"),), (X,)),
+        "FastIVA qdwh": (lambda s: (fixed_point_iva_steps.fast_iva_step(Z_main, s[0], polar_impl="qdwh"),), (W_eye,)),
+        "FasterIVA solve": (lambda s: (fixed_point_iva_steps.faster_iva_step(Z_main, s[0], eig_impl="solve"),),
+                            (W_eye,)),
     }
     ica_step = ica.make_step()
     XX_eigh = instant_covariance(X, eps=MNMF_EPS, psd_impl="eigh")
     # (kernel, plain) chained steps where the default N_ITER of each would take too long
     n_steps = {
-        "AuxIVA-IPA": (N_ITER, N_ITER_IPA_PLAIN_RATE),
-        "GaussILRMA-IPA": (N_ITER, N_ITER_IPA_PLAIN_RATE),
+        "AuxIVA-IPA": (N_ITER_IPA_RATE, N_ITER_IPA_PLAIN_RATE),
+        "GaussILRMA-IPA": (N_ITER_IPA_RATE, N_ITER_IPA_PLAIN_RATE),
+        **{label: (n, n) for label, n in N_ITER_FREE_RATE.items()},
         "PDSIVA": (N_ITER, N_ITER_PROX_PLAIN_RATE),
         "HVA": (N_ITER, N_ITER_PROX_PLAIN_RATE),
         "ADMMIVA": (N_ITER, N_ITER_PROX_PLAIN_RATE),
@@ -2457,7 +2773,7 @@ def main() -> None:
         "FastIVA": (N_ITER, N_ITER_FIXED_POINT_PLAIN_RATE),
         "FasterIVA": (N_ITER, N_ITER_FIXED_POINT_PLAIN_RATE),
         **{label: (N_ITER_PAIRWISE_RATE, N_ITER_PAIRWISE_RATE) for label in (
-            "AuxIVA-IP2", "AuxIVA-ISS2", "GaussILRMA-IP2", "GaussILRMA-ISS2", "FastGaussMNMF-IP2 4ch")},
+            "AuxIVA-IP2", "AuxIVA-ISS2", "GaussILRMA-IP2", "GaussILRMA-ISS2", "FastGaussMNMF-IP2 4ch", "AuxFDICA-IP2")},
     }
     rates = {}
     for label, (step, state) in steps.items():

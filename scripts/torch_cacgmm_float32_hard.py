@@ -82,7 +82,7 @@ def separate(X, dtype, z_dtype, covariance_impl="einsum"):
 
 
 def quality(Y, images, length):
-    y = istft(Y.to(torch.complex128), n_fft=N_FFT, hop_length=HOP, length=length).cpu().numpy()
+    y = istft(Y.to(torch.complex128), n_fft=N_FFT, hop_length=HOP, length=length, device=Y.device).cpu().numpy()
     refs = images[:, 0]
 
     def si_sdr(est, ref):
@@ -103,7 +103,7 @@ def main() -> None:
                               capture_output=True, text=True, timeout=60).stdout.strip()
         print(f"card: {card}", flush=True)
     images, _ = hard_speech_mixture()
-    X = stft(torch.from_numpy(images.sum(axis=0)).to(device), n_fft=N_FFT, hop_length=HOP)  # complex128
+    X = stft(images.sum(axis=0), n_fft=N_FFT, hop_length=HOP, device=device)  # complex128
     print(f"complex128: {quality(separate(X, torch.complex128, torch.complex128), images, images.shape[-1]):.6f} dB "
           f"(pin {PIN_DB})", flush=True)
     port_estep = cacgmm_steps.estep

@@ -151,7 +151,7 @@ def main():
 
     # chip_smoke's inputs
     wave = torch.from_numpy(make_mixture(seed=0)).to(device=device, dtype=torch.float32)
-    X = stft(wave, n_fft=N_FFT, hop_length=HOP)
+    X = stft(wave, n_fft=N_FFT, hop_length=HOP, device=device)
     M, I, T = X.shape
     W_eye = torch.eye(M, dtype=X.dtype, device=device).expand(I, -1, -1).contiguous()
     phi_scalar = (1.0 / torch.clamp(torch.linalg.vector_norm(separate(X, W_eye), dim=1), min=1e-10)).contiguous()

@@ -145,7 +145,7 @@ def main():
         wave = torch.from_numpy(hard_speech_mixture()[0].sum(axis=0)).to(device)
     else:
         wave = torch.from_numpy(make_mixture(seed=0, duration_s=args.duration)).to(device)
-    X = stft(wave, n_fft=N_FFT, hop_length=HOP)
+    X = stft(wave, n_fft=N_FFT, hop_length=HOP, device=device)
     print(f"mixture {args.mixture}: X {tuple(X.shape)} on {device}", flush=True)
     Y_ref, losses, done, seconds = iterate(X, None, args.iterations)
     print(f"complex128: iterations={done} losses={losses} seconds={seconds:.2f}", flush=True)

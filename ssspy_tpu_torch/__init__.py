@@ -7,7 +7,9 @@ in CUDA C++ for ``sm_90a`` (``ops/csrc``), built with ``nvcc`` on first
 use, and each has a plain PyTorch version that CPU tensors take.
 
 Ported so far: time-domain ICA (the gradient, natural-gradient and
-fixed-point classes); AuxIVA and AuxGaussIVA with IP1, IP2, ISS1, ISS2 and
+fixed-point classes); FDICA (the gradient, natural-gradient and
+auxiliary-function classes with IP1 and IP2, :func:`fast.fast_aux_fdica`,
+:func:`fast.fast_grad_fdica`); AuxIVA and AuxGaussIVA with IP1, IP2, ISS1, ISS2 and
 IPA (class API and :func:`fast.fast_auxiva`); the gradient and fixed-point
 IVA classes (:func:`fast.fast_grad_iva`, :func:`fast.fast_fast_iva`,
 :func:`fast.fast_faster_iva`); Gauss, t and GGD ILRMA with IP1, IP2, ISS1
@@ -21,7 +23,9 @@ HVA and ADMMIVA (class API, the PDS/ADMM base classes and
 with the IP1 and IP2 diagonalizers (class API and
 :func:`fast.fast_gauss_mnmf`); cACGMM (class API and
 :func:`fast.fast_cacgmm`) with the permutation solvers; STFT/iSTFT,
-PCA and whitening, projection back, minimal distortion principle, the waveform-to-waveform
+PCA and whitening, projection back, minimal distortion principle, the eigendecomposition-free
+routes of :mod:`linalg.eig_free` (options of the IPA, FastIVA and FasterIVA
+steps), the waveform-to-waveform
 :func:`separate`, :func:`fast.fast_auxiva_wave` and
 :func:`fast.fast_gauss_ilrma_wave`. Every
 entry point runs on the card unless the caller passes ``device="cpu"``.

@@ -12,6 +12,8 @@ on complex64 tensors through the hand-written kernels
 >>> Y, (T, V), W = fast_gauss_ilrma(spectrogram, n_basis=8, n_iter=100)
 >>> Y = fast_fast_iva(spectrogram, n_iter=100)                      # or fast_faster_iva
 >>> Y, W = fast_grad_iva(spectrogram, n_iter=100, natural=True)
+>>> Y, W = fast_aux_fdica(spectrogram, n_iter=100, algorithm="IP1")   # aligned across bins
+>>> Y, W = fast_grad_fdica(spectrogram, n_iter=100, natural=True)
 >>> from ssspy_tpu_torch.bss import PDSIVA
 >>> Y, W = fast_pds_iva(PDSIVA().normalize_by_spectral_norm(spectrogram), n_iter=100)
 >>> Y, (T, V, H) = fast_gauss_mnmf_dense(spectrogram, n_basis=8, n_iter=100)
@@ -29,6 +31,7 @@ import torch
 from .algorithm import permutation_align, projection_back
 from .ops import cacgmm_steps
 from .ops.fast_mnmf_steps import check_diagonalizer, fast_gauss_mnmf_step, fast_mnmf_separate
+from .ops.fdica_steps import aux_laplace_fdica_ip1_step, aux_laplace_fdica_ip2_step, grad_laplace_fdica_step
 from .ops.ilrma_steps import ilrma_ip_step, ilrma_iss_step
 from .ops.ipsdta_steps import ipsdta_vcd_step, normalize_psdtf, part_shapes, random_psdtf
 from .ops.fixed_point_iva_steps import fast_iva_step, faster_iva_step, whiten_spectrogram
@@ -51,6 +54,8 @@ __all__ = [
     "fast_fast_iva",
     "fast_faster_iva",
     "fast_grad_iva",
+    "fast_aux_fdica",
+    "fast_grad_fdica",
     "fast_auxiva_wave",
     "fast_gauss_ilrma_wave",
     "fast_gauss_ilrma",
@@ -207,13 +212,80 @@ def fast_grad_iva(
     return _restored(X, W, scale_restoration, reference_id)
 
 
+def _fdica_end(X, W, permutation_alignment, scale_restoration, reference_id):
+    """FDICA's end on the device: ``(separated, W)`` aligned across bins, then rescaled (fast.py:533-540)."""
+    Y = separate(X, W)
+    if permutation_alignment:
+        Y, W = permutation_align(Y.transpose(0, 1), W)
+        Y = Y.transpose(0, 1)
+    if scale_restoration:
+        Y, W = _restored(X, W, True, reference_id)
+    return Y, W
+
+
+def fast_aux_fdica(
+    spectrogram,
+    n_iter: int = 100,
+    algorithm: str = "IP1",
+    permutation_alignment: bool = True,
+    scale_restoration: bool = True,
+    reference_id: int = 0,
+    device=DEFAULT_DEVICE,
+) -> Tuple[torch.Tensor, torch.Tensor]:
+    """AuxLaplaceFDICA in complex64 (counterpart of ``ssspy_tpu.fast.fast_aux_fdica``, fast.py:494-541).
+
+    ``algorithm``: ``"IP1"`` (per iteration K1 with ``(N, I, T)`` weights and
+    the IP1 sweep K1b) or ``"IP2"`` (the sequential pairs, K1 at two sources
+    once a pair). ``n_iter`` steps of
+    :func:`~ssspy_tpu_torch.ops.fdica_steps.aux_laplace_fdica_ip1_step` or
+    ``_ip2_step`` at the JAX step's ``eps = 1e-6`` from ``W = I``; then, with
+    ``permutation_alignment``, the sources aligned across bins by amplitude
+    correlation (:func:`~ssspy_tpu_torch.algorithm.permutation_alignment.permutation_align`)
+    and, with ``scale_restoration``, each filter row rescaled by ``W^-1`` at
+    ``reference_id``, all on ``device``, where the JAX package aligns and
+    rescales on the host. Returns ``(separated (N, I, T), demix_filter (I, N, M))``.
+    """
+    _check_algorithm("fast_aux_fdica", algorithm, ("IP1", "IP2"))
+    X = _spectrogram(spectrogram, device)
+    step = aux_laplace_fdica_ip1_step if algorithm == "IP1" else aux_laplace_fdica_ip2_step
+    W = _identity_filters(X)
+    for _ in range(n_iter):
+        W = step(X, W)
+    return _fdica_end(X, W, permutation_alignment, scale_restoration, reference_id)
+
+
+def fast_grad_fdica(
+    spectrogram,
+    n_iter: int = 100,
+    step_size: float = 1e-1,
+    natural: bool = False,
+    is_holonomic: bool = False,
+    permutation_alignment: bool = True,
+    scale_restoration: bool = True,
+    reference_id: int = 0,
+    device=DEFAULT_DEVICE,
+) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Grad/NaturalGrad Laplace FDICA in complex64 (fast.py:653-706).
+
+    ``n_iter`` steps of :func:`~ssspy_tpu_torch.ops.fdica_steps.grad_laplace_fdica_step`
+    at ``eps = 1e-10`` from ``W = I`` (no kernel), then alignment and scale
+    restoration as :func:`fast_aux_fdica` does them. Returns
+    ``(separated (N, I, T), demix_filter (I, N, M))`` on ``device``.
+    """
+    X = _spectrogram(spectrogram, device)
+    W = _identity_filters(X)
+    for _ in range(n_iter):
+        W = grad_laplace_fdica_step(X, W, step_size=step_size, is_holonomic=is_holonomic, natural=natural)
+    return _fdica_end(X, W, permutation_alignment, scale_restoration, reference_id)
+
+
 def _wave(waveform, n_fft: int, hop_length: Optional[int], device):
     """``(x, X, hop)``: the waveform as float32 ``(n_channels, n_samples)`` on ``device`` and its STFT, complex64."""
     x = torch.as_tensor(waveform, device=resolve_device(device)).to(torch.float32)
     if x.dim() != 2:
         raise ValueError("waveform must be (n_channels, n_samples)")
     hop = n_fft // 2 if hop_length is None else hop_length
-    return x, stft(x, n_fft=n_fft, hop_length=hop).contiguous(), hop
+    return x, stft(x, n_fft=n_fft, hop_length=hop, device=x.device).contiguous(), hop
 
 
 def fast_auxiva_wave(
@@ -236,7 +308,7 @@ def fast_auxiva_wave(
     _check_algorithm("fast_auxiva_wave", algorithm)
     x, X, hop = _wave(waveform, n_fft, hop_length, device)
     Y, _ = fast_auxiva(X, n_iter=n_iter, algorithm=algorithm, device=X.device)
-    return istft(Y, n_fft=n_fft, hop_length=hop, length=x.shape[-1])
+    return istft(Y, n_fft=n_fft, hop_length=hop, length=x.shape[-1], device=x.device)
 
 
 def fast_gauss_ilrma_wave(
@@ -259,7 +331,7 @@ def fast_gauss_ilrma_wave(
     _check_algorithm("fast_gauss_ilrma_wave", algorithm, ("IP1", "ISS1"))
     x, X, hop = _wave(waveform, n_fft, hop_length, device)
     Y, _, _ = fast_gauss_ilrma(X, n_basis=n_basis, n_iter=n_iter, algorithm=algorithm, rng=rng, device=X.device)
-    return istft(Y, n_fft=n_fft, hop_length=hop, length=x.shape[-1])
+    return istft(Y, n_fft=n_fft, hop_length=hop, length=x.shape[-1], device=x.device)
 
 
 def _fast_ilrma(

@@ -30,7 +30,7 @@ Two routes for the E-step's inverse and log-determinant (``impl``):
   (scripts/torch_cacgmm_float32_hard.py; PERF.md, section 6).
 - ``"chol"`` (the JAX package's TPU default): the log-determinant from the
   unrolled Cholesky of the embedding
-  (:func:`~ssspy_tpu_torch.ops.mnmf_steps.chol_unrolled`), its diagonal
+  (:func:`~ssspy_tpu_torch.linalg.eig_free.chol_piv`), its diagonal
   clamped at 1e-20 before the log, the inverse by ``inv_ex``; the M-step
   hermitizes and adds the relative ridge ``(eps + rel mean diag B) I``
   (``rel`` 1e-6 in float32, 1e-12 in float64), which keeps ``B`` positive
@@ -51,9 +51,9 @@ from typing import Tuple
 
 import torch
 
+from ..linalg.eig_free import chol_piv
 from ..special.psd import hermitize
 from .iva_steps import covariance
-from .mnmf_steps import chol_unrolled
 from .prox_steps import _extract, _symmetrised, block_embed, herm_eigh_embed
 
 __all__ = ["IMPLS", "COVARIANCE_IMPLS", "estep", "posterior", "step", "loss"]
@@ -81,7 +81,7 @@ def estep(
     n_channels = Z.shape[0]
     Zb = Z.transpose(0, 1)  # (I, M, T)
     if impl == "chol":
-        L = chol_unrolled(_symmetrised(block_embed(B)))
+        L = chol_piv(_symmetrised(block_embed(B)))[0]
         # logdet E(B) = 2 logdet B, and each diagonal entry of L comes twice; a
         # diagonal that float32 rounding leaves negative downstream of a breakdown is
         # clamped, so the (source, bin) gets a finite logdet and the next M-step heals it

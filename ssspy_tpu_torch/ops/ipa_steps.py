@@ -37,6 +37,7 @@ from typing import Callable, Optional, Tuple
 import torch
 
 from ..linalg import lqpqm as reference
+from ..linalg.eig_free import secular_root_solve
 from ..linalg.lqpqm import _find_largest_root_real, solve_equation
 from ..special.flooring import max_flooring
 from ..special.psd import eigh_in_batches, hermitize, psd_inv, to_psd
@@ -47,6 +48,12 @@ from .prox_steps import herm_eigh_embed
 __all__ = ["lqpqm2", "ipa_qp", "congruence_round", "ipa_sweep_direct", "ipa_sweep_congruence", "ipa_sweep"]
 
 _F32_REL = 1e-6  # relative ridge of the float32 sweep (splitc.py:1792-1793)
+SECULAR_IMPLS = ("eigh", "solve")
+
+
+def _check_secular_impl(secular_impl: str) -> None:
+    if secular_impl not in SECULAR_IMPLS:
+        raise ValueError(f"unknown secular_impl {secular_impl!r}; expected one of {SECULAR_IMPLS}")
 
 
 def _drop(v: torch.Tensor, n: int, dim: int) -> torch.Tensor:
@@ -88,7 +95,12 @@ def _pencil_spectrum(H: torch.Tensor, v: torch.Tensor):
 
 
 def lqpqm2(
-    H: torch.Tensor, v: torch.Tensor, z: torch.Tensor, eps: float = 1e-10, max_iter: int = 10
+    H: torch.Tensor,
+    v: torch.Tensor,
+    z: torch.Tensor,
+    eps: float = 1e-10,
+    max_iter: int = 10,
+    secular_impl: str = "eigh",
 ) -> torch.Tensor:
     """LQPQM type 2 for the sweep: ``argmin_q q^H q - log((q + v)^H H (q + v) + z)``.
 
@@ -109,17 +121,34 @@ def lqpqm2(
       where the sum cancels as ``lamb`` nears the pole ``phi_max``;
     - ``||v|| < eps`` takes the singular branch: a step of length
       ``sqrt((max(z, phi_max) - z) / phi_max)`` along the top eigenvector.
-    """
-    norm = torch.linalg.vector_norm(v, dim=-1)
-    phi, vsq, sigma_max = _pencil_spectrum(H, v)
-    phi_max = phi[..., -1]
-    gap = 32 * torch.finfo(phi.dtype).eps
 
-    lamb = solve_equation(
-        phi, torch.sqrt(vsq), z, flooring_fn=functools.partial(max_flooring, eps=eps),
-        max_iter=max_iter, normalization=True, root_finder=_find_largest_root_real,
-    )
-    lamb = torch.maximum(lamb, phi_max * (1 + gap))
+    ``secular_impl="solve"`` finds the root without an eigendecomposition
+    (:func:`~ssspy_tpu_torch.linalg.eig_free.secular_root_solve`, each of
+    its trips one pivot-certified Cholesky of the embedded pencil; 12 trips
+    in float32 and 8 in float64, the JAX package's defaults), nudged
+    ``32 eps_dtype`` relative above itself and clamped above the estimated
+    ``phi_max``; the singular branch then steps along the shift-invert top
+    eigenvector. It solves the true secular equation, where the eigh route
+    keeps the reference's normalization (``v`` scaled by ``phi_max``), so the
+    two roots differ; ``max_iter`` does not apply. Counterpart of
+    ``lqpqm2_sc``'s ``"solve"`` (splitc.py:1532-1556).
+    """
+    _check_secular_impl(secular_impl)
+    norm = torch.linalg.vector_norm(v, dim=-1)
+    real = H.real.dtype
+    gap = 32 * torch.finfo(real).eps
+    if secular_impl == "solve":
+        lamb, (phi_max, sigma_max) = secular_root_solve(H, v, z, trips=8 if real == torch.float64 else 12)
+        lamb = lamb * (1 + gap) + torch.finfo(real).tiny
+        lamb = torch.maximum(lamb, phi_max * (1 + gap))
+    else:
+        phi, vsq, sigma_max = _pencil_spectrum(H, v)
+        phi_max = phi[..., -1]
+        lamb = solve_equation(
+            phi, torch.sqrt(vsq), z, flooring_fn=functools.partial(max_flooring, eps=eps),
+            max_iter=max_iter, normalization=True, root_finder=_find_largest_root_real,
+        )
+        lamb = torch.maximum(lamb, phi_max * (1 + gap))
 
     positive = phi_max > 0
     scale = (torch.maximum(z, phi_max) - z) / torch.where(positive, phi_max, 1.0)
@@ -203,6 +232,14 @@ def _reference_lqpqm2(H, v, z, eps, max_iter):
     return reference.lqpqm2(H, v, z, flooring_fn=functools.partial(max_flooring, eps=eps), max_iter=max_iter)
 
 
+def _solve_solver(secular_impl: str) -> Optional[Callable]:
+    """:func:`lqpqm2` with the eigendecomposition-free root for ``secular_impl="solve"``; ``None`` for ``"eigh"``."""
+    _check_secular_impl(secular_impl)
+    if secular_impl == "eigh":
+        return None
+    return functools.partial(lqpqm2, secular_impl="solve")
+
+
 def ipa_sweep_direct(
     Y: torch.Tensor,
     varphi: torch.Tensor,
@@ -210,6 +247,7 @@ def ipa_sweep_direct(
     lqpqm_normalization: bool = True,
     newton_iter: int = 1,
     rel: float = 0.0,
+    secular_impl: str = "eigh",
 ) -> torch.Tensor:
     """IPA sweep with the statistics recomputed before each source; returns the new ``Y``.
 
@@ -228,8 +266,11 @@ def ipa_sweep_direct(
     the root ``lamb = z``, which may lie left of ``phi_max``, and its
     eigen-sum divides by ``z - phi``; :func:`lqpqm2` clamps that root to
     ``phi_max (1 + 32 eps_dtype)`` and divides by a difference of 7e-15 in
-    float64. The fixtures follow the reference there.
+    float64. The fixtures follow the reference there. ``secular_impl="solve"``
+    takes :func:`lqpqm2`'s eigendecomposition-free root instead, as
+    ``ipa_sweep_sc`` does with it (splitc.py:1739-1812).
     """
+    solver = _solve_solver(secular_impl) or _reference_lqpqm2
     floor = functools.partial(max_flooring, eps=eps)
     for n in range(Y.shape[0]):
         U = to_psd(_covariance_stack(Y, varphi), flooring_fn=floor, rel=rel)
@@ -238,8 +279,7 @@ def ipa_sweep_direct(
         b_n = _drop(U[:, :, n, :].diagonal(dim1=1, dim2=2), n, 1)
         q, p = ipa_qp(
             Un, psd_inv(Un, flooring_fn=floor, rel=rel), a_n, b_n, n,
-            eps=eps, lqpqm_normalization=lqpqm_normalization, newton_iter=newton_iter,
-            solver=_reference_lqpqm2,
+            eps=eps, lqpqm_normalization=lqpqm_normalization, newton_iter=newton_iter, solver=solver,
         )
         row_n = torch.einsum("is,sit->it", p.conj(), Y)
         Y = Y + _insert(q.conj(), n, 0.0).transpose(0, 1)[:, :, None] * Y[n]  # row n gains 0
@@ -254,6 +294,7 @@ def ipa_sweep_congruence(
     lqpqm_normalization: bool = True,
     newton_iter: int = 1,
     rel: Optional[float] = None,
+    secular_impl: str = "eigh",
 ) -> torch.Tensor:
     """IPA sweep with congruence-updated statistics; returns the new ``Y``.
 
@@ -280,8 +321,10 @@ def ipa_sweep_congruence(
     pole is ~1e14 long, and a bin may go non-finite, on which
     ``torch.linalg.eigh`` raises. Counterpart of ``splitc._ipa_sweep_congruence_sc`` and its
     lanes form (splitc.py:1976-2232); the lane layout and the padding of
-    bins to 128 were the TPU's and are gone.
+    bins to 128 were the TPU's and are gone. ``secular_impl`` as
+    :func:`lqpqm2` takes it.
     """
+    solver = _solve_solver(secular_impl)
     n_sources, n_bins, _ = Y.shape
     real = Y.real.dtype
     if rel is None:
@@ -298,7 +341,7 @@ def ipa_sweep_congruence(
         b_n = _drop(U[:, :, n, :].diagonal(dim1=1, dim2=2), n, 1)
         q, p = ipa_qp(
             Un, torch.linalg.inv_ex(Un)[0], a_n, b_n, n,
-            eps=eps, lqpqm_normalization=lqpqm_normalization, newton_iter=newton_iter,
+            eps=eps, lqpqm_normalization=lqpqm_normalization, newton_iter=newton_iter, solver=solver,
         )
 
         e_n = eye[n]
@@ -319,10 +362,17 @@ def ipa_sweep(
     eps: float = 1e-10,
     lqpqm_normalization: bool = True,
     newton_iter: int = 1,
+    secular_impl: str = "eigh",
 ) -> torch.Tensor:
-    """One IPA sweep over the sources: :func:`ipa_sweep_direct` for complex128, :func:`ipa_sweep_congruence` for complex64."""
+    """One IPA sweep over the sources: :func:`ipa_sweep_direct` for complex128, :func:`ipa_sweep_congruence` for complex64.
+
+    ``secular_impl``: ``"eigh"`` (the default, every dtype) solves each
+    source's secular equation on the pencil's spectrum (the Jacobi kernel
+    K7 in complex64); ``"solve"`` without an eigendecomposition, as
+    :func:`lqpqm2` takes it (12 trips in float32, 8 in float64).
+    """
     if Y.dtype == torch.complex128:
-        return ipa_sweep_direct(Y, varphi, eps, lqpqm_normalization, newton_iter)
+        return ipa_sweep_direct(Y, varphi, eps, lqpqm_normalization, newton_iter, 0.0, secular_impl)
     if Y.dtype == torch.complex64:
-        return ipa_sweep_congruence(Y, varphi, eps, lqpqm_normalization, newton_iter)
+        return ipa_sweep_congruence(Y, varphi, eps, lqpqm_normalization, newton_iter, None, secular_impl)
     raise ValueError(f"the IPA sweep takes complex128 or complex64, got {Y.dtype}")

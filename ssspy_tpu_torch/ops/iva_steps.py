@@ -139,19 +139,25 @@ def auxiva_iss1_step(Y: torch.Tensor, eps: float = 1e-10) -> torch.Tensor:
 
 
 def auxiva_ipa_step(
-    Y: torch.Tensor, eps: float = 1e-10, lqpqm_normalization: bool = True, newton_iter: int = 1
+    Y: torch.Tensor,
+    eps: float = 1e-10,
+    lqpqm_normalization: bool = True,
+    newton_iter: int = 1,
+    secular_impl: str = "eigh",
 ) -> torch.Tensor:
     """One AuxIVA-IPA iteration on the separated spectrograms ``(N, I, T)``.
 
     Demix-free, as ISS: the Laplace weight ``(N, T)``, then the IPA sweep
     (:func:`ssspy_tpu_torch.ops.ipa_steps.ipa_sweep`: the congruence sweep
-    in complex64, the reference's data flow in complex128). Counterpart of
+    in complex64, the reference's data flow in complex128; ``secular_impl``
+    as it takes it). Counterpart of
     ``splitc.auxiva_ipa_step_sc`` (splitc.py:2235-2264).
     """
     from .ipa_steps import ipa_sweep  # ipa_steps imports prox_steps, which imports this module
 
     return ipa_sweep(
-        Y, _laplace_varphi(Y, eps), eps=eps, lqpqm_normalization=lqpqm_normalization, newton_iter=newton_iter
+        Y, _laplace_varphi(Y, eps), eps=eps, lqpqm_normalization=lqpqm_normalization, newton_iter=newton_iter,
+        secular_impl=secular_impl,
     )
 
 

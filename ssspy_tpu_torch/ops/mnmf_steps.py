@@ -39,6 +39,7 @@ from typing import Optional, Tuple
 
 import torch
 
+from ..linalg.eig_free import chol_piv, tri_lower_inv
 from ..special.flooring import max_flooring
 from ..special.psd import hermitize, spectral, to_psd
 from . import kernels, prox_steps
@@ -48,7 +49,6 @@ from .prox_steps import _extract, block_embed
 __all__ = [
     "instant_covariance",
     "psd_project",
-    "chol_unrolled",
     "gmean2",
     "gauss_mnmf_step",
     "gauss_mnmf_loss",
@@ -101,27 +101,6 @@ def instant_covariance(X: torch.Tensor, eps: float = 1e-10, psd_impl: str = "aut
     return psd_project(XX, eps, psd_impl).contiguous()
 
 
-def chol_unrolled(S: torch.Tensor, tiny: float = 1e-30) -> torch.Tensor:
-    """Lower Cholesky factor of real symmetric ``(..., n, n)``, column by column.
-
-    Cholesky-Banachiewicz as ``splitc._chol_unrolled`` (splitc.py:3165-3202):
-    each diagonal entry is floored at ``sqrt(tiny)`` before it divides, so a
-    semidefinite input gives a finite factor where a library Cholesky
-    reports failure.
-    """
-    n = S.shape[-1]
-    rows = torch.arange(n, device=S.device)
-    cols = []
-    for j in range(n):
-        c = S[..., :, j]
-        if j:
-            L = torch.stack(cols, dim=-1)  # (..., n, j)
-            c = c - (L @ L[..., j, :, None])[..., 0]
-        d = torch.sqrt(torch.clamp(c[..., j : j + 1], min=tiny))
-        cols.append(torch.where(rows >= j, c / d, torch.zeros_like(c)))
-    return torch.stack(cols, dim=-1)
-
-
 def _symmetrised(S: torch.Tensor) -> torch.Tensor:
     return (S + S.transpose(-1, -2)) / 2
 
@@ -134,7 +113,7 @@ def gmean2(A: torch.Tensor, B: torch.Tensor, impl: str = "eigh2") -> torch.Tenso
     ``A^-1/2 (A^1/2 B A^1/2)^1/2 A^-1/2``, one eigh of ``A`` for both outer
     roots and one for the inner one, each routed by dtype
     (:func:`~ssspy_tpu_torch.special.psd.spectral`). ``"chol"``: with the
-    real embedding ``E(A) = F F^T`` (:func:`chol_unrolled`),
+    real embedding ``E(A) = F F^T`` (:func:`~ssspy_tpu_torch.linalg.eig_free.chol_piv`),
     ``E(G) = F^-T (F^T E(B) F)^1/2 F^-1``: one real symmetric eigh of
     ``2m x 2m`` matrices through :func:`prox_steps.symm_eigh` (the Jacobi
     kernel K7 in float32) and a triangular inverse; it needs ``A``
@@ -142,9 +121,8 @@ def gmean2(A: torch.Tensor, B: torch.Tensor, impl: str = "eigh2") -> torch.Tenso
     """
     if impl == "chol":
         n = A.shape[-1]
-        F = chol_unrolled(_symmetrised(block_embed(A)))
-        eye = torch.eye(2 * n, dtype=F.dtype, device=F.device).expand(F.shape)
-        F_inv = torch.linalg.solve_triangular(F, eye, upper=False)
+        F = chol_piv(_symmetrised(block_embed(A)))[0]
+        F_inv = tri_lower_inv(F)
         C = _symmetrised(F.transpose(-1, -2) @ _symmetrised(block_embed(B)) @ F)
         lamb, P = prox_steps.symm_eigh(C)
         S = (P * torch.sqrt(torch.clamp(lamb, min=0.0))[..., None, :]) @ P.transpose(-1, -2)

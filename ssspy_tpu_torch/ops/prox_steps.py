@@ -21,6 +21,7 @@ from typing import Callable, Optional, Tuple
 
 import torch
 
+from ..linalg.eig_free import block_embed
 from ..linalg.prox import neg_log
 from ..special.psd import eigh_in_batches
 from . import kernels
@@ -42,12 +43,6 @@ __all__ = [
     "admm_iva_step",
     "hva_admm_step",
 ]
-
-
-def block_embed(A: torch.Tensor) -> torch.Tensor:
-    """Real embedding ``E(A) = [[Ar, -Ai], [Ai, Ar]]`` of complex ``(..., m, k)``: ``(..., 2m, 2k)``."""
-    Ar, Ai = A.real, A.imag
-    return torch.cat([torch.cat([Ar, -Ai], dim=-1), torch.cat([Ai, Ar], dim=-1)], dim=-2)
 
 
 def _extract(W2: torch.Tensor, n: int) -> torch.Tensor:

@@ -44,6 +44,7 @@ def separate(
         raise ValueError("waveform must be (n_channels, n_samples)")
     n_samples = waveform.shape[-1]
 
-    spectrogram = stft(waveform, n_fft=n_fft, hop_length=hop_length, window=window)
-    separated = method(spectrogram, n_iter=n_iter, **kwargs).to(waveform.device)
-    return istft(separated, n_fft=n_fft, hop_length=hop_length, window=window, length=n_samples)
+    spectrogram = stft(waveform, n_fft=n_fft, hop_length=hop_length, window=window, device=waveform.device)
+    separated = method(spectrogram, n_iter=n_iter, **kwargs)
+    return istft(separated, n_fft=n_fft, hop_length=hop_length, window=window, length=n_samples,
+                 device=waveform.device)

@@ -8,8 +8,9 @@ Counterpart of :func:`ssspy_tpu.transform.stft` / ``istft``
 - zero-padding so frames tile the signal exactly,
 - forward scaling ``1 / win.sum()``, least-squares overlap-add inverse.
 
-Spectrograms are laid out ``(*, n_bins, n_frames)`` and stay on the
-waveform's device.
+Spectrograms are laid out ``(*, n_bins, n_frames)``. Both transforms run
+on ``device``, the card by default (``"cpu"`` runs on the CPU): the input,
+a tensor or an array, is moved there before any arithmetic.
 """
 
 import math
@@ -18,6 +19,8 @@ from typing import Optional, Union
 import numpy as np
 import torch
 import torch.nn.functional as F
+
+from ..utils.device import DEFAULT_DEVICE, resolve_device
 
 __all__ = ["stft", "istft", "get_window"]
 
@@ -57,17 +60,20 @@ def stft(
     hop_length: Optional[int] = None,
     window: Union[str, np.ndarray, torch.Tensor] = "hann",
     center: bool = True,
+    device=DEFAULT_DEVICE,
 ) -> torch.Tensor:
     """Short-time Fourier transform of ``(*, n_samples)`` real signals.
 
     Returns a contiguous complex spectrogram ``(*, n_bins, n_frames)`` with
     ``n_bins = n_fft // 2 + 1``, numerically matching
-    ``scipy.signal.stft(x, nperseg=n_fft, noverlap=n_fft - hop_length)[2]``.
+    ``scipy.signal.stft(x, nperseg=n_fft, noverlap=n_fft - hop_length)[2]``,
+    on ``device`` (the card by default; raises without one unless
+    ``device="cpu"``).
     """
     if hop_length is None:
         hop_length = n_fft // 2
 
-    x = torch.as_tensor(waveform)
+    x = torch.as_tensor(waveform, device=resolve_device(device))
     win = get_window(window, n_fft, dtype=x.dtype, device=x.device)
     n_samples = x.shape[-1]
 
@@ -90,17 +96,19 @@ def istft(
     window: Union[str, np.ndarray, torch.Tensor] = "hann",
     center: bool = True,
     length: Optional[int] = None,
+    device=DEFAULT_DEVICE,
 ) -> torch.Tensor:
     """Inverse STFT via least-squares (windowed) overlap-add.
 
     Accepts ``(*, n_bins, n_frames)`` complex spectrograms from
     :func:`stft` and returns ``(*, n_samples)`` signals, matching
-    ``scipy.signal.istft`` for the same window/hop.
+    ``scipy.signal.istft`` for the same window/hop, on ``device`` as
+    :func:`stft` takes it.
     """
     if hop_length is None:
         hop_length = n_fft // 2
 
-    spec = torch.as_tensor(spectrogram)
+    spec = torch.as_tensor(spectrogram, device=resolve_device(device))
     n_frames = spec.shape[-1]
     rdtype = spec.real.dtype
     win = get_window(window, n_fft, dtype=rdtype, device=spec.device)

@@ -373,8 +373,8 @@ def test_fast_auxiva_wave_is_the_spectrogram_path_between_the_transforms(wave):
 
     y = fast_auxiva_wave(wave, n_iter=3, algorithm="IPA", n_fft=256, device="cpu")
     x = torch.from_numpy(wave).to(torch.float32)
-    Y, _ = fast_auxiva(stft(x, n_fft=256), n_iter=3, algorithm="IPA", device="cpu")
-    assert torch.equal(y, istft(Y, n_fft=256, length=wave.shape[-1]))
+    Y, _ = fast_auxiva(stft(x, n_fft=256, device="cpu"), n_iter=3, algorithm="IPA", device="cpu")
+    assert torch.equal(y, istft(Y, n_fft=256, length=wave.shape[-1], device="cpu"))
 
 
 def test_waveform_entry_points_raise_for_what_is_not_ported(wave):
@@ -386,8 +386,8 @@ def test_waveform_entry_points_raise_for_what_is_not_ported(wave):
     x = torch.from_numpy(wave).to(torch.float32)
     for algorithm in ("IP2", "ISS2"):
         y = fast_auxiva_wave(wave, n_iter=1, algorithm=algorithm, n_fft=256, device="cpu")
-        Y, _ = fast_auxiva(stft(x, n_fft=256), n_iter=1, algorithm=algorithm, device="cpu")
-        assert torch.equal(y, istft(Y, n_fft=256, length=wave.shape[-1]))
+        Y, _ = fast_auxiva(stft(x, n_fft=256, device="cpu"), n_iter=1, algorithm=algorithm, device="cpu")
+        assert torch.equal(y, istft(Y, n_fft=256, length=wave.shape[-1], device="cpu"))
     with pytest.raises(ValueError, match="no IP2"):
         fast_gauss_ilrma_wave(wave, n_basis=2, n_iter=1, algorithm="IP2", device="cpu")
     with pytest.raises(AssertionError):

@@ -758,10 +758,11 @@ def test_waveform_entry_points_equal_the_spectrogram_path(cuda_device):
     x = make_mixture(seed=39, n_channels=2, duration_s=0.5)
     xt = torch.from_numpy(x).to(cuda_device, torch.float32)
     y = fast_auxiva_wave(x, n_iter=5)
-    ref = istft(fast_auxiva(stft(xt), n_iter=5)[0], length=x.shape[-1])
+    ref = istft(fast_auxiva(stft(xt, device=cuda_device), n_iter=5)[0], length=x.shape[-1], device=cuda_device)
     assert y.device.type == "cuda" and (y - ref).abs().max() <= 1e-4 * ref.abs().max()
     y = fast_gauss_ilrma_wave(x, n_basis=2, n_iter=5, rng=np.random.default_rng(40))
-    ref = istft(fast_gauss_ilrma(stft(xt), n_basis=2, n_iter=5, rng=np.random.default_rng(40))[0], length=x.shape[-1])
+    ref = istft(fast_gauss_ilrma(stft(xt, device=cuda_device), n_basis=2, n_iter=5, rng=np.random.default_rng(40))[0],
+                length=x.shape[-1], device=cuda_device)
     assert (y - ref).abs().max() <= 1e-4 * ref.abs().max()
 
 
@@ -941,3 +942,117 @@ def test_pca_and_whiten_run_on_the_card_and_equal_the_cpu(cuda_device, name, kin
         Z = np.moveaxis(got, ch_axis, -1)
         cov = np.einsum("...tm,...tn->...mn", Z, Z.conj()) / Z.shape[-2]
         np.testing.assert_allclose(cov, np.broadcast_to(np.eye(3), cov.shape), atol=1e-10)
+
+
+# ---- stft/istft on the card, FDICA, the eigendecomposition-free routes ------------------------------------------
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [np.float32, np.float64])
+def test_stft_and_istft_on_the_card_equal_the_cpu(cuda_device, dtype):
+    from ssspy_tpu_torch.transform import istft, stft
+    from ssspy_tpu_torch.utils import make_mixture
+
+    x = make_mixture(seed=48, n_channels=3, duration_s=0.5).astype(dtype)
+    X = stft(x, n_fft=256)
+    X_host = stft(x, n_fft=256, device="cpu")
+    assert X.device.type == "cuda" and X.dtype == X_host.dtype
+    assert (X.cpu() - X_host).abs().max() <= 1e-6 * X_host.abs().max()
+    y, y_host = istft(X_host.numpy(), n_fft=256, length=x.shape[-1]), istft(X_host, n_fft=256, length=x.shape[-1],
+                                                                          device="cpu")
+    assert y.device.type == "cuda" and (y.cpu() - y_host).abs().max() <= 1e-6 * y_host.abs().max()
+
+
+FDICA_LABELS = ("AuxFDICA-IP1", "AuxFDICA-IP2", "GradFDICA", "NaturalGradFDICA")
+
+
+def _fdica_class(label, device, **kwargs):
+    from ssspy_tpu_torch.bss import AuxLaplaceFDICA, GradLaplaceFDICA, NaturalGradLaplaceFDICA
+
+    if label.startswith("AuxFDICA"):
+        return AuxLaplaceFDICA(spatial_algorithm=label.split("-")[1], device=device, **kwargs)
+    if label == "GradFDICA":
+        return GradLaplaceFDICA(device=device, **kwargs)
+    return NaturalGradLaplaceFDICA(is_holonomic=True, device=device, **kwargs)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("label", FDICA_LABELS)
+def test_complex128_fdica_classes_on_the_card_equal_the_cpu(cuda_device, label):
+    """complex128 on the card: no kernel launches, and the loss and (aligned, rescaled) output end within 1e-6 of the CPU's."""
+    X = torch.from_numpy(_mixture_spectrogram(3, seed=49))
+    before = _new_path_launches()
+    card = _fdica_class(label, "cuda")
+    Y = card(X, n_iter=5)
+    assert all(count == 0 for count in _launched(before).values())
+    host = _fdica_class(label, "cpu")
+    Y_host = host(X, n_iter=5)
+    assert Y.device.type == "cuda" and Y.dtype == torch.complex128
+    assert abs(card.loss[-1] - host.loss[-1]) <= 1e-6 * abs(host.loss[-1])
+    assert (Y.cpu() - Y_host).abs().max() <= 1e-6 * Y_host.abs().max()
+
+
+@pytest.mark.cuda
+def test_fdica_paths_run_through_their_kernels_and_equal_their_classes(cuda_device):
+    """IP1: K1 and K1b once a step; IP2: K1 once a pair; the gradient: none; each class (unaligned, unscaled, at the
+    fast path's floor) equals its fast path to the bit."""
+    from ssspy_tpu_torch.fast import fast_aux_fdica, fast_grad_fdica
+
+    X = _mixture_spectrogram(4, seed=50).astype(np.complex64)
+    zero = dict.fromkeys(("weighted_covariance", "ip1_sweep", "iss1_sweep", "ipa_congruence", "jacobi_eigh"), 0)
+    raw = dict(permutation_alignment=False, scale_restoration=False)
+    cases = (
+        ("AuxFDICA-IP1", lambda: fast_aux_fdica(X, n_iter=3, **raw), {"weighted_covariance": 3, "ip1_sweep": 3}, {}),
+        ("AuxFDICA-IP2", lambda: fast_aux_fdica(X, n_iter=3, algorithm="IP2", **raw), {"weighted_covariance": 12}, {}),
+        ("GradFDICA", lambda: fast_grad_fdica(X, n_iter=3, **raw), {}, {"flooring_fn": "f64"}),
+        ("NaturalGradFDICA", lambda: fast_grad_fdica(X, n_iter=3, natural=True, is_holonomic=True, **raw), {},
+         {"flooring_fn": "f64"}),
+    )
+    for label, fast, launches, floor in cases:
+        before = _new_path_launches()
+        Y, W = fast()
+        assert _launched(before) == {**zero, **launches}, label
+        method = _fdica_class(label, "cuda", **raw, **floor)
+        assert torch.equal(method(X, n_iter=3), Y) and torch.equal(method.demix_filter, W), label
+        assert torch.isfinite(torch.view_as_real(Y)).all()
+    Y, W = fast_aux_fdica(X, n_iter=3)  # aligned and rescaled on the card
+    assert Y.device.type == W.device.type == "cuda" and torch.isfinite(torch.view_as_real(Y)).all()
+
+
+@pytest.mark.cuda
+def test_free_routes_agree_with_their_eigh_routes_on_the_card(cuda_device):
+    """At chip_smoke's tolerances: QDWH polar unitary within 1e-5 and within 1e-4 of the eigh polar; the shift-invert
+    top eigenvector's Rayleigh quotient within 1e-5 of K7's top eigenvalue; the solve route's secular roots within
+    1.2e-3 of the roots on K7's spectrum (splitc.py:1541-1546); neither free route launches K7."""
+    from ssspy_tpu_torch.linalg.eig_free import secular_root_solve, top_eigvec_shift_invert
+    from ssspy_tpu_torch.ops.fixed_point_iva_steps import polar
+    from ssspy_tpu_torch.ops.ipa_steps import _pencil_spectrum
+    from ssspy_tpu_torch.ops.prox_steps import herm_eigh_embed
+
+    rng = np.random.default_rng(51)
+    W = torch.eye(8, device=cuda_device) + 0.1 * _complex(rng, (257, 8, 8), cuda_device)  # near unitary, as FastIVA's
+    before = _new_path_launches()
+    P = polar(W, impl="qdwh")
+    A = _complex(rng, (514, 8, 12), cuda_device)
+    U = A @ A.mH / 12
+    v = top_eigvec_shift_invert(U)
+    H = U[:, :7, :7]
+    z = torch.from_numpy(rng.random(514, dtype=np.float32) + 0.1).to(cuda_device)
+    b = _complex(rng, (514, 7), cuda_device)
+    root, _ = secular_root_solve(H, b, z, trips=12)
+    assert _launched(before)["jacobi_eigh"] == 0
+    eye = torch.eye(8, device=cuda_device)
+    assert (P.mH @ P - eye).abs().max() <= 1e-5
+    P_eigh = polar(W)
+    assert (P - P_eigh).abs().max() <= 1e-4 * P_eigh.abs().max()
+    top = herm_eigh_embed(U)[0][..., -1]
+    rayleigh = torch.sum(v.conj() * (U @ v[..., None])[..., 0], dim=-1).real
+    assert ((rayleigh - top).abs() / top).max() <= 1e-5
+    phi, vsq, _ = _pencil_spectrum(H, b)
+    phi, vsq, z64 = phi.double(), vsq.double(), z.double()
+    lo, hi = phi[..., -1], torch.maximum(2 * phi[..., -1], z64 + 4 * torch.sum(phi * vsq, dim=-1))
+    for _ in range(200):  # the true root on K7's spectrum, by bisection in float64
+        mid = (lo + hi) / 2
+        f = mid * mid * torch.sum(phi * vsq / (mid[..., None] - phi) ** 2, dim=-1) - mid + z64
+        lo, hi = torch.where(f > 0, mid, lo), torch.where(f > 0, hi, mid)
+    assert ((root.double() - lo).abs() / lo).max() <= 1.2e-3

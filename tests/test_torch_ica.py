@@ -26,7 +26,7 @@ from ssspy_tpu_torch.bss import (
     NaturalGradICA,
     NaturalGradLaplaceICA,
 )
-from ssspy_tpu_torch.transform import pca, whiten
+from ssspy_tpu_torch.transform import istft, pca, stft, whiten
 from ssspy_tpu_torch.utils import from_jax_state, make_mixture
 from tests.regression.test_regression import FIXTURE_DIR, _load
 
@@ -214,3 +214,20 @@ def test_transforms_run_on_the_card_unless_asked_for_the_cpu(transform):
     with pytest.raises(RuntimeError, match="device='cpu'"):
         transform(x)
     assert transform(x, device="cpu").device.type == "cpu"
+
+
+@pytest.mark.parametrize("transform", ["stft", "istft"])
+def test_stft_and_istft_run_on_the_card_unless_asked_for_the_cpu(transform):
+    """A numpy array, or a tensor on another device, is transformed where the caller asks: the card by default."""
+    x = make_mixture(seed=8, n_channels=2, duration_s=0.05)
+    if transform == "stft":
+        call, arg = stft, x
+    else:
+        call, arg = istft, stft(x, n_fft=64, device="cpu").numpy()
+    if torch.cuda.is_available():
+        assert call(arg, n_fft=64).device.type == "cuda"
+        return
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        call(arg, n_fft=64)
+    out = call(arg, n_fft=64, device="cpu")
+    assert out.device.type == "cpu" and torch.equal(out, call(torch.from_numpy(arg), n_fft=64, device="cpu"))

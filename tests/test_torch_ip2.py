@@ -505,10 +505,11 @@ def easy_tier():
 
     images, _ = sample_speech_mixture(n_sources=2, max_duration=2.0, conv=True, seed=0)
     mix = images.sum(axis=0)
-    X = stft(torch.from_numpy(mix), n_fft=N_FFT, hop_length=HOP).numpy()
+    X = stft(torch.from_numpy(mix), n_fft=N_FFT, hop_length=HOP, device="cpu").numpy()
 
     def quality(Y):
-        y = istft(torch.as_tensor(Y).to(torch.complex128), n_fft=N_FFT, hop_length=HOP, length=mix.shape[-1])
+        y = istft(torch.as_tensor(Y).to(torch.complex128), n_fft=N_FFT, hop_length=HOP, length=mix.shape[-1],
+                  device="cpu")
         return _best_perm_si_sdr(y.numpy(), images[:, 0])
 
     with open(os.path.join(TESTS, "fidelity_pins.json")) as f:
