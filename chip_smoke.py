@@ -127,7 +127,26 @@ calls, on the default device:
   shift-invert top eigenvectors on FasterIVA's covariances against K7's top
   eigenvalues; and FastIVA (``polar_impl="qdwh"``) and FasterIVA
   (``eig_impl="solve"``: shift-invert and the QDWH polar, no K7) over 100
-  steps with their launch counts, each against its eigh route's loss.
+  steps with their launch counts, each against its eigh route's loss;
+- the multi-device runners (``ssspy_tpu_torch.parallel``, ``[parallel]``
+  lines): ``fast_auxiva_batch`` on two mixtures of the main configuration
+  (seeds 0 and 1), 100 iterations in one process with no group, K1 once
+  per utterance and K1b once per iteration, each utterance held against
+  ``fast_auxiva`` on it (the main path's loss and SI-SDR gates), and the
+  batched step's device time per utterance beside ``fast_auxiva``'s; then
+  every runner of the slice (``parallel.dryrun.CASES``: AuxIVA IP1, IP2,
+  ISS1, ISS2 and IPA, GaussILRMA-IP1, dense GaussMNMF with and without
+  partitioning, cACGMM, GaussIPSDTA and the waveform runner) at the JAX dry
+  run's reduced shapes (257 bins, 2 steps, float32) over 2 and 4 gloo
+  ranks sharing the card, layouts (1, 2) and (2, 2) (and NCCL ranks on
+  cards of their own where there are several), each rank holding each
+  runner against the same runner at world size 1 and its all-reduces per
+  iteration against the JAX pins; each runner's launches summed over the
+  ranks must equal its count (``Case.launches``), and each rank holds every
+  kernel call of its sharded run against the kernel's plain version at the
+  rank's own shapes (M = N = 3, 32 frames, 129 of 257 bins, 65 of the
+  waveform runner's 129, 17 of dense MNMF's 33, IPSDTA's 4 x 4 blocks), at
+  the gates of phases 3-4g (RANK_KERNEL_TOLS).
 
 Each class there runs with the fast path's floor (``flooring_fn="f64"``
 where its floor differs) and must equal its fast path to the bit; each path
@@ -178,7 +197,9 @@ second and device time per iteration by ``torch.profiler``, read the
 same way (each session opens with a spin kernel, and the events seen are
 printed beside those its steps make; kernel names whose events do not
 divide by the steps are listed apart, with the time read without
-rounding them up).
+rounding them up). Each phase's seconds are printed as it ends
+(``[phase]`` lines, the numbered sections of ``main``; section 6 in three:
+the kernel times, the path rates, the profiles).
 
 Run from the repository root, with one CUDA device:
 
@@ -232,6 +253,7 @@ from ssspy_tpu_torch.fast import (
     fast_admm_iva,
     fast_aux_fdica,
     fast_auxiva,
+    fast_auxiva_batch,
     fast_auxiva_wave,
     fast_cacgmm,
     fast_fast_iva,
@@ -277,6 +299,8 @@ from ssspy_tpu_torch.ops.iva_steps import (
     iva_laplace_loss,
     separate,
 )
+from ssspy_tpu_torch.parallel import dryrun as parallel_dryrun
+from ssspy_tpu_torch.parallel.dryrun import CASES as PARALLEL_CASES, dryrun_multichip
 from ssspy_tpu_torch.special.psd import eigh_in_batches
 from ssspy_tpu_torch.transform import istft, stft
 from ssspy_tpu_torch.utils.dataset import HOP, N_FFT, hard_speech_mixture, make_mixture, sample_speech_mixture
@@ -310,7 +334,7 @@ JACOBI_SIZES = (2, 3, 7, 16, 32)
 EIGH_SLICE = 4096  # matrices of the eigh model's batch held against the plain version, at each end
 N_ITER_MASKING_ADMM = 10
 N_ITER_IPA_CLASSES = 10
-N_ITER_IPA_PLAIN_RATE = 10  # the plain Jacobi eigh takes ~30 ms, eight times per IPA iteration
+N_ITER_IPA_PLAIN_RATE = 5  # the plain Jacobi eigh takes ~30 ms, eight times per IPA iteration (cut from 10 for time)
 IPA_TOL = 1e-5  # 8-term f32 complex sums, in another order on each side
 IPA_PERTURBATION = 1e-7  # relative noise on the control run's input: one f32 ulp
 # the SI-SDR gate against the plain twin holds where the control run keeps this much more than MIN_SI_SDR_DB
@@ -350,7 +374,8 @@ N_ITER_CACGMM_PLAIN_RATE = 10  # the plain Jacobi eigh takes ~60 ms, twice per E
 N_ITER_FIXED_POINT_PLAIN_RATE = 10  # FastIVA and FasterIVA: the plain Jacobi eigh once (B = 257) or twice (and 2,056) a step
 N_ITER_PROX_PLAIN_RATE = 20  # the prox family's plain twins run at ~14 it/s (the plain Jacobi eigh once a step)
 N_ITER_PAIRWISE_RATE = 10  # IP2 and ISS2 launch ~1,400 device operations a step (~40 it/s, host-paced): rate and profile
-N_ITER_PROFILE = 10  # chained steps a profiler session traces; the host-paced paths take seconds a session to trace
+N_ITER_PROFILE = 5  # chained steps a profiler session traces; the host-paced paths take seconds a session to trace
+RATE_WARMUP = 2  # chained steps ahead of each timed chain of a path rate (the whole chain before: half the phase)
 # the hard tier of tests/test_hard_fidelity.py:67, :252-283 and :448-493 and its pins (tests/fidelity_pins.json)
 HARD_TIER_N_FFT, HARD_TIER_HOP = 4096, 1024
 HARD_CACGMM_ITER, HARD_CACGMM_SEED, HARD_CACGMM_PIN_DB, HARD_CACGMM_TOL_DB = 50, 3, -1.088889, 0.1
@@ -381,6 +406,12 @@ FDICA_CONTROL_MULTIPLE = 10.0
 # operations a step (~0.9 s, and a profiler session of 10 steps took ~95 s), FasterIVA's and FastIVA's ~3,000 and ~750
 N_ITER_FREE_RATE = {"AuxIVA-IPA solve": 1, "FasterIVA solve": 5, "FastIVA qdwh": 10}
 N_ITER_IPA_RATE = 20  # AuxIVA-IPA and GaussILRMA-IPA: chained steps a rate reads (cut from 100 for time)
+N_PARALLEL_TIMED = 10  # chained AuxIVA-IP1 steps a device time of the batched step reads
+# the sharded runners' kernel calls against their plain versions, at the gates of phases 3-4g: relative to the
+# plain output's largest magnitude, 0 for bit for bit (K7 and K3 keep the plain version's bits)
+RANK_KERNEL_TOLS = {"weighted_covariance": WCOV_TOL, "ip1_sweep": SWEEP_TOL, "iss1_sweep": ISS1_TOL,
+                    "jacobi_eigh": 0.0, "ipa_congruence": IPA_TOL, "gj_inverse": 0.0,
+                    "inv_sandwich": INV_SANDWICH_TOL, "model_traces": MODEL_TRACES_TOL}
 ICA_FIXTURE_TOL = 1e-6  # tests/regression/test_regression.py:179-186
 REPO = os.path.dirname(os.path.abspath(__file__))
 
@@ -437,6 +468,19 @@ PLAIN = {
 
 def fail(message: str) -> None:
     raise SystemExit(f"chip_smoke: FAILED: {message}")
+
+
+class Laps:
+    """The seconds each phase of ``main`` takes, as ``[phase]`` lines: ``laps(name)`` ends the running phase, prints
+    its time, and starts ``name``."""
+
+    def __init__(self):
+        self.name, self.start = "1", time.perf_counter()
+
+    def __call__(self, name: str) -> None:
+        now = time.perf_counter()
+        say("phase", name=repr(self.name), seconds=f"{now - self.start:.1f}")
+        self.name, self.start = name, now
 
 
 def check(condition, message: str) -> None:
@@ -711,8 +755,8 @@ def chain(step, state, n_iter=N_ITER):
 
 
 def iterations_per_s(step, state, n_iter: int = N_ITER) -> float:
-    """``n_iter`` chained steps between two CUDA events, after one warm-up chain."""
-    chain(step, state, n_iter)
+    """``n_iter`` chained steps between two CUDA events, after a warm-up chain of ``RATE_WARMUP`` steps."""
+    chain(step, state, min(n_iter, RATE_WARMUP))
     start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
     torch.cuda.synchronize()
     start.record()
@@ -940,6 +984,7 @@ def profiled_us(fn, kernel: str, n_runs: int = N_TIMED, attempts: int = 3):
 def main() -> None:
     # ---- 1. device ----------------------------------------------------------
     started = time.perf_counter()
+    laps = Laps()
     if not torch.cuda.is_available():
         fail("torch.cuda.is_available() is False: this script needs an NVIDIA GPU")
     device = torch.device("cuda", 0)
@@ -967,6 +1012,7 @@ def main() -> None:
     )
 
     # ---- 2. build: one nvcc per source, all started together --------------------
+    laps("2")
     start = time.perf_counter()
     with ThreadPoolExecutor(max_workers=len(KERNELS)) as pool:
         list(pool.map(_build.load, map(K.source_of, KERNELS)))
@@ -990,6 +1036,7 @@ def main() -> None:
     errors = {}
 
     # ---- 3. K1 against its plain version --------------------------------------
+    laps("3")
     phi_scalar = fast_varphi(separate(X, W_eye)).contiguous()
     phi_bins = torch.from_numpy(rng.random((M, I, T), dtype=np.float32) + 0.1).to(device)
     wcov_abs = 0.0
@@ -1026,6 +1073,7 @@ def main() -> None:
     errors["weighted_covariance"] = wcov_abs
 
     # ---- 4. K1b against its exact twin (gjnp) ----------------------------------
+    laps("4")
     def hold_ip1(label, W_in, U_in, silent, expected):
         """K1b within SWEEP_TOL of its exact twin on the live bins, silent bins frozen, two launches to the bit."""
         W_new, W_2 = K.ip1_sweep(W_in, U_in, eps=FAST_EPS), K.ip1_sweep(W_in, U_in, eps=FAST_EPS)
@@ -1066,6 +1114,7 @@ def main() -> None:
     errors["ip1_sweep"] = sweep_abs
 
     # ---- 4b. K2 against its plain version ----------------------------------------
+    laps("4b")
     iss1_abs = 0.0
     long_N, long_I, long_T = LONG_SHAPE
     Y_long = torch.complex(*(torch.from_numpy(rng.standard_normal((long_N, long_I, long_T), dtype=np.float32))
@@ -1110,6 +1159,7 @@ def main() -> None:
     errors["iss1_sweep"] = iss1_abs
 
     # ---- 4c. the prox family's input, scaled on the card -------------------------------
+    laps("4c")
     # a user's host spectrogram over its spectral norm: the entry point moves
     # it to the card and reads each bin's norm through one K7 launch
     totals = {name: 0 for name in KERNELS}
@@ -1132,6 +1182,7 @@ def main() -> None:
     check(abs(bin_norm - 1) <= PROX_TOL and scaling_rel <= PROX_TOL, f"spectral scaling: {bin_norm}, {scaling_rel}")
 
     # ---- 4d. K7 against its plain version -----------------------------------------
+    laps("4d")
     # the eigh inputs of the second iteration of PDSIVA (the right Grams) and
     # ADMMIVA (the right and left Grams, stacked)
     Y_zero = torch.zeros_like(X_prox)
@@ -1204,6 +1255,7 @@ def main() -> None:
         check(prox_rel <= PROX_TOL and all_finite(got), f"prox_neg_logdet lift_null={lift_null}: rel err {prox_rel}")
 
     # ---- 4e. K6 against its plain version ------------------------------------------
+    laps("4e")
     # random input; the T, U and G of a real sweep's rounds (recorded through
     # the plain versions); and a batch with two all-zero bins
     def random_complex(shape):
@@ -1252,6 +1304,7 @@ def main() -> None:
     T_sweep, U_sweep, G_sweep = rounds[-1]
 
     # ---- 4f. K4 and K5 against their plain versions -----------------------------------
+    laps("4f")
     # the dense-MNMF model after two fused iterations of fast_gauss_mnmf_dense
     # (I T = 160,882 systems of 8 x 8) with the mixture's instant covariances;
     # and an edge batch: two all-zero XX bins, one bin of tiny Lamb and, for K4,
@@ -1376,6 +1429,7 @@ def main() -> None:
     errors["model_traces"] = traces_abs
 
     # ---- 4g. K3 against its plain version ----------------------------------------------
+    laps("4g")
     # IPSDTA's projected model after two iterations of fast_gauss_ipsdta at the
     # timing shape, both parts: (N, T, B, J, J) = (8, 626, 63, 4, 4) and
     # (8, 626, 1, 5, 5); a batch of zero matrices, whose pivots all take the
@@ -1423,6 +1477,7 @@ def main() -> None:
     errors["gj_inverse"] = gj_abs
 
     # ---- 4h. K7 at the batches of the other paths -----------------------------------------
+    laps("4h")
     # dense GaussMNMF's eigenvalue floor of the new spatial covariances (a
     # step's second eigh: B = N I = 2,056 of 16 x 16), IPSDTA's geometric mean
     # of the main part (B = 63 x 64 = 4,032 of 8 x 8) and the eigh model's PSD
@@ -1449,6 +1504,7 @@ def main() -> None:
     hold_eigh(f"eigh model's R, last {EIGH_SLICE}", A_model, slice(n_model - EIGH_SLICE, n_model), accuracy=False)
 
     # ---- 4i. K1, K1b and K7 at the shapes of FastGaussMNMF and cACGMM -------------------------
+    laps("4i")
     # FastGaussMNMF's diagonalizer update in its third iteration from fast_gauss_mnmf's draws (4 channels): K1
     # with per-channel weights (M, I, T) = (4, 257, 626) and K1b at M = 4, its warp variant; cACGMM's E-step and
     # M-step embedded pencils in its third EM iteration from fast_cacgmm's draws: K7 at (N I, 2M, 2M) = (2056, 16, 16)
@@ -1481,6 +1537,7 @@ def main() -> None:
     hold_eigh("cACGMM M-step projection", A_mstep, accuracy=False)
 
     # ---- 4j. K1 at IP2's pair weights, K7 at FasterIVA's top eigenvector and polar inputs ----------------------
+    laps("4j")
     # AuxIVA-IP2's first pair from W = I: N = 2 weights (2, T) over the main path's mixture, and per-bin pair
     # weights (2, I, T); FasterIVA's first step on the whitened mixture: K7 at (N I, 2M, 2M) = (2056, 16, 16)
     # and on the polar factor's Gram (257, 16, 16)
@@ -1500,6 +1557,7 @@ def main() -> None:
     errors["jacobi_eigh"] = eigh_abs
 
     # ---- 4k. K1 and K1b at FDICA's per-scalar weights ---------------------------------------------------------------
+    laps("4k")
     # AuxFDICA-IP1's third iteration from W = I: K1 with the per-scalar Laplace weights (N, I, T) = (8, 257, 626),
     # which reach 1 / eps = 1e6 in near-silent cells; K1b on the covariances of its first iteration (by the third,
     # the float32 twin itself sits ~1e-4 from the exact elimination); AuxFDICA-IP2's first pair: K1 at two sources
@@ -1518,6 +1576,7 @@ def main() -> None:
                                         hold_wcov("per-scalar pair (2,I,T), AuxFDICA-IP2", X, phi_fdica_pair))
 
     # ---- 5. main path: AuxIVA-IP1 -------------------------------------------------
+    laps("5")
 
     def auxiva_ip1():
         iva = AuxLaplaceIVA(spatial_algorithm="IP")
@@ -1544,6 +1603,7 @@ def main() -> None:
     check(sdr_wave >= MIN_SI_SDR_DB, f"pipeline output vs plain: {sdr_wave:.2f} dB")
 
     # ---- 5b. the slice: GaussILRMA-IP1, GaussILRMA-ISS1, AuxIVA-ISS1 ----------------
+    laps("5b")
 
     def gauss_ilrma(spatial):
         """The class and the fast path, each from the NMF factors of ``default_rng(0)``."""
@@ -1598,6 +1658,7 @@ def main() -> None:
             check(method.loss[-1] < method.loss[0], f"{label}: loss did not decrease")
 
     # ---- 5b'. the IPA slice: AuxIVA-IPA and GaussILRMA-IPA ------------------------------
+    laps("5b'")
     # per iteration K1 once (the full stack), K7 and K6 once per source. Each
     # fast path runs twice: as a user calls it, and without scale restoration
     # (projection back changes the loss's scale), whose loss is compared; the
@@ -1688,6 +1749,7 @@ def main() -> None:
         check(method.loss[-1] < method.loss[0], f"{label}: loss did not decrease")
 
     # ---- 5c. the prox family: PDSIVA, HVA, ADMMIVA, MaskingADMMHVA ---------------------
+    laps("5c")
     batches = []
 
     def prox_path(label, run, n_calls, n_iter, batch):
@@ -1739,6 +1801,7 @@ def main() -> None:
     hold_sdr("MaskingADMMHVA class", Y_mah, run_plain(masking_admm_hva))
 
     # ---- 5d. dense GaussMNMF: the fused route (K5, K7) and the eigh route (K4, K7) -------
+    laps("5d")
     # per iteration K5 three times and K7 twice (the geometric mean and H's floor, B = N I);
     # each path beside its plain twin, and a control run of the kernels on the
     # input times (1 + 1e-7 noise), printed before the gates
@@ -1807,6 +1870,7 @@ def main() -> None:
     check(loss_eigh[-1] < loss_eigh[0], f"eigh model: loss did not fall: {loss_eigh[0]} -> {loss_eigh[-1]}")
 
     # ---- 5e. IPSDTA: fast_gauss_ipsdta, fast_t_ipsdta, GaussIPSDTA, the hard tier ---------------
+    laps("5e")
     # per iteration K3 three times per part (the model's inverse before the
     # basis, the activation and the spatial update) and K7 once per part
     # (Gauss: the geometric mean's 2J x 2J embedding) or twice (t: Q^1/2 and
@@ -1890,6 +1954,7 @@ def main() -> None:
     check(abs(hard_db - HARD_PIN_DB) <= HARD_PIN_TOL_DB, f"hard tier: {hard_db:.5f} dB against the pin {HARD_PIN_DB}")
 
     # ---- 5f. FastGaussMNMF (4 channels): K1 with per-channel weights and K1b, once each per iteration ----------
+    laps("5f")
     def fast_mnmf_paths():
         method = FastGaussMNMF(n_basis=FAST_MNMF_BASIS, rng=np.random.default_rng(0))
         Y_class = method(X4, n_iter=N_ITER)
@@ -1912,6 +1977,7 @@ def main() -> None:
          loss_first=method.loss[0])
 
     # ---- 5g. cACGMM (8 channels): K7 on the E-step's and the M-step's pencils, twice per iteration --------------
+    laps("5g")
     # the class (posterior-score alignment, a loss per iteration: three K7 launches an iteration and one for the
     # last posterior) and the fast path (amplitude-correlation alignment: two an iteration and one)
     def cacgmm_paths():
@@ -1958,6 +2024,7 @@ def main() -> None:
         check(all_finite(Y_route) and gmm_route.loss[-1] < gmm_route.loss[0], f"{label}: non-finite or no descent")
 
     # ---- 5h. the hard tier of FastGaussMNMF and cACGMM (4 channels, STFT 4096/1024) ----------------------------
+    laps("5h")
     X_wide = stft(hard_mix, n_fft=HARD_TIER_N_FFT, hop_length=HARD_TIER_HOP, device=device)  # complex128
     wide_M, wide_I, wide_T = X_wide.shape
 
@@ -2005,6 +2072,7 @@ def main() -> None:
           f"fast_gauss_mnmf hard tier: {f32_db:.5f} dB against the pin {HARD_FAST_MNMF_PIN_DB}")
 
     # ---- 5i. the routers on the card: complex128 classes, a float64 waveform, 18 channels --------------------
+    laps("5i")
     X128 = stft(wave[:4, : 2 * 16000].to(torch.float64), n_fft=N_FFT, hop_length=HOP, device=device)
     for label, make in (
         ("AuxLaplaceIVA(IP1)", lambda device: AuxLaplaceIVA(spatial_algorithm="IP", device=device)),
@@ -2041,6 +2109,7 @@ def main() -> None:
     check(all_finite(Y18, W18) and loss_last < loss_first, "fast_auxiva, 18 channels: non-finite or no descent")
 
     # ---- 5j. the waveform entry points against the spectrogram path between the transforms ------------------
+    laps("5j")
     for label, entry, spectrogram_path, uses in (
         ("fast_auxiva_wave(IP1)", lambda: fast_auxiva_wave(wave, n_iter=N_ITER, n_fft=N_FFT, hop_length=HOP),
          lambda X_in: fast_auxiva(X_in, n_iter=N_ITER)[0], ("weighted_covariance", "ip1_sweep")),
@@ -2058,6 +2127,7 @@ def main() -> None:
               f"{label}: {rel} from the spectrogram path")
 
     # ---- 5k. IP2, ISS2, FastIVA, FasterIVA, gradient IVA, FastGaussMNMF-IP2, time-domain ICA ------------------
+    laps("5k")
     # Each class runs with its fast path's floor and without scale restoration, and must equal the fast path to
     # the bit; each fast path that runs a kernel is held against its plain twin; those that run none are held to
     # their easy-tier pin and print their loss against their complex128 run on the card
@@ -2266,6 +2336,7 @@ def main() -> None:
     check(y_fixture.is_cuda and fixture_err <= ICA_FIXTURE_TOL, f"ICA fixture: {fixture_err}")
 
     # ---- 5l. FDICA: AuxLaplaceFDICA IP1 and IP2, the gradient classes, the hard tier ---------------------------------
+    laps("5l")
     # Each class runs as a user calls it (aligned across bins, projected back; AuxFDICA at the fast path's float32
     # floor, the gradient classes at its 1e-10) and its last iterate must equal the fast path's to the bit; the fast
     # paths run as a user calls them and once unaligned and unscaled. That run is held against its plain twin after
@@ -2387,6 +2458,7 @@ def main() -> None:
           f"fast_aux_fdica hard tier: {hard_db:.5f} dB against the pin {HARD_FDICA_PIN_DB}")
 
     # ---- 5m. the eigendecomposition-free routes, each against its eigh route from the same input ---------------------
+    laps("5m")
     # IPA's secular root (secular_impl="solve", 12 trips): one sweep's pencils on the main mixture, against the true
     # root on K7's spectrum (bisected in float64); the eigh route's own Newton keeps the reference's normalization and
     # solves another equation (tests/ops/test_splitc_ipa.py:192-201), so its root is printed, not compared
@@ -2500,7 +2572,73 @@ def main() -> None:
         check(all_finite(W_free) and abs(loss_free - loss_ref) <= ANCHOR_TOL * abs(loss_ref),
               f"{label}: loss {loss_free} against the eigh route's {loss_ref}")
 
+    # ---- 5n. the (dp, bin) runners: fast_auxiva_batch at full width, then every runner over 2 and 4 ranks ----
+    laps("5n")
+    parallel_start = time.perf_counter()
+    # (a) two mixtures of the main configuration from two seeds, one process and no group
+    X_pair = torch.stack([X, stft(torch.from_numpy(make_mixture(seed=1)).to(device=device, dtype=torch.float32),
+                                  n_fft=N_FFT, hop_length=HOP, device=device)])
+    Y_batch, W_batch = drive(
+        "fast_auxiva_batch (B = 2)", lambda: fast_auxiva_batch(X_pair, n_iter=N_ITER),
+        {"weighted_covariance": 2 * N_ITER, "ip1_sweep": N_ITER}, totals, exact=True,
+    )
+    check(all_finite(Y_batch, W_batch) and tuple(Y_batch.shape) == (2, M, I, T), "fast_auxiva_batch output")
+    for b in range(2):
+        Y_one, W_one = fast_auxiva(X_pair[b], n_iter=N_ITER, algorithm="IP1")
+        loss_b, loss_one = float(iva_laplace_loss(X_pair[b], W_batch[b])), float(iva_laplace_loss(X_pair[b], W_one))
+        rel, sdr = abs(loss_b - loss_one) / abs(loss_one), min_si_sdr(Y_batch[b], Y_one)
+        say("parallel", path=repr(f"fast_auxiva_batch utterance {b} vs fast_auxiva"), loss=loss_b,
+            fast_auxiva_loss=loss_one, loss_rel_diff=rel, min_si_sdr_db=sdr)
+        check(rel <= LOSS_TOL and sdr >= MIN_SI_SDR_DB, f"fast_auxiva_batch utterance {b}: loss {rel}, {sdr:.2f} dB")
+
+    def chained(X_in):
+        W_in = torch.eye(M, dtype=X.dtype, device=device).expand(*X_in.shape[:-3], I, M, M).contiguous()
+
+        def run():
+            W_run = W_in
+            for _ in range(N_PARALLEL_TIMED):
+                W_run = auxiva_ip1_step(X_in, W_run)
+            return W_run
+
+        return run
+
+    batch_ms = median_ms(chained(X_pair), queued=True, n_runs=10) / N_PARALLEL_TIMED
+    single_ms = median_ms(chained(X), queued=True, n_runs=10) / N_PARALLEL_TIMED
+    say("parallel", path=repr("AuxIVA-IP1 step, B = 2 against B = 1 (fast_auxiva)"), card=repr(card),
+        device_us_per_iter_per_utterance=1e3 * batch_ms / 2, fast_auxiva_device_us_per_iter=1e3 * single_ms,
+        chained_steps=N_PARALLEL_TIMED, runs=10, stat="median")
+
+    # (b) every runner of the slice over 2 and 4 gloo ranks sharing the card, layouts (1, 2) and (2, 2) (the
+    # kernels are built: the ranks load them), and NCCL across cards where there are several; each rank holds
+    # each against world size 1 and every kernel call of its run against the plain version; the dry run raises
+    # on any miss
+    runs = [("gloo", 2), ("gloo", 4)]
+    if torch.cuda.device_count() > 1:
+        runs.append(("nccl", min(4, torch.cuda.device_count())))
+    rank_launches = {name: 0 for name in KERNELS}
+    for backend, n_ranks in runs:
+        start = time.perf_counter()
+        report = dryrun_multichip(n_ranks, device="cuda", names=tuple(PARALLEL_CASES), backend=backend,
+                                  kernel_tols=RANK_KERNEL_TOLS)
+        for name, got in report["cases"].items():
+            case = PARALLEL_CASES[name]
+            after_loop = case.extra if report["shape"][1] > 1 else 0  # the waveform runner's bin gather
+            say("parallel", runner=repr(name), backend=backend, world=n_ranks, layout=tuple(report["shape"]),
+                measure=case.measure, max_err=got["max_abs_err"], tol=got["tol"],
+                all_reduces_per_iter=(got["bin_sum_calls"] - after_loop) / parallel_dryrun.N_STEPS, pin=case.pin,
+                all_reduces_after_loop=after_loop, launches=repr({k: v for k, v in got["launches"].items() if v}),
+                held_calls_and_rel_err=repr(got["held"]))
+            for k, v in got["launches"].items():
+                rank_launches[k] += v
+        say("parallel", backend=backend, world=n_ranks, seconds=f"{time.perf_counter() - start:.1f}")
+    for name in ("weighted_covariance", "ip1_sweep", "iss1_sweep", "gj_inverse", "model_traces", "ipa_congruence",
+                 "jacobi_eigh"):
+        check(rank_launches[name] > 0, f"the sharded runners never launched {name}")
+        totals[name] += rank_launches[name]
+    say("parallel", ranks_launches=repr(rank_launches), seconds=f"{time.perf_counter() - parallel_start:.1f}")
+
     # ---- 6. times --------------------------------------------------------------
+    laps("6")
     U_main = K.weighted_covariance(X, phi_scalar)
     phi_c, phi_bins_c, X_conj = phi_scalar.to(X.dtype), phi_bins.to(X.dtype), X.conj().resolve_conj()
     timed = {
@@ -2699,6 +2837,7 @@ def main() -> None:
         profiler_us_per_launch=long_us, profiler_events=f"{events_seen}/{events_made}")
 
     # iterations per second of each path's fast-path step: plain, kernels, kernels, plain
+    laps("6 rates")
     def fast_mnmf_start():
         """``(Q, T, V, D)``: ``fast_gauss_mnmf``'s start from ``default_rng(0)`` on the 4 channels."""
         draws = np.random.default_rng(0)
@@ -2789,6 +2928,7 @@ def main() -> None:
             kernels_iters_per_s=(kernel_a, kernel_b), plain_iters_per_s=(plain_a, plain_b), plain_steps=n_plain)
 
     # the VCD sweeps of one IPSDTA iteration alone (PyTorch operations, no
+    laps("6 profiles")
     # kernel of the port): their device time, read as a share of the step's
     sweep_inputs = []
     with recording(ipsdta_steps, "vcd_sweep", lambda W_p, RXX_p, **kwargs: sweep_inputs.append((W_p, RXX_p))):
@@ -2835,6 +2975,7 @@ def main() -> None:
             kernel_shares=repr({name: round(share, 4) for name, share in shares.items() if share}),
             top=repr([(name[:48], round(us, 3)) for name, us in top]), **extra)
 
+    laps("done")
     say("done", card=repr(card), seconds=f"{time.perf_counter() - started:.1f}")
     summary = [
         {

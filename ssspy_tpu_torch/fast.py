@@ -9,6 +9,7 @@ on complex64 tensors through the hand-written kernels
 
 >>> Y, W = fast_auxiva(spectrogram, n_iter=100)                   # (N,I,T), (I,N,M)
 >>> Y, W = fast_auxiva(spectrogram, n_iter=100, algorithm="IP2")
+>>> Y, W = fast_auxiva_batch(spectrograms, n_iter=100)            # (B,N,I,T), (B,I,N,M)
 >>> Y, (T, V), W = fast_gauss_ilrma(spectrogram, n_basis=8, n_iter=100)
 >>> Y = fast_fast_iva(spectrogram, n_iter=100)                      # or fast_faster_iva
 >>> Y, W = fast_grad_iva(spectrogram, n_iter=100, natural=True)
@@ -51,6 +52,7 @@ from .utils.device import DEFAULT_DEVICE, resolve_device
 
 __all__ = [
     "fast_auxiva",
+    "fast_auxiva_batch",
     "fast_fast_iva",
     "fast_faster_iva",
     "fast_grad_iva",
@@ -143,6 +145,41 @@ def fast_auxiva(
     if scale_restoration:
         Y = projection_back(Y, reference=X, reference_id=reference_id)
     return Y, None
+
+
+def fast_auxiva_batch(
+    spectrograms,
+    n_iter: int = 100,
+    scale_restoration: bool = True,
+    reference_id: int = 0,
+    layout=None,
+    device=DEFAULT_DEVICE,
+) -> Tuple[torch.Tensor, torch.Tensor]:
+    """AuxLaplaceIVA-IP1 in complex64 over an utterance batch (counterpart of ``ssspy_tpu.fast.fast_auxiva_batch``, fast.py:135-168).
+
+    ``spectrograms``: complex ``(batch, n_channels, n_bins, n_frames)``, a
+    tensor or an array. The batch runs through
+    :func:`ssspy_tpu_torch.parallel.make_batched_auxiva_runner` over
+    ``layout``: by default :func:`~ssspy_tpu_torch.parallel.make_layout` on
+    ``device``, every rank of an initialized process group, or this process
+    alone without one (then the utterances share each iteration's
+    launches: K1 once per utterance, K1b once for all). With a group every
+    rank calls this with the same batch, whose size must divide over the
+    layout's ``dp``; the bins need not divide over its ``bin``. With
+    ``scale_restoration`` each filter row is rescaled by ``W^{-1}`` at
+    ``reference_id``. Returns ``(separated (B, N, I, T), demix_filter (B,
+    I, N, M))`` on the layout's device, on every rank.
+    """
+    from .parallel import make_batched_auxiva_runner, make_layout
+
+    layout = make_layout(device=device) if layout is None else layout
+    X = torch.as_tensor(spectrograms).to(torch.complex64)
+    n_batch, n_channels, n_bins, _ = X.shape
+    W = torch.eye(n_channels, dtype=X.dtype).expand(n_batch, n_bins, -1, -1)
+    W = make_batched_auxiva_runner(layout)(X, W, n_iter)
+    if scale_restoration:
+        W = W * torch.linalg.inv_ex(W)[0][..., reference_id, :, None]
+    return separate(X.to(W.device), W), W
 
 
 def _fast_fixed_point_iva(spectrogram, n_iter, step, scale_restoration, reference_id, device) -> torch.Tensor:

@@ -18,6 +18,12 @@ update (Gauss and t, ``p == 2``). With a latent ``Z (N, K)`` the sources
 share one basis ``T (I, K)`` and one activation ``V (K, T)`` (the
 partitioned model, ``r_nit = sum_k z_nk t_ik v_kt``), and each step also
 returns the new ``Z``.
+
+:func:`ilrma_ip_step` without a latent also takes a batch of utterances on
+a leading axis and ``bin_sum``, as the multi-device runners of
+:mod:`ssspy_tpu_torch.parallel` call it: the activation update's
+numerator and denominator (one call of the hook) and the power
+normalization's sum over bins (another) are summed over the bin group.
 """
 
 from typing import Callable, Optional, Tuple
@@ -118,6 +124,7 @@ def ilrma_mm_core(
     nu=None,
     beta=None,
     me: bool = False,
+    bin_sum=None,
 ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
     """Basis, then activation multiplicative update; returns ``(T, V, R)``.
 
@@ -125,18 +132,22 @@ def ilrma_mm_core(
     ``V``: activation ``(N, K, T)``. ``floor`` floors the new factors and
     ``floor_model`` the model ``R = T @ V``: ``max(., eps)`` both on the
     fast path (splitc.py:673-693); the class's ``flooring_fn`` and no floor
-    on the class path (ssspy_tpu/bss/ilrma.py:662-696).
+    on the class path (ssspy_tpu/bss/ilrma.py:662-696). Any leading batch
+    axes; with ``bin_sum`` the activation's numerator and denominator, sums
+    over the bins, are summed over the bin group in one call.
     """
     R = floor_model(T @ V)
     w, ex, fac = ilrma_model_weights(model, Y2, R, p, nu, beta, me)
-    num = fac * torch.einsum("nkt,nit->nik", V, w)
-    denom = torch.einsum("nkt,nit->nik", V, 1 / R)
+    num = fac * torch.einsum("...nkt,...nit->...nik", V, w)
+    denom = torch.einsum("...nkt,...nit->...nik", V, 1 / R)
     T = floor(((num / denom) ** ex) * T)
 
     R = floor_model(T @ V)
     w, ex, fac = ilrma_model_weights(model, Y2, R, p, nu, beta, me)
-    num = fac * torch.einsum("nik,nit->nkt", T, w)
-    denom = torch.einsum("nik,nit->nkt", T, 1 / R)
+    num = fac * torch.einsum("...nik,...nit->...nkt", T, w)
+    denom = torch.einsum("...nik,...nit->...nkt", T, 1 / R)
+    if bin_sum is not None:
+        num, denom = bin_sum(num, denom)
     V = floor(((num / denom) ** ex) * V)
 
     return T, V, floor_model(T @ V)
@@ -146,7 +157,7 @@ def reconstruct_nmf(T: torch.Tensor, V: torch.Tensor, Z: Optional[torch.Tensor] 
     """NMF power model ``(N, I, T)``: ``T @ V`` per source, or ``sum_k z_nk t_ik v_kt`` with a latent ``Z``."""
     if Z is None:
         return T @ V
-    return torch.einsum("nk,ik,kt->nit", Z, T, V)
+    return torch.einsum("...nk,...ik,...kt->...nit", Z, T, V)
 
 
 def ilrma_mm_core_partitioning(
@@ -203,22 +214,34 @@ def _check_spatial(spatial: str, allowed) -> None:
         raise ValueError(f"unsupported option: {spatial}.")
 
 
-def _source_model(Y2, T, V, Z, *, model, p, eps, dof, shape, me):
+def _source_model(Y2, T, V, Z, *, model, p, eps, dof, shape, me, bin_sum=None):
     """The fast paths' source-model update, every floor ``max(., eps)``: ``(T, V, Z, varphi)``."""
     floor = _max_floor(eps)
     kw = dict(model=model, p=p, floor=floor, floor_model=floor, nu=dof, beta=shape, me=me)
     if Z is None:
-        T, V, R = ilrma_mm_core(Y2, T, V, **kw)
+        T, V, R = ilrma_mm_core(Y2, T, V, bin_sum=bin_sum, **kw)
     else:
+        if bin_sum is not None:
+            raise ValueError("the partitioned ILRMA model has no bin-sharded step")
         T, V, Z, R = ilrma_mm_core_partitioning(Y2, T, V, Z, **kw)
     return T, V, Z, ilrma_model_varphi(model, Y2, R, p, dof, shape, floor)
 
 
-def _power_normalize(Y: torch.Tensor, T: torch.Tensor, Z, p: float, eps: float):
-    """``psi_n = max(sqrt(mean |y_n|^2), eps)`` and the factors that absorb it: ``(psi, T, Z)`` (splitc.py:753-760)."""
-    psi = torch.clamp(torch.sqrt(torch.mean(power(Y), dim=(-2, -1))), min=eps)  # (N,)
+def _power_normalize(Y: torch.Tensor, T: torch.Tensor, Z, p: float, eps: float, bin_sum=None):
+    """``psi_n = max(sqrt(mean |y_n|^2), eps)`` and the factors that absorb it: ``(psi, T, Z)`` (splitc.py:753-760).
+
+    With ``bin_sum`` the mean is over the bins of the whole group (each of
+    its ``shards`` ranks holds as many): the sum over the rank's bins is
+    summed over it in one call.
+    """
+    if bin_sum is None:
+        mean = torch.mean(power(Y), dim=(-2, -1))  # ([B,] N)
+    else:
+        (total,) = bin_sum(power(Y).sum(dim=(-2, -1)))
+        mean = total / (Y.shape[-2] * bin_sum.shards * Y.shape[-1])
+    psi = torch.clamp(torch.sqrt(mean), min=eps)
     if Z is None:
-        return psi, T / (psi[:, None, None] ** p), None
+        return psi, T / (psi[..., None, None] ** p), None
     return (psi, *power_normalize_partitioning(psi, T, Z, p))
 
 
@@ -240,6 +263,7 @@ def ilrma_ip_step(
     shape: Optional[float] = None,
     me: bool = False,
     pair_selector=None,
+    bin_sum=None,
 ):
     """One ILRMA MM/ME + IP1/IP2 iteration; returns ``(W, T, V)``, or ``(W, T, V, Z)`` with a latent ``Z``.
 
@@ -249,17 +273,22 @@ def ilrma_ip_step(
     the pair updates over ``pair_selector``'s pairs, each reading its two
     rows of the covariances; then power normalization of ``W`` and the
     factors. Counterpart of ``splitc.ilrma_ip_step_sc`` (splitc.py:696-760).
+    IP1 without a latent also takes a batch (``X (B, M, I, T)``, ``W (B,
+    I, N, M)``, ``T (B, N, I, K)``, ``V (B, N, K, T)``) and ``bin_sum``, as
+    the module describes.
     """
     _check_spatial(spatial, ("IP1", "IP2"))
     Y2 = power(separate(X, W))
-    T, V, Z, varphi = _source_model(Y2, T, V, Z, model=model, p=domain, eps=eps, dof=dof, shape=shape, me=me)
+    T, V, Z, varphi = _source_model(
+        Y2, T, V, Z, model=model, p=domain, eps=eps, dof=dof, shape=shape, me=me, bin_sum=bin_sum
+    )
     U = covariance(X, varphi)
     if spatial == "IP1":
         W = ip1_update(W, U, eps=eps)
     else:
         W = ip2_update(W, U, eps=eps, pair_selector=pair_selector)
-    psi, T, Z = _power_normalize(separate(X, W), T, Z, domain, eps)
-    return (W / psi[None, :, None], *_factors(T, V, Z))
+    psi, T, Z = _power_normalize(separate(X, W), T, Z, domain, eps, bin_sum)
+    return (W / psi[..., None, :, None], *_factors(T, V, Z))
 
 
 def ilrma_iss_step(
@@ -305,14 +334,15 @@ def ilrma_iss_step(
     return (Y / psi[:, None, None], *_factors(T, V, Z))
 
 
-def gauss_ilrma_ip1_step(X, W, T, V, domain: float = 2.0, eps: float = 1e-6):
+def gauss_ilrma_ip1_step(X, W, T, V, domain: float = 2.0, eps: float = 1e-6, bin_sum=None):
     """One GaussILRMA MM + IP1 iteration; returns ``(W, T, V)``.
 
     Counterpart of ``splitc.gauss_ilrma_ip1_step_sc`` (splitc.py:477-520),
-    the Gauss MM case of :func:`ilrma_ip_step`. ``eps`` is 1e-6 because the
-    step runs in f32 (splitc.py:491-495).
+    the Gauss MM case of :func:`ilrma_ip_step` (batched and ``bin_sum`` as
+    it takes them). ``eps`` is 1e-6 because the step runs in f32
+    (splitc.py:491-495).
     """
-    return ilrma_ip_step(X, W, T, V, model="gauss", domain=domain, eps=eps)
+    return ilrma_ip_step(X, W, T, V, model="gauss", domain=domain, eps=eps, bin_sum=bin_sum)
 
 
 def gauss_ilrma_ip2_step(X, W, T, V, domain: float = 2.0, eps: float = 1e-6):
@@ -368,6 +398,7 @@ def ilrma_loss(
     dof: Optional[float] = None,
     shape: Optional[float] = None,
     eps: float = 1e-6,
+    bin_sum=None,
 ) -> torch.Tensor:
     """ILRMA negative log-likelihood, a 0-dim tensor on the input's device.
 
@@ -380,7 +411,9 @@ def ilrma_loss(
 
     Pass ``W`` for the demix-filter state (IP) or ``Y`` for the demix-free
     state (ISS), whose ``W`` is recovered by least squares. Counterpart of
-    ``splitc.ilrma_loss_sc`` (splitc.py:4210-4261).
+    ``splitc.ilrma_loss_sc`` (splitc.py:4210-4261). With ``bin_sum`` (the
+    inputs one rank's bins) the sum over bins is summed over the bin group:
+    every rank gets the loss of all bins.
     """
     p = domain
     if W is not None:
@@ -399,4 +432,5 @@ def ilrma_loss(
     else:
         raise ValueError(f"unsupported option: {model}.")
     per_bin = torch.sum(torch.mean(value, dim=-1), dim=0)  # (I,)
-    return torch.sum(per_bin - 2 * clogabsdet(W))
+    total = torch.sum(per_bin - 2 * clogabsdet(W))
+    return total if bin_sum is None else bin_sum(total)[0]

@@ -34,6 +34,13 @@ By shape: K3 takes ``J <= 32`` and larger blocks take ``inv_ex``
 Every product is full float32 (PyTorch keeps TF32 off for matmuls unless
 asked): at reduced precision the JAX step went non-finite within 10
 iterations (splitc.py:3449-3456).
+
+:func:`ipsdta_vcd_step` also takes a batch of utterances on a leading axis
+and ``bin_sum``, as the multi-device runner of
+:mod:`ssspy_tpu_torch.parallel` calls it with whole blocks on each rank:
+the activation update's numerator and denominator and the basis traces of
+the normalization (sums over blocks) are summed over the bin group in one
+call. The t model's frame weight, a sum over all bins, is not sharded.
 """
 
 from typing import List, Optional, Sequence, Tuple
@@ -83,7 +90,7 @@ def merge_bins(parts: Sequence[torch.Tensor], axis: int) -> torch.Tensor:
 
 
 def _shapes_of(T_parts) -> List[Tuple[int, int]]:
-    return [(Tp.shape[2], Tp.shape[3]) for Tp in T_parts]
+    return [(Tp.shape[-3], Tp.shape[-2]) for Tp in T_parts]
 
 
 def hermitian_inverse(R: torch.Tensor) -> torch.Tensor:
@@ -100,8 +107,8 @@ def hermitian_inverse(R: torch.Tensor) -> torch.Tensor:
 
 
 def _model(T_part: torch.Tensor, V: torch.Tensor) -> torch.Tensor:
-    """``R[n,t,b] = sum_k v_nkt T_nkb``, ``(N, T, B, J, J)``."""
-    return torch.einsum("nkt,nkbij->ntbij", V.to(T_part.dtype), T_part)
+    """``R[n,t,b] = sum_k v_nkt T_nkb``, ``([B_utt,] N, T, B, J, J)``."""
+    return torch.einsum("...nkt,...nkbij->...ntbij", V.to(T_part.dtype), T_part)
 
 
 def model_inverse(T_part: torch.Tensor, V: torch.Tensor, eps: float, psd_impl: str) -> torch.Tensor:
@@ -117,7 +124,7 @@ def part_stats(T_part, Y_part, V, eps: float, psd_impl: str):
     Hermitian; the last entry is ``(N, T)``.
     """
     R_inv = model_inverse(T_part, V, eps, psd_impl)
-    y = Y_part.permute(0, 3, 1, 2)  # (N, T, B, J)
+    y = Y_part.movedim(-1, -3)  # ([B_utt,] N, T, B, J)
     u = (R_inv @ y[..., None])[..., 0]
     RYYR = u[..., :, None] * u[..., None, :].conj()
     YRY = torch.clamp((y.conj() * u).real.sum(dim=-1), min=0).sum(dim=-1)
@@ -126,7 +133,7 @@ def part_stats(T_part, Y_part, V, eps: float, psd_impl: str):
 
 def _frame_weighted(A: torch.Tensor, pi: Optional[torch.Tensor]) -> torch.Tensor:
     """``pi[n, t] A[n, t, ...]``, or ``A`` for the Gaussian model."""
-    return A if pi is None else pi[:, :, None, None, None].to(A.dtype) * A
+    return A if pi is None else pi[..., None, None, None].to(A.dtype) * A
 
 
 def _root(lamb: torch.Tensor) -> torch.Tensor:
@@ -151,8 +158,8 @@ def _basis_update(T, R_inv, RYYR, V, pi, dof, eps, psd_impl, gmean_impl):
     """
     Vc = V.to(T.dtype)
     n_frames = V.shape[-1]
-    P = torch.einsum("nkt,ntbij->nkbij", Vc, R_inv) / n_frames
-    Q = torch.einsum("nkt,ntbij->nkbij", Vc, _frame_weighted(RYYR, pi)) / n_frames
+    P = torch.einsum("...nkt,...ntbij->...nkbij", Vc, R_inv) / n_frames
+    Q = torch.einsum("...nkt,...ntbij->...nkbij", Vc, _frame_weighted(RYYR, pi)) / n_frames
     if dof is None:
         T_new = gmean2(psd_project(P, eps, psd_impl), psd_project(T @ Q @ T, eps, psd_impl), impl=gmean_impl)
     else:
@@ -163,10 +170,18 @@ def _basis_update(T, R_inv, RYYR, V, pi, dof, eps, psd_impl, gmean_impl):
     return psd_project(T_new, eps, psd_impl)
 
 
+def _psdtf_trace(T_parts: Sequence[torch.Tensor]) -> torch.Tensor:
+    """The summed trace of each basis over the blocks of every part, ``([B_utt,] N, K)``."""
+    return sum(Tp.diagonal(dim1=-2, dim2=-1).real.sum(dim=(-2, -1)) for Tp in T_parts)
+
+
+def _normalized(T_parts: Sequence[torch.Tensor], V: torch.Tensor, trace: torch.Tensor):
+    return [Tp / trace[..., None, None, None] for Tp in T_parts], V * trace[..., None]
+
+
 def normalize_psdtf(T_parts: Sequence[torch.Tensor], V: torch.Tensor):
     """Unit summed trace of each basis over the blocks of every part, the scale moved to ``V`` (splitc.py:3564-3569)."""
-    trace = sum(Tp.diagonal(dim1=-2, dim2=-1).real.sum(dim=(-2, -1)) for Tp in T_parts)  # (N, K)
-    return [Tp / trace[:, :, None, None, None] for Tp in T_parts], V * trace[:, :, None]
+    return _normalized(T_parts, V, _psdtf_trace(T_parts))
 
 
 def vcd_covariance(R_inv: torch.Tensor, X_part: torch.Tensor) -> torch.Tensor:
@@ -270,6 +285,7 @@ def ipsdta_vcd_step(
     dof: Optional[float] = None,
     eps: float = 1e-10,
     normalization: bool = True,
+    bin_sum=None,
 ):
     """One IPSDTA iteration, MM source update and VCD spatial update (``splitc.ipsdta_vcd_step_sc``, splitc.py:3408-3605).
 
@@ -287,11 +303,21 @@ def ipsdta_vcd_step(
     geometric mean follow the dtype (see the module); the JAX step's
     ``psd_impl``, ``gmean_impl`` and ``inv_impl`` choose them by backend
     and have no counterpart. Returns ``(W, T_parts, V)``.
+
+    A batch (``X (B_utt, M, I, T)``, ``W (B_utt, I, N, M)``, parts
+    ``(B_utt, N, K, B_p, J_p, J_p)``, ``V (B_utt, N, K, T)``) runs the
+    source model batched, K3 and K7 once for all, and the VCD sweep once
+    per utterance. With ``bin_sum`` the rank holds whole blocks of the bins
+    (one part) and the sums over blocks are summed over the bin group, as
+    the module describes; the Gaussian model only (``dof=None``).
     """
+    if dof is not None and bin_sum is not None:
+        raise ValueError("the t model's frame weight is not sharded over bins: dof takes bin_sum=None")
     psd_impl, gmean_impl = _routes(X.dtype)
-    n_bins = X.shape[1]
+    bin_axis = X.dim() - 2
+    n_bins = X.shape[bin_axis]
     shapes = _shapes_of(T_parts)
-    Y_parts = split_bins(separate(X, W), 1, shapes)
+    Y_parts = split_bins(separate(X, W), bin_axis, shapes)
 
     def stats(T_parts, V):
         out = [part_stats(Tp, Yp, V, eps, psd_impl) for Tp, Yp in zip(T_parts, Y_parts)]
@@ -307,25 +333,38 @@ def ipsdta_vcd_step(
 
     # ---- the activation (ipsdta.py:1001-1006) ----
     out, pi = stats(T_parts, V)
-    num = sum(torch.einsum("ntbij,nkbji->nkt", _frame_weighted(RYYR, pi), Tp).real for Tp, (_, RYYR, _) in zip(T_parts, out))
-    denom = sum(torch.einsum("ntbij,nkbji->nkt", R_inv, Tp).real for Tp, (R_inv, _, _) in zip(T_parts, out))
+    num = sum(
+        torch.einsum("...ntbij,...nkbji->...nkt", _frame_weighted(RYYR, pi), Tp).real
+        for Tp, (_, RYYR, _) in zip(T_parts, out)
+    )
+    denom = sum(torch.einsum("...ntbij,...nkbji->...nkt", R_inv, Tp).real for Tp, (R_inv, _, _) in zip(T_parts, out))
+    # the normalization's traces are those of the basis just updated, which the activation leaves as it is
+    trace = _psdtf_trace(T_parts) if normalization else None
+    if bin_sum is not None and trace is None:
+        num, denom = bin_sum(num, denom)
+    elif bin_sum is not None:
+        num, denom, trace = bin_sum(num, denom, trace)
     V = V * torch.sqrt(num / denom)
 
     # ---- the source normalization (ipsdta.py:666-697) ----
     if normalization:
-        T_parts, V = normalize_psdtf(T_parts, V)
+        T_parts, V = _normalized(T_parts, V, trace)
 
     # ---- the spatial update, VCD (ipsdta.py:1058-1147; t weights :1751-1811) ----
     out, pi = stats(T_parts, V)
-    X_parts, W_parts = split_bins(X, 1, shapes), split_bins(W, 0, shapes)
-    W = merge_bins(
-        [
-            vcd_sweep(Wp, vcd_covariance(_frame_weighted(R_inv, pi), Xp), eps=eps)
-            for (R_inv, _, _), Xp, Wp in zip(out, X_parts, W_parts)
-        ],
-        0,
-    )
-    return W, T_parts, V
+    X_parts, W_parts = split_bins(X, bin_axis, shapes), split_bins(W, bin_axis - 1, shapes)
+
+    def sweep(R_inv, Xp, Wp):
+        return vcd_sweep(Wp, vcd_covariance(R_inv, Xp), eps=eps)
+
+    W_new = []
+    for (R_inv, _, _), Xp, Wp in zip(out, X_parts, W_parts):
+        R_inv = _frame_weighted(R_inv, pi)
+        if X.dim() == 4:
+            W_new.append(torch.stack([sweep(R_inv[b], Xp[b], Wp[b]) for b in range(X.shape[0])]))
+        else:
+            W_new.append(sweep(R_inv, Xp, Wp))
+    return merge_bins(W_new, bin_axis - 1), T_parts, V
 
 
 def ipsdta_loss(

@@ -15,6 +15,18 @@ kernel on the card, its plain version on the CPU); complex128, and any
 size the kernel does not take, goes to the plain version on the same
 device. No kernel failure is caught: a wrapper still refuses what its
 kernel does not take, and only the routers decide.
+
+The IP1, ISS1, IP2, ISS2 and IPA steps also take a batch of utterances on
+a leading axis (``X (B, M, I, T)``, ``W (B, I, N, M)``, ``Y (B, N, I,
+T)``), as the multi-device runners of :mod:`ssspy_tpu_torch.parallel`
+call them. The routers then fold the utterances into the bin axis where a
+kernel takes the fold for free (K1b at ``(B I, N, M)``) and loop over
+them otherwise (K1 and K2, one launch per utterance on its contiguous
+slice, with the single-utterance weights). Each step takes ``bin_sum``:
+``None`` runs the single-device code; a
+:class:`~ssspy_tpu_torch.parallel.collectives.BinAllReduce` sums the
+step's cross-bin partials (the Laplace norm) over the bin group, one call
+for every utterance of the batch.
 """
 
 from typing import Callable, Iterable, Optional, Tuple
@@ -47,13 +59,13 @@ __all__ = [
 
 
 def separate(X: torch.Tensor, W: torch.Tensor) -> torch.Tensor:
-    """Per-bin demixing ``y_i = W_i x_i``: ``(I,N,M) x (M,I,T) -> (N,I,T)``.
+    """Per-bin demixing ``y_i = W_i x_i``: ``(I,N,M) x (M,I,T) -> (N,I,T)``, or ``(B, N, I, T)`` for a batch.
 
     Counterpart of ``splitc._csep`` (splitc.py:242-253). The einsum is a
     product batched over bins, whose ``(N, I, T)`` view is permuted; the
     copy makes it contiguous, as the ISS1 kernel takes it.
     """
-    return torch.einsum("inm,mit->nit", W, X).contiguous()
+    return torch.einsum("...inm,...mit->...nit", W, X).contiguous()
 
 
 def covariance(X: torch.Tensor, varphi: torch.Tensor) -> torch.Tensor:
@@ -65,8 +77,12 @@ def covariance(X: torch.Tensor, varphi: torch.Tensor) -> torch.Tensor:
     (M + 1) / 2 <= 8,192``); the einsum
     (:func:`~ssspy_tpu_torch.ops.kernels.weighted_covariance_plain`)
     otherwise, as the JAX package falls back by shape
-    (pallas_kernels.py:167-177).
+    (pallas_kernels.py:167-177). A batch ``X (B, M, I, T)`` with weights
+    ``(B, N, T)`` or ``(B, N, I, T)`` gives ``(B, I, N, M, M)``, one call
+    per utterance.
     """
+    if X.dim() == 4:
+        return torch.stack([covariance(X[b], varphi[b]) for b in range(X.shape[0])])
     if (
         X.dtype == torch.complex64
         and varphi.dtype == torch.float32
@@ -83,8 +99,11 @@ def ip1_update(W: torch.Tensor, U: torch.Tensor, eps: float = 1e-10) -> torch.Te
     ``N = M <= 17`` (:func:`~ssspy_tpu_torch.ops.kernels.ip1_sweep_takes`);
     :func:`~ssspy_tpu_torch.ops.kernels.ip1_sweep_plain` with its ``"lu"``
     solve (``solve_ex``) otherwise, the route the CPU classes meet the
-    fixtures with.
+    fixtures with. A batch ``W (B, I, N, M)``, ``U (B, I, N, M, M)`` is
+    folded into its bins, one sweep for all.
     """
+    if W.dim() == 4:
+        return ip1_update(W.flatten(0, 1), U.flatten(0, 1), eps=eps).view(W.shape)
     n_sources, n_channels = W.shape[-2:]
     if (
         W.dtype == U.dtype == torch.complex64
@@ -101,8 +120,12 @@ def iss1_update(Y: torch.Tensor, varphi: torch.Tensor, eps: float = 1e-10) -> to
     K2 (:func:`~ssspy_tpu_torch.ops.kernels.iss1_sweep`) for complex64 ``Y``
     with float32 weights and ``N <= 16``
     (:func:`~ssspy_tpu_torch.ops.kernels.iss1_sweep_takes`);
-    :func:`~ssspy_tpu_torch.ops.kernels.iss1_sweep_plain` otherwise.
+    :func:`~ssspy_tpu_torch.ops.kernels.iss1_sweep_plain` otherwise. A
+    batch ``Y (B, N, I, T)`` with weights ``(B, N, T)`` or ``(B, N, I, T)``
+    takes one sweep per utterance.
     """
+    if Y.dim() == 4:
+        return torch.stack([iss1_update(Y[b], varphi[b], eps=eps) for b in range(Y.shape[0])])
     if (
         Y.dtype == torch.complex64
         and varphi.dtype == torch.float32
@@ -112,30 +135,39 @@ def iss1_update(Y: torch.Tensor, varphi: torch.Tensor, eps: float = 1e-10) -> to
     return kernels.iss1_sweep_plain(Y, varphi, eps=eps)
 
 
-def _laplace_varphi(Y: torch.Tensor, eps: float) -> torch.Tensor:
-    """Laplace weight ``1 / max(||y_n(., t)||, eps)`` with the norm over bins: ``(N, T)``."""
-    return 1.0 / torch.clamp(torch.linalg.vector_norm(Y, dim=1), min=eps)
+def _laplace_varphi(Y: torch.Tensor, eps: float, bin_sum=None) -> torch.Tensor:
+    """Laplace weight ``1 / max(||y_n(., t)||, eps)`` with the norm over the bins (axis -2): ``(..., N, T)``.
+
+    With ``bin_sum`` the squared magnitudes are summed over the rank's bins,
+    then over the bin group (one call), then rooted.
+    """
+    if bin_sum is None:
+        norm = torch.linalg.vector_norm(Y, dim=-2)
+    else:
+        norm = torch.sqrt(bin_sum((Y.real.square() + Y.imag.square()).sum(dim=-2))[0])
+    return 1.0 / torch.clamp(norm, min=eps)
 
 
-def auxiva_ip1_step(X: torch.Tensor, W: torch.Tensor, eps: float = 1e-10) -> torch.Tensor:
+def auxiva_ip1_step(X: torch.Tensor, W: torch.Tensor, eps: float = 1e-10, bin_sum=None) -> torch.Tensor:
     """One AuxIVA-IP1 iteration; returns the new demixing filters.
 
     ``X``: mixture ``(M, I, T)``; ``W``: demixing filters ``(I, N, M)``.
     Laplace weight ``phi = 1 / max(||y_n||, eps)`` with the norm over bins,
     the weighted covariance, then the IP1 sweep. Counterpart of
-    ``splitc.auxiva_ip1_step_sc`` (splitc.py:256-278).
+    ``splitc.auxiva_ip1_step_sc`` (splitc.py:256-278). Batched and
+    ``bin_sum`` as the module describes.
     """
-    return ip1_update(W, covariance(X, _laplace_varphi(separate(X, W), eps)), eps=eps)
+    return ip1_update(W, covariance(X, _laplace_varphi(separate(X, W), eps, bin_sum)), eps=eps)
 
 
-def auxiva_iss1_step(Y: torch.Tensor, eps: float = 1e-10) -> torch.Tensor:
+def auxiva_iss1_step(Y: torch.Tensor, eps: float = 1e-10, bin_sum=None) -> torch.Tensor:
     """One AuxIVA-ISS1 iteration on the separated spectrograms ``(N, I, T)``.
 
     ISS carries no demixing matrix: the Laplace weight ``(N, T)``, then the
     ISS1 sweep. Counterpart of ``splitc.auxiva_iss1_step_sc``
-    (splitc.py:401-411).
+    (splitc.py:401-411). Batched and ``bin_sum`` as the module describes.
     """
-    return iss1_update(Y, _laplace_varphi(Y, eps), eps=eps)
+    return iss1_update(Y, _laplace_varphi(Y, eps, bin_sum), eps=eps)
 
 
 def auxiva_ipa_step(
@@ -144,6 +176,7 @@ def auxiva_ipa_step(
     lqpqm_normalization: bool = True,
     newton_iter: int = 1,
     secular_impl: str = "eigh",
+    bin_sum=None,
 ) -> torch.Tensor:
     """One AuxIVA-IPA iteration on the separated spectrograms ``(N, I, T)``.
 
@@ -151,14 +184,22 @@ def auxiva_ipa_step(
     (:func:`ssspy_tpu_torch.ops.ipa_steps.ipa_sweep`: the congruence sweep
     in complex64, the reference's data flow in complex128; ``secular_impl``
     as it takes it). Counterpart of
-    ``splitc.auxiva_ipa_step_sc`` (splitc.py:2235-2264).
+    ``splitc.auxiva_ipa_step_sc`` (splitc.py:2235-2264). Batched and
+    ``bin_sum`` as the module describes; a batch takes one sweep per
+    utterance.
     """
     from .ipa_steps import ipa_sweep  # ipa_steps imports prox_steps, which imports this module
 
-    return ipa_sweep(
-        Y, _laplace_varphi(Y, eps), eps=eps, lqpqm_normalization=lqpqm_normalization, newton_iter=newton_iter,
-        secular_impl=secular_impl,
-    )
+    def sweep(Y, varphi):
+        return ipa_sweep(
+            Y, varphi, eps=eps, lqpqm_normalization=lqpqm_normalization, newton_iter=newton_iter,
+            secular_impl=secular_impl,
+        )
+
+    varphi = _laplace_varphi(Y, eps, bin_sum)
+    if Y.dim() == 4:
+        return torch.stack([sweep(Y[b], varphi[b]) for b in range(Y.shape[0])])
+    return sweep(Y, varphi)
 
 
 # ---- IP2: pairwise iterative projection ------------------------------------------------------
@@ -208,22 +249,23 @@ def ip2_pair_update(
     smaller, each normalized by ``max(sqrt(h^H G h), eps)``, and the rows
     are stored conjugated. A bin whose pencil is degenerate (``h^H G h > 0``
     fails for either row; NaN fails too) keeps its old rows. Any ``(m, n)``
-    with ``m != n``.
+    with ``m != n``. A batch ``W (B, I, N, M)`` with ``U_m``, ``U_n`` ``(B,
+    I, M, M)`` gives ``(B, I, 2, M)``.
     """
     m, n = pair
     n_channels = W.shape[-1]
     eye = torch.eye(n_channels, dtype=W.dtype, device=W.device)
     E = torch.stack([eye[:, m], eye[:, n]], dim=-1)  # (M, 2)
     U = torch.stack([U_m, U_n])  # (2, I, M, M)
-    P = torch.linalg.solve_ex(W @ U, E.expand(*U.shape[:-1], 2))[0]  # (2, I, M, 2)
-    G = P.mH @ U @ P  # (2, I, 2, 2)
+    P = torch.linalg.solve_ex(W @ U, E.expand(*U.shape[:-1], 2))[0]  # (2, [B,] I, M, 2)
+    G = P.mH @ U @ P  # (2, [B,] I, 2, 2)
     lo, hi = gevd2(G[0], G[1])
-    h = torch.stack([hi, lo])  # (2, I, 2): h_m, h_n
-    quad = _quad(h, G)  # (2, I)
+    h = torch.stack([hi, lo])  # (2, [B,] I, 2): h_m, h_n
+    quad = _quad(h, G)  # (2, [B,] I)
     h = h / torch.clamp(torch.sqrt(torch.clamp(quad, min=0.0)), min=eps)[..., None].to(h.dtype)
-    rows = (P @ h[..., None])[..., 0].conj().transpose(0, 1)  # (I, 2, M)
-    valid = ((quad[0] > 0) & (quad[1] > 0))[:, None, None]
-    return torch.where(valid, rows, _pair_rows(W, pair, dim=1))
+    rows = (P @ h[..., None])[..., 0].conj().movedim(0, -2)  # ([B,] I, 2, M)
+    valid = ((quad[0] > 0) & (quad[1] > 0))[..., None, None]
+    return torch.where(valid, rows, _pair_rows(W, pair, dim=-2))
 
 
 def ip2_update(
@@ -247,6 +289,7 @@ def auxiva_ip2_step(
     eps: float = 1e-10,
     pair_selector: Optional[PairSelector] = None,
     varphi_of: Optional[Callable[[torch.Tensor, Tuple[int, int]], torch.Tensor]] = None,
+    bin_sum=None,
 ) -> torch.Tensor:
     """One AuxIVA-IP2 iteration; returns the new demixing filters ``(I, N, M)``.
 
@@ -257,12 +300,14 @@ def auxiva_ip2_step(
     Every pair re-reads ``X``. Counterpart of ``splitc.auxiva_ip2_step_sc``
     (splitc.py:1038-1072) with any ``pair_selector`` (sequential by
     default), as the JAX class's step (ssspy_tpu/bss/iva.py:955-968).
+    Batched and ``bin_sum`` as the module describes: one call of the hook
+    per pair, the Laplace norm of the pair's rows.
     """
-    for pair in _pairs(W.shape[1], pair_selector):
-        Y = separate(X, _pair_rows(W, pair, dim=1))  # (2, I, T)
-        varphi = _laplace_varphi(Y, eps) if varphi_of is None else varphi_of(Y, pair)
-        U = covariance(X, varphi)  # (I, 2, M, M)
-        W = _set_pair_rows(W, pair, ip2_pair_update(W, U[:, 0], U[:, 1], pair, eps=eps), dim=1)
+    for pair in _pairs(W.shape[-2], pair_selector):
+        Y = separate(X, _pair_rows(W, pair, dim=-2))  # ([B,] 2, I, T)
+        varphi = _laplace_varphi(Y, eps, bin_sum) if varphi_of is None else varphi_of(Y, pair)
+        U = covariance(X, varphi)  # ([B,] I, 2, M, M)
+        W = _set_pair_rows(W, pair, ip2_pair_update(W, U[..., 0, :, :], U[..., 1, :, :], pair, eps=eps), dim=-2)
     return W
 
 
@@ -326,14 +371,19 @@ def iss2_sweep(
     return Y
 
 
-def auxiva_iss2_step(Y: torch.Tensor, eps: float = 1e-10, tiny: float = 1e-20) -> torch.Tensor:
+def auxiva_iss2_step(Y: torch.Tensor, eps: float = 1e-10, tiny: float = 1e-20, bin_sum=None) -> torch.Tensor:
     """One AuxIVA-ISS2 iteration on the separated spectrograms ``(N, I, T)``.
 
     The Laplace weight ``(N, T)`` from the entering ``Y``, once per
     iteration, then :func:`iss2_sweep`. Counterpart of
-    ``splitc.auxiva_iss2_step_sc`` (splitc.py:1075-1086).
+    ``splitc.auxiva_iss2_step_sc`` (splitc.py:1075-1086). Batched and
+    ``bin_sum`` as the module describes; a batch takes one sweep per
+    utterance.
     """
-    return iss2_sweep(Y, _laplace_varphi(Y, eps), eps=eps, tiny=tiny)
+    varphi = _laplace_varphi(Y, eps, bin_sum)
+    if Y.dim() == 4:
+        return torch.stack([iss2_sweep(Y[b], varphi[b], eps=eps, tiny=tiny) for b in range(Y.shape[0])])
+    return iss2_sweep(Y, varphi, eps=eps, tiny=tiny)
 
 
 # ---- gradient IVA --------------------------------------------------------------------------------
@@ -407,18 +457,24 @@ def ls_demix(Y: torch.Tensor, X: torch.Tensor) -> torch.Tensor:
 
 
 def iva_laplace_loss(
-    X: torch.Tensor, W: Optional[torch.Tensor] = None, Y: Optional[torch.Tensor] = None
+    X: torch.Tensor, W: Optional[torch.Tensor] = None, Y: Optional[torch.Tensor] = None, bin_sum=None
 ) -> torch.Tensor:
     """AuxLaplaceIVA negative log-likelihood, a 0-dim tensor on the input's device.
 
     ``sum_n mean_t 2 ||y_n(., t)|| - 2 sum_i log|det W_i|``. Pass ``W`` for
     the demix-filter state (IP) or ``Y`` for the demix-free state (ISS),
     whose ``W`` is recovered by :func:`ls_demix`. Counterpart of
-    ``splitc.iva_laplace_loss_sc`` (splitc.py:4190-4207).
+    ``splitc.iva_laplace_loss_sc`` (splitc.py:4190-4207). With ``bin_sum``
+    (the inputs one rank's bins) the squared norms and the log-determinants
+    are summed over the bin group in one call: every rank gets the loss of
+    all bins.
     """
     if W is not None:
         Y = separate(X, W)
     else:
         W = ls_demix(Y, X)
-    G = 2 * torch.linalg.vector_norm(Y, dim=1)  # (N, T)
-    return G.mean(dim=-1).sum() - 2 * clogabsdet(W).sum()
+    if bin_sum is None:
+        G = 2 * torch.linalg.vector_norm(Y, dim=1)  # (N, T)
+        return G.mean(dim=-1).sum() - 2 * clogabsdet(W).sum()
+    sq, logdet = bin_sum((Y.real.square() + Y.imag.square()).sum(dim=1), clogabsdet(W).sum())
+    return (2 * torch.sqrt(sq)).mean(dim=-1).sum() - 2 * logdet

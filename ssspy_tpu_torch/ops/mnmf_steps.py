@@ -138,13 +138,24 @@ def gmean2(A: torch.Tensor, B: torch.Tensor, impl: str = "eigh2") -> torch.Tenso
 
 
 def _model(Lamb: torch.Tensor, H: torch.Tensor) -> torch.Tensor:
-    """``R = sum_n Lamb_n H_n``, ``(I, T, M, M)``."""
-    return torch.einsum("nit,nipq->itpq", Lamb.to(H.dtype), H)
+    """``R = sum_n Lamb_n H_n``, ``([B,] I, T, M, M)``."""
+    return torch.einsum("...nit,...nipq->...itpq", Lamb.to(H.dtype), H)
 
 
 def _trace_real(A: torch.Tensor, H: torch.Tensor) -> torch.Tensor:
-    """``Re tr(A[i,t] H[n,i])`` as ``(N, I, T)``, without forming the products (bss/mnmf.py:44-46)."""
-    return torch.einsum("itab,niba->nit", A, H).real
+    """``Re tr(A[i,t] H[n,i])`` as ``([B,] N, I, T)``, without forming the products (bss/mnmf.py:44-46)."""
+    return torch.einsum("...itab,...niba->...nit", A, H).real
+
+
+def _model_traces(Lamb: torch.Tensor, H: torch.Tensor, XX: torch.Tensor, eps: float, outputs: str):
+    """K5 (:func:`~ssspy_tpu_torch.ops.kernels.model_traces`), one launch per utterance of a batch."""
+    if Lamb.dim() == 3:
+        return kernels.model_traces(Lamb, H, XX, eps, outputs=outputs)
+    per_utterance = [
+        kernels.model_traces(Lamb[b].contiguous(), H[b].contiguous(), XX[b], eps, outputs=outputs)
+        for b in range(Lamb.shape[0])
+    ]
+    return tuple(torch.stack(parts) for parts in zip(*per_utterance))
 
 
 def _inv_sandwich(R: torch.Tensor, C: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
@@ -195,6 +206,8 @@ def gauss_mnmf_step(
     psd_impl: str = "auto",
     normalization: bool = True,
     gmean_impl: str = "auto",
+    bin_mask: Optional[torch.Tensor] = None,
+    bin_sum=None,
 ):
     """One dense GaussMNMF iteration (``splitc.gauss_mnmf_step_sc``, splitc.py:2921-3124).
 
@@ -210,60 +223,91 @@ def gauss_mnmf_step(
     eigenvalue floor relative to its top eigenvalue
     (:func:`spatial_projection`), without which the float32 step goes
     non-finite as the JAX float32 step does. The JAX step's ``inv_impl``, ``fuse`` and ``XX_lanes`` choose TPU
-    layouts and have no counterpart; ``bin_mask`` belongs to the sharded
-    runner, not ported yet. Returns ``(T, V, H)`` or ``(T, V, H, Z)``.
+    layouts and have no counterpart.
+
+    ``bin_mask`` (optional, ``(I,)`` bool; splitc.py:2960-2968,
+    :3044-3106): bins marked False are inert padding. Their traces are
+    zeroed (``torch.where``: the singular model of a zero bin can give
+    non-finite traces, which K5's outputs for those bins are then
+    discarded with) before any contraction over bins, their basis rows and
+    spatial covariances are frozen, and a zero trace of a frozen ``H``
+    divides by 1, so a zero-padded bin leaves every real bin's trajectory
+    exactly as it is without it. ``None`` runs the step as before.
+
+    The step also takes a batch of utterances on a leading axis (``XX (B,
+    I, T, M, M)``, ``T (B, N, I, K)`` or ``(B, I, K)``, ``V``, ``H (B, N,
+    I, M, M)``, ``Z (B, N, K)``), K5 launched once per utterance, and
+    ``bin_sum`` (:mod:`ssspy_tpu_torch.parallel.collectives`): the
+    activation update's numerator and denominator, sums over bins, are
+    summed over the bin group in one call, and with ``Z`` the latent
+    update's in another. Returns ``(T, V, H)`` or ``(T, V, H, Z)``.
     """
     psd_impl, gmean_impl = _routes(XX.dtype, psd_impl, gmean_impl)
-    fused = _fused(XX.dtype, psd_impl, H.shape[0], H.shape[-1])
+    fused = _fused(XX.dtype, psd_impl, H.shape[-4], H.shape[-1])
+    keep = None if bin_mask is None else bin_mask.to(H.device)
 
     def traces(T, V, Z, H):
         Lamb = reconstruct_nmf(T, V, Z).contiguous()
         if fused:
-            return kernels.model_traces(Lamb, H, XX, eps, outputs="traces")
-        R_inv, S = _inv_sandwich(psd_project(_model(Lamb, H), eps, psd_impl), XX)
-        return _trace_real(S, H), _trace_real(R_inv, H)
+            num, denom = _model_traces(Lamb, H, XX, eps, outputs="traces")
+        else:
+            R_inv, S = _inv_sandwich(psd_project(_model(Lamb, H), eps, psd_impl), XX)
+            num, denom = _trace_real(S, H), _trace_real(R_inv, H)
+        if keep is not None:
+            mask = keep[:, None]  # over (..., I, T)
+            num = torch.where(mask, num, torch.zeros_like(num))
+            denom = torch.where(mask, denom, torch.zeros_like(denom))
+        return num, denom
+
+    def bin_sums(n_, d_):
+        return (n_, d_) if bin_sum is None else bin_sum(n_, d_)
 
     # ---- MM updates of basis, then activation (mnmf.py:836-968) ----
     num, denom = traces(T, V, Z, H)
     if Z is None:
-        n_, d_ = (torch.einsum("nkt,nit->nik", V, x) for x in (num, denom))
+        n_, d_ = (torch.einsum("...nkt,...nit->...nik", V, x) for x in (num, denom))
     else:
-        n_, d_ = (torch.einsum("nk,kt,nit->ik", Z, V, x) for x in (num, denom))
-    T = torch.clamp(T * torch.sqrt(n_ / d_), min=eps)
+        n_, d_ = (torch.einsum("...nk,...kt,...nit->...ik", Z, V, x) for x in (num, denom))
+    T_new = torch.clamp(T * torch.sqrt(n_ / d_), min=eps)
+    T = T_new if keep is None else torch.where(keep[:, None], T_new, T)  # padded basis rows frozen
 
     num, denom = traces(T, V, Z, H)
     if Z is None:
-        n_, d_ = (torch.einsum("nik,nit->nkt", T, x) for x in (num, denom))
+        n_, d_ = (torch.einsum("...nik,...nit->...nkt", T, x) for x in (num, denom))
     else:
-        n_, d_ = (torch.einsum("nk,ik,nit->kt", Z, T, x) for x in (num, denom))
+        n_, d_ = (torch.einsum("...nk,...ik,...nit->...kt", Z, T, x) for x in (num, denom))
+    n_, d_ = bin_sums(n_, d_)
     V = torch.clamp(V * torch.sqrt(n_ / d_), min=eps)
 
     # ---- spatial update H <- P^-1 # HQH (mnmf.py:970-1016) ----
     Lamb = reconstruct_nmf(T, V, Z).contiguous()
     if fused:
-        P, Q = kernels.model_traces(Lamb, H, XX, eps, outputs="sums")
+        P, Q = _model_traces(Lamb, H, XX, eps, outputs="sums")
     else:
         R_inv, S = _inv_sandwich(psd_project(_model(Lamb, H), eps, psd_impl), XX)
         Lc = Lamb.to(H.dtype)
-        P = torch.einsum("nit,itpq->nipq", Lc, R_inv)
-        Q = torch.einsum("nit,itpq->nipq", Lc, S)
+        P = torch.einsum("...nit,...itpq->...nipq", Lc, R_inv)
+        Q = torch.einsum("...nit,...itpq->...nipq", Lc, S)
     P = psd_project(P, eps, psd_impl)
     HQH = psd_project(H @ Q @ H, eps, psd_impl)
-    H = spatial_projection(gmean2(P, HQH, impl=gmean_impl), eps, psd_impl)
+    H_new = spatial_projection(gmean2(P, HQH, impl=gmean_impl), eps, psd_impl)
+    H = H_new if keep is None else torch.where(keep[:, None, None], H_new, H)  # padded covariances frozen
 
     # ---- unit-trace normalization (mnmf.py:391-414) ----
     if normalization:
-        trace = H.diagonal(dim1=-2, dim2=-1).real.sum(dim=-1)  # (N, I)
+        trace = H.diagonal(dim1=-2, dim2=-1).real.sum(dim=-1)  # ([B,] N, I)
+        if keep is not None:
+            trace = torch.where(trace > 0, trace, torch.ones_like(trace))  # a frozen zero H stays finite
         H = H / trace[..., None, None]
         if Z is None:
-            T = trace[:, :, None] * T
+            T = trace[..., None] * T
 
     # ---- latent update (partitioning, mnmf.py:1018-1073) ----
     if Z is not None:
         num, denom = traces(T, V, Z, H)
-        n_, d_ = (torch.einsum("ik,kt,nit->nk", T, V, x) for x in (num, denom))
+        n_, d_ = bin_sums(*(torch.einsum("...ik,...kt,...nit->...nk", T, V, x) for x in (num, denom)))
         Z = Z * torch.sqrt(n_ / d_)
-        return T, V, H, Z / Z.sum(dim=0)
+        return T, V, H, Z / Z.sum(dim=-2, keepdim=True)
     return T, V, H
 
 

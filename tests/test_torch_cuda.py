@@ -1056,3 +1056,64 @@ def test_free_routes_agree_with_their_eigh_routes_on_the_card(cuda_device):
         f = mid * mid * torch.sum(phi * vsq / (mid[..., None] - phi) ** 2, dim=-1) - mid + z64
         lo, hi = torch.where(f > 0, mid, lo), torch.where(f > 0, hi, mid)
     assert ((root.double() - lo).abs() / lo).max() <= 1.2e-3
+
+
+# ---- the (dp, bin) runners at world size 1 and dense GaussMNMF's bin mask ------------------------------------------
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("name", ["ip1", "iss1", "ilrma", "mnmf", "cacgmm", "ipsdta", "ip2", "iss2", "ipa", "wave",
+                                  "mnmf_partitioning"])
+def test_runner_at_world_size_one_on_the_card(cuda_device, name):
+    """Each runner with no process group on the card (float32, the dry run's shapes at 257 bins) against the same
+    runner on the CPU: the outputs within a relative 1e-3 (the card's kernels against the CPU's plain versions after
+    two steps), IPA and ISS2 on their loss within its case's 3e-4 (one float32 sweep of IPA turns input noise into
+    O(1) output changes); and the kernels of its path launched on the card, each as often as its case counts."""
+    from ssspy_tpu_torch.parallel import make_layout
+    from ssspy_tpu_torch.parallel.dryrun import CASES, KERNELS, N_STEPS, error, make_inputs, run_case
+
+    inputs = make_inputs(name, n_batch=2)
+    before = {k: getattr(K, k).launches for k in KERNELS}
+    out = run_case(name, make_layout(device=cuda_device), inputs)
+    torch.cuda.synchronize()
+    launched = {k: getattr(K, k).launches - before[k] for k in KERNELS}
+    ref = run_case(name, make_layout(device="cpu"), inputs)
+    for o, r in zip(out, ref):
+        assert o.device.type == "cuda" and torch.isfinite(torch.view_as_real(o) if o.is_complex() else o).all()
+        if CASES[name].measure == "loss":
+            assert error(name, inputs, o.cpu(), r) <= CASES[name].tol
+        else:
+            assert (o.cpu() - r).abs().max() <= 1e-3 * r.abs().max()
+    assert launched == {k: N_STEPS * CASES[name].launches.get(k, 0) for k in KERNELS}
+
+
+@pytest.mark.cuda
+def test_gauss_mnmf_masked_fused_route_equals_its_plain_route(cuda_device, monkeypatch):
+    """K5's fused route with a bin mask against the plain model pass with the same mask (K5's 2e-4): the masked bins
+    frozen at zero on both, their K5 outputs discarded."""
+    from ssspy_tpu_torch.ops.mnmf_steps import gauss_mnmf_step
+
+    rng = np.random.default_rng(61)
+    n_bins, pad, M, N, K_, T_ = 33, 3, 4, 4, 2, 16
+    Xc = _complex(rng, (M, n_bins, T_), cuda_device)
+    XX = torch.einsum("mit,nit->itmn", Xc, Xc.conj())
+    XX = torch.cat([XX, torch.zeros((pad,) + XX.shape[1:], dtype=XX.dtype, device=cuda_device)]).contiguous()
+    T = torch.from_numpy(rng.random((N, n_bins + pad, K_), dtype=np.float32) + 0.1).to(cuda_device)
+    T[:, n_bins:] = 0
+    V = torch.from_numpy(rng.random((N, K_, T_), dtype=np.float32) + 0.1).to(cuda_device)
+    H = (torch.eye(M, device=cuda_device) + 0.1).to(torch.complex64).expand(N, n_bins + pad, M, M).clone()
+    H[:, n_bins:] = 0
+    mask = torch.arange(n_bins + pad, device=cuda_device) < n_bins
+    before = K.model_traces.launches
+    fused = (T, V, H)
+    for _ in range(2):
+        fused = gauss_mnmf_step(XX, *fused, bin_mask=mask)
+    assert K.model_traces.launches == before + 6
+    monkeypatch.setattr(K, "model_traces", K.model_traces_plain)
+    plain = (T, V, H)
+    for _ in range(2):
+        plain = gauss_mnmf_step(XX, *plain, bin_mask=mask)
+    for f, p in zip(fused, plain):
+        assert torch.isfinite(torch.view_as_real(f) if f.is_complex() else f).all()
+        assert (f - p).abs().max() <= 2e-4 * p.abs().max()
+    assert torch.all(fused[0][:, n_bins:] == 0) and torch.all(fused[2][:, n_bins:] == 0)

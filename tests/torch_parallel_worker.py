@@ -1,0 +1,55 @@
+"""The ranks of tests/test_torch_parallel.py: every runner of ``ssspy_tpu_torch.parallel`` over one spawned world.
+
+Imported by the spawned ranks, so it imports no JAX (the JAX references
+run in the test's own process). Each rank runs every case of
+:data:`ssspy_tpu_torch.parallel.dryrun.CASES` in complex128 on the CPU
+at :data:`N_BINS` bins (:data:`WIDE` also at 257), which no bin layout of 2 or 4 ranks divides, and
+returns the global outputs, the all-reduces through the bin hook, the
+two losses computed on the rank's own bins under the hook and whether a
+second layout reused the first one's bin group.
+"""
+
+import numpy as np
+import torch
+
+from ssspy_tpu_torch.ops.ilrma_steps import ilrma_loss
+from ssspy_tpu_torch.ops.iva_steps import iva_laplace_loss
+from ssspy_tpu_torch.parallel import _extent, make_layout
+from ssspy_tpu_torch.parallel.dryrun import CASES, make_inputs, run_case
+
+N_BINS = 33
+N_BATCH = 2
+REAL = np.float64
+# these runners also run at the dry run's 257 bins (n_fft = 512)
+WIDE = ("ip1", "iss1", "ilrma")
+WIDE_BINS = 257
+
+
+def inputs(name: str, n_bins: int = N_BINS) -> tuple:
+    return make_inputs(name, n_batch=N_BATCH, n_bins=n_bins, real=REAL)
+
+
+def run_world(shape) -> dict:
+    layout = make_layout(shape=shape, device="cpu")
+    again = make_layout(shape=shape, device="cpu")  # no new group: the first layout's is reused
+    report = {"shape": layout.shape, "cases": {},
+              "bin_group_reused": layout.bin_sum is None or again.bin_sum.group is layout.bin_sum.group}
+    for name in CASES:
+        before = 0 if layout.bin_sum is None else layout.bin_sum.calls
+        outputs = run_case(name, layout, inputs(name))
+        calls = (0 if layout.bin_sum is None else layout.bin_sum.calls) - before
+        report["cases"][name] = {"outputs": [o.numpy() for o in outputs], "calls": calls}
+    for name in WIDE:
+        report["cases"][f"{name}@{WIDE_BINS}"] = {
+            "outputs": [o.numpy() for o in run_case(name, layout, inputs(name, WIDE_BINS))]
+        }
+
+    # the losses of utterance 0 on the rank's bins alone, summed over the row by the hook
+    ext = _extent(layout, N_BINS)
+    bins = slice(ext.first, ext.first + ext.real)  # the real bins the rank holds
+    X, W0 = torch.as_tensor(inputs("ip1")[0][0]), torch.as_tensor(report["cases"]["ip1"]["outputs"][0][0])
+    report["iva_loss"] = float(iva_laplace_loss(X[:, bins], W=W0[bins], bin_sum=layout.bin_sum))
+    X = torch.as_tensor(inputs("ilrma")[0][0])
+    W0, T0, V0 = (torch.as_tensor(o[0]) for o in report["cases"]["ilrma"]["outputs"])
+    report["ilrma_loss"] = float(ilrma_loss(X[:, bins], T0[:, bins], V0, W=W0[bins], bin_sum=layout.bin_sum))
+    return report
