@@ -133,15 +133,31 @@ calls, on the default device:
   (seeds 0 and 1), 100 iterations in one process with no group, K1 once
   per utterance and K1b once per iteration, each utterance held against
   ``fast_auxiva`` on it (the main path's loss and SI-SDR gates), and the
-  batched step's device time per utterance beside ``fast_auxiva``'s; then
-  every runner of the slice (``parallel.dryrun.CASES``: AuxIVA IP1, IP2,
+  batched step's device time per utterance beside ``fast_auxiva``'s; the
+  runners of the other families (FastIVA and FasterIVA on each mixture
+  whitened, AuxFDICA IP1 and IP2, GradIVA, GradFDICA, FastGaussMNMF on the
+  first 4 channels with ``n_basis = 4``, PDSIVA, ADMMIVA and HVA on each
+  mixture over its spectral norm, time-domain ICA on the first 2 channels)
+  at world size 1 on the same two mixtures, 5 steps (``N_ITER_RUNNERS``),
+  each utterance held against its fast path (ICA: the class) with the path
+  gates (FasterIVA on its loss alone), bit-equality printed, and the
+  batched step's kernel time per utterance beside the fast path's (the
+  summed durations of their kernels by ``torch.profiler``: AuxFDICA-IP2's
+  host enqueues its thousands of launches a step slower than the card runs
+  them, so an event pair would time the host); HVA and FastGaussMNMF at
+  that width over 2 gloo ranks against world size 1, through the dry run's
+  comparison (each rank's kernel calls held); then
+  every runner (``parallel.dryrun.CASES``: AuxIVA IP1, IP2,
   ISS1, ISS2 and IPA, GaussILRMA-IP1, dense GaussMNMF with and without
-  partitioning, cACGMM, GaussIPSDTA and the waveform runner) at the JAX dry
+  partitioning, cACGMM, GaussIPSDTA, the waveform runner, FastIVA,
+  FasterIVA, AuxFDICA IP1 and IP2, GradIVA, GradFDICA, FastGaussMNMF,
+  PDSIVA, ADMMIVA, HVA and time-domain ICA) at the JAX dry
   run's reduced shapes (257 bins, 2 steps, float32) over 2 and 4 gloo
   ranks sharing the card, layouts (1, 2) and (2, 2) (and NCCL ranks on
   cards of their own where there are several), each rank holding each
   runner against the same runner at world size 1 and its all-reduces per
-  iteration against the JAX pins; each runner's launches summed over the
+  iteration against the JAX pins (HVA's against the port's 1, not the JAX
+  package's 2: ``make_batched_hva_runner``); each runner's launches summed over the
   ranks must equal its count (``Case.launches``), and each rank holds every
   kernel call of its sharded run against the kernel's plain version at the
   rank's own shapes (M = N = 3, 32 frames, 129 of 257 bins, 65 of the
@@ -281,6 +297,7 @@ from ssspy_tpu_torch.ops import (
     ipsdta_steps,
     prox_steps,
 )
+from ssspy_tpu_torch.ops.ica_steps import grad_ica_step
 from ssspy_tpu_torch.ops.ilrma_steps import ilrma_ip_step, ilrma_iss_step, ilrma_loss
 from ssspy_tpu_torch.ops.mnmf_steps import (
     gauss_mnmf_loss,
@@ -298,6 +315,19 @@ from ssspy_tpu_torch.ops.iva_steps import (
     grad_laplace_iva_step,
     iva_laplace_loss,
     separate,
+)
+from ssspy_tpu_torch.parallel import (
+    make_batched_admm_iva_runner,
+    make_batched_fast_iva_runner,
+    make_batched_fast_mnmf_runner,
+    make_batched_faster_iva_runner,
+    make_batched_fdica_runner,
+    make_batched_grad_fdica_runner,
+    make_batched_grad_iva_runner,
+    make_batched_hva_runner,
+    make_batched_ica_runner,
+    make_batched_pds_iva_runner,
+    make_layout,
 )
 from ssspy_tpu_torch.parallel import dryrun as parallel_dryrun
 from ssspy_tpu_torch.parallel.dryrun import CASES as PARALLEL_CASES, dryrun_multichip
@@ -407,6 +437,12 @@ FDICA_CONTROL_MULTIPLE = 10.0
 N_ITER_FREE_RATE = {"AuxIVA-IPA solve": 1, "FasterIVA solve": 5, "FastIVA qdwh": 10}
 N_ITER_IPA_RATE = 20  # AuxIVA-IPA and GaussILRMA-IPA: chained steps a rate reads (cut from 100 for time)
 N_PARALLEL_TIMED = 10  # chained AuxIVA-IP1 steps a device time of the batched step reads
+# the runners of the other families at full width: steps a run takes (the depth is cut for time; no gate is), the
+# chained steps a profile of their kernel time reads, and the relative error of a run over 2 gloo ranks against world
+# size 1
+N_ITER_RUNNERS = 5
+N_RUNNERS_TIMED = 5
+RUNNER_RANKS_TOL = 1e-4
 # the sharded runners' kernel calls against their plain versions, at the gates of phases 3-4g: relative to the
 # plain output's largest magnitude, 0 for bit for bit (K7 and K3 keep the plain version's bits)
 RANK_KERNEL_TOLS = {"weighted_covariance": WCOV_TOL, "ip1_sweep": SWEEP_TOL, "iss1_sweep": ISS1_TOL,
@@ -2572,12 +2608,12 @@ def main() -> None:
         check(all_finite(W_free) and abs(loss_free - loss_ref) <= ANCHOR_TOL * abs(loss_ref),
               f"{label}: loss {loss_free} against the eigh route's {loss_ref}")
 
-    # ---- 5n. the (dp, bin) runners: fast_auxiva_batch at full width, then every runner over 2 and 4 ranks ----
+    # ---- 5n. the (dp, bin) runners: fast_auxiva_batch and the other families at full width, then every runner ----
     laps("5n")
     parallel_start = time.perf_counter()
     # (a) two mixtures of the main configuration from two seeds, one process and no group
-    X_pair = torch.stack([X, stft(torch.from_numpy(make_mixture(seed=1)).to(device=device, dtype=torch.float32),
-                                  n_fft=N_FFT, hop_length=HOP, device=device)])
+    wave_pair = torch.stack([wave, torch.from_numpy(make_mixture(seed=1)).to(device=device, dtype=torch.float32)])
+    X_pair = torch.stack([X, stft(wave_pair[1], n_fft=N_FFT, hop_length=HOP, device=device)])
     Y_batch, W_batch = drive(
         "fast_auxiva_batch (B = 2)", lambda: fast_auxiva_batch(X_pair, n_iter=N_ITER),
         {"weighted_covariance": 2 * N_ITER, "ip1_sweep": N_ITER}, totals, exact=True,
@@ -2608,7 +2644,175 @@ def main() -> None:
         device_us_per_iter_per_utterance=1e3 * batch_ms / 2, fast_auxiva_device_us_per_iter=1e3 * single_ms,
         chained_steps=N_PARALLEL_TIMED, runs=10, stat="median")
 
-    # (b) every runner of the slice over 2 and 4 gloo ranks sharing the card, layouts (1, 2) and (2, 2) (the
+    # (b) the runners of the other families at world size 1 on the two mixtures, N_ITER_RUNNERS steps, each utterance
+    # held against the single-utterance fast path (ICA: the class) on it: FastIVA and FasterIVA on each mixture
+    # whitened, the prox family and HVA on each over its spectral norm, FastGaussMNMF on its first 4 channels with
+    # fast_gauss_mnmf's draws from seed b, ICA on its first 2 channels; FasterIVA on its loss alone
+    # (SENSITIVE_LOSS_TOL), the others on the loss (LOSS_TOL) and the worst SI-SDR
+    start = time.perf_counter()
+    one = make_layout(world_size=1, device=device)
+    n_run = N_ITER_RUNNERS
+    eye_pair = W_eye.expand(2, I, M, M).contiguous()
+    filters_zero, spectra_zero = torch.zeros_like(eye_pair), torch.zeros_like(X_pair)
+    Z_pair = torch.stack([fixed_point_iva_steps.whiten_spectrogram(x) for x in X_pair])
+    X_prox_pair = torch.stack([PDSIVA().normalize_by_spectral_norm(x) for x in X_pair])
+    quad_inv_pair = prox_steps.admm_quad_inv(X_prox_pair)
+    X4_pair = X_pair[:, :FAST_MNMF_CHANNELS].contiguous()
+    wave_ica_pair = wave_pair[:, :ICA_CHANNELS].contiguous()
+    eye_ica = torch.eye(ICA_CHANNELS, device=device).expand(2, ICA_CHANNELS, ICA_CHANNELS).contiguous()
+
+    def fast_mnmf_draws(seed):
+        """fast_gauss_mnmf's T0, V0 and D0 from ``default_rng(seed)``, in its order."""
+        draws, F = np.random.default_rng(seed), FAST_MNMF_CHANNELS
+        T0 = draws.random((F, I, FAST_MNMF_BASIS))
+        V0 = draws.random((F, FAST_MNMF_BASIS, T))
+        D0 = np.maximum(draws.random((I, F, F)), 1e-10)
+        return [torch.from_numpy(a.astype(np.float32)).to(device) for a in (T0, V0, D0)]
+
+    T0_pair, V0_pair, D0_pair = (torch.stack(z) for z in zip(*map(fast_mnmf_draws, range(2))))
+    Q0_pair = torch.eye(FAST_MNMF_CHANNELS, dtype=X.dtype, device=device).expand(
+        2, I, FAST_MNMF_CHANNELS, FAST_MNMF_CHANNELS).contiguous()
+    fast_mnmf_carry = (Q0_pair, T0_pair, V0_pair, D0_pair)
+    prox_carry = (eye_pair, spectra_zero)
+    admm_carry = (eye_pair, filters_zero, spectra_zero, filters_zero, spectra_zero)
+
+    def whitened_end(b, W_):
+        Y_ = separate(Z_pair[b], W_)
+        return Y_, whitened_loss(Y_)
+
+    def prox_end(b, W_):
+        return separate(X_prox_pair[b], W_), float(prox_steps.prox_iva_loss(X_prox_pair[b], W_))
+
+    def fdica_end(b, W_):
+        return separate(X_pair[b], W_), float(fdica_steps.fdica_laplace_loss(X_pair[b], W_))
+
+    def ica_end(b, W_):
+        y_ = W_ @ wave_ica_pair[b]
+        return y_, float(torch.sum(torch.mean(torch.abs(y_), dim=1)) - torch.linalg.slogdet(W_)[1])
+
+    def fast_mnmf_end(b, state):
+        Q_, T_, V_, D_ = state
+        return (fast_mnmf_steps.fast_mnmf_separate(X4_pair[b], T_, V_, Q_, D_),
+                float(fast_mnmf_steps.fast_gauss_mnmf_loss(X4_pair[b], Q_, T_, V_, D_)))
+
+    def fast_mnmf_one(b):
+        Y_, (T_, V_, Q_, D_) = fast_gauss_mnmf(X4_pair[b], n_basis=FAST_MNMF_BASIS, n_iter=n_run,
+                                               rng=np.random.default_rng(b))
+        return Y_, float(fast_mnmf_steps.fast_gauss_mnmf_loss(X4_pair[b], Q_, T_, V_, D_))
+
+    def ica_one(b):
+        method = NaturalGradLaplaceICA()
+        y_ = method(wave_ica_pair[b], n_iter=n_run)
+        return y_, method.loss[-1]
+
+    no_scale = dict(n_iter=n_run, scale_restoration=False)
+    # name: (the runner's run at world size 1, an utterance's end (b, its output) -> (Y, loss), the fast path on
+    # utterance b -> (Y, loss), the batched step with its state, the single-utterance step with its state)
+    full_width = {
+        "fast_iva": (
+            lambda: make_batched_fast_iva_runner(one)(Z_pair, eye_pair, n_run), whitened_end,
+            lambda b: (lambda Y_: (Y_, whitened_loss(Y_)))(fast_fast_iva(X_pair[b], **no_scale)),
+            (lambda W_: fixed_point_iva_steps.fast_iva_step(Z_pair, W_), eye_pair),
+            (lambda W_: fixed_point_iva_steps.fast_iva_step(Z_pair[0], W_), W_eye)),
+        "faster_iva": (
+            lambda: make_batched_faster_iva_runner(one)(Z_pair, eye_pair, n_run), whitened_end,
+            lambda b: (lambda Y_: (Y_, whitened_loss(Y_)))(fast_faster_iva(X_pair[b], **no_scale)),
+            (lambda W_: fixed_point_iva_steps.faster_iva_step(Z_pair, W_), eye_pair),
+            (lambda W_: fixed_point_iva_steps.faster_iva_step(Z_pair[0], W_), W_eye)),
+        "fdica_ip1": (
+            lambda: make_batched_fdica_runner(one)(X_pair, eye_pair, n_run), fdica_end,
+            lambda b: fdica_end(b, fast_aux_fdica(X_pair[b], permutation_alignment=False, **no_scale)[1]),
+            (lambda W_: fdica_steps.aux_laplace_fdica_ip1_step(X_pair, W_), eye_pair),
+            (lambda W_: fdica_steps.aux_laplace_fdica_ip1_step(X, W_), W_eye)),
+        "fdica_ip2": (
+            lambda: make_batched_fdica_runner(one, spatial_algorithm="IP2")(X_pair, eye_pair, n_run), fdica_end,
+            lambda b: fdica_end(b, fast_aux_fdica(X_pair[b], algorithm="IP2", permutation_alignment=False,
+                                                  **no_scale)[1]),
+            (lambda W_: fdica_steps.aux_laplace_fdica_ip2_step(X_pair, W_), eye_pair),
+            (lambda W_: fdica_steps.aux_laplace_fdica_ip2_step(X, W_), W_eye)),
+        "grad_iva": (
+            lambda: make_batched_grad_iva_runner(one)(X_pair, eye_pair, n_run),
+            lambda b, W_: (separate(X_pair[b], W_), float(iva_laplace_loss(X_pair[b], W_))),
+            lambda b: (lambda Y_, W_: (Y_, float(iva_laplace_loss(X_pair[b], W_))))(
+                *fast_grad_iva(X_pair[b], **no_scale)),
+            (lambda W_: grad_laplace_iva_step(X_pair, W_), eye_pair),
+            (lambda W_: grad_laplace_iva_step(X, W_), W_eye)),
+        "grad_fdica": (
+            lambda: make_batched_grad_fdica_runner(one)(X_pair, eye_pair, n_run), fdica_end,
+            lambda b: fdica_end(b, fast_grad_fdica(X_pair[b], is_holonomic=True, permutation_alignment=False,
+                                                   **no_scale)[1]),
+            (lambda W_: fdica_steps.grad_laplace_fdica_step(X_pair, W_), eye_pair),
+            (lambda W_: fdica_steps.grad_laplace_fdica_step(X, W_), W_eye)),
+        "fast_mnmf": (
+            lambda: make_batched_fast_mnmf_runner(one)(X4_pair, fast_mnmf_carry, n_run), fast_mnmf_end, fast_mnmf_one,
+            (lambda c: fast_mnmf_steps.fast_gauss_mnmf_step(X4_pair, *c), fast_mnmf_carry),
+            (lambda c: fast_mnmf_steps.fast_gauss_mnmf_step(X4_pair[0], *c), tuple(a[0] for a in fast_mnmf_carry))),
+        "pds_iva": (
+            lambda: make_batched_pds_iva_runner(one)(X_prox_pair, prox_carry, n_run)[0], prox_end,
+            lambda b: prox_end(b, fast_pds_iva(X_prox_pair[b], **no_scale)[1]),
+            (lambda c: prox_steps.pds_iva_step(X_prox_pair, *c), prox_carry),
+            (lambda c: prox_steps.pds_iva_step(X_prox_pair[0], *c), tuple(a[0] for a in prox_carry))),
+        "admm_iva": (
+            lambda: make_batched_admm_iva_runner(one)(X_prox_pair, admm_carry, n_run)[0], prox_end,
+            lambda b: prox_end(b, fast_admm_iva(X_prox_pair[b], **no_scale)[1]),
+            (lambda c: prox_steps.admm_iva_step(X_prox_pair, *c[1:], quad_inv=quad_inv_pair), admm_carry),
+            (lambda c: prox_steps.admm_iva_step(X_prox_pair[0], *c[1:], quad_inv=quad_inv_pair[0]),
+             tuple(a[0] for a in admm_carry))),
+        "hva": (
+            lambda: make_batched_hva_runner(one)(X_prox_pair, prox_carry, n_run)[0], prox_end,
+            lambda b: prox_end(b, fast_hva(X_prox_pair[b], **no_scale)[1]),
+            (lambda c: prox_steps.hva_pds_step(X_prox_pair, *c), prox_carry),
+            (lambda c: prox_steps.hva_pds_step(X_prox_pair[0], *c), tuple(a[0] for a in prox_carry))),
+        "ica": (
+            lambda: make_batched_ica_runner(one)(wave_ica_pair, eye_ica, n_run), ica_end, ica_one,
+            (lambda W_: grad_ica_step(wave_ica_pair, W_, torch.sign, natural=True), eye_ica),
+            (lambda W_: grad_ica_step(wave_ica_pair[0], W_, torch.sign, natural=True), eye_ica[0])),
+    }
+    for name, (run_batch, end, fast_one, (step_batch, state_batch), (step_one, state_one)) in full_width.items():
+        # launches per iteration at two utterances, as the dry run's case counts them; FDICA-IP2 launches K1 once
+        # per utterance and pair, and the 8 sources here make 8 sequential pairs (the case's 3 sources, 3)
+        per_iter = {"weighted_covariance": 2 * M} if name == "fdica_ip2" else PARALLEL_CASES[name].launches
+        uses = {k: v * n_run for k, v in per_iter.items()}
+        out = drive(f"{name} runner, world size 1, B = 2", run_batch, uses, totals, exact=True)
+        for b in range(2):
+            Y_b, loss_b = end(b, tuple(o[b] for o in out) if isinstance(out, tuple) else out[b])
+            Y_one, loss_one = fast_one(b)
+            rel, sdr = abs(loss_b - loss_one) / abs(loss_one), min_si_sdr(Y_b, Y_one)
+            loss_only = name == "faster_iva"
+            say("parallel", runner=repr(name), utterance=b, iterations=n_run, loss=loss_b, fast_path_loss=loss_one,
+                loss_rel_diff=rel, min_si_sdr_db=sdr, bit_equal=bool(torch.equal(Y_b, Y_one)),
+                gate=repr("loss" if loss_only else "loss and SI-SDR"))
+            check(all_finite(Y_b) and rel <= (SENSITIVE_LOSS_TOL if loss_only else LOSS_TOL)
+                  and (loss_only or sdr >= MIN_SI_SDR_DB), f"{name} runner utterance {b}: loss {rel}, {sdr:.2f} dB")
+        # the kernels' summed durations a step (profile: no event seen reads "not measured")
+        batch_kernels, _, batch_seen, batch_made, _, _ = profile(step_batch, state_batch, N_RUNNERS_TIMED)
+        one_kernels, _, one_seen, one_made, _, _ = profile(step_one, state_one, N_RUNNERS_TIMED)
+        say("parallel", runner=repr(name), card=repr(card),
+            kernel_us_per_iter_per_utterance=sum(batch_kernels.values()) / 2 if batch_kernels else "not measured",
+            fast_path_kernel_us_per_iter=sum(one_kernels.values()) if one_kernels else "not measured",
+            timed=repr("the batched step against the fast path's, torch.profiler"),
+            chained_steps=N_RUNNERS_TIMED, events_seen_made=(batch_seen, batch_made, one_seen, one_made))
+    say("parallel", part=repr("full width, world size 1"), seconds=f"{time.perf_counter() - start:.1f}")
+
+    # (c) HVA (its mask is a transform over the whole bin axis) and FastGaussMNMF (its power normalization a mean over
+    # all bins) at that width over 2 gloo ranks sharing the card, against world size 1 in this process
+    # (the dry run's comparison on these inputs: each rank holds its outputs on the relative measure, its
+    # all-reduces at the pin and its kernel calls against the plain versions, and it raises on any miss)
+    start = time.perf_counter()
+    full_inputs = {
+        "hva": (X_prox_pair.cpu().numpy(), tuple(a.cpu().numpy() for a in prox_carry)),
+        "fast_mnmf": (X4_pair.cpu().numpy(), tuple(a.cpu().numpy() for a in fast_mnmf_carry)),
+    }
+    report = dryrun_multichip(2, device="cuda", names=tuple(full_inputs), backend="gloo",
+                              kernel_tols=RANK_KERNEL_TOLS, inputs=full_inputs, n_iter=n_run, rel_tol=RUNNER_RANKS_TOL)
+    for name, got in report["cases"].items():
+        say("parallel", runner=repr(name), world=2, layout=tuple(report["shape"]), iterations=n_run,
+            rel_err_vs_world_one=got["max_abs_err"], tol=got["tol"], bit_equal=got["max_abs_err"] == 0.0,
+            all_reduces_per_iter=got["bin_sum_calls"] / n_run, pin=PARALLEL_CASES[name].pin,
+            launches=repr({k: v for k, v in got["launches"].items() if v}), held_calls_and_rel_err=repr(got["held"]))
+    say("parallel", part=repr("full width, 2 ranks"), seconds=f"{time.perf_counter() - start:.1f}")
+
+    # (d) every runner over 2 and 4 gloo ranks sharing the card, layouts (1, 2) and (2, 2) (the
     # kernels are built: the ranks load them), and NCCL across cards where there are several; each rank holds
     # each against world size 1 and every kernel call of its run against the plain version; the dry run raises
     # on any miss

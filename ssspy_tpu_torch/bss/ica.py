@@ -13,6 +13,7 @@ from typing import Callable, List, Optional, Union
 
 import torch
 
+from ..ops.ica_steps import grad_ica_step
 from ..transform import whiten
 from ..utils.device import DEFAULT_DEVICE
 from .base import IterativeMethodBase, config_repr
@@ -117,13 +118,9 @@ class GradICABase(_ICABase):
         score_fn, step_size, is_holonomic, natural = self.score_fn, self.step_size, self.is_holonomic, self._natural
 
         def step(state):
-            X, W = state["X"], state["W"]
-            Y = W @ X
-            PhiY = (score_fn(Y) @ Y.T) / Y.shape[-1]
-            eye = torch.eye(W.shape[0], dtype=W.dtype, device=W.device)
-            direction = PhiY - eye if is_holonomic else (1 - eye) * PhiY
-            right = W if natural else torch.linalg.solve_ex(W.T, eye)[0]
-            return {**state, "W": W - step_size * (direction @ right)}
+            W = grad_ica_step(state["X"], state["W"], score_fn, step_size=step_size, is_holonomic=is_holonomic,
+                              natural=natural)
+            return {**state, "W": W}
 
         return step
 

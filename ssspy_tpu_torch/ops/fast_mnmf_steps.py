@@ -18,6 +18,14 @@ complex64, their plain versions in complex128 and past the kernels' sizes.
 The IP2 diagonalizer takes the same covariances (K1 once) and runs
 :func:`~ssspy_tpu_torch.ops.iva_steps.ip2_update`'s pair updates over a
 ``pair_selector`` (M sequential pairs by default) instead of K1b.
+
+The step with the IP1 diagonalizer also takes a batch of utterances on a
+leading axis (``X (B, M, I, T)``, ``Q (B, I, M, M)``, ``T (B, N, I, K)``,
+``V (B, N, K, T)``, ``D (B, I, N, M)``) and ``bin_sum``, as the
+multi-device runners of :mod:`ssspy_tpu_torch.parallel` call it: K1 once
+per utterance, K1b folded into the bins, and two calls of the hook for all
+utterances, the activation update's numerator and denominator and the
+power normalization's sum over the bins.
 """
 
 from typing import Tuple
@@ -38,7 +46,7 @@ def check_diagonalizer(diagonalizer: str) -> None:
 
 
 def _powers(Xb: torch.Tensor, Q: torch.Tensor) -> torch.Tensor:
-    """``|QX|^2`` as ``(I, T, M)``, ``Xb`` the mixture as ``(I, M, T)``."""
+    """``|QX|^2`` as ``(..., I, T, M)``, ``Xb`` the mixture as ``(..., I, M, T)``."""
     QX = Q @ Xb
     return (QX.real**2 + QX.imag**2).transpose(-2, -1)
 
@@ -46,12 +54,13 @@ def _powers(Xb: torch.Tensor, Q: torch.Tensor) -> torch.Tensor:
 def _model(T, V, D, eps):
     """``(Lamb (N, I, T), LambD (I, T, M))``: the NMF powers and ``sum_n Lamb_n d_n``, each floored at ``eps``."""
     Lamb = torch.clamp(T @ V, min=eps)
-    return Lamb, torch.clamp(torch.einsum("nit,inm->itm", Lamb, D), min=eps)
+    return Lamb, torch.clamp(torch.einsum("...nit,...inm->...itm", Lamb, D), min=eps)
 
 
 def _mm_terms(QX2, LambD, Db):
     """``(sum_m d QX2 / LambD^2, sum_m d / LambD)``, each ``(N, I, T)``: the numerator and denominator of the NMF MM updates."""
-    return (torch.einsum("nim,itm->nit", Db, QX2 / LambD**2), torch.einsum("nim,itm->nit", Db, 1 / LambD))
+    return (torch.einsum("...nim,...itm->...nit", Db, QX2 / LambD**2),
+            torch.einsum("...nim,...itm->...nit", Db, 1 / LambD))
 
 
 def fast_gauss_mnmf_step(
@@ -64,6 +73,7 @@ def fast_gauss_mnmf_step(
     normalization: bool = True,
     diagonalizer: str = "IP1",
     pair_selector=None,
+    bin_sum=None,
 ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor, torch.Tensor]:
     """One FastGaussMNMF iteration; returns ``(Q, T, V, D)``.
 
@@ -76,24 +86,31 @@ def fast_gauss_mnmf_step(
     per-channel weighted covariances ``mean_t x x^H / max(Lamb D, eps)``,
     the loadings' MM update and, with ``normalization``, the power
     normalization of ``Q`` and ``D`` by ``psi_m = max(sqrt(mean |QX_m|^2), eps)``.
+    Batched (IP1) and ``bin_sum`` as the module describes; with ``bin_sum``
+    the mean is over the bins of the whole group, padded ones included, as
+    the JAX runner takes it (parallel/__init__.py:732-736).
     """
     check_diagonalizer(diagonalizer)
-    Xb = X.transpose(0, 1)  # (I, M, T)
-    Db = D.transpose(0, 1)  # (N, I, M)
+    if diagonalizer == "IP2" and X.dim() != 3:
+        raise ValueError("the IP2 diagonalizer takes one utterance")
+    Xb = X.transpose(-3, -2)  # (I, M, T)
+    Db = D.transpose(-3, -2)  # (N, I, M)
 
     QX2 = _powers(Xb, Q)
     _, LambD = _model(T, V, D, eps)
     num, denom = _mm_terms(QX2, LambD, Db)
-    T = torch.clamp(T * torch.sqrt(torch.einsum("nkt,nit->nik", V, num) / torch.clamp(
-        torch.einsum("nkt,nit->nik", V, denom), min=1e-30)), min=eps)
+    T = torch.clamp(T * torch.sqrt(torch.einsum("...nkt,...nit->...nik", V, num) / torch.clamp(
+        torch.einsum("...nkt,...nit->...nik", V, denom), min=1e-30)), min=eps)
 
     _, LambD = _model(T, V, D, eps)
     num, denom = _mm_terms(QX2, LambD, Db)
-    V = torch.clamp(V * torch.sqrt(torch.einsum("nik,nit->nkt", T, num) / torch.clamp(
-        torch.einsum("nik,nit->nkt", T, denom), min=1e-30)), min=eps)
+    num, denom = torch.einsum("...nik,...nit->...nkt", T, num), torch.einsum("...nik,...nit->...nkt", T, denom)
+    if bin_sum is not None:
+        num, denom = bin_sum(num, denom)
+    V = torch.clamp(V * torch.sqrt(num / torch.clamp(denom, min=1e-30)), min=eps)
 
     Lamb = torch.clamp(T @ V, min=eps)
-    varphi = 1 / torch.clamp(torch.einsum("nit,inm->mit", Lamb, D), min=eps)  # (M, I, T)
+    varphi = 1 / torch.clamp(torch.einsum("...nit,...inm->...mit", Lamb, D), min=eps)  # (M, I, T)
     U = covariance(X, varphi)
     if diagonalizer == "IP2":
         Q = ip2_update(Q, U, eps=eps, pair_selector=pair_selector)
@@ -102,15 +119,21 @@ def fast_gauss_mnmf_step(
 
     QX2 = _powers(Xb, Q)
     Lamb, LambD = _model(T, V, D, eps)
-    Lambb = Lamb.transpose(0, 1)  # (I, N, T)
-    num = torch.einsum("int,itm->inm", Lambb, QX2 / LambD**2)
-    denom = torch.einsum("int,itm->inm", Lambb, 1 / LambD)
+    Lambb = Lamb.transpose(-3, -2)  # (I, N, T)
+    num = torch.einsum("...int,...itm->...inm", Lambb, QX2 / LambD**2)
+    denom = torch.einsum("...int,...itm->...inm", Lambb, 1 / LambD)
     D = torch.sqrt(num / denom) * D
 
     if normalization:
-        psi = torch.clamp(torch.sqrt(torch.mean(_powers(Xb, Q), dim=(0, 1))), min=eps)  # (M,)
-        Q = Q / psi[None, :, None]
-        D = D / psi**2
+        QX2 = _powers(Xb, Q)
+        if bin_sum is None:
+            mean = torch.mean(QX2, dim=(-3, -2))  # (M,)
+        else:
+            (total,) = bin_sum(QX2.sum(dim=(-3, -2)))
+            mean = total / (QX2.shape[-3] * bin_sum.shards * QX2.shape[-2])
+        psi = torch.clamp(torch.sqrt(mean), min=eps)
+        Q = Q / psi[..., None, :, None]
+        D = D / (psi**2)[..., None, None, :]
     return Q, T, V, D
 
 

@@ -13,6 +13,12 @@ through :func:`~ssspy_tpu_torch.ops.iva_steps.auxiva_ip2_step` (K1 at two
 sources once a pair) and the gradient through
 :func:`~ssspy_tpu_torch.ops.iva_steps.grad_iva_step`; complex128 takes the
 plain routes.
+
+The three steps also take a batch of utterances on a leading axis (``X (B,
+M, I, T)``, ``W (B, I, N, M)``), as the multi-device runners of
+:mod:`ssspy_tpu_torch.parallel` call them: K1 once per utterance, K1b
+folded into the bins. Nothing in them reduces over the bins, so they take
+no cross-bin hook.
 """
 
 from typing import Optional

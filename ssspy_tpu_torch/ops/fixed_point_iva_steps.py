@@ -21,12 +21,18 @@ FasterIVA's step without an eigh (``faster_iva_step(eig_impl="solve")``: the
 top eigenvectors by shift-invert, ``top_eigvec(impl="solve")``, and the
 polar factor by QDWH), both on :mod:`ssspy_tpu_torch.linalg.eig_free`. The
 eigh routes stay the default.
+
+The two steps also take a batch of utterances on a leading axis (``Z (B, M,
+I, T)``, ``W (B, I, N, M)``) and ``bin_sum``, as the multi-device runners
+of :mod:`ssspy_tpu_torch.parallel` call them: the contrast's norm over the
+bins goes through the hook (one call for every utterance), K1 runs once
+per utterance and each eigh once for all of them.
 """
 
 import torch
 
 from ..linalg.eig_free import block_embed, chol_piv, qdwh_schedule, top_eigvec_shift_invert, tri_lower_inv
-from .iva_steps import covariance, separate
+from .iva_steps import bin_norm, covariance, separate
 from .prox_steps import _extract, herm_eigh_embed
 
 POLAR_IMPLS = ("eigh", "qdwh")
@@ -146,24 +152,27 @@ def fast_iva_update(
     ``y_gg = (2 varphi - G''(r)) / flooring(2r)``, each ``(N, T)``:
     ``w_n <- mean(varphi_n) w_n - mean_t varphi_n y_n z^H - mean_t y_gg |y_n|^2 w_n``
     per bin (parity: ssspy_tpu/bss/iva.py:722-747); ``polar_impl`` as
-    :func:`polar`'s ``impl``.
+    :func:`polar`'s ``impl``. Any leading batch axes.
     """
     n_frames = Y.shape[-1]
-    YZ = torch.einsum("nt,nit,mit->inm", varphi.to(Z.dtype), Y, Z.conj()) / n_frames
-    YY_GG = torch.einsum("nt,nit->ni", y_gg, Y.real.square() + Y.imag.square()) / n_frames  # (N, I)
-    scale = varphi.mean(dim=-1)[None, :, None] - YY_GG.T[:, :, None]  # (I, N, 1)
+    YZ = torch.einsum("...nt,...nit,...mit->...inm", varphi.to(Z.dtype), Y, Z.conj()) / n_frames
+    YY_GG = torch.einsum("...nt,...nit->...ni", y_gg, Y.real.square() + Y.imag.square()) / n_frames  # (N, I)
+    scale = varphi.mean(dim=-1)[..., None, :, None] - YY_GG.transpose(-2, -1)[..., None]  # (I, N, 1)
     return polar(W * scale.to(W.dtype) - YZ, impl=polar_impl)
 
 
-def fast_iva_step(Z: torch.Tensor, W: torch.Tensor, eps: float = 1e-10, polar_impl: str = "eigh") -> torch.Tensor:
+def fast_iva_step(
+    Z: torch.Tensor, W: torch.Tensor, eps: float = 1e-10, polar_impl: str = "eigh", bin_sum=None
+) -> torch.Tensor:
     """One FastIVA iteration with the Laplace contrast ``G(y) = 2 ||y||`` (``G'' = 0``).
 
     ``varphi = 2 / max(2 ||y_n||, eps)``, ``y_gg = 2 varphi / max(2 ||y_n||, eps)``,
     the norm over bins; the polar factor by ``polar_impl``. Counterpart of
-    ``splitc.fast_iva_step_sc`` (splitc.py:3886-3927).
+    ``splitc.fast_iva_step_sc`` (splitc.py:3886-3927). Batched and
+    ``bin_sum`` as the module describes.
     """
     Y = separate(Z, W)
-    denom = torch.clamp(2 * torch.linalg.vector_norm(Y, dim=1), min=eps)
+    denom = torch.clamp(2 * bin_norm(Y, bin_sum), min=eps)
     varphi = 2 / denom
     return fast_iva_update(Z, W, Y, varphi, 2 * varphi / denom, polar_impl=polar_impl)
 
@@ -189,15 +198,18 @@ def faster_iva_update(Z: torch.Tensor, varphi: torch.Tensor, eig_impl: str = "ei
     return polar(rows, impl="qdwh" if eig_impl == "solve" else "eigh")
 
 
-def faster_iva_step(Z: torch.Tensor, W: torch.Tensor, eps: float = 1e-10, eig_impl: str = "eigh") -> torch.Tensor:
+def faster_iva_step(
+    Z: torch.Tensor, W: torch.Tensor, eps: float = 1e-10, eig_impl: str = "eigh", bin_sum=None
+) -> torch.Tensor:
     """One FasterIVA iteration with the Laplace contrast: ``varphi = 2 / max(2 ||y_n||, eps)``.
 
     Counterpart of ``splitc.faster_iva_step_sc`` (splitc.py:3992-4044);
     ``eig_impl="solve"`` takes no eigh: the top eigenvectors by shift-invert
     and the polar factor by QDWH, as :func:`faster_iva_update` sets out.
+    Batched and ``bin_sum`` as the module describes.
     """
     Y = separate(Z, W)
-    return faster_iva_update(Z, 2 / torch.clamp(2 * torch.linalg.vector_norm(Y, dim=1), min=eps), eig_impl=eig_impl)
+    return faster_iva_update(Z, 2 / torch.clamp(2 * bin_norm(Y, bin_sum), min=eps), eig_impl=eig_impl)
 
 
 def fast_iva_laplace_loss(Z: torch.Tensor, W: torch.Tensor) -> torch.Tensor:

@@ -16,7 +16,7 @@ size the kernel does not take, goes to the plain version on the same
 device. No kernel failure is caught: a wrapper still refuses what its
 kernel does not take, and only the routers decide.
 
-The IP1, ISS1, IP2, ISS2 and IPA steps also take a batch of utterances on
+The IP1, ISS1, IP2, ISS2 and IPA steps and the gradient steps also take a batch of utterances on
 a leading axis (``X (B, M, I, T)``, ``W (B, I, N, M)``, ``Y (B, N, I,
 T)``), as the multi-device runners of :mod:`ssspy_tpu_torch.parallel`
 call them. The routers then fold the utterances into the bin axis where a
@@ -42,6 +42,7 @@ __all__ = [
     "ip1_update",
     "iss1_update",
     "separate",
+    "bin_norm",
     "auxiva_ip1_step",
     "auxiva_iss1_step",
     "auxiva_ipa_step",
@@ -135,17 +136,20 @@ def iss1_update(Y: torch.Tensor, varphi: torch.Tensor, eps: float = 1e-10) -> to
     return kernels.iss1_sweep_plain(Y, varphi, eps=eps)
 
 
-def _laplace_varphi(Y: torch.Tensor, eps: float, bin_sum=None) -> torch.Tensor:
-    """Laplace weight ``1 / max(||y_n(., t)||, eps)`` with the norm over the bins (axis -2): ``(..., N, T)``.
+def bin_norm(Y: torch.Tensor, bin_sum=None) -> torch.Tensor:
+    """``||y_n(., t)||``, the norm over the bins (axis -2) of ``(..., N, I, T)``: ``(..., N, T)``.
 
     With ``bin_sum`` the squared magnitudes are summed over the rank's bins,
     then over the bin group (one call), then rooted.
     """
     if bin_sum is None:
-        norm = torch.linalg.vector_norm(Y, dim=-2)
-    else:
-        norm = torch.sqrt(bin_sum((Y.real.square() + Y.imag.square()).sum(dim=-2))[0])
-    return 1.0 / torch.clamp(norm, min=eps)
+        return torch.linalg.vector_norm(Y, dim=-2)
+    return torch.sqrt(bin_sum((Y.real.square() + Y.imag.square()).sum(dim=-2))[0])
+
+
+def _laplace_varphi(Y: torch.Tensor, eps: float, bin_sum=None) -> torch.Tensor:
+    """Laplace weight ``1 / max(||y_n(., t)||, eps)`` with the norm over the bins (:func:`bin_norm`): ``(..., N, T)``."""
+    return 1.0 / torch.clamp(bin_norm(Y, bin_sum), min=eps)
 
 
 def auxiva_ip1_step(X: torch.Tensor, W: torch.Tensor, eps: float = 1e-10, bin_sum=None) -> torch.Tensor:
@@ -404,9 +408,9 @@ def grad_iva_step(
     to ``W^-H`` (vanilla, one ``solve_ex`` of ``W^H Z = I``). Counterpart of
     ``splitc._grad_direction_sc`` and ``grad_laplace_iva_step_sc``
     (splitc.py:4046-4097) and of the JAX class's ``_grad_step``
-    (ssspy_tpu/bss/iva.py:425-448).
+    (ssspy_tpu/bss/iva.py:425-448). Any leading batch axes.
     """
-    PhiY = torch.einsum("nit,mit->inm", Phi, Y.conj()) / Y.shape[-1]
+    PhiY = torch.einsum("...nit,...mit->...inm", Phi, Y.conj()) / Y.shape[-1]
     eye = torch.eye(W.shape[-2], dtype=W.dtype, device=W.device)
     direction = PhiY - eye if is_holonomic else (1 - eye) * PhiY
     if natural:
@@ -422,13 +426,16 @@ def grad_laplace_iva_step(
     is_holonomic: bool = True,
     natural: bool = False,
     eps: float = 1e-10,
+    bin_sum=None,
 ) -> torch.Tensor:
     """One Grad/NaturalGrad Laplace-IVA iteration: the score ``y / max(||y||, eps)``, norm over bins.
 
     Counterpart of ``splitc.grad_laplace_iva_step_sc`` (splitc.py:4055-4097).
+    Batched and ``bin_sum`` as the module describes: one call of the hook,
+    the norm.
     """
     Y = separate(X, W)
-    Phi = Y / torch.clamp(torch.linalg.vector_norm(Y, dim=1), min=eps)[:, None, :]
+    Phi = Y / torch.clamp(bin_norm(Y, bin_sum), min=eps)[..., None, :]
     return grad_iva_step(W, Y, Phi, step_size=step_size, is_holonomic=is_holonomic, natural=natural)
 
 

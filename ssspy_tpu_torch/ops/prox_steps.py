@@ -14,6 +14,16 @@ each call) and float64 to LAPACK, as the JAX package routes them
 Each family has one step, :func:`pds_step` and :func:`admm_step`, with the
 dual or spectrogram prox passed in; the L21 and harmonic-mask steps and the
 classes' penalty lists are instances of it.
+
+The PDSIVA, ADMMIVA and HVA steps also take a batch of utterances on a
+leading axis (``X (B, M, I, T)``, filters ``(B, I, N, M)``, spectrograms
+``(B, N, I, T)``) and ``bin_sum``, as the multi-device runners of
+:mod:`ssspy_tpu_torch.parallel` call them: the log-det prox runs K7 once
+for all utterances, and the step's one cross-bin reduction goes through
+the hook in one call for all of them: the L21 group norm, or HVA's floored
+log magnitude, which :func:`gathered_harmonic_mask` gathers over the bin
+group so that every rank runs the whole-axis cepstral transform on cuFFT.
+``bin_sum=None`` runs the single-device code.
 """
 
 import math
@@ -25,7 +35,7 @@ from ..linalg.eig_free import block_embed
 from ..linalg.prox import neg_log
 from ..special.psd import eigh_in_batches
 from . import kernels
-from .iva_steps import clogabsdet, separate
+from .iva_steps import bin_norm, clogabsdet, separate
 
 __all__ = [
     "block_embed",
@@ -33,7 +43,10 @@ __all__ = [
     "herm_eigh_embed",
     "prox_neg_logdet",
     "prox_l21",
+    "log_magnitude",
+    "cepstral_mask",
     "harmonic_mask",
+    "gathered_harmonic_mask",
     "pds_step",
     "pds_iva_step",
     "hva_pds_step",
@@ -162,21 +175,67 @@ def prox_neg_logdet(
     return _extract(W2, n)
 
 
-def prox_l21(Z: torch.Tensor, step_size: float = 1.0, axis: int = 1) -> torch.Tensor:
-    """Group soft-thresholding of complex ``Z`` over ``axis`` (the bin axis for IVA).
+def prox_l21(Z: torch.Tensor, step_size: float = 1.0, axis: int = -2, bin_sum=None) -> torch.Tensor:
+    """Group soft-thresholding of complex ``Z`` over ``axis`` (by default the bin axis of ``(..., N, I, T)``).
 
-    Counterpart of ``splitc.prox_l21_sc`` (splitc.py:3608-3617).
+    Counterpart of ``splitc.prox_l21_sc`` (splitc.py:3608-3617). With
+    ``bin_sum`` (``axis`` the bin axis, which ``Z`` holds a slice of) the
+    group norm is summed over the bin group (one call); zero-padded bins add
+    nothing to it.
     """
-    norm = torch.linalg.vector_norm(Z, dim=axis, keepdim=True)
+    if bin_sum is None:
+        norm = torch.linalg.vector_norm(Z, dim=axis, keepdim=True)
+    else:
+        norm = bin_norm(Z.movedim(axis, -2), bin_sum).unsqueeze(axis)
     norm = torch.where(norm < step_size, torch.full_like(norm, step_size), norm)
     return torch.clamp(1 - step_size / norm, min=0) * Z
 
 
 def _irfft_bins(a: torch.Tensor, n_real: int, n_fft: int, norm: str) -> torch.Tensor:
-    """``irfft`` over the bin axis of the first ``n_real`` bins, first ``n_real`` samples, zero-padded back."""
-    out = torch.fft.irfft(a[:, :n_real], n=n_fft, dim=1, norm=norm)[:, :n_real]
-    pad = a.shape[1] - n_real
+    """``irfft`` over the bin axis (-2) of the first ``n_real`` bins, first ``n_real`` samples, zero-padded back."""
+    out = torch.fft.irfft(a[..., :n_real, :], n=n_fft, dim=-2, norm=norm)[..., :n_real, :]
+    pad = a.shape[-2] - n_real
     return torch.nn.functional.pad(out, (0, 0, 0, pad)) if pad else out
+
+
+def log_magnitude(Z: torch.Tensor, eps: float = 1e-10, flooring_fn: Optional[Callable] = None) -> torch.Tensor:
+    """The first stage of :func:`harmonic_mask`: the floored log magnitude ``zeta``, real, of ``Z``'s shape.
+
+    ``log max(|Z|, eps)``, or ``log flooring_fn(|Z|)`` when given.
+    """
+    magnitude = Z.abs()
+    y = flooring_fn(magnitude) if flooring_fn is not None else torch.clamp(magnitude, min=eps)
+    return torch.log(y)
+
+
+def cepstral_mask(
+    zeta: torch.Tensor, attenuation: float, mask_iter: int = 1, n_real: Optional[int] = None
+) -> torch.Tensor:
+    """The rest of :func:`harmonic_mask` from the log magnitude ``zeta (..., N, I, T)``: the mask, the same shape.
+
+    Bins on axis -2, sources on axis -3; ``n_real`` as
+    :func:`harmonic_mask` takes it.
+    """
+    n_bins = zeta.shape[-2]
+    n_real = n_bins if n_real is None else n_real
+    n_fft = 2 * (n_real - 1)
+    if n_real != n_bins:
+        valid = (torch.arange(n_bins, device=zeta.device) < n_real)[:, None]
+        zeta = torch.where(valid, zeta, torch.zeros_like(zeta))
+        zeta_mean = zeta.sum(dim=-2, keepdim=True) / n_real
+        rho = torch.where(valid, zeta - zeta_mean, torch.zeros_like(zeta))
+    else:
+        zeta_mean = zeta.mean(dim=-2, keepdim=True)
+        rho = zeta - zeta_mean
+
+    nu = _irfft_bins(rho, n_real, n_fft, "backward")
+    varsigma = torch.clamp(nu, max=1.0)
+    for _ in range(mask_iter):
+        varsigma = (1 - torch.cos(math.pi * varsigma)) / 2
+    xi = _irfft_bins(varsigma * nu, n_real, n_fft, "forward")
+    m = 2 * (xi + zeta_mean)
+    v = torch.exp(m - m.max(dim=-3, keepdim=True).values)
+    return (v / v.sum(dim=-3, keepdim=True)) ** attenuation
 
 
 def harmonic_mask(
@@ -191,38 +250,50 @@ def harmonic_mask(
 
     Counterpart of ``splitc.harmonic_mask_sc`` (splitc.py:2787-2840) and
     the class closure of ``ssspy_tpu/bss/hva.py:27-51``: floored log
-    magnitude, ``irfft`` over bins (``norm="backward"``), cosine shrinkage
+    magnitude (:func:`log_magnitude`), then :func:`cepstral_mask`:
+    ``irfft`` over bins (``norm="backward"``), cosine shrinkage
     ``mask_iter`` times, ``irfft`` back (``norm="forward"``), then a
     softmax over sources with the maximum subtracted, to the power
     ``attenuation``. The floor is ``max(|Z|, eps)``, or ``flooring_fn(|Z|)``
     when given (the classes' ``flooring_fn``). ``n_real``: the true bin
     count when the bin axis carries trailing zero padding; the transform
     and the log-magnitude mean then cover the first ``n_real`` bins, and a
-    padded bin's mask is the softmax of the mean alone.
+    padded bin's mask is the softmax of the mean alone. Any leading batch
+    axes.
     """
-    n_bins = Z.shape[1]
-    n_real = n_bins if n_real is None else n_real
-    n_fft = 2 * (n_real - 1)
-    magnitude = Z.abs()
-    y = flooring_fn(magnitude) if flooring_fn is not None else torch.clamp(magnitude, min=eps)
-    zeta = torch.log(y)
-    if n_real != n_bins:
-        valid = (torch.arange(n_bins, device=Z.device) < n_real)[None, :, None]
-        zeta = torch.where(valid, zeta, torch.zeros_like(zeta))
-        zeta_mean = zeta.sum(dim=1, keepdim=True) / n_real
-        rho = torch.where(valid, zeta - zeta_mean, torch.zeros_like(zeta))
-    else:
-        zeta_mean = zeta.mean(dim=1, keepdim=True)
-        rho = zeta - zeta_mean
+    return cepstral_mask(log_magnitude(Z, eps, flooring_fn), attenuation, mask_iter=mask_iter, n_real=n_real)
 
-    nu = _irfft_bins(rho, n_real, n_fft, "backward")
-    varsigma = torch.clamp(nu, max=1.0)
-    for _ in range(mask_iter):
-        varsigma = (1 - torch.cos(math.pi * varsigma)) / 2
-    xi = _irfft_bins(varsigma * nu, n_real, n_fft, "forward")
-    m = 2 * (xi + zeta_mean)
-    v = torch.exp(m - m.max(dim=0, keepdim=True).values)
-    return (v / v.sum(dim=0)) ** attenuation
+
+def gathered_harmonic_mask(
+    Z: torch.Tensor,
+    attenuation: float,
+    bin_sum,
+    bins: Tuple[int, int],
+    mask_iter: int = 1,
+    eps: float = 1e-10,
+) -> torch.Tensor:
+    """:func:`harmonic_mask` of a rank's slice ``Z (..., N, I_local, T)`` of the bins, the whole axis gathered once.
+
+    ``bins = (first, n_bins)``: the global index of the rank's first bin and
+    the global bin count; the rank's bins past ``n_bins`` are padding. Each
+    rank writes the floored log magnitude of its real bins into a zero-filled
+    buffer of ``n_bins`` bins and one call of ``bin_sum`` sums the buffers:
+    exact, since every entry has one nonzero term. Then every rank runs the
+    unchanged :func:`cepstral_mask` over the whole axis (two ``irfft`` on
+    cuFFT) and keeps its own bins; a padded bin's mask is zero (its
+    spectrogram is zero and its result is dropped). One call of the hook,
+    where the JAX runner's DFT-as-matmul transform all-reduces twice
+    (tests/parallel/test_hlo_collectives.py:259).
+    """
+    first, n_bins = bins
+    n_local = Z.shape[-2]
+    real = max(0, min(n_local, n_bins - first))
+    zeta = log_magnitude(Z, eps)
+    full = torch.zeros(zeta.shape[:-2] + (n_bins, zeta.shape[-1]), dtype=zeta.dtype, device=zeta.device)
+    full.narrow(-2, first, real).copy_(zeta.narrow(-2, 0, real))
+    (full,) = bin_sum(full)
+    mask = cepstral_mask(full, attenuation, mask_iter=mask_iter).narrow(-2, first, real)
+    return torch.nn.functional.pad(mask, (0, 0, 0, n_local - real)) if n_local > real else mask
 
 
 # ---- primal-dual splitting ------------------------------------------------------
@@ -248,10 +319,11 @@ def pds_step(
     penalty. ``W~ = prox_neglogdet(W - mu1 mu2 (sum_q Y_q) X^H)``, the
     reflected separation ``Z = Y + X(2 W~ - W)`` and ``Y~ = dual_prox(Z)``,
     then the relaxation (ssspy_tpu/bss/pdsbss.py:167-190, :375-395;
-    splitc.py:3620-3655). ``relaxation == 1`` skips the blend.
+    splitc.py:3620-3655). ``relaxation == 1`` skips the blend. Any
+    leading batch axes on all three (the penalty axis then after them).
     """
-    Y_sum = Y.sum(dim=0) if Y.dim() == 4 else Y
-    XY = torch.einsum("nit,mit->inm", Y_sum, X.conj())  # sum_t y conj(x), per bin
+    Y_sum = Y.sum(dim=-4) if Y.dim() > X.dim() else Y
+    XY = torch.einsum("...nit,...mit->...inm", Y_sum, X.conj())  # sum_t y conj(x), per bin
     Wt = prox_neg_logdet(W - mu1 * mu2 * XY, step_size=mu1)
     Yt = dual_prox(Y + separate(X, 2 * Wt - W))
     if relaxation == 1:
@@ -261,14 +333,15 @@ def pds_step(
 
 def pds_iva_step(
     X: torch.Tensor, W: torch.Tensor, Y: torch.Tensor, mu1: float = 1.0, mu2: float = 1.0,
-    relaxation: float = 1.0,
+    relaxation: float = 1.0, bin_sum=None,
 ) -> Tuple[torch.Tensor, torch.Tensor]:
     """One PDSIVA iteration (L21 penalty over bins): ``Y~ = Z - prox_l21(Z, 1/mu2)``.
 
     Counterpart of ``splitc.pds_iva_step_sc`` (splitc.py:3620-3655);
-    ``Y``: ``(N, I, T)``. Returns ``(W, Y)``.
+    ``Y``: ``(N, I, T)``. Returns ``(W, Y)``. Batched and ``bin_sum`` as
+    the module describes: one call of the hook, the group norm.
     """
-    return pds_step(X, W, Y, lambda Z: Z - prox_l21(Z, step_size=1 / mu2), mu1, mu2, relaxation)
+    return pds_step(X, W, Y, lambda Z: Z - prox_l21(Z, step_size=1 / mu2, bin_sum=bin_sum), mu1, mu2, relaxation)
 
 
 def hva_pds_step(
@@ -282,15 +355,22 @@ def hva_pds_step(
     mask_iter: int = 1,
     eps: float = 1e-10,
     n_real: Optional[int] = None,
+    bin_sum=None,
+    bins: Optional[Tuple[int, int]] = None,
 ) -> Tuple[torch.Tensor, torch.Tensor]:
     """One HVA (masking PDS) iteration: ``Y~ = Z - mask(Z) Z`` with :func:`harmonic_mask`.
 
     Counterpart of ``splitc.hva_pds_step_sc`` (splitc.py:2843-2899);
-    ``attenuation`` defaults to ``1 / N``. Returns ``(W, Y)``.
+    ``attenuation`` defaults to ``1 / N``. Returns ``(W, Y)``. Batched as
+    the module describes; with ``bin_sum`` the mask is
+    :func:`gathered_harmonic_mask` over ``bins = (first, n_bins)`` (one
+    call of the hook), and ``n_real`` is not taken.
     """
-    attenuation = 1.0 / Y.shape[0] if attenuation is None else attenuation
+    attenuation = 1.0 / Y.shape[-3] if attenuation is None else attenuation
 
     def dual_prox(Z):
+        if bin_sum is not None:
+            return Z - gathered_harmonic_mask(Z, attenuation, bin_sum, bins, mask_iter=mask_iter, eps=eps) * Z
         return Z - harmonic_mask(Z, attenuation, mask_iter=mask_iter, eps=eps, n_real=n_real) * Z
 
     return pds_step(X, W, Y, dual_prox, mu1, mu2, relaxation)
@@ -313,10 +393,11 @@ def admm_quad_inv(X: torch.Tensor, n_penalties: int = 1) -> torch.Tensor:
 
     Counterpart of ``splitc.admm_quad_inv_sc`` (splitc.py:3658-3676);
     ``Q = n_penalties`` (the penalty-list classes, admmbss.py:301). Taken
-    once, outside the loop, with ``inv_ex``.
+    once, outside the loop, with ``inv_ex``. A batch ``X (B, M, I, T)``
+    gives ``(B, I, M, M)``.
     """
-    n_channels = X.shape[0]
-    XX = torch.einsum("mit,pit->imp", X.conj(), X)
+    n_channels = X.shape[-3]
+    XX = torch.einsum("...mit,...pit->...imp", X.conj(), X)
     E = torch.eye(n_channels, dtype=X.dtype, device=X.device)
     return torch.linalg.inv_ex(n_penalties * XX + E)[0]
 
@@ -342,12 +423,13 @@ def admm_step(
     taken once per run), the relaxed ``U``, ``V = prox_neglogdet(U + Y,
     1/rho)`` with the null lift, ``Vt = spectrogram_prox(Ut + Yt)``, and
     the dual ascent (ssspy_tpu/bss/admmbss.py:287-324;
-    splitc.py:3679-3748).
+    splitc.py:3679-3748). Any leading batch axes (the penalty axis then
+    after them).
     """
     VT = Vt - Yt
-    if VT.dim() == 4:
-        VT = VT.sum(dim=0)
-    XVY = torch.einsum("mit,nit->imn", X.conj(), VT)
+    if VT.dim() > X.dim():
+        VT = VT.sum(dim=-4)
+    XVY = torch.einsum("...mit,...nit->...imn", X.conj(), VT)
     W = quad_inv @ (V - Y + XVY.transpose(-2, -1))
     XW = separate(X, W)
 
@@ -371,13 +453,17 @@ def admm_iva_step(
     relaxation: float = 1.0,
     *,
     quad_inv: torch.Tensor,
+    bin_sum=None,
 ):
     """One ADMMIVA iteration (L21 penalty over bins); returns ``(W, V, Vt, Y, Yt)``.
 
     Counterpart of ``splitc.admm_iva_step_sc`` (splitc.py:3679-3748).
+    Batched and ``bin_sum`` as the module describes: one call of the hook,
+    the group norm.
     """
     return admm_step(
-        X, V, Vt, Y, Yt, lambda Z: prox_l21(Z, step_size=1 / rho), rho, relaxation, quad_inv=quad_inv
+        X, V, Vt, Y, Yt, lambda Z: prox_l21(Z, step_size=1 / rho, bin_sum=bin_sum), rho, relaxation,
+        quad_inv=quad_inv,
     )
 
 

@@ -27,8 +27,16 @@ ranks on one card. With no process group, :func:`make_layout` gives the
 A rank's steps take its utterances on a leading axis: the steps fold them
 into the bin axis where a kernel takes the fold for free and loop over
 them otherwise (``ops/iva_steps.py``, ``ops/mnmf_steps.py``,
-``ops/ipsdta_steps.py``); cACGMM, whose EM is per bin, folds its whole
-state into the bins once, before the loop.
+``ops/ipsdta_steps.py``, ``ops/fdica_steps.py``,
+``ops/fixed_point_iva_steps.py``, ``ops/prox_steps.py``,
+``ops/fast_mnmf_steps.py``); cACGMM, whose EM is per bin, folds its whole
+state into the bins once, before the loop. Time-domain ICA has no bin
+axis: its runner splits the batch over ``dp`` alone.
+
+One runner departs from the JAX package's collective count: HVA's cepstral
+mask gathers the row's floored log magnitude in one all-reduce and runs
+the whole-axis ``irfft`` on every rank, where the JAX runner's DFT matmuls
+all-reduce twice (:func:`make_batched_hva_runner`).
 """
 
 import math
@@ -58,6 +66,16 @@ __all__ = [
     "make_batched_cacgmm_runner",
     "make_batched_ipsdta_runner",
     "make_batched_auxiva_wave_runner",
+    "make_batched_fast_iva_runner",
+    "make_batched_faster_iva_runner",
+    "make_batched_fdica_runner",
+    "make_batched_grad_iva_runner",
+    "make_batched_grad_fdica_runner",
+    "make_batched_fast_mnmf_runner",
+    "make_batched_pds_iva_runner",
+    "make_batched_admm_iva_runner",
+    "make_batched_hva_runner",
+    "make_batched_ica_runner",
 ]
 
 
@@ -276,6 +294,7 @@ def shard_pytree_run(
     carry_bin_axes: Sequence[Optional[int]],
     identity_leaves: Sequence[int] = (0,),
     bin_mask: bool = False,
+    precompute: Optional[Callable[[torch.Tensor], torch.Tensor]] = None,
 ) -> Callable:
     """``run(X, carry, n_iter)`` over ``layout``: the counterpart of ``shard_pytree_run`` (:552-637).
 
@@ -292,7 +311,10 @@ def shard_pytree_run(
     ``_pad_carry_leaves`` (:371-390) pads it. Padding is exact for per-bin
     updates; a step whose normalization averages over bins (ILRMA's)
     averages over the padded bins too, as the JAX runner does (:574-579).
-    Returns the carry's leaves as a tuple.
+    ``precompute(X_local)``, the counterpart of ``precompute_fn``
+    (:558-561), runs once per rank on its block of ``X``, before the loop,
+    and the step gets its result as ``pre=`` (a loop-invariant operator,
+    ADMM's quadratic inverse). Returns the carry's leaves as a tuple.
     """
 
     def run(X, carry, n_iter: int):
@@ -310,6 +332,8 @@ def shard_pytree_run(
         extra = {}
         if bin_mask:
             extra["bin_mask"] = _extent(layout, X.shape[x_bin_axis]).mask(layout.device)
+        if precompute is not None:
+            extra["pre"] = precompute(X_local)
         for _ in range(n_iter):
             state = tuple(step_fn(X_local, state, layout.bin_sum, **extra))
         return _assemble(layout, rows, state, carry_bin_axes, n_bins)
@@ -526,3 +550,197 @@ def make_batched_auxiva_wave_runner(layout: Optional[Layout] = None, n_fft: int 
         return _assemble(layout, rows, [y], [None], [None])[0]
 
     return run
+
+
+# ---- the runners of the fixed-point, gradient, FDICA, prox and FastGaussMNMF families ------------
+
+
+def make_batched_fast_iva_runner(layout: Optional[Layout] = None, polar_impl: str = "eigh") -> Callable:
+    """FastIVA on the whitened mixture: ``run(Z (B, M, I, T), W (B, I, N, M), n_iter) -> W`` (:439-451).
+
+    ``Z`` is pre-whitened (``fixed_point_iva_steps.whiten_spectrogram`` of
+    each utterance), the IP1 layout. One all-reduce per iteration, the
+    contrast's norm over the bins; the fixed-point update and the polar
+    factor (K7, once for all utterances; ``polar_impl`` as
+    ``fast_iva_step`` takes it) are per bin.
+    """
+    from ..ops.fixed_point_iva_steps import fast_iva_step
+
+    return shard_batched_run(
+        _layout(layout), lambda Z, W, bin_sum: fast_iva_step(Z, W, polar_impl=polar_impl, bin_sum=bin_sum)
+    )
+
+
+def make_batched_faster_iva_runner(layout: Optional[Layout] = None, eig_impl: str = "eigh") -> Callable:
+    """FasterIVA, FastIVA's layout (:454-463). One all-reduce per iteration.
+
+    The per-source covariance (K1, once per utterance), its top
+    eigenvectors and the polar factor (K7 twice, once for all utterances;
+    ``eig_impl`` as ``faster_iva_step`` takes it) are per bin.
+    """
+    from ..ops.fixed_point_iva_steps import faster_iva_step
+
+    return shard_batched_run(
+        _layout(layout), lambda Z, W, bin_sum: faster_iva_step(Z, W, eig_impl=eig_impl, bin_sum=bin_sum)
+    )
+
+
+def make_batched_fdica_runner(layout: Optional[Layout] = None, spatial_algorithm: str = "IP1") -> Callable:
+    """AuxLaplaceFDICA, IP1 (or ``"IP"``) or IP2, the IP1 layout: ``run(X, W, n_iter) -> W`` (:481-499).
+
+    FDICA's weights are per scalar: nothing reduces over the bins and no
+    collective runs in the loop. IP1 launches K1 with ``(N, I, T)`` weights
+    once per utterance and K1b once for all; IP2 K1 at two sources once per
+    pair and utterance. No permutation alignment runs here, as in the JAX
+    runner.
+    """
+    from ..ops.fdica_steps import aux_laplace_fdica_ip1_step, aux_laplace_fdica_ip2_step
+
+    step = {"IP": aux_laplace_fdica_ip1_step, "IP1": aux_laplace_fdica_ip1_step,
+            "IP2": aux_laplace_fdica_ip2_step}[spatial_algorithm]
+    return shard_batched_run(_layout(layout), lambda X, W, bin_sum: step(X, W))
+
+
+def make_batched_grad_iva_runner(layout: Optional[Layout] = None, step_size: float = 1e-1, is_holonomic: bool = True,
+                                 natural: bool = False) -> Callable:
+    """Grad/NaturalGrad Laplace IVA, the IP1 layout (:502-526). One all-reduce per iteration, the score's norm.
+
+    The direction and the vanilla gradient's ``W^-H`` (``solve_ex``) are per
+    bin; no kernel.
+    """
+    from ..ops.iva_steps import grad_laplace_iva_step
+
+    def step(X, W, bin_sum):
+        return grad_laplace_iva_step(X, W, step_size=step_size, is_holonomic=is_holonomic, natural=natural,
+                                     bin_sum=bin_sum)
+
+    return shard_batched_run(_layout(layout), step)
+
+
+def make_batched_grad_fdica_runner(layout: Optional[Layout] = None, step_size: float = 1e-1,
+                                   is_holonomic: bool = True, natural: bool = False) -> Callable:
+    """Grad/NaturalGrad Laplace FDICA, the IP1 layout (:529-549): per-scalar scores, no collective, no kernel."""
+    from ..ops.fdica_steps import grad_laplace_fdica_step
+
+    def step(X, W, bin_sum):
+        return grad_laplace_fdica_step(X, W, step_size=step_size, is_holonomic=is_holonomic, natural=natural)
+
+    return shard_batched_run(_layout(layout), step)
+
+
+def make_batched_fast_mnmf_runner(layout: Optional[Layout] = None) -> Callable:
+    """FastGaussMNMF (IP1 diagonalizer): ``run(X (B, M, I, T), (Q, T, V, D), n_iter)`` (:721-751).
+
+    ``Q (B, I, M, M)`` (identity-padded), ``T (B, N, I, K)`` and ``D (B,
+    I, N, M)`` over bins, ``V (B, N, K, T)`` on every rank of a row. Two
+    all-reduces per iteration: the activation update and the power
+    normalization, whose mean is over the padded bins (compare padded
+    against padded, as the JAX runner documents). K1 with per-channel
+    weights once per utterance, K1b once for all.
+    """
+    from ..ops.fast_mnmf_steps import fast_gauss_mnmf_step
+
+    return shard_pytree_run(
+        _layout(layout), lambda X, c, bin_sum: fast_gauss_mnmf_step(X, *c, bin_sum=bin_sum),
+        x_bin_axis=2, carry_bin_axes=(1, 2, None, 1),
+    )
+
+
+def make_batched_pds_iva_runner(layout: Optional[Layout] = None, mu1: float = 1.0, mu2: float = 1.0,
+                                relaxation: float = 1.0) -> Callable:
+    """PDSIVA: ``run(X (B, M, I, T), (W (B, I, N, M), Y (B, N, I, T)), n_iter)`` (:785-816).
+
+    One all-reduce per iteration, the L21 group norm over the bins, where
+    zero-padded bins are exactly neutral; the log-det prox (K7, once for all
+    utterances) is per bin.
+    """
+    from ..ops.prox_steps import pds_iva_step
+
+    def step(X, carry, bin_sum):
+        return pds_iva_step(X, *carry, mu1=mu1, mu2=mu2, relaxation=relaxation, bin_sum=bin_sum)
+
+    return shard_pytree_run(_layout(layout), step, x_bin_axis=2, carry_bin_axes=(1, 2))
+
+
+def make_batched_admm_iva_runner(layout: Optional[Layout] = None, rho: float = 1.0,
+                                 relaxation: float = 1.0) -> Callable:
+    """ADMMIVA: ``run(X, (W, V, Vt, Y, Yt), n_iter)`` (:819-857).
+
+    Filter-shaped ``W``, ``V``, ``Y`` ``(B, I, N, M)`` and spectrogram-shaped
+    ``Vt``, ``Yt`` ``(B, N, I, T)`` over bins; ``W`` and ``V`` are
+    identity-padded, as the JAX runner's ``identity_leaves=(0, 1)``. ``W`` is
+    recomputed each iteration from the quadratic subproblem, whose inverse
+    ``(X X^H + I)^-1`` each rank takes once, before the loop, on its own
+    bins (``precompute``). One all-reduce per iteration, the L21 group norm;
+    the log-det prox (K7, once for all utterances) is per bin.
+    """
+    from ..ops.prox_steps import admm_iva_step, admm_quad_inv
+
+    def step(X, carry, bin_sum, pre):
+        return admm_iva_step(X, *carry[1:], rho=rho, relaxation=relaxation, quad_inv=pre, bin_sum=bin_sum)
+
+    return shard_pytree_run(
+        _layout(layout), step, x_bin_axis=2, carry_bin_axes=(1, 1, 2, 1, 2), identity_leaves=(0, 1),
+        precompute=admm_quad_inv,
+    )
+
+
+def make_batched_hva_runner(layout: Optional[Layout] = None, mu1: float = 1.0, mu2: float = 1.0,
+                            relaxation: float = 1.0, attenuation: Optional[float] = None,
+                            mask_iter: int = 1) -> Callable:
+    """HVA (masking PDS): ``run(X, (W, Y), n_iter)`` with PDSIVA's layout (:860-973).
+
+    The harmonic mask is a cepstral transform over the whole bin axis (two
+    ``irfft``), which a rank that holds a slice of the bins cannot run.
+    The JAX runner writes the transform as DFT matmuls whose partial sums
+    XLA all-reduces, twice per iteration (its pin,
+    tests/parallel/test_hlo_collectives.py:259). This runner departs from
+    that: each iteration gathers the row's floored log magnitude with one
+    all-reduce (every rank writes its real bins into a zero-filled buffer of
+    the global bin count; the sum is exact) and every rank runs the
+    unchanged cuFFT mask over the whole axis and keeps its own bins
+    (``prox_steps.gathered_harmonic_mask``). So its pin is 1, not the JAX
+    package's 2; it moves as many bytes as the JAX program's larger
+    all-reduce, and keeps cuFFT in place of the TPU's DFT as matmuls. The
+    padded bins' spectrograms stay zero and their masks are dropped, so
+    padding is exact. The log-det prox (K7, once for all utterances) is per
+    bin.
+    """
+    from ..ops.prox_steps import hva_pds_step
+
+    layout = _layout(layout)
+
+    def run(X, carry, n_iter: int):
+        n_bins = torch.as_tensor(X).shape[2]
+        bins = (_extent(layout, n_bins).first, n_bins)
+
+        def step(X_local, c, bin_sum):
+            return hva_pds_step(X_local, *c, mu1=mu1, mu2=mu2, relaxation=relaxation, attenuation=attenuation,
+                                mask_iter=mask_iter, bin_sum=bin_sum, bins=bins)
+
+        return shard_pytree_run(layout, step, x_bin_axis=2, carry_bin_axes=(1, 2))(X, carry, n_iter)
+
+    return run
+
+
+def make_batched_ica_runner(layout: Optional[Layout] = None, variant: str = "natural_grad", step_size: float = 1e-1,
+                            is_holonomic: bool = False) -> Callable:
+    """Time-domain Laplace ICA: ``run(X (B, M, T) real, W (B, M, M), n_iter) -> W`` (:860-903).
+
+    No bin axis: the batch splits over ``dp`` alone, no collective runs,
+    and the ranks of a row run the same utterances (the row's first rank
+    writes the result). ``variant``: ``"grad"`` (the direction applied to
+    ``W^-T``, by ``solve_ex``) or ``"natural_grad"`` (to ``W``), the step
+    ``ops.ica_steps.grad_ica_step`` with the Laplace score ``sign``. No
+    kernel.
+    """
+    from ..ops.ica_steps import grad_ica_step
+
+    natural = {"grad": False, "natural_grad": True}[variant]
+
+    def step(X, carry, bin_sum):
+        return (grad_ica_step(X, carry[0], torch.sign, step_size=step_size, is_holonomic=is_holonomic,
+                              natural=natural),)
+
+    run = shard_pytree_run(_layout(layout), step, x_bin_axis=None, carry_bin_axes=(None,), identity_leaves=())
+    return lambda X, W, n_iter: run(X, (W,), n_iter)[0]

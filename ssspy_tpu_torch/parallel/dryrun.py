@@ -8,14 +8,18 @@ GaussILRMA-IP1, masked dense GaussMNMF, cACGMM, GaussIPSDTA) at its shapes,
 257 bins where it takes them, so that the bins do not divide over the
 ranks. Each rank holds every sharded result against the same runner at
 world size 1 on its own device, within the JAX dry run's tolerances.
-GaussILRMA's power normalization averages over the padded bins, so its
-world-1 run takes the same padded inputs (padded against padded, as the
-JAX dry run compares it).
+GaussILRMA's and FastGaussMNMF's power normalizations average over the
+padded bins, so their world-1 runs take the same padded inputs (padded
+against padded, as the JAX dry run compares them).
 
-:data:`CASES` also holds the other four runners of the slice (IP2, ISS2,
-IPA and the waveform runner); :func:`spawn` starts the ranks of any
-function. ``python -m ssspy_tpu_torch.parallel.dryrun 4 --device cpu``
-runs the dry run.
+:data:`CASES` also holds every other runner (AuxIVA IP2, ISS2 and IPA, the
+waveform runner, dense GaussMNMF with partitioning, FastIVA, FasterIVA,
+AuxFDICA IP1 and IP2, GradIVA, GradFDICA, FastGaussMNMF, PDSIVA, ADMMIVA,
+HVA and time-domain ICA: 22 cases), and :func:`dryrun_multichip` also
+takes inputs the caller gives; :func:`spawn` starts the ranks of any
+function.
+``python -m ssspy_tpu_torch.parallel.dryrun 4 --device cpu`` runs the dry
+run, ``--all`` every case.
 """
 
 import argparse
@@ -33,6 +37,7 @@ import torch
 import torch.distributed as dist
 
 from . import (
+    make_batched_admm_iva_runner,
     make_batched_auxiva_ip2_runner,
     make_batched_auxiva_ipa_runner,
     make_batched_auxiva_iss1_runner,
@@ -40,12 +45,22 @@ from . import (
     make_batched_auxiva_runner,
     make_batched_auxiva_wave_runner,
     make_batched_cacgmm_runner,
+    make_batched_fast_iva_runner,
+    make_batched_fast_mnmf_runner,
+    make_batched_faster_iva_runner,
+    make_batched_fdica_runner,
     make_batched_gauss_mnmf_runner,
+    make_batched_grad_fdica_runner,
+    make_batched_grad_iva_runner,
+    make_batched_hva_runner,
+    make_batched_ica_runner,
     make_batched_ilrma_runner,
     make_batched_ipsdta_runner,
+    make_batched_pds_iva_runner,
     make_layout,
 )
 from ..ops import kernels
+from ..ops.fixed_point_iva_steps import fast_iva_laplace_loss
 from ..ops.iva_steps import iva_laplace_loss
 
 __all__ = ["Case", "CASES", "DRYRUN_CASES", "make_inputs", "run_case", "spawn", "dryrun_multichip"]
@@ -66,6 +81,18 @@ def _eye(shape, dtype):
     return np.broadcast_to(np.eye(shape[-1], dtype=dtype), shape).copy()
 
 
+def _whitened(X: np.ndarray) -> np.ndarray:
+    """Each bin of ``X (B, M, I, T)`` whitened: ``Lambda^-1/2 Gamma^H x`` from the eigh of ``mean_t x x^H``."""
+    C = np.einsum("bmit,bnit->bimn", X, X.conj()) / X.shape[-1]
+    lamb, G = np.linalg.eigh(C)
+    return np.einsum("bimk,bmit->bkit", G.conj(), X) / np.sqrt(lamb).transpose(0, 2, 1)[..., None]
+
+
+def _spectral_normalized(X: np.ndarray) -> np.ndarray:
+    """``X (B, M, I, T)`` over its largest spectral norm of a bin, the prox family's step-size scaling."""
+    return X / np.linalg.norm(X.transpose(0, 2, 1, 3), ord=2, axis=(-2, -1)).max()
+
+
 def make_inputs(name: str, n_batch: int = 2, n_bins: int = 257, real=np.float32) -> tuple:
     """The global inputs of runner ``name``: numpy arrays, utterances on axis 0, made from seed 0.
 
@@ -75,7 +102,12 @@ def make_inputs(name: str, n_batch: int = 2, n_bins: int = 257, real=np.float32)
     takes 33 bins and 8 frames (the JAX dry run's), or ``n_bins`` where that
     is less; GaussIPSDTA 8 frames and blocks of 4 bins, as many as fit in
     ``min(n_bins, 32)`` (32 bins, 8 blocks, the JAX dry run's); the waveform
-    runner ``(B, M, 2048)`` samples at ``n_fft = 256``.
+    runner ``(B, M, 2048)`` samples at ``n_fft = 256``. The runners of the
+    other families take the IVA shapes: FastIVA and FasterIVA the mixture
+    whitened per bin, PDSIVA, ADMMIVA and HVA the mixture over its largest
+    spectral norm of a bin (their step-size condition) with zero duals,
+    FastGaussMNMF 2 bases and loadings of 0.1 to 1.1, and time-domain ICA
+    ``(B, M, 2048)`` Laplace samples.
     ``real`` is the real dtype (complex inputs take its complex type).
     """
     rng = np.random.default_rng(0)
@@ -83,8 +115,25 @@ def make_inputs(name: str, n_batch: int = 2, n_bins: int = 257, real=np.float32)
     cdt = np.result_type(real, 1j)
     if name == "wave":
         return (rng.standard_normal((n_batch, M, 2048)).astype(real),)
-    if name in ("ip1", "ip2"):
+    if name in ("ip1", "ip2", "fdica_ip1", "fdica_ip2", "grad_iva", "grad_fdica"):
         return _cplx(rng, (n_batch, M, n_bins, T), real), _eye((n_batch, n_bins, M, M), cdt)
+    if name in ("fast_iva", "faster_iva"):
+        Z = _whitened(_cplx(rng, (n_batch, M, n_bins, T), np.float64)).astype(cdt)
+        return Z, _eye((n_batch, n_bins, M, M), cdt)
+    if name in ("pds_iva", "hva", "admm_iva"):
+        X = _spectral_normalized(_cplx(rng, (n_batch, M, n_bins, T), np.float64)).astype(cdt)
+        W, Y = _eye((n_batch, n_bins, M, M), cdt), np.zeros((n_batch, M, n_bins, T), cdt)
+        if name != "admm_iva":
+            return X, (W, Y)
+        return X, (W, W.copy(), Y, np.zeros_like(W), Y.copy())
+    if name == "fast_mnmf":
+        X = _cplx(rng, (n_batch, M, n_bins, T), real)
+        T_ = (rng.random((n_batch, M, n_bins, K)) + 0.1).astype(real)
+        V_ = (rng.random((n_batch, M, K, T)) + 0.1).astype(real)
+        D_ = (rng.random((n_batch, n_bins, M, M)) + 0.1).astype(real)
+        return X, (_eye((n_batch, n_bins, M, M), cdt), T_, V_, D_)
+    if name == "ica":
+        return rng.laplace(size=(n_batch, M, 2048)).astype(real), _eye((n_batch, M, M), real)
     if name in ("iss1", "iss2", "ipa"):
         return (_cplx(rng, (n_batch, M, n_bins, T), real),)
     if name == "ilrma":
@@ -140,9 +189,17 @@ class Case:
     AuxIVA loss (IPA: one float32 sweep turns a relative 1e-7 on its input
     into an O(1) change of the output, in the JAX package as well, whose
     sharded test runs IPA in float64; chip_smoke.py holds its IPA paths on
-    the loss for the same reason, with this tolerance). ``pin``: all-reduces per iteration
+    the loss for the same reason, with this tolerance); ``"whitened_loss"``,
+    the same on FastIVA's whitened Laplace loss (FasterIVA: the phase that
+    the top eigenvector takes in a bin whose largest components nearly tie
+    flips under float32 summation-order noise, as the JAX package's sharded
+    test notes, tests/parallel/test_sharding.py:506-511, and the phase
+    moves no loss). ``pin``: all-reduces per iteration
     through the bin hook with the bins split
-    (tests/parallel/test_hlo_collectives.py:241-262); ``extra``: those
+    (tests/parallel/test_hlo_collectives.py:241-262), but HVA's: 1 where the
+    JAX package pins 2, since its runner gathers the floored log magnitude
+    once and runs the whole-axis mask on cuFFT where the JAX runner's DFT
+    matmuls all-reduce twice (``make_batched_hva_runner``); ``extra``: those
     issued once, after the loop (the waveform runner's bin gather).
     ``launches``: each kernel's launches per iteration on a card that runs
     two utterances, the dry run's local batch at every layout (the steps
@@ -182,6 +239,25 @@ CASES: Dict[str, Case] = {
                  launches={"weighted_covariance": 2, "ip1_sweep": 1}),
     "mnmf_partitioning": Case(lambda layout: make_batched_gauss_mnmf_runner(layout, partitioning=True),
                               "pytree", 2e-3, 2, launches={"jacobi_eigh": 2, "model_traces": 8}),
+    # K7 once for both utterances (the polar factor); FasterIVA K1 once per utterance and K7 twice for both (the
+    # top eigenvectors, the polar factor); FDICA-IP1 K1 once per utterance and K1b once for both, IP2 K1 once per
+    # utterance and pair; FastGaussMNMF K1 once per utterance and K1b once for both; the prox family K7 once for
+    # both (the log-det prox); the gradient runners and ICA no kernel
+    "fast_iva": Case(make_batched_fast_iva_runner, "batched", 1e-5, 1, launches={"jacobi_eigh": 1}),
+    "faster_iva": Case(make_batched_faster_iva_runner, "batched", 1e-5, 1, measure="whitened_loss",
+                       launches={"weighted_covariance": 2, "jacobi_eigh": 2}),
+    "fdica_ip1": Case(make_batched_fdica_runner, "batched", 1e-5, 0,
+                      launches={"weighted_covariance": 2, "ip1_sweep": 1}),
+    "fdica_ip2": Case(lambda layout: make_batched_fdica_runner(layout, spatial_algorithm="IP2"), "batched", 1e-5, 0,
+                      launches={"weighted_covariance": 6}),
+    "grad_iva": Case(make_batched_grad_iva_runner, "batched", 1e-5, 1),
+    "grad_fdica": Case(make_batched_grad_fdica_runner, "batched", 1e-5, 0),
+    "fast_mnmf": Case(make_batched_fast_mnmf_runner, "pytree", 1e-4, 2,
+                      launches={"weighted_covariance": 2, "ip1_sweep": 1}),
+    "pds_iva": Case(make_batched_pds_iva_runner, "pytree", 1e-5, 1, launches={"jacobi_eigh": 1}),
+    "admm_iva": Case(make_batched_admm_iva_runner, "pytree", 1e-5, 1, launches={"jacobi_eigh": 1}),
+    "hva": Case(make_batched_hva_runner, "pytree", 1e-5, 1, launches={"jacobi_eigh": 1}),
+    "ica": Case(make_batched_ica_runner, "batched", 1e-5, 0),
 }
 # the six state layouts of the JAX dry run
 DRYRUN_CASES = ("ip1", "iss1", "ilrma", "mnmf", "cacgmm", "ipsdta")
@@ -200,13 +276,22 @@ def _pad_bins(a: np.ndarray, axis: int, n: int, identity: bool = False) -> np.nd
     return out
 
 
+# the runners whose normalization averages over the padded bins, compared padded against padded: each carry leaf's
+# bin axis (None: none) and whether it is identity-padded
+PADDED = {"ilrma": ((1, True), (2, False), (None, False)),
+          "fast_mnmf": ((1, True), (2, False), (None, False), (1, False))}
+
+
 def padded_inputs(name: str, inputs: tuple, shards: int) -> tuple:
-    """ILRMA's inputs padded as a run over ``shards`` bin shards pads them (X and T zeros, W identities)."""
-    if name != "ilrma" or shards == 1:
+    """The inputs of a :data:`PADDED` runner padded as a run over ``shards`` bin shards pads them (X zeros)."""
+    if name not in PADDED or shards == 1:
         return inputs
-    X, (W, T_, V_) = inputs
+    X, carry = inputs
     n = -(-X.shape[2] // shards) * shards
-    return _pad_bins(X, 2, n), (_pad_bins(W, 1, n, identity=True), _pad_bins(T_, 2, n), V_)
+    return _pad_bins(X, 2, n), tuple(
+        leaf if axis is None else _pad_bins(leaf, axis, n, identity=identity)
+        for leaf, (axis, identity) in zip(carry, PADDED[name])
+    )
 
 
 def run_case(name: str, layout, inputs: tuple, n_iter: int = N_STEPS) -> Tuple[torch.Tensor, ...]:
@@ -227,10 +312,9 @@ def run_case(name: str, layout, inputs: tuple, n_iter: int = N_STEPS) -> Tuple[t
 def reference_case(name: str, inputs: tuple, shards: int, device, n_iter: int = N_STEPS) -> Tuple[torch.Tensor, ...]:
     """Runner ``name`` at world size 1 on ``device``: the reference a run over ``shards`` bin shards is held to."""
     out = run_case(name, make_layout(world_size=1, device=device), padded_inputs(name, inputs, shards), n_iter)
-    if name == "ilrma" and shards > 1:
+    if name in PADDED and shards > 1:
         n_bins = inputs[0].shape[2]
-        W, T_, V_ = out
-        return W[:, :n_bins], T_[:, :, :n_bins], V_
+        return tuple(o if axis is None else o.narrow(axis, 0, n_bins) for o, (axis, _) in zip(out, PADDED[name]))
     return out
 
 
@@ -305,12 +389,14 @@ def spawn(world_size: int, fn: Callable, args: Sequence = (), device="cpu", back
     return [gathered[rank] for rank in range(world_size)]
 
 
-def error(name: str, inputs: tuple, out: torch.Tensor, ref: torch.Tensor) -> float:
-    """``out`` against ``ref`` on case ``name``'s measure (:class:`Case`)."""
-    measure = CASES[name].measure
-    if measure == "loss":
+def error(name: str, inputs: tuple, out: torch.Tensor, ref: torch.Tensor, measure: Optional[str] = None) -> float:
+    """``out`` against ``ref`` on case ``name``'s measure (:class:`Case`), or on ``measure``."""
+    measure = measure or CASES[name].measure
+    if measure in ("loss", "whitened_loss"):
         X = torch.as_tensor(inputs[0]).to(ref.device)
-        losses = [(iva_laplace_loss(X[b], Y=out[b]), iva_laplace_loss(X[b], Y=ref[b])) for b in range(X.shape[0])]
+        loss = ((lambda x, y: iva_laplace_loss(x, Y=y)) if measure == "loss"
+                else (lambda z, w: fast_iva_laplace_loss(z, w)))
+        losses = [(loss(X[b], out[b]), loss(X[b], ref[b])) for b in range(X.shape[0])]
         return max(float((a - b).abs() / b.abs()) for a, b in losses)
     err = float((out - ref).abs().max())
     return err / float(ref.abs().max()) if measure == "rel" else err
@@ -368,7 +454,8 @@ def _held(name: str, args: list, kwargs: dict) -> float:
     return max(0.0 if torch.equal(g, r) else float((g - r).abs().max() / r.abs().max()) for g, r in zip(got, ref))
 
 
-def _rank_cases(names: Sequence[str], device: str, hold_kernels: bool) -> dict:
+def _rank_cases(names: Sequence[str], device: str, hold_kernels: bool, given: Optional[Mapping[str, tuple]],
+                n_iter: int, measure: Optional[str]) -> dict:
     """One rank's share of the dry run: every case sharded, then at world size 1; the errors and counts.
 
     With ``hold_kernels`` every kernel call of the sharded run is recorded
@@ -379,22 +466,22 @@ def _rank_cases(names: Sequence[str], device: str, hold_kernels: bool) -> dict:
     layout = make_layout(device=device)
     report = {"shape": layout.shape, "rank": layout.rank, "cases": {}}
     for name in names:
-        inputs = make_inputs(name, n_batch=2 * layout.shape[0])
+        inputs = given[name] if given else make_inputs(name, n_batch=2 * layout.shape[0])
         calls, held = [], {}
         before = _launches()
         all_reduces = 0 if layout.bin_sum is None else layout.bin_sum.calls
         with _recording(calls) if hold_kernels else contextlib.nullcontext():
-            out = run_case(name, layout, inputs)
+            out = run_case(name, layout, inputs, n_iter)
         all_reduces = (0 if layout.bin_sum is None else layout.bin_sum.calls) - all_reduces
         launches = {k: v - before[k] for k, v in _launches().items()}
         for kernel, args, kwargs in calls:
             n_held, worst = held.get(kernel, (0, 0.0))
             held[kernel] = (n_held + 1, max(worst, _held(kernel, args, kwargs)))
-        ref = reference_case(name, inputs, layout.shape[1], layout.device)
-        errors = [error(name, inputs, o, r) for o, r in zip(out, ref)]
+        ref = reference_case(name, inputs, layout.shape[1], layout.device, n_iter)
+        errors = [error(name, inputs, o, r, measure) for o, r in zip(out, ref)]
         finite = all(bool(torch.isfinite(torch.view_as_real(o) if o.is_complex() else o).all()) for o in out)
         report["cases"][name] = {
-            "max_abs_err": max(errors), "tol": CASES[name].tol, "finite": finite,
+            "max_abs_err": max(errors), "finite": finite,
             "shapes": [tuple(o.shape) for o in out], "ref_shapes": [tuple(r.shape) for r in ref],
             "bin_sum_calls": all_reduces, "launches": launches, "held": held,
         }
@@ -402,39 +489,47 @@ def _rank_cases(names: Sequence[str], device: str, hold_kernels: bool) -> dict:
 
 
 def dryrun_multichip(n_ranks: int, device="cuda", names: Sequence[str] = DRYRUN_CASES,
-                     backend: Optional[str] = None, kernel_tols: Optional[Mapping[str, float]] = None) -> dict:
+                     backend: Optional[str] = None, kernel_tols: Optional[Mapping[str, float]] = None,
+                     inputs: Optional[Mapping[str, tuple]] = None, n_iter: int = N_STEPS,
+                     rel_tol: Optional[float] = None) -> dict:
     """Run ``names`` over ``n_ranks`` spawned ranks and hold each against world size 1; raise on any miss.
 
     ``device="cpu"`` runs gloo ranks on the CPU; on the card, ranks beyond
     the number of cards share a card over gloo (:func:`spawn`). Each rank
-    runs :data:`N_STEPS` steps at :func:`make_inputs`'s shapes in float32
-    and holds every output against the same runner at world size 1 within
-    the case's tolerance, and the all-reduces through the bin hook against
-    its pin. The launches summed over the ranks must equal the case's
-    ``launches`` on the card (none on the CPU, where the wrappers take
-    their plain versions). With ``kernel_tols`` (kernel -> the largest
-    relative error against its plain version, 0 for bit for bit) each rank
-    also holds every kernel call of its sharded run at its own shapes, and
-    every kernel the case launches must have been held. Returns rank 0's
-    report with the launches, all-reduces and holds summed over the ranks.
+    runs ``n_iter`` steps at :func:`make_inputs`'s shapes in float32, or on
+    ``inputs`` (name -> the global ``(X, carry)`` in :func:`make_inputs`'s
+    layout, two utterances a row of ranks), and holds every output against
+    the same runner at world size 1 within the case's tolerance on its
+    measure, or within ``rel_tol`` on the ``"rel"`` measure (the given
+    inputs' magnitudes are not the dry run's), and the all-reduces through
+    the bin hook against its pin. The launches summed over the ranks must
+    equal the case's ``launches`` on the card (none on the CPU, where the
+    wrappers take their plain versions). With ``kernel_tols`` (kernel ->
+    the largest relative error against its plain version, 0 for bit for
+    bit) each rank also holds every kernel call of its sharded run at its
+    own shapes, and every kernel the case launches must have been held.
+    Returns rank 0's report with each case's tolerance, and the launches,
+    all-reduces and holds summed over the ranks.
     """
     on_card = torch.device(device).type == "cuda"
-    reports = spawn(n_ranks, _rank_cases, (tuple(names), str(device), kernel_tols is not None), device=device,
-                    backend=backend)
+    measure = None if rel_tol is None else "rel"
+    reports = spawn(n_ranks, _rank_cases, (tuple(names), str(device), kernel_tols is not None, inputs, n_iter, measure),
+                    device=device, backend=backend)
     report = reports[0]
     misses = []
     for name in names:
         case = CASES[name]
+        tol = case.tol if rel_tol is None else rel_tol
         for r in reports:
             got = r["cases"][name]
-            pin = 0 if r["shape"][1] == 1 else case.pin * N_STEPS + case.extra
-            if not (got["finite"] and got["max_abs_err"] <= case.tol and got["shapes"] == got["ref_shapes"]):
-                misses.append(f"{name} rank {r['rank']}: error {got['max_abs_err']} > {case.tol} or not finite "
+            pin = 0 if r["shape"][1] == 1 else case.pin * n_iter + case.extra
+            if not (got["finite"] and got["max_abs_err"] <= tol and got["shapes"] == got["ref_shapes"]):
+                misses.append(f"{name} rank {r['rank']}: error {got['max_abs_err']} > {tol} or not finite "
                               f"or shapes {got['shapes']} != {got['ref_shapes']}")
             if got["bin_sum_calls"] != pin:
                 misses.append(f"{name} rank {r['rank']}: {got['bin_sum_calls']} all-reduces, expected {pin}")
         launches = {k: sum(r["cases"][name]["launches"][k] for r in reports) for k in KERNELS}
-        expected = {k: n_ranks * N_STEPS * case.launches.get(k, 0) if on_card else 0 for k in KERNELS}
+        expected = {k: n_ranks * n_iter * case.launches.get(k, 0) if on_card else 0 for k in KERNELS}
         if launches != expected:
             misses.append(f"{name}: launches {launches}, expected {expected}")
         held = {}
@@ -447,7 +542,7 @@ def dryrun_multichip(n_ranks: int, device="cuda", names: Sequence[str] = DRYRUN_
                 n_held, worst = held.get(kernel, (0, float("nan")))
                 if not (n_held and worst <= kernel_tols[kernel]):
                     misses.append(f"{name}: {kernel} held on {n_held} calls, error {worst} > {kernel_tols[kernel]}")
-        report["cases"][name].update(launches=launches, held=held)
+        report["cases"][name].update(tol=tol, launches=launches, held=held)
     if misses:
         raise AssertionError("dry run failed:\n" + "\n".join(misses))
     return report

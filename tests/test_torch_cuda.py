@@ -1063,12 +1063,15 @@ def test_free_routes_agree_with_their_eigh_routes_on_the_card(cuda_device):
 
 @pytest.mark.cuda
 @pytest.mark.parametrize("name", ["ip1", "iss1", "ilrma", "mnmf", "cacgmm", "ipsdta", "ip2", "iss2", "ipa", "wave",
-                                  "mnmf_partitioning"])
+                                  "mnmf_partitioning", "fast_iva", "faster_iva", "fdica_ip1", "fdica_ip2", "grad_iva",
+                                  "grad_fdica", "fast_mnmf", "pds_iva", "admm_iva", "hva", "ica"])
 def test_runner_at_world_size_one_on_the_card(cuda_device, name):
     """Each runner with no process group on the card (float32, the dry run's shapes at 257 bins) against the same
     runner on the CPU: the outputs within a relative 1e-3 (the card's kernels against the CPU's plain versions after
     two steps), IPA and ISS2 on their loss within its case's 3e-4 (one float32 sweep of IPA turns input noise into
-    O(1) output changes); and the kernels of its path launched on the card, each as often as its case counts."""
+    O(1) output changes) and FasterIVA on its whitened loss within its case's tolerance (a top eigenvector's phase
+    may flip in a bin whose components nearly tie); and the kernels of its path launched on the card, each as often
+    as its case counts."""
     from ssspy_tpu_torch.parallel import make_layout
     from ssspy_tpu_torch.parallel.dryrun import CASES, KERNELS, N_STEPS, error, make_inputs, run_case
 
@@ -1080,7 +1083,7 @@ def test_runner_at_world_size_one_on_the_card(cuda_device, name):
     ref = run_case(name, make_layout(device="cpu"), inputs)
     for o, r in zip(out, ref):
         assert o.device.type == "cuda" and torch.isfinite(torch.view_as_real(o) if o.is_complex() else o).all()
-        if CASES[name].measure == "loss":
+        if CASES[name].measure in ("loss", "whitened_loss"):
             assert error(name, inputs, o.cpu(), r) <= CASES[name].tol
         else:
             assert (o.cpu() - r).abs().max() <= 1e-3 * r.abs().max()

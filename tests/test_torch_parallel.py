@@ -53,7 +53,7 @@ from tests import torch_parallel_worker as worker
 torch.set_num_threads(1)
 
 WORLDS = {"1x2": (1, 2), "2x1": (2, 1), "2x2": (2, 2), "1x4": (1, 4)}
-NAMES = tuple(CASES)
+NAMES = worker.WORLD_CASES  # the runners of tests/test_torch_parallel_runners.py run there
 # the JAX tests' tolerances for each runner against its unsharded run (tests/parallel/test_sharding.py,
 # __graft_entry__.py:144-268); IPA's is the JAX test's x64 one
 JAX_TOL = {
