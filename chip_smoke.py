@@ -162,7 +162,34 @@ calls, on the default device:
   kernel call of its sharded run against the kernel's plain version at the
   rank's own shapes (M = N = 3, 32 frames, 129 of 257 bins, 65 of the
   waveform runner's 129, 17 of dense MNMF's 33, IPSDTA's 4 x 4 blocks), at
-  the gates of phases 3-4g (RANK_KERNEL_TOLS).
+  the gates of phases 3-4g (RANK_KERNEL_TOLS);
+- WAV in, separated WAVs out (``[wav]`` lines, 5o): the native codec built
+  from ``ssspy_tpu_torch/native`` (the phase fails where it did not build);
+  the peak-normalized mixture written as 8-channel 16-bit PCM by
+  ``native.wav_write_i16`` and read back by ``wavread`` and
+  ``native.wav_read``, which must agree to the bit; ``separate`` with
+  AuxIVA-IP1 on what was read, 100 iterations, K1 and K1b once an
+  iteration, equal to the bit to the same call on the quantized mixture in
+  memory and held against its plain twin with the path gates; each source
+  peak-normalized, written as mono by ``wavwrite`` and read back within
+  ``WAV_SI_SDR_DB`` of itself;
+- the spatial updates ``update_by_*`` at the main path's shapes in
+  complex64 (``[update_by]``, 5p): ``update_by_ip1`` (K1b once) equal to
+  ``ip1_update`` to the bit and within 1e-4 of the exact twin,
+  ``update_by_iss1`` (K2 once) within 1e-4 of the plain version,
+  ``update_by_ipa`` (K1 once, K7 and K6 once per source), each K6 round
+  within 1e-5 and each K7 call equal to the plain version, its loss within
+  3e-4 of the plain twin's; ``update_by_ip2``, ``update_by_iss2`` and
+  ``update_by_block_decomposition_vcd`` (no kernel) in complex128 on the
+  card within 1e-6 of the CPU, and finite in complex64;
+- a ``flooring_fn`` that is not ``max(., eps)`` (``[flooring]``, 5q): one
+  class or more of each family that takes one, with ``v + 1e-10`` in
+  complex128 on the 4-channel 2 s cut of 5i, 10 iterations, no kernel
+  launched and the loss within 1e-6 of the CPU's (the CPU twins run on a
+  thread beside the card); AuxLaplaceIVA-IP1 at full width in complex64
+  with ``v + 1e-6``, 20 iterations: K1 once an iteration and K1b never
+  (the plain sweep), the loss falling; and the default floor, which still
+  launches K1b.
 
 Each class there runs with the fast path's floor (``flooring_fn="f64"``
 where its floor differs) and must equal its fast path to the bit; each path
@@ -235,12 +262,14 @@ import os
 import statistics
 import subprocess
 import sys
+import tempfile
 import time
 from concurrent.futures import ThreadPoolExecutor
 
 import numpy as np
 import torch
 
+from ssspy_tpu_torch import native, wavread, wavwrite
 from ssspy_tpu_torch import separate as separate_waveform
 from ssspy_tpu_torch.algorithm import correlation_based_permutation_solver, permutation_align
 from ssspy_tpu_torch.bss import (
@@ -249,6 +278,8 @@ from ssspy_tpu_torch.bss import (
     GGDILRMA,
     HVA,
     PDSIVA,
+    TIPSDTA,
+    AuxGaussIVA,
     AuxLaplaceFDICA,
     AuxLaplaceIVA,
     FasterIVA,
@@ -264,6 +295,14 @@ from ssspy_tpu_torch.bss import (
     NaturalGradLaplaceICA,
     NaturalGradLaplaceIVA,
     TILRMA,
+)
+from ssspy_tpu_torch.bss._update_spatial_model import (
+    update_by_block_decomposition_vcd,
+    update_by_ip1,
+    update_by_ip2,
+    update_by_ipa,
+    update_by_iss1,
+    update_by_iss2,
 )
 from ssspy_tpu_torch.fast import (
     fast_admm_iva,
@@ -313,6 +352,7 @@ from ssspy_tpu_torch.ops.iva_steps import (
     auxiva_iss1_step,
     auxiva_iss2_step,
     grad_laplace_iva_step,
+    ip1_update,
     iva_laplace_loss,
     separate,
 )
@@ -449,6 +489,8 @@ RANK_KERNEL_TOLS = {"weighted_covariance": WCOV_TOL, "ip1_sweep": SWEEP_TOL, "is
                     "jacobi_eigh": 0.0, "ipa_congruence": IPA_TOL, "gj_inverse": 0.0,
                     "inv_sandwich": INV_SANDWICH_TOL, "model_traces": MODEL_TRACES_TOL}
 ICA_FIXTURE_TOL = 1e-6  # tests/regression/test_regression.py:179-186
+WAV_SI_SDR_DB = 60.0  # a separated source through its 16-bit WAV file against itself in memory
+N_ITER_FLOORING = 20  # AuxLaplaceIVA-IP1 at full width with a flooring_fn that is not max(., eps)
 REPO = os.path.dirname(os.path.abspath(__file__))
 
 # the card's peaks for the bound: NVIDIA H100 SXM data sheet, at 700 W
@@ -2840,6 +2882,164 @@ def main() -> None:
         check(rank_launches[name] > 0, f"the sharded runners never launched {name}")
         totals[name] += rank_launches[name]
     say("parallel", ranks_launches=repr(rank_launches), seconds=f"{time.perf_counter() - parallel_start:.1f}")
+
+    # ---- 5o. WAV in, separated WAVs out: the native codec, wavread/wavwrite and AuxIVA-IP1 at full width ----------
+    laps("5o")
+    start = time.perf_counter()
+    check(native.available(), f"the native codec did not build: {native.build_error()}")
+    say("wav", codec=repr(os.path.relpath(native.library_path(), REPO)), build_seconds=f"{time.perf_counter() - start:.3f}")
+    mixture = make_mixture(seed=0)
+    pcm = np.round(mixture / np.abs(mixture).max() * 32767).astype(np.int16).T  # (samples, channels), peak-normalized
+    with tempfile.TemporaryDirectory() as wav_dir:
+        mix_path = os.path.join(wav_dir, "mixture.wav")
+        native.wav_write_i16(mix_path, pcm, 16000)
+        wave_read, rate = wavread(mix_path, channels_first=True)
+        wave_native, rate_native = native.wav_read(mix_path)
+        info = native.wav_info(mix_path)
+        check(info == (8, 16000, 16, pcm.shape[0]) and rate == rate_native == 16000, f"WAV header {info}, {rate}")
+        same = bool(np.array_equal(wave_read.astype(np.float32), wave_native.T))
+        say("wav", file=repr("mixture.wav"), info=info, bytes=os.path.getsize(mix_path), shape=wave_read.shape,
+            readers_equal=same)
+        check(same, "wavread and native.wav_read disagree on the mixture")
+        wave_file = torch.from_numpy(wave_read.astype(np.float32))
+        wave_mem = torch.from_numpy((pcm.T / 32768).astype(np.float32))  # the quantized mixture, never written
+
+        def wav_run(wave_in):
+            iva_wav = AuxLaplaceIVA(spatial_algorithm="IP")
+            y = separate_waveform(wave_in, iva_wav, n_iter=N_ITER, n_fft=N_FFT, hop_length=HOP)
+            return iva_wav, y
+
+        iva_wav, y_file = drive("separate (WAV), AuxIVA-IP1", lambda: wav_run(wave_file),
+                                {"weighted_covariance": N_ITER, "ip1_sweep": N_ITER}, totals, exact=True)
+        iva_mem, y_mem = wav_run(wave_mem)
+        plain_wav, y_plain = run_plain(lambda: wav_run(wave_file))
+        torch.cuda.synchronize()
+        bits = bool(torch.equal(y_file, y_mem)) and bool(torch.equal(iva_wav.output, iva_mem.output))
+        say("wav", path=repr("separate (WAV), AuxIVA-IP1"), equals_in_memory_run=bits)
+        check(bits, "the run on the WAV file differs from the run on the array in memory")
+        check(all_finite(y_file) and tuple(y_file.shape) == tuple(wave_file.shape), "separated waveform")
+        hold_class("separate (WAV), AuxIVA-IP1", iva_wav, iva_wav.output, plain_wav, plain_wav.output)
+        sdr_out = []
+        for n, source in enumerate(y_file.cpu().numpy().astype(np.float64)):
+            scaled = source / np.abs(source).max() * 0.99  # below full scale: wavwrite maps 1.0 to 32768
+            path = os.path.join(wav_dir, f"source{n}.wav")
+            wavwrite(path, scaled, 16000)
+            back, rate = wavread(path)
+            check(rate == 16000 and back.shape == scaled.shape, f"source {n}: {rate}, {back.shape}")
+            sdr_out.append(si_sdr_db(back, scaled))
+        say("wav", sources_written=len(sdr_out), min_round_trip_si_sdr_db=min(sdr_out), tol=WAV_SI_SDR_DB)
+        check(min(sdr_out) >= WAV_SI_SDR_DB, f"a source lost {min(sdr_out):.1f} dB through its WAV file")
+
+    # ---- 5p. the update_by_* spatial updates at the main path's shapes ---------------------------------------------
+    laps("5p")
+    W_up = W_eye + 0.1 * torch.complex(*(torch.from_numpy(rng.standard_normal((I, M, M), dtype=np.float32))
+                                        for _ in range(2))).to(device)
+    U_up = K.weighted_covariance(X, phi_scalar)
+    W_by = drive("update_by_ip1", lambda: update_by_ip1(W_up, U_up), {"ip1_sweep": 1}, totals, exact=True)
+    W_router = ip1_update(W_up, U_up, eps=1e-10)
+    W_exact = K.ip1_sweep_plain(W_up, U_up, eps=1e-10, solve_impl="gjnp")
+    rel = relative_error(W_by, W_exact)
+    say("update_by", update=repr("update_by_ip1"), shape=tuple(W_up.shape), equals_ip1_update=bool(torch.equal(W_by, W_router)),
+        rel_err=rel, tol=SWEEP_TOL)
+    check(torch.equal(W_by, W_router) and rel <= SWEEP_TOL, f"update_by_ip1: rel err {rel} against the exact twin")
+    weight = phi_scalar[:, None, :]  # (N, 1, T), as the JAX classes broadcast it
+    Y_by = drive("update_by_iss1", lambda: update_by_iss1(X, weight), {"iss1_sweep": 1}, totals, exact=True)
+    rel = relative_error(Y_by, K.iss1_sweep_plain(X, phi_scalar, eps=1e-10))
+    say("update_by", update=repr("update_by_iss1"), shape=tuple(X.shape), rel_err=rel, tol=ISS1_TOL)
+    check(all_finite(Y_by) and rel <= ISS1_TOL, f"update_by_iss1: rel err {rel}")
+    congruence, eighs = [], []
+    with recording(ipa_steps, "congruence_round", lambda *args: congruence.append(tuple(a.clone() for a in args))), \
+            recording(prox_steps, "symm_eigh", lambda S: eighs.append(S.reshape(-1, *S.shape[-2:]).clone())):
+        Y_ipa = drive("update_by_ipa", lambda: update_by_ipa(X, weight),
+                      {"weighted_covariance": 1, "jacobi_eigh": M, "ipa_congruence": M}, totals, exact=True)
+    Y_ipa_plain = run_plain(lambda: update_by_ipa(X, weight))
+    cong_err = max(relative_error(K.ipa_congruence(*args)[0], K.ipa_congruence_plain(*args)[0]) for args in congruence)
+    eigh_equal = all(all(map(torch.equal, K.jacobi_eigh(A), K.jacobi_eigh_plain(A))) for A in eighs)
+    loss_ipa, loss_ipa_plain = float(iva_laplace_loss(X, Y=Y_ipa)), float(iva_laplace_loss(X, Y=Y_ipa_plain))
+    loss_rel = abs(loss_ipa - loss_ipa_plain) / abs(loss_ipa_plain)
+    say("update_by", update=repr("update_by_ipa"), rounds=len(congruence), congruence_rel_err=cong_err, tol=IPA_TOL,
+        eighs=len(eighs), eigh_bits_equal=eigh_equal, loss=loss_ipa, plain_loss=loss_ipa_plain, loss_rel_diff=loss_rel,
+        loss_tol=SENSITIVE_LOSS_TOL)
+    check(all_finite(Y_ipa) and cong_err <= IPA_TOL and eigh_equal and loss_rel <= SENSITIVE_LOSS_TOL,
+          f"update_by_ipa: K6 {cong_err}, K7 bits {eigh_equal}, loss {loss_rel}")
+    # no kernel: on the card against the CPU, in complex128 (and in complex64 on the card: finite, nothing launched)
+    W128, U128, X128_up = W_up.to(torch.complex128), U_up.to(torch.complex128), X.to(torch.complex128)
+    w128 = phi_scalar.to(torch.float64)[:, None, :].expand(M, I, T)
+    # VCD on the first part of IPSDTA's blocks (63 of 4 bins), the model's inverse the weights times the identity
+    X_part = ipsdta_steps.split_bins(X128_up, 1, ipsdta_steps.part_shapes(I, IPSDTA_BLOCKS))[0]  # (M, 63, 4, T)
+    n_blocks, n_neighbors = X_part.shape[1:3]
+    R_inv = (phi_scalar.to(torch.float64)[:, :, None, None, None]
+             * torch.eye(n_neighbors, dtype=torch.complex128, device=device)).expand(M, T, n_blocks, -1, -1)
+    RXX = ipsdta_steps.vcd_covariance(R_inv, X_part)
+    W_vcd = ipsdta_steps.split_bins(W128, 0, ipsdta_steps.part_shapes(I, IPSDTA_BLOCKS))[0]
+    for label, update, args in (
+        ("update_by_ip2", update_by_ip2, (W128, U128)),
+        ("update_by_iss2", update_by_iss2, (X128_up, w128)),
+        ("update_by_block_decomposition_vcd", update_by_block_decomposition_vcd, (W_vcd, RXX)),
+    ):
+        out = drive(label, lambda: update(*args), {}, totals, exact=True)
+        out_cpu = update(*(a.cpu() for a in args))
+        rel = relative_error(out.cpu(), out_cpu)
+        out64 = drive(f"{label}, complex64", lambda: update(*(a.to(torch.complex64 if a.is_complex() else torch.float32)
+                                                              for a in args)), {}, totals, exact=True)
+        say("update_by", update=repr(label), shape=tuple(args[0].shape), card_vs_cpu_rel_err=rel, tol=ROUTE_LOSS_TOL,
+            complex64_finite=all_finite(out64))
+        check(all_finite(out, out64) and rel <= ROUTE_LOSS_TOL, f"{label}: {rel} from the CPU")
+
+    # ---- 5q. a flooring_fn that is not max(., eps): the plain routes, with the callable ---------------------------------
+    laps("5q")
+
+    def shifted(v):
+        return v + 1e-10
+
+    flooring_classes = {
+        "AuxLaplaceIVA(IP1)": lambda d: AuxLaplaceIVA(spatial_algorithm="IP1", flooring_fn=shifted, device=d),
+        "AuxLaplaceIVA(IPA)": lambda d: AuxLaplaceIVA(spatial_algorithm="IPA", flooring_fn=shifted, device=d),
+        "AuxGaussIVA(ISS1)": lambda d: AuxGaussIVA(spatial_algorithm="ISS1", flooring_fn=shifted, device=d),
+        "GaussILRMA(ISS1)": lambda d: GaussILRMA(n_basis=2, spatial_algorithm="ISS1", flooring_fn=shifted,
+                                                 rng=np.random.default_rng(0), device=d),
+        "TILRMA(IP2)": lambda d: TILRMA(n_basis=2, dof=1000, spatial_algorithm="IP2", flooring_fn=shifted,
+                                        rng=np.random.default_rng(0), device=d),
+        "AuxLaplaceFDICA(IP1)": lambda d: AuxLaplaceFDICA(spatial_algorithm="IP1", flooring_fn=shifted, device=d),
+        "GaussMNMF": lambda d: GaussMNMF(n_basis=2, flooring_fn=shifted, rng=np.random.default_rng(0), device=d),
+        "FastGaussMNMF(IP1)": lambda d: FastGaussMNMF(n_basis=2, flooring_fn=shifted, rng=np.random.default_rng(0),
+                                                      device=d),
+        "TIPSDTA": lambda d: TIPSDTA(n_basis=2, n_blocks=IPSDTA_BLOCKS, dof=IPSDTA_DOF, flooring_fn=shifted,
+                                     rng=np.random.default_rng(0), device=d),
+        "CACGMM": lambda d: CACGMM(flooring_fn=shifted, rng=np.random.default_rng(0), device=d),
+    }
+
+    def on_host(make):
+        host_method = make("cpu")
+        host_method(X128.cpu(), n_iter=ROUTE_ITER)
+        return host_method
+
+    # the CPU twins run on a thread of their own while the card runs the classes
+    with ThreadPoolExecutor(max_workers=1) as pool:
+        host_runs = {label: pool.submit(on_host, make) for label, make in flooring_classes.items()}
+        card_runs = {}
+        for label, make in flooring_classes.items():
+            card_method = make(device)
+            Y = drive(f"{label}, flooring_fn=v + 1e-10, complex128", lambda: card_method(X128, n_iter=ROUTE_ITER),
+                      {}, totals, exact=True)
+            card_runs[label] = (card_method, Y)
+    for label, (card_method, Y) in card_runs.items():
+        host_method = host_runs[label].result()
+        rel = abs(card_method.loss[-1] - host_method.loss[-1]) / abs(host_method.loss[-1])
+        say("flooring", path=repr(label), shape=tuple(X128.shape), loss=card_method.loss[-1],
+            cpu_loss=host_method.loss[-1], loss_rel_diff=rel, tol=ROUTE_LOSS_TOL)
+        check(all_finite(Y) and Y.dtype == torch.complex128 and rel <= ROUTE_LOSS_TOL, f"{label} with a callable: {rel}")
+    iva_shift = AuxLaplaceIVA(spatial_algorithm="IP", flooring_fn=lambda v: v + 1e-6)
+    Y_shift = drive("AuxLaplaceIVA(IP1), flooring_fn=v + 1e-6, complex64",
+                    lambda: iva_shift(X, n_iter=N_ITER_FLOORING), {"weighted_covariance": N_ITER_FLOORING}, totals,
+                    exact=True)
+    say("route", path=repr("AuxLaplaceIVA(IP1), flooring_fn=v + 1e-6"), ip1_update="plain",
+        loss_first=iva_shift.loss[0], loss_last=iva_shift.loss[-1])
+    check(all_finite(Y_shift) and iva_shift.loss[-1] < iva_shift.loss[0], "AuxLaplaceIVA with a callable floor")
+    iva_default = AuxLaplaceIVA(spatial_algorithm="IP")
+    drive("AuxLaplaceIVA(IP1), default floor", lambda: iva_default(X, n_iter=2),
+          {"weighted_covariance": 2, "ip1_sweep": 2}, totals, exact=True)
+    say("route", path=repr("AuxLaplaceIVA(IP1), default floor"), ip1_update="kernel")
 
     # ---- 6. times --------------------------------------------------------------
     laps("6")

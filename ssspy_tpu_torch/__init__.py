@@ -27,13 +27,31 @@ PCA and whitening, projection back, minimal distortion principle, the eigendecom
 routes of :mod:`linalg.eig_free` (options of the IPA, FastIVA and FasterIVA
 steps), the waveform-to-waveform
 :func:`separate`, :func:`fast.fast_auxiva_wave` and
-:func:`fast.fast_gauss_ilrma_wave`. Every
+:func:`fast.fast_gauss_ilrma_wave`; the (dp, bin) multi-device runners
+(:mod:`parallel`); WAV I/O (:func:`wavread`, :func:`wavwrite`) and the
+native codec (:mod:`native`); the reference's public math helpers
+(:mod:`linalg`, :mod:`special`) and spatial updates (``update_by_*``). Every
 entry point runs on the card unless the caller passes ``device="cpu"``.
 """
 
-from . import algorithm, bss, fast, linalg, ops, special, transform, utils
+from . import algorithm, bss, fast, linalg, native, ops, parallel, special, transform, utils
+from .io import wavread, wavwrite
 from .pipeline import separate
 
 __version__ = "0.1.0"
 
-__all__ = ["algorithm", "bss", "fast", "linalg", "ops", "special", "transform", "utils", "separate"]
+__all__ = [
+    "wavread",
+    "wavwrite",
+    "algorithm",
+    "bss",
+    "fast",
+    "linalg",
+    "native",
+    "ops",
+    "parallel",
+    "special",
+    "transform",
+    "utils",
+    "separate",
+]

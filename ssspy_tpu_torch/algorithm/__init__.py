@@ -1,3 +1,4 @@
+from . import permutation_alignment
 from .minimal_distortion_principle import minimal_distortion_principle
 from .permutation_alignment import (
     correlation_based_permutation_solver,
@@ -12,6 +13,7 @@ __all__ = [
     "correlation_based_permutation_solver",
     "score_based_permutation_solver",
     "permutation_align",
+    "permutation_alignment",
 ]
 
 PROJECTION_BACK_KEYWORDS = ["projection_back", "projection-back", "PB"]

@@ -23,10 +23,10 @@ from ..algorithm.permutation_alignment import (
     score_based_permutation_solver,
 )
 from ..ops import cacgmm_steps
-from ..special.flooring import choose_flooring_fn, resolve_flooring_spec
+from ..special.flooring import choose_flooring_fn, floor, resolve_flooring_spec
 from ..utils.device import DEFAULT_DEVICE
 from .base import IterativeMethodBase, config_repr
-from .mnmf import mnmf_eps
+from .mnmf import mnmf_flooring
 
 __all__ = ["CACGMMBase", "CACGMM"]
 
@@ -41,10 +41,13 @@ class CACGMMBase(IterativeMethodBase):
     normalized over sources, then the diagonals of the covariances ``(N, I,
     M)``, normalized over channels; complex64 casts them to float32 and
     complex64 after the normalization, as the fast path does. Warm start
-    through ``mixing=`` and ``covariance=``. ``flooring_fn`` must floor
-    with ``max(., eps)``; the unit normalization and the step floor with
-    that ``eps``, 1e-10 under ``"dtype"`` in either precision, as the JAX
-    class's float32 engine does.
+    through ``mixing=`` and ``covariance=``. A max-type ``flooring_fn`` is
+    an ``eps``: the unit normalization and the step floor with it, 1e-10
+    under ``"dtype"`` in either precision, as the JAX class's float32
+    engine does. Any other callable floors the norms of the unit
+    normalization (ssspy_tpu/bss/cacgmm.py:70) and the places of the step
+    that the JAX complex class floors with it
+    (:mod:`ssspy_tpu_torch.ops.cacgmm_steps`).
     """
 
     def __init__(
@@ -65,13 +68,14 @@ class CACGMMBase(IterativeMethodBase):
         keys = (["n_sources"] if self.n_sources is not None else []) + ["record_loss"]
         return config_repr(self, "CACGMM", keys)
 
-    def _eps(self) -> float:
-        return mnmf_eps(self.flooring_fn)
+    def _step_kwargs(self) -> dict:
+        """``eps`` and ``flooring_fn`` of the steps (:func:`~ssspy_tpu_torch.bss.mnmf.mnmf_flooring`)."""
+        return dict(zip(("eps", "flooring_fn"), mnmf_flooring(self.flooring_fn)))
 
     def _reset(self, **kwargs) -> None:
         self._set_warm_start(kwargs)
         X = self.input
-        self.unit_input = X / torch.clamp(torch.linalg.vector_norm(X, dim=0), min=self._eps())
+        self.unit_input = X / floor(torch.linalg.vector_norm(X, dim=0), **self._step_kwargs())
         n_channels, n_bins, n_frames = X.shape
         if self.n_sources is None:
             self.n_sources = n_channels
@@ -229,22 +233,22 @@ class CACGMM(CACGMMBase):
 
     def update_posterior(self) -> None:
         """The posterior of the current parameters (one more E-step)."""
-        self.posterior = cacgmm_steps.posterior(self.unit_input, self.mixing, self.covariance, eps=self._eps(),
-                                                impl=self.impl)
+        self.posterior = cacgmm_steps.posterior(self.unit_input, self.mixing, self.covariance, impl=self.impl,
+                                                **self._step_kwargs())
 
     def separate(self, input, posterior: Optional[torch.Tensor] = None) -> torch.Tensor:
         """Soft-mask separation ``Y_n = gamma_n X_ref`` (parity: ssspy/bss/cacgmm.py:561-601)."""
         X = torch.as_tensor(input, device=self.input.device)
         if posterior is None:
-            posterior = cacgmm_steps.posterior(self.unit_input, self.mixing, self.covariance, eps=self._eps(),
-                                               impl=self.impl)
+            posterior = cacgmm_steps.posterior(self.unit_input, self.mixing, self.covariance, impl=self.impl,
+                                               **self._step_kwargs())
         return posterior.to(X.dtype) * X[self.reference_id]
 
     # ---- one iteration and the loss -------------------------------------------
 
     def make_step(self):
-        kw = dict(eps=self._eps(), normalization=bool(self.normalization), impl=self.impl,
-                  covariance_impl=self.covariance_impl)
+        kw = dict(normalization=bool(self.normalization), impl=self.impl, covariance_impl=self.covariance_impl,
+                  **self._step_kwargs())
 
         def step(state):
             alpha, B = cacgmm_steps.step(state["Z"], state["alpha"], state["B"], **kw)
@@ -253,9 +257,9 @@ class CACGMM(CACGMMBase):
         return step
 
     def make_loss(self):
-        eps, impl = self._eps(), self.impl
+        kw = dict(impl=self.impl, **self._step_kwargs())
 
         def loss(state):
-            return cacgmm_steps.loss(state["Z"], state["alpha"], state["B"], eps=eps, impl=impl)
+            return cacgmm_steps.loss(state["Z"], state["alpha"], state["B"], **kw)
 
         return loss

@@ -26,9 +26,14 @@ import torch
 from ..algorithm import correlation_based_permutation_solver
 from ..ops.iva_steps import PairSelector, auxiva_ip2_step, covariance, grad_iva_step, ip1_update
 from ..ops.iva_steps import separate as _separate
-from ..special.flooring import choose_flooring_fn, sweep_eps
+from ..special.flooring import choose_flooring_fn, step_flooring, sweep_eps
 from ..utils.device import DEFAULT_DEVICE
 from ..utils.select_pair import sequential_pair_selector
+# re-exported, as the reference does
+from ._update_spatial_model import (  # noqa: F401
+    update_by_ip1,
+    update_by_ip2_one_pair,
+)
 from .base import SeparatorBase, config_repr
 
 __all__ = [
@@ -288,21 +293,24 @@ class AuxFDICA(FDICABase):
 
     def make_step(self):
         varphi_of = self._varphi
-        eps = sweep_eps(self.flooring_fn, self.input.dtype)
+        # a max-type flooring_fn is an eps for the kernels; any other reaches the spatial updates that the
+        # JAX class floors with it (update_by_ip1, update_by_ip2_one_pair: ssspy_tpu/bss/fdica.py:561, :574)
+        eps, floor = step_flooring(self.flooring_fn, self.input.dtype)
 
         if self.spatial_algorithm == "IP2":
             pair_selector = self.pair_selector
 
             def step(state):
                 W = auxiva_ip2_step(state["X"], state["W"], eps=eps, pair_selector=pair_selector,
-                                    varphi_of=lambda Y, pair: varphi_of(Y))
+                                    varphi_of=lambda Y, pair: varphi_of(Y), flooring_fn=floor)
                 return {**state, "W": W}
 
         else:
 
             def step(state):
                 X, W = state["X"], state["W"]
-                return {**state, "W": ip1_update(W, covariance(X, varphi_of(_separate(X, W))), eps=eps)}
+                U = covariance(X, varphi_of(_separate(X, W)))
+                return {**state, "W": ip1_update(W, U, eps=eps, flooring_fn=floor)}
 
         return step
 
@@ -350,7 +358,9 @@ class AuxLaplaceFDICA(AuxFDICA):
     The weight per scalar is ``1 / flooring_fn(|y|)``, the fast paths' form
     (:func:`~ssspy_tpu_torch.ops.fdica_steps.scalar_laplace_varphi`): with
     the floor of ``fast_aux_fdica`` (``"dtype"`` in complex64, 1e-6) the
-    class runs its trajectory to the bit.
+    class runs its trajectory to the bit. A ``flooring_fn`` that is not
+    ``max(., eps)`` takes the JAX class's form ``2 / flooring_fn(2 |y|)``
+    (ssspy_tpu/bss/fdica.py:546-548), which differs from it there.
     """
 
     def __init__(
@@ -380,4 +390,6 @@ class AuxLaplaceFDICA(AuxFDICA):
         )
 
     def _varphi(self, Y: torch.Tensor) -> torch.Tensor:
+        if sweep_eps(self.flooring_fn, Y.dtype) is None:
+            return super()._varphi(Y)
         return 1.0 / self.flooring_fn(Y.abs())

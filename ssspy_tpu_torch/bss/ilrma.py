@@ -29,8 +29,16 @@ from ..ops.ilrma_steps import (
 from ..ops.ipa_steps import ipa_sweep
 from ..ops.iva_steps import clogabsdet, covariance, ip1_update, ip2_update, iss1_update, iss2_sweep, ls_demix
 from ..ops.iva_steps import separate as _separate
-from ..special.flooring import identity, sweep_eps
+from ..special.flooring import identity, step_flooring
 from ..utils.device import DEFAULT_DEVICE
+# re-exported, as the reference does
+from ._update_spatial_model import (  # noqa: F401
+    update_by_ip1,
+    update_by_ip2,
+    update_by_ipa,
+    update_by_iss1,
+    update_by_iss2,
+)
 from .base import SeparatorBase, check_spatial_algorithm, config_repr, default_pair_selector, ipa_keywords
 
 __all__ = ["ILRMABase", "GaussILRMA", "TILRMA", "GGDILRMA"]
@@ -200,7 +208,9 @@ class ILRMABase(SeparatorBase):
     def make_step(self):
         model, p, flooring_fn = self._model, self.domain, self.flooring_fn
         params = self._model_params()
-        eps = sweep_eps(flooring_fn, self.input.dtype)
+        # a max-type flooring_fn is an eps for the kernels; any other reaches the spatial updates that the
+        # JAX class floors with it (update_by_*: ssspy_tpu/bss/ilrma.py:706-728)
+        eps, floor = step_flooring(flooring_fn, self.input.dtype)
         algorithm, pair_selector = self.spatial_algorithm, self.pair_selector
         ipa = {key: getattr(self, key) for key in ("lqpqm_normalization", "newton_iter")} if algorithm == "IPA" else {}
         normalize = self._normalizer()
@@ -220,15 +230,17 @@ class ILRMABase(SeparatorBase):
                 model, Y2, R, p, params.get("nu"), params.get("beta"), flooring_fn
             )
             if algorithm == "IP2":
-                state["W"] = ip2_update(state["W"], covariance(state["X"], varphi), eps=eps, pair_selector=pair_selector)
+                state["W"] = ip2_update(
+                    state["W"], covariance(state["X"], varphi), eps=eps, pair_selector=pair_selector, flooring_fn=floor
+                )
             elif "W" in state:
-                state["W"] = ip1_update(state["W"], covariance(state["X"], varphi), eps=eps)
+                state["W"] = ip1_update(state["W"], covariance(state["X"], varphi), eps=eps, flooring_fn=floor)
             elif algorithm == "IPA":
-                state["Y"] = ipa_sweep(state["Y"], varphi, eps=eps, **ipa)
+                state["Y"] = ipa_sweep(state["Y"], varphi, eps=eps, flooring_fn=floor, **ipa)
             elif algorithm == "ISS2":
-                state["Y"] = iss2_sweep(state["Y"], varphi, eps=eps, pair_selector=pair_selector)
+                state["Y"] = iss2_sweep(state["Y"], varphi, eps=eps, pair_selector=pair_selector, flooring_fn=floor)
             else:
-                state["Y"] = iss1_update(state["Y"], varphi, eps=eps)
+                state["Y"] = iss1_update(state["Y"], varphi, eps=eps, flooring_fn=floor)
             return normalize(state)
 
         return step

@@ -31,8 +31,12 @@ from ..ops.ipsdta_steps import (
 from ..ops.iva_steps import clogabsdet, separate
 from ..ops.mnmf_steps import psd_project
 from ..utils.device import DEFAULT_DEVICE
+# re-exported, as the reference does
+from ._update_spatial_model import (  # noqa: F401
+    update_by_block_decomposition_vcd,
+)
 from .base import SeparatorBase, config_repr
-from .mnmf import mnmf_eps
+from .mnmf import mnmf_flooring
 
 __all__ = ["IPSDTABase", "BlockDecompositionIPSDTABase", "GaussIPSDTA", "TIPSDTA"]
 
@@ -160,10 +164,11 @@ class BlockDecompositionIPSDTABase(IPSDTABase):
     def _init_block_decomposition_psdtf(self) -> None:
         """The PSDTF start (ssspy_tpu/bss/ipsdta.py:226-267): random where no warm start is set, then normalized."""
         X = self.input
+        eps, floor = mnmf_flooring(self.flooring_fn)
         T_parts, V = random_psdtf(
             self.rng, self.n_sources, self.n_basis, self.n_frames, part_shapes(self.n_bins, self.n_blocks),
-            X.dtype, X.device, mnmf_eps(self.flooring_fn),
-            basis=not hasattr(self, "basis"), activation=not hasattr(self, "activation"),
+            X.dtype, X.device, eps, basis=not hasattr(self, "basis"), activation=not hasattr(self, "activation"),
+            flooring_fn=floor,
         )
         if T_parts is None:
             T_parts = [
@@ -178,7 +183,7 @@ class BlockDecompositionIPSDTABase(IPSDTABase):
 
     def reconstruct_block_decomposition_psdtf(self, basis, activation):
         """Per-part projected model ``(N, T, B, J, J)`` (parity: ssspy/bss/ipsdta.py:584-663)."""
-        eps = mnmf_eps(self.flooring_fn)
+        eps = mnmf_flooring(self.flooring_fn)[0]
         parts = [psd_project(_model(T, activation), eps, "eigh") for T in self._basis_parts(basis)]
         return self._basis_from_parts(parts)
 
@@ -208,21 +213,22 @@ class BlockDecompositionIPSDTABase(IPSDTABase):
     # ---- one iteration and the loss -------------------------------------------
 
     def make_step(self):
-        eps, dof, normalization = mnmf_eps(self.flooring_fn), self.dof, bool(self.source_normalization)
+        (eps, floor), dof, normalization = mnmf_flooring(self.flooring_fn), self.dof, bool(self.source_normalization)
 
         def step(state):
             W, T_parts, V = ipsdta_vcd_step(
-                state["X"], state["W"], state["T_parts"], state["V"], dof=dof, eps=eps, normalization=normalization
+                state["X"], state["W"], state["T_parts"], state["V"], dof=dof, eps=eps, normalization=normalization,
+                flooring_fn=floor,
             )
             return {**state, "W": W, "T_parts": tuple(T_parts), "V": V}
 
         return step
 
     def make_loss(self):
-        eps, dof = mnmf_eps(self.flooring_fn), self.dof
+        (eps, floor), dof = mnmf_flooring(self.flooring_fn), self.dof
 
         def loss(state):
-            return ipsdta_loss(state["X"], state["W"], state["T_parts"], state["V"], dof=dof, eps=eps)
+            return ipsdta_loss(state["X"], state["W"], state["T_parts"], state["V"], dof=dof, eps=eps, flooring_fn=floor)
 
         return loss
 

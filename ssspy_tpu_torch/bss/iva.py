@@ -35,9 +35,17 @@ from ..ops.iva_steps import (
     ls_demix,
 )
 from ..ops.iva_steps import separate as _separate
-from ..special.flooring import sweep_eps
+from ..special.flooring import step_flooring
 from ..utils.device import DEFAULT_DEVICE
 from .admmbss import ADMMBSS
+# re-exported, as the reference does
+from ._update_spatial_model import (  # noqa: F401
+    update_by_ip1,
+    update_by_ip2_one_pair,
+    update_by_ipa,
+    update_by_iss1,
+    update_by_iss2,
+)
 from .base import SeparatorBase, check_spatial_algorithm, config_repr, default_pair_selector, ipa_keywords
 from .pdsbss import PDSBSS
 from .proxbss import iva_prox_defaults
@@ -521,7 +529,9 @@ class AuxIVA(AuxIVABase):
 
     def make_step(self):
         varphi_of = self._varphi
-        eps = sweep_eps(self.flooring_fn, self.input.dtype)
+        # a max-type flooring_fn is an eps for the kernels; any other reaches every update that the JAX
+        # class floors with it (update_by_*: ssspy_tpu/bss/iva.py:947-1002)
+        eps, floor = step_flooring(self.flooring_fn, self.input.dtype)
         algorithm, pair_selector = self.spatial_algorithm, self.pair_selector
 
         if algorithm == "IP2":
@@ -529,7 +539,7 @@ class AuxIVA(AuxIVABase):
             def step(state):
                 W = auxiva_ip2_step(
                     state["X"], state["W"], eps=eps, pair_selector=pair_selector,
-                    varphi_of=lambda Y, pair: varphi_of(Y, state, pair),
+                    varphi_of=lambda Y, pair: varphi_of(Y, state, pair), flooring_fn=floor,
                 )
                 return {**state, "W": W}
 
@@ -538,7 +548,7 @@ class AuxIVA(AuxIVABase):
             def step(state):
                 X, W = state["X"], state["W"]
                 U = covariance(X, varphi_of(_separate(X, W), state))
-                return {**state, "W": ip1_update(W, U, eps=eps)}
+                return {**state, "W": ip1_update(W, U, eps=eps, flooring_fn=floor)}
 
         elif algorithm == "IPA":
             lqpqm_normalization, newton_iter = self.lqpqm_normalization, self.newton_iter
@@ -547,7 +557,7 @@ class AuxIVA(AuxIVABase):
                 Y = state["Y"]
                 Y = ipa_sweep(
                     Y, varphi_of(Y, state), eps=eps, lqpqm_normalization=lqpqm_normalization,
-                    newton_iter=newton_iter,
+                    newton_iter=newton_iter, flooring_fn=floor,
                 )
                 return {**state, "Y": Y}
 
@@ -555,13 +565,16 @@ class AuxIVA(AuxIVABase):
 
             def step(state):
                 Y = state["Y"]
-                return {**state, "Y": iss2_sweep(Y, varphi_of(Y, state), eps=eps, pair_selector=pair_selector)}
+                return {
+                    **state,
+                    "Y": iss2_sweep(Y, varphi_of(Y, state), eps=eps, pair_selector=pair_selector, flooring_fn=floor),
+                }
 
         else:
 
             def step(state):
                 Y = state["Y"]
-                return {**state, "Y": iss1_update(Y, varphi_of(Y, state), eps=eps)}
+                return {**state, "Y": iss1_update(Y, varphi_of(Y, state), eps=eps, flooring_fn=floor)}
 
         return step
 

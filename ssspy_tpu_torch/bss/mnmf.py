@@ -18,7 +18,7 @@ diagonalizer update runs the weighted covariance K1 and the IP1 sweep K1b
 in complex64 and their plain versions in complex128.
 """
 
-from typing import Callable, List, Optional, Union
+from typing import Callable, List, Optional, Tuple, Union
 
 import numpy as np
 import torch
@@ -26,21 +26,30 @@ import torch
 from ..ops.fast_mnmf_steps import check_diagonalizer, fast_gauss_mnmf_loss, fast_gauss_mnmf_step, fast_mnmf_separate
 from ..ops.ilrma_steps import reconstruct_nmf
 from ..ops.mnmf_steps import _model, gauss_mnmf_loss, gauss_mnmf_step, instant_covariance, wiener_separate
-from ..special.flooring import EPS, F32_EPS, dtype_flooring, resolve_flooring_spec, sweep_eps
+from ..special.flooring import EPS, F32_EPS, dtype_flooring, resolve_flooring_spec, step_flooring
 from ..utils.device import DEFAULT_DEVICE
+# re-exported, as the reference does
+from ._update_spatial_model import (  # noqa: F401
+    update_by_ip1,
+    update_by_ip2,
+)
 from .base import IterativeMethodBase, config_repr, default_pair_selector
 
 __all__ = ["MNMFBase", "MNMF", "GaussMNMF", "FastMNMFBase", "FastGaussMNMF"]
 
 
-def mnmf_eps(flooring_fn: Callable) -> float:
-    """The ``eps`` the MNMF step floors and projects with, from the class's ``flooring_fn``.
+def mnmf_flooring(flooring_fn: Callable) -> Tuple[float, Optional[Callable]]:
+    """``(eps, floor)`` of the MNMF, IPSDTA and cACGMM steps, from the class's ``flooring_fn``.
 
+    A max-type flooring gives ``(eps, None)`` with the eps of
     ``sc_flooring_eps(flooring_fn, 1e-10)`` of the JAX class
     (ssspy_tpu/bss/mnmf.py:490): the default ``"dtype"`` flooring gives the
     step's own 1e-10 in either precision, a ``max_flooring`` its ``eps``.
+    Any other callable gives ``(1e-10, flooring_fn)``: the steps apply it
+    where the JAX complex class does and keep 1e-10 where that class floors
+    with a constant.
     """
-    return EPS if flooring_fn is dtype_flooring else sweep_eps(flooring_fn, torch.float64)
+    return step_flooring(flooring_fn, torch.float64, EPS if flooring_fn is dtype_flooring else None)
 
 
 class MNMFBase(IterativeMethodBase):
@@ -147,7 +156,8 @@ class MNMF(MNMFBase):
 
     def _init_instant_covariance(self) -> None:
         """``XX[i,t] = x x^H``, projected as the step projects (parity: ssspy/bss/mnmf.py:167-188)."""
-        self.instant_covariance = instant_covariance(self.input, eps=mnmf_eps(self.flooring_fn))
+        eps, floor = mnmf_flooring(self.flooring_fn)
+        self.instant_covariance = instant_covariance(self.input, eps=eps, flooring_fn=floor)
 
     def _init_nmf(self) -> None:
         super()._init_nmf()
@@ -171,9 +181,11 @@ class GaussMNMF(MNMF):
     scaled by NMF powers, the spatial update is the geometric mean
     ``P^-1 # HQH`` and separation is the multichannel Wiener filter at
     ``reference_id`` (:func:`~ssspy_tpu_torch.ops.mnmf_steps.wiener_separate`).
-    ``flooring_fn`` must floor with ``max(., eps)`` (``"dtype"``, ``"f32"``,
-    ``"f64"``, ``None`` or a ``max_flooring`` partial); ``eps`` is 1e-10
-    under ``"dtype"`` in either precision, as the JAX class's step takes it.
+    A max-type ``flooring_fn`` (``"dtype"``, ``"f32"``, ``"f64"``, ``None``
+    or a ``max_flooring`` partial) is an ``eps``, 1e-10 under ``"dtype"`` in
+    either precision, as the JAX class's step takes it; any other callable
+    floors where the JAX complex class floors with it, on the unfused eigh
+    model (:mod:`ssspy_tpu_torch.ops.mnmf_steps`).
     """
 
     # ---- state plumbing ----------------------------------------------------
@@ -194,29 +206,30 @@ class GaussMNMF(MNMF):
     def separate(self, input):
         """Multichannel Wiener filter, reference channel row; the model projected as in the step."""
         Lamb = reconstruct_nmf(self.basis, self.activation, self.latent if self.partitioning else None)
-        return wiener_separate(
-            input, Lamb, self.spatial, reference_id=self.reference_id, eps=mnmf_eps(self.flooring_fn)
-        )
+        eps, floor = mnmf_flooring(self.flooring_fn)
+        return wiener_separate(input, Lamb, self.spatial, reference_id=self.reference_id, eps=eps, flooring_fn=floor)
 
     # ---- one iteration and the loss -------------------------------------------
 
     def make_step(self):
-        eps, normalization = mnmf_eps(self.flooring_fn), bool(self.normalization)
+        (eps, floor), normalization = mnmf_flooring(self.flooring_fn), bool(self.normalization)
 
         def step(state):
             out = gauss_mnmf_step(
                 state["XX"], state["T"], state["V"], state["H"], Z=state.get("Z"), eps=eps,
-                normalization=normalization,
+                normalization=normalization, flooring_fn=floor,
             )
             return {**state, **dict(zip(("T", "V", "H", "Z"), out))}
 
         return step
 
     def make_loss(self):
-        eps = mnmf_eps(self.flooring_fn)
+        eps, floor = mnmf_flooring(self.flooring_fn)
 
         def loss(state):
-            return gauss_mnmf_loss(state["XX"], state["T"], state["V"], state["H"], Z=state.get("Z"), eps=eps)
+            return gauss_mnmf_loss(
+                state["XX"], state["T"], state["V"], state["H"], Z=state.get("Z"), eps=eps, flooring_fn=floor
+            )
 
         return loss
 
@@ -267,8 +280,9 @@ class FastGaussMNMF(FastMNMFBase):
     The dense covariances become ``R_n = Q^-1 diag(Lamb_n d_n) Q^-H``; ``Q``
     is updated by IP1 over per-channel weighted covariances. One iteration
     is :func:`~ssspy_tpu_torch.ops.fast_mnmf_steps.fast_gauss_mnmf_step` at
-    the ``eps`` of ``flooring_fn`` (1e-10 in complex128 and 1e-6 in
-    complex64 under ``"dtype"``, the float32 engine's floor), so that in
+    the ``eps`` of a max-type ``flooring_fn`` (1e-10 in complex128 and 1e-6 in
+    complex64 under ``"dtype"``, the float32 engine's floor; any other
+    callable floors where the JAX complex class does), so that in
     complex64 the class equals :func:`ssspy_tpu_torch.fast.fast_gauss_mnmf`
     from the same draws. ``separate`` is the Wiener filter in the
     diagonalized space, on the device
@@ -312,10 +326,11 @@ class FastGaussMNMF(FastMNMFBase):
         keys += ["diagonalizer_algorithm", "partitioning", "record_loss", "reference_id"]
         return config_repr(self, "FastGaussMNMF", keys)
 
-    def _eps(self) -> float:
-        """The step's floor: ``flooring_fn``'s eps, and in complex64 at least 1e-6 (ssspy_tpu/bss/_sc_engine.py:68-86)."""
-        eps = sweep_eps(self.flooring_fn, self.input.dtype)
-        return max(eps, F32_EPS) if self.input.dtype == torch.complex64 else eps
+    def _flooring(self) -> Tuple[float, Optional[Callable]]:
+        """The step's ``(eps, floor)``: a max-type ``flooring_fn``'s eps, in complex64 at least 1e-6
+        (ssspy_tpu/bss/_sc_engine.py:68-86); any other callable as :func:`~ssspy_tpu_torch.special.flooring.step_flooring` gives it."""
+        eps, floor = step_flooring(self.flooring_fn, self.input.dtype)
+        return (max(eps, F32_EPS) if self.input.dtype == torch.complex64 else eps), floor
 
     # ---- state plumbing ----------------------------------------------------
 
@@ -331,25 +346,25 @@ class FastGaussMNMF(FastMNMFBase):
         """Wiener filter in the diagonalized space, reference channel row (parity: ssspy/bss/mnmf.py:1174-1217)."""
         X = torch.as_tensor(input, device=self.input.device)
         return fast_mnmf_separate(X, self.basis, self.activation, self.diagonalizer, self.spatial,
-                                  reference_id=self.reference_id)
+                                  reference_id=self.reference_id, flooring_fn=self._flooring()[1])
 
     # ---- one iteration and the loss -------------------------------------------
 
     def make_step(self):
-        eps, normalization, algorithm = self._eps(), bool(self.normalization), self.diagonalizer_algorithm
+        (eps, floor), normalization, algorithm = self._flooring(), bool(self.normalization), self.diagonalizer_algorithm
         pair_selector = self.pair_selector
 
         def step(state):
             Q, T, V, D = fast_gauss_mnmf_step(
                 state["X"], state["Q"], state["T"], state["V"], state["D"], eps=eps, normalization=normalization,
-                diagonalizer=algorithm, pair_selector=pair_selector,
+                diagonalizer=algorithm, pair_selector=pair_selector, flooring_fn=floor,
             )
             return {**state, "Q": Q, "T": T, "V": V, "D": D}
 
         return step
 
     def make_loss(self):
-        eps = self._eps()
+        eps = self._flooring()[0]
 
         def loss(state):
             return fast_gauss_mnmf_loss(state["X"], state["Q"], state["T"], state["V"], state["D"], eps=eps)

@@ -17,7 +17,7 @@ import torch
 from ..special.flooring import EPS, identity, max_flooring
 from ..special.psd import eigh_in_batches
 
-__all__ = ["cbrt", "lqpqm2", "solve_equation"]
+__all__ = ["cbrt", "solve_cubic", "lqpqm2", "solve_equation"]
 
 
 def cbrt(x: torch.Tensor) -> torch.Tensor:
@@ -28,6 +28,36 @@ def cbrt(x: torch.Tensor) -> torch.Tensor:
     if x.is_complex():
         return torch.polar(x.abs() ** (1 / 3), x.angle() / 3)
     return torch.sign(x) * x.abs() ** (1 / 3)
+
+
+def solve_cubic(
+    A: torch.Tensor, B: torch.Tensor, C: torch.Tensor, D: Optional[torch.Tensor] = None, all: bool = True
+) -> torch.Tensor:
+    """The roots of cubic equations by Cardano's formula, elementwise over the batch.
+
+    With ``D`` solves ``A x^3 + B x^2 + C x + D = 0`` (every ``A != 0``),
+    otherwise the monic ``x^3 + A x^2 + B x + C = 0``. The three complex
+    roots stacked on a new leading axis (``all=True``), else the first.
+    Counterpart of ``ssspy_tpu.linalg.solve_cubic`` (polynomial.py:14-36;
+    parity: ssspy/linalg/polynomial.py:9-95).
+    """
+    if D is not None:
+        return solve_cubic(B / A, C / A, D / A, all=all)
+    P = -(A**2) / 3 + B
+    Q = (2 * A**3) / 27 - (A * B) / 3 + C
+    cdtype = torch.complex128 if torch.float64 in (P.real.dtype, Q.real.dtype) else torch.complex64
+    P, Q = P.to(cdtype), Q.to(cdtype)
+    omega = torch.complex(torch.tensor(-0.5), torch.tensor(math.sqrt(3) / 2)).to(cdtype)
+    discriminant = (Q / 2) ** 2 + (P / 3) ** 3
+    U = cbrt(-Q / 2 + torch.sqrt(discriminant))
+    singular = P == 0  # U = 0 exactly when P = 0
+    U = torch.where(singular, torch.ones_like(U), U)
+    V = -P / (3 * U)
+    X1 = torch.where(singular, cbrt(-Q), U + V)
+    X2 = torch.where(singular, X1 * omega, U * omega + V * omega.conj())
+    X3 = torch.where(singular, X1 * omega.conj(), U * omega.conj() + V * omega)
+    x = torch.stack([X1, X2, X3]) - A / 3
+    return x if all else x[0]
 
 
 def _floor_at_zero(flooring_fn: Callable, like: torch.Tensor) -> torch.Tensor:

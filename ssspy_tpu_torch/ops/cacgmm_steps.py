@@ -45,13 +45,20 @@ guards of the JAX step are kept: ``z^H B^-1 z`` and the posterior sum are
 floored at ``eps`` (a dead component's posterior underflows to exactly 0
 in float32). Every contraction runs in full precision (the card's TF32 is
 left off; reduced precision derails the EM, splitc.py:2536-2542).
+
+A ``flooring_fn`` that is not ``max(., eps)`` replaces ``max(., eps)``
+where the JAX complex class floors with its callable: the quadratic form
+``flooring_fn(max(z^H B^-1 z, 0))`` (ssspy_tpu/bss/cacgmm.py:222) and the
+M-step's projection (``to_psd``, :350), which then takes the eigenvalue
+floor under either ``impl``. The other floors at ``eps`` stay.
 """
 
-from typing import Tuple
+from typing import Callable, Optional, Tuple
 
 import torch
 
 from ..linalg.eig_free import chol_piv
+from ..special.flooring import floor
 from ..special.psd import hermitize
 from .iva_steps import covariance
 from .prox_steps import _extract, _symmetrised, block_embed, herm_eigh_embed
@@ -70,12 +77,17 @@ def _check(impl: str, covariance_impl: str = "einsum") -> None:
 
 
 def estep(
-    Z: torch.Tensor, alpha: torch.Tensor, B: torch.Tensor, eps: float = 1e-10, impl: str = "eigh"
+    Z: torch.Tensor,
+    alpha: torch.Tensor,
+    B: torch.Tensor,
+    eps: float = 1e-10,
+    impl: str = "eigh",
+    flooring_fn: Optional[Callable] = None,
 ) -> Tuple[torch.Tensor, torch.Tensor]:
     """``(log_gamma, ZBZ)``, each ``(N, I, T)``: ``log alpha - logdet B - M log max(z^H B^-1 z, eps)`` and the quadratic form.
 
-    ``splitc._cacgmm_estep_sc`` (splitc.py:2481-2551); ``impl`` as the
-    module describes.
+    ``splitc._cacgmm_estep_sc`` (splitc.py:2481-2551); ``impl`` and
+    ``flooring_fn`` as the module describes.
     """
     _check(impl)
     n_channels = Z.shape[0]
@@ -94,14 +106,14 @@ def estep(
         # Re z^H B^-1 z = e^T E(B)^-1 e with e = [Re z; Im z]
         proj = P2.transpose(-1, -2) @ torch.cat([Zb.real, Zb.imag], dim=-2)  # (N, I, 2M, T)
         ZBZ = (proj * proj / lamb2[..., None]).sum(dim=-2)
-    ZBZ = torch.clamp(ZBZ, min=eps)  # (N, I, T)
+    ZBZ = torch.clamp(ZBZ, min=eps) if flooring_fn is None else flooring_fn(torch.clamp(ZBZ, min=0))  # (N, I, T)
     log_gamma = (torch.log(alpha) - logdet)[:, :, None] - n_channels * torch.log(ZBZ)
     return log_gamma, ZBZ
 
 
-def posterior(Z, alpha, B, eps: float = 1e-10, impl: str = "eigh") -> torch.Tensor:
+def posterior(Z, alpha, B, eps: float = 1e-10, impl: str = "eigh", flooring_fn: Optional[Callable] = None) -> torch.Tensor:
     """The posterior ``gamma (N, I, T)``: the softmax of the E-step over sources (``splitc.cacgmm_posterior_sc``)."""
-    return torch.softmax(estep(Z, alpha, B, eps=eps, impl=impl)[0], dim=0)
+    return torch.softmax(estep(Z, alpha, B, eps=eps, impl=impl, flooring_fn=flooring_fn)[0], dim=0)
 
 
 def step(
@@ -112,6 +124,7 @@ def step(
     normalization: bool = True,
     impl: str = "eigh",
     covariance_impl: str = "einsum",
+    flooring_fn: Optional[Callable] = None,
 ) -> Tuple[torch.Tensor, torch.Tensor]:
     """One EM iteration; returns ``(alpha, B)`` (``splitc.cacgmm_step_sc``, splitc.py:2560-2653).
 
@@ -119,11 +132,12 @@ def step(
     z^H / max(sum_t gamma, eps)`` with ``G = gamma / z^H B^-1 z`` (or the
     kernel's mean over ``max(alpha, eps)``); the PSD projection (eigenvalues
     floored at ``eps``) or, under ``"chol"``, the relative ridge; with
-    ``normalization``, ``B`` over its trace.
+    ``normalization``, ``B`` over its trace. ``flooring_fn`` as the module
+    describes.
     """
     _check(impl, covariance_impl)
     n_channels = Z.shape[0]
-    log_gamma, ZBZ = estep(Z, alpha, B, eps=eps, impl=impl)
+    log_gamma, ZBZ = estep(Z, alpha, B, eps=eps, impl=impl, flooring_fn=flooring_fn)
     gamma = torch.softmax(log_gamma, dim=0)
 
     alpha = torch.mean(gamma, dim=-1)
@@ -136,14 +150,14 @@ def step(
         denom = torch.clamp(alpha, min=eps)[:, :, None, None]
         B = n_channels * covariance(Z, G).transpose(0, 1) / denom
 
-    if impl == "chol":
+    if impl == "chol" and flooring_fn is None:
         B = hermitize(B)
         rel = 1e-12 if B.dtype == torch.complex128 else 1e-6
         lam = eps + rel * B.diagonal(dim1=-2, dim2=-1).real.mean(dim=-1)
         B = B + lam[..., None, None] * torch.eye(n_channels, dtype=B.dtype, device=B.device)
     else:
         lamb2, P2 = herm_eigh_embed(hermitize(B))
-        B = _extract((P2 * torch.clamp(lamb2, min=eps)[..., None, :]) @ P2.transpose(-1, -2), n_channels)
+        B = _extract((P2 * floor(lamb2, eps, flooring_fn)[..., None, :]) @ P2.transpose(-1, -2), n_channels)
 
     if normalization:
         trace = B.diagonal(dim1=-2, dim2=-1).real.sum(dim=-1)
@@ -151,7 +165,7 @@ def step(
     return alpha, B
 
 
-def loss(Z, alpha, B, eps: float = 1e-10, impl: str = "eigh") -> torch.Tensor:
+def loss(Z, alpha, B, eps: float = 1e-10, impl: str = "eigh", flooring_fn: Optional[Callable] = None) -> torch.Tensor:
     """Negative log-likelihood ``sum_i mean_t -logsumexp_n log_gamma``, a 0-dim tensor (``splitc.cacgmm_loss_sc``)."""
-    value = -torch.logsumexp(estep(Z, alpha, B, eps=eps, impl=impl)[0], dim=0)  # (I, T)
+    value = -torch.logsumexp(estep(Z, alpha, B, eps=eps, impl=impl, flooring_fn=flooring_fn)[0], dim=0)  # (I, T)
     return torch.sum(torch.mean(value, dim=-1))

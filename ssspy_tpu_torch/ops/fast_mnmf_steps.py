@@ -26,12 +26,22 @@ multi-device runners of :mod:`ssspy_tpu_torch.parallel` call it: K1 once
 per utterance, K1b folded into the bins, and two calls of the hook for all
 utterances, the activation update's numerator and denominator and the
 power normalization's sum over the bins.
+
+A ``flooring_fn`` that is not ``max(., eps)`` replaces ``max(., eps)``
+where the JAX complex class floors with its callable
+(ssspy_tpu/bss/mnmf.py:699-746): the basis and activation updates, the
+diagonalizer's IP1 sweep or IP2 pairs (the plain sweep, as
+:func:`~ssspy_tpu_torch.ops.iva_steps.ip1_update` routes a callable) and
+the power normalization; the model's floor ``max(Lamb D, eps)``, which that
+class does not take, stays.
 """
 
-from typing import Tuple
+from typing import Callable, Optional, Tuple
 
 import torch
 
+from ..special.flooring import floor
+from ..special.psd import to_psd
 from .iva_steps import clogabsdet, covariance, ip1_update, ip2_update
 
 __all__ = ["DIAGONALIZERS", "fast_gauss_mnmf_step", "fast_gauss_mnmf_loss", "fast_mnmf_separate"]
@@ -74,6 +84,7 @@ def fast_gauss_mnmf_step(
     diagonalizer: str = "IP1",
     pair_selector=None,
     bin_sum=None,
+    flooring_fn: Optional[Callable] = None,
 ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor, torch.Tensor]:
     """One FastGaussMNMF iteration; returns ``(Q, T, V, D)``.
 
@@ -88,7 +99,8 @@ def fast_gauss_mnmf_step(
     normalization of ``Q`` and ``D`` by ``psi_m = max(sqrt(mean |QX_m|^2), eps)``.
     Batched (IP1) and ``bin_sum`` as the module describes; with ``bin_sum``
     the mean is over the bins of the whole group, padded ones included, as
-    the JAX runner takes it (parallel/__init__.py:732-736).
+    the JAX runner takes it (parallel/__init__.py:732-736). ``flooring_fn``
+    as the module describes.
     """
     check_diagonalizer(diagonalizer)
     if diagonalizer == "IP2" and X.dim() != 3:
@@ -99,23 +111,23 @@ def fast_gauss_mnmf_step(
     QX2 = _powers(Xb, Q)
     _, LambD = _model(T, V, D, eps)
     num, denom = _mm_terms(QX2, LambD, Db)
-    T = torch.clamp(T * torch.sqrt(torch.einsum("...nkt,...nit->...nik", V, num) / torch.clamp(
-        torch.einsum("...nkt,...nit->...nik", V, denom), min=1e-30)), min=eps)
+    T = floor(T * torch.sqrt(torch.einsum("...nkt,...nit->...nik", V, num) / torch.clamp(
+        torch.einsum("...nkt,...nit->...nik", V, denom), min=1e-30)), eps, flooring_fn)
 
     _, LambD = _model(T, V, D, eps)
     num, denom = _mm_terms(QX2, LambD, Db)
     num, denom = torch.einsum("...nik,...nit->...nkt", T, num), torch.einsum("...nik,...nit->...nkt", T, denom)
     if bin_sum is not None:
         num, denom = bin_sum(num, denom)
-    V = torch.clamp(V * torch.sqrt(num / torch.clamp(denom, min=1e-30)), min=eps)
+    V = floor(V * torch.sqrt(num / torch.clamp(denom, min=1e-30)), eps, flooring_fn)
 
     Lamb = torch.clamp(T @ V, min=eps)
     varphi = 1 / torch.clamp(torch.einsum("...nit,...inm->...mit", Lamb, D), min=eps)  # (M, I, T)
     U = covariance(X, varphi)
     if diagonalizer == "IP2":
-        Q = ip2_update(Q, U, eps=eps, pair_selector=pair_selector)
+        Q = ip2_update(Q, U, eps=eps, pair_selector=pair_selector, flooring_fn=flooring_fn)
     else:
-        Q = ip1_update(Q, U, eps=eps)
+        Q = ip1_update(Q, U, eps=eps, flooring_fn=flooring_fn)
 
     QX2 = _powers(Xb, Q)
     Lamb, LambD = _model(T, V, D, eps)
@@ -131,7 +143,7 @@ def fast_gauss_mnmf_step(
         else:
             (total,) = bin_sum(QX2.sum(dim=(-3, -2)))
             mean = total / (QX2.shape[-3] * bin_sum.shards * QX2.shape[-2])
-        psi = torch.clamp(torch.sqrt(mean), min=eps)
+        psi = floor(torch.sqrt(mean), eps, flooring_fn)
         Q = Q / psi[..., None, :, None]
         D = D / (psi**2)[..., None, None, :]
     return Q, T, V, D
@@ -148,17 +160,24 @@ def fast_gauss_mnmf_loss(X, Q, T, V, D, eps: float = 1e-6) -> torch.Tensor:
     return torch.sum(torch.mean(value, dim=-1) - 2 * clogabsdet(Q))
 
 
-def fast_mnmf_separate(X, T, V, Q, D, reference_id: int = 0, eps: float = 1e-10) -> torch.Tensor:
+def fast_mnmf_separate(
+    X, T, V, Q, D, reference_id: int = 0, eps: float = 1e-10, flooring_fn: Optional[Callable] = None
+) -> torch.Tensor:
     """The multichannel Wiener filter in the diagonalized space, at ``reference_id``: ``(N, I, T)``.
 
     ``Q^-1`` by ``inv_ex``; ``R_n = Q^-1 diag(Lamb_n d_n) Q^-H`` with
     ``Lamb`` floored at ``eps``; ``W_n = R^-1 R_n`` by ``solve_ex``; the
     reference row of ``W_n^H`` applied to ``X``. On the input's device.
+    ``flooring_fn`` (not ``max(., eps)``) first projects ``R`` with it, as
+    the JAX complex class does (``to_psd``, ssspy_tpu/bss/mnmf.py:682).
     """
     Lamb = torch.clamp(T @ V, min=eps)  # (N, I, T)
     Q_inv = torch.linalg.inv_ex(Q)[0]  # (I, M, M)
     LambD = torch.einsum("nit,nim->nitm", Lamb, D.transpose(0, 1)).to(X.dtype)
     R_n = torch.einsum("ipm,nitm,iqm->nitpq", Q_inv, LambD, Q_inv.conj())
-    W = torch.linalg.solve_ex(R_n.sum(dim=0)[None], R_n)[0]
+    R = R_n.sum(dim=0)
+    if flooring_fn is not None:
+        R = to_psd(R, flooring_fn)
+    W = torch.linalg.solve_ex(R[None], R_n)[0]
     W_ref = W.transpose(-2, -1).conj()[..., reference_id, :]  # (N, I, T, M)
     return torch.einsum("nitm,mit->nit", W_ref, X)

@@ -39,7 +39,7 @@ import torch
 from ..linalg import lqpqm as reference
 from ..linalg.eig_free import secular_root_solve
 from ..linalg.lqpqm import _find_largest_root_real, solve_equation
-from ..special.flooring import max_flooring
+from ..special.flooring import floor, max_flooring
 from ..special.psd import eigh_in_batches, hermitize, psd_inv, to_psd
 from . import kernels
 from .iva_steps import covariance
@@ -171,6 +171,7 @@ def ipa_qp(
     lqpqm_normalization: bool = True,
     newton_iter: int = 1,
     solver: Optional[Callable] = None,
+    flooring_fn: Optional[Callable] = None,
 ) -> Tuple[torch.Tensor, torch.Tensor]:
     """Source ``n``'s reduction to LQPQM; returns ``(q (I, N-1), p (I, N))``.
 
@@ -184,7 +185,9 @@ def ipa_qp(
     d`` the solution ``q~`` of :func:`lqpqm2` gives ``q = q~ / sqrt(a) -
     b / a``. The new row is ``p = Un^{-1} q_t / sqrt(q_t^H Un^{-1} q_t)``
     with ``q_t = e_n - sum_s conj(q_s) e_s``. ``solver(H, v, z, eps=,
-    max_iter=)`` is :func:`lqpqm2` unless given. Counterpart of
+    max_iter=)`` is :func:`lqpqm2` unless given. ``flooring_fn`` replaces
+    ``max(., eps)`` on the new row's norm (``update_by_ipa``,
+    ssspy_tpu/bss/_update_spatial_model.py:327). Counterpart of
     ``splitc._ipa_qp_sc`` (splitc.py:1643-1727).
     """
     solver = lqpqm2 if solver is None else solver
@@ -205,7 +208,7 @@ def ipa_qp(
     q_t = _insert(-q.conj(), n, 1.0)
     Uq = torch.linalg.solve_ex(Un, q_t)[0]
     qUq = torch.sum(q_t.conj() * Uq, dim=-1).real
-    denom = torch.clamp(torch.sqrt(torch.clamp(qUq, min=0)), min=eps)
+    denom = floor(torch.sqrt(torch.clamp(qUq, min=0)), eps, flooring_fn)
     return q, Uq / denom[:, None]
 
 
@@ -227,9 +230,15 @@ def congruence_round(T: torch.Tensor, U: torch.Tensor, G: torch.Tensor) -> Tuple
     return kernels.ipa_congruence_plain(T, U, G)
 
 
-def _reference_lqpqm2(H, v, z, eps, max_iter):
-    """The reference's solver (eigen-sum, no clamp of the root) behind :func:`lqpqm2`'s signature."""
-    return reference.lqpqm2(H, v, z, flooring_fn=functools.partial(max_flooring, eps=eps), max_iter=max_iter)
+def _reference_lqpqm2(H, v, z, eps, max_iter, flooring_fn=None):
+    """The reference's solver (eigen-sum, no clamp of the root) behind :func:`lqpqm2`'s signature.
+
+    It floors with ``flooring_fn``, ``max(., eps)`` unless given, and its
+    singular test is ``x < flooring_fn(0)`` (update_by_ipa's,
+    ssspy_tpu/bss/_update_spatial_model.py:311-318).
+    """
+    flooring_fn = functools.partial(max_flooring, eps=eps) if flooring_fn is None else flooring_fn
+    return reference.lqpqm2(H, v, z, flooring_fn=flooring_fn, max_iter=max_iter)
 
 
 def _solve_solver(secular_impl: str) -> Optional[Callable]:
@@ -248,6 +257,7 @@ def ipa_sweep_direct(
     newton_iter: int = 1,
     rel: float = 0.0,
     secular_impl: str = "eigh",
+    flooring_fn: Optional[Callable] = None,
 ) -> torch.Tensor:
     """IPA sweep with the statistics recomputed before each source; returns the new ``Y``.
 
@@ -269,17 +279,23 @@ def ipa_sweep_direct(
     float64. The fixtures follow the reference there. ``secular_impl="solve"``
     takes :func:`lqpqm2`'s eigendecomposition-free root instead, as
     ``ipa_sweep_sc`` does with it (splitc.py:1739-1812).
+
+    ``flooring_fn`` replaces ``max(., eps)`` everywhere ``update_by_ipa``
+    floors with its callable: the PSD projection and the inverse
+    (ssspy_tpu/bss/_update_spatial_model.py:280, :287), the LQPQM solver and
+    its singular test (:311-318) and the new row's norm (:327).
     """
-    solver = _solve_solver(secular_impl) or _reference_lqpqm2
-    floor = functools.partial(max_flooring, eps=eps)
+    solver = _solve_solver(secular_impl) or functools.partial(_reference_lqpqm2, flooring_fn=flooring_fn)
+    eig_floor = functools.partial(max_flooring, eps=eps) if flooring_fn is None else flooring_fn
     for n in range(Y.shape[0]):
-        U = to_psd(_covariance_stack(Y, varphi), flooring_fn=floor, rel=rel)
+        U = to_psd(_covariance_stack(Y, varphi), flooring_fn=eig_floor, rel=rel)
         Un = U[:, n]
         a_n = _drop(U[:, :, n, n].real, n, 1)
         b_n = _drop(U[:, :, n, :].diagonal(dim1=1, dim2=2), n, 1)
         q, p = ipa_qp(
-            Un, psd_inv(Un, flooring_fn=floor, rel=rel), a_n, b_n, n,
+            Un, psd_inv(Un, flooring_fn=eig_floor, rel=rel), a_n, b_n, n,
             eps=eps, lqpqm_normalization=lqpqm_normalization, newton_iter=newton_iter, solver=solver,
+            flooring_fn=flooring_fn,
         )
         row_n = torch.einsum("is,sit->it", p.conj(), Y)
         Y = Y + _insert(q.conj(), n, 0.0).transpose(0, 1)[:, :, None] * Y[n]  # row n gains 0
@@ -363,6 +379,7 @@ def ipa_sweep(
     lqpqm_normalization: bool = True,
     newton_iter: int = 1,
     secular_impl: str = "eigh",
+    flooring_fn: Optional[Callable] = None,
 ) -> torch.Tensor:
     """One IPA sweep over the sources: :func:`ipa_sweep_direct` for complex128, :func:`ipa_sweep_congruence` for complex64.
 
@@ -370,9 +387,14 @@ def ipa_sweep(
     source's secular equation on the pencil's spectrum (the Jacobi kernel
     K7 in complex64); ``"solve"`` without an eigendecomposition, as
     :func:`lqpqm2` takes it (12 trips in float32, 8 in float64).
+
+    A ``flooring_fn`` (one that is not ``max(., eps)``) takes
+    :func:`ipa_sweep_direct` in either dtype, with the callable where
+    ``update_by_ipa`` applies it: the congruence sweep's ridge stands in for
+    the floored projection, so it cannot take the callable.
     """
-    if Y.dtype == torch.complex128:
-        return ipa_sweep_direct(Y, varphi, eps, lqpqm_normalization, newton_iter, 0.0, secular_impl)
+    if Y.dtype == torch.complex128 or (flooring_fn is not None and Y.dtype == torch.complex64):
+        return ipa_sweep_direct(Y, varphi, eps, lqpqm_normalization, newton_iter, 0.0, secular_impl, flooring_fn)
     if Y.dtype == torch.complex64:
         return ipa_sweep_congruence(Y, varphi, eps, lqpqm_normalization, newton_iter, None, secular_impl)
     raise ValueError(f"the IPA sweep takes complex128 or complex64, got {Y.dtype}")

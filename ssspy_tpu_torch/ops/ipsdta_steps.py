@@ -41,13 +41,25 @@ and ``bin_sum``, as the multi-device runner of
 the activation update's numerator and denominator and the basis traces of
 the normalization (sums over blocks) are summed over the bin group in one
 call. The t model's frame weight, a sum over all bins, is not sharded.
+
+A ``flooring_fn`` that is not ``max(., eps)`` replaces ``max(., eps)``
+where the JAX complex class floors with its callable: the projections of
+the basis update (``to_psd``, ssspy_tpu/bss/ipsdta.py:603-606, :775-780),
+the t model's ``invsqrtmh`` (:779), the VCD sweep's singular test
+``|xi_hat| < flooring_fn(0)`` (:643, :819) and the activation's start
+(:270). The model keeps its projection at ``eps``, as that class's
+``_block_reconstruct`` does (:56-59). The step then takes the
+eigenvalue-floored route in either dtype (the ridge stands in for the
+projections that the callable floors).
 """
 
-from typing import List, Optional, Sequence, Tuple
+import functools
+from typing import Callable, List, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
 
+from ..special.flooring import floor
 from ..special.psd import hermitize, spectral
 from . import kernels
 from .iva_steps import clogabsdet, separate
@@ -140,7 +152,7 @@ def _root(lamb: torch.Tensor) -> torch.Tensor:
     return torch.sqrt(torch.clamp(lamb, min=0.0))
 
 
-def _basis_update(T, R_inv, RYYR, V, pi, dof, eps, psd_impl, gmean_impl):
+def _basis_update(T, R_inv, RYYR, V, pi, dof, eps, psd_impl, gmean_impl, flooring_fn=None):
     """The MM basis update of one part (splitc.py:3510-3547).
 
     Gauss: ``T <- P^-1 # TQT``. Student's t:
@@ -154,20 +166,26 @@ def _basis_update(T, R_inv, RYYR, V, pi, dof, eps, psd_impl, gmean_impl):
     ``M`` leaves eigenvalues at or below zero, the JAX form turns them into
     ``1 / eps = 1e10``, and its float32 step goes non-finite at the second
     iteration on a 0.6 s cut of the 8-channel mixture (``dof = 1000``); this
-    form gives ``1e5`` and stays finite.
+    form gives ``1e5`` and stays finite. ``flooring_fn`` takes the place of
+    ``max(., eps)`` in the projections and gives the JAX form
+    ``1 / flooring_fn(sqrt(max(lamb, 0)))`` (``invsqrtmh``).
     """
+    project = functools.partial(psd_project, eps=eps, impl=psd_impl, flooring_fn=flooring_fn)
     Vc = V.to(T.dtype)
     n_frames = V.shape[-1]
     P = torch.einsum("...nkt,...ntbij->...nkbij", Vc, R_inv) / n_frames
     Q = torch.einsum("...nkt,...ntbij->...nkbij", Vc, _frame_weighted(RYYR, pi)) / n_frames
     if dof is None:
-        T_new = gmean2(psd_project(P, eps, psd_impl), psd_project(T @ Q @ T, eps, psd_impl), impl=gmean_impl)
+        T_new = gmean2(project(P), project(T @ Q @ T), impl=gmean_impl)
     else:
-        Q_half = spectral(hermitize(psd_project(Q, eps, psd_impl)), _root)
-        M = psd_project(Q_half @ T @ P @ T @ Q_half, eps, psd_impl)
-        M_inv_half = spectral(hermitize(M), lambda lamb: 1 / torch.sqrt(torch.clamp(lamb, min=eps)))
+        Q_half = spectral(hermitize(project(Q)), _root)
+        M = project(Q_half @ T @ P @ T @ Q_half)
+        if flooring_fn is None:
+            M_inv_half = spectral(hermitize(M), lambda lamb: 1 / torch.sqrt(torch.clamp(lamb, min=eps)))
+        else:
+            M_inv_half = spectral(hermitize(M), lambda lamb: 1 / flooring_fn(_root(lamb)))
         T_new = T @ (Q_half @ M_inv_half @ Q_half) @ T
-    return psd_project(T_new, eps, psd_impl)
+    return project(T_new)
 
 
 def _psdtf_trace(T_parts: Sequence[torch.Tensor]) -> torch.Tensor:
@@ -204,7 +222,9 @@ def vcd_covariance(R_inv: torch.Tensor, X_part: torch.Tensor) -> torch.Tensor:
 _VCD_TINY = 1e-30  # the sweep's floor on xi, as the JAX sweep's ``tiny``
 
 
-def vcd_sweep(W: torch.Tensor, RXX: torch.Tensor, eps: float = 1e-10) -> torch.Tensor:
+def vcd_sweep(
+    W: torch.Tensor, RXX: torch.Tensor, eps: float = 1e-10, singular_fn: Optional[Callable] = None
+) -> torch.Tensor:
     """One VCD sweep over the bins of each block and the sources (``splitc._vcd_sweep_sc``, splitc.py:3311-3395).
 
     ``W``: ``(B, J, N, M)``, whose rows are ``conj(w)``; ``RXX``:
@@ -221,7 +241,11 @@ def vcd_sweep(W: torch.Tensor, RXX: torch.Tensor, eps: float = 1e-10) -> torch.T
     silent bin, ``U = 0``) the update is not taken and the row keeps its
     value, as the IP1 sweep freezes its rows
     (:func:`~ssspy_tpu_torch.ops.kernels.ip1_sweep_plain`); any other
-    non-finite value reaches the output. Returns the new ``W``.
+    non-finite value reaches the output. ``singular_fn(xi_hat)``, where
+    given, is the singular test in place of ``|xi_hat| < eps``
+    (``update_by_block_decomposition_vcd``'s, and the JAX class's
+    ``|xi_hat| < flooring_fn(0)``, ssspy_tpu/bss/ipsdta.py:643). Returns the
+    new ``W``.
     """
     n_blocks, n_neighbors, n_sources, n_channels = W.shape
     if n_sources != n_channels:
@@ -243,7 +267,7 @@ def vcd_sweep(W: torch.Tensor, RXX: torch.Tensor, eps: float = 1e-10) -> torch.T
             xi = torch.clamp((z * eta).sum(dim=-1).real, min=0)
             xi_hat = (z * eta_hat).sum(dim=-1)
             mag2 = xi_hat.real.square() + xi_hat.imag.square()
-            singular = torch.sqrt(mag2) < eps
+            singular = torch.sqrt(mag2) < eps if singular_fn is None else singular_fn(xi_hat)
             xi_safe = torch.clamp(xi, min=_VCD_TINY)
             s = (1 - torch.sqrt(1 + 4 * xi / torch.where(singular, torch.ones_like(mag2), mag2))) / (2 * xi_safe)
             c = torch.where(singular, torch.complex(1 / torch.sqrt(xi_safe), torch.zeros_like(xi)), s * xi_hat)
@@ -254,7 +278,8 @@ def vcd_sweep(W: torch.Tensor, RXX: torch.Tensor, eps: float = 1e-10) -> torch.T
 
 
 def random_psdtf(rng: np.random.Generator, n_sources: int, n_basis: int, n_frames: int, shapes, dtype,
-                 device, eps: float, basis: bool = True, activation: bool = True):
+                 device, eps: float, basis: bool = True, activation: bool = True,
+                 flooring_fn: Optional[Callable] = None):
     """The random start of the JAX class and fast path, drawn on the host in their order.
 
     Per part (``shapes``, :func:`part_shapes`) a diagonal basis of uniform
@@ -262,7 +287,8 @@ def random_psdtf(rng: np.random.Generator, n_sources: int, n_basis: int, n_frame
     ``max(draw, eps)``, ``(N, K, T)`` in ``dtype``'s real type
     (ssspy_tpu/bss/ipsdta.py:226-249, ssspy_tpu/fast.py:970-980). A part or
     the activation whose flag is off is neither drawn nor returned
-    (``None``), so that a warm start keeps the draw order.
+    (``None``), so that a warm start keeps the draw order. ``flooring_fn``
+    floors the activation in place of ``max(., eps)``.
     """
     real = torch.empty((), dtype=dtype).real.dtype
     T_parts = None
@@ -273,7 +299,7 @@ def random_psdtf(rng: np.random.Generator, n_sources: int, n_basis: int, n_frame
         ]
     V = None
     if activation:
-        V = torch.clamp(torch.as_tensor(rng.random((n_sources, n_basis, n_frames)), dtype=real), min=eps).to(device)
+        V = floor(torch.as_tensor(rng.random((n_sources, n_basis, n_frames)), dtype=real), eps, flooring_fn).to(device)
     return T_parts, V
 
 
@@ -286,6 +312,7 @@ def ipsdta_vcd_step(
     eps: float = 1e-10,
     normalization: bool = True,
     bin_sum=None,
+    flooring_fn: Optional[Callable] = None,
 ):
     """One IPSDTA iteration, MM source update and VCD spatial update (``splitc.ipsdta_vcd_step_sc``, splitc.py:3408-3605).
 
@@ -310,10 +337,11 @@ def ipsdta_vcd_step(
     per utterance. With ``bin_sum`` the rank holds whole blocks of the bins
     (one part) and the sums over blocks are summed over the bin group, as
     the module describes; the Gaussian model only (``dof=None``).
+    ``flooring_fn`` as the module describes.
     """
     if dof is not None and bin_sum is not None:
         raise ValueError("the t model's frame weight is not sharded over bins: dof takes bin_sum=None")
-    psd_impl, gmean_impl = _routes(X.dtype)
+    psd_impl, gmean_impl = _routes(X.dtype, flooring_fn=flooring_fn)
     bin_axis = X.dim() - 2
     n_bins = X.shape[bin_axis]
     shapes = _shapes_of(T_parts)
@@ -327,7 +355,7 @@ def ipsdta_vcd_step(
     # ---- the basis (gauss ipsdta.py:932-997; t :1491-1580) ----
     out, pi = stats(T_parts, V)
     T_parts = [
-        _basis_update(Tp, R_inv, RYYR, V, pi, dof, eps, psd_impl, gmean_impl)
+        _basis_update(Tp, R_inv, RYYR, V, pi, dof, eps, psd_impl, gmean_impl, flooring_fn)
         for Tp, (R_inv, RYYR, _) in zip(T_parts, out)
     ]
 
@@ -354,8 +382,15 @@ def ipsdta_vcd_step(
     out, pi = stats(T_parts, V)
     X_parts, W_parts = split_bins(X, bin_axis, shapes), split_bins(W, bin_axis - 1, shapes)
 
+    singular_fn = None
+    if flooring_fn is not None:
+        floor0 = flooring_fn(torch.zeros((), dtype=X.real.dtype, device=X.device))
+
+        def singular_fn(xi_hat):
+            return xi_hat.abs() < floor0
+
     def sweep(R_inv, Xp, Wp):
-        return vcd_sweep(Wp, vcd_covariance(R_inv, Xp), eps=eps)
+        return vcd_sweep(Wp, vcd_covariance(R_inv, Xp), eps=eps, singular_fn=singular_fn)
 
     W_new = []
     for (R_inv, _, _), Xp, Wp in zip(out, X_parts, W_parts):
@@ -374,6 +409,7 @@ def ipsdta_loss(
     V: torch.Tensor,
     dof: Optional[float] = None,
     eps: float = 1e-10,
+    flooring_fn: Optional[Callable] = None,
 ) -> torch.Tensor:
     """IPSDTA negative log-likelihood (``splitc.ipsdta_loss_sc``, splitc.py:4352-4419).
 
@@ -383,9 +419,10 @@ def ipsdta_loss(
     the model projected as :func:`ipsdta_vcd_step` projects it. One batched
     LU of ``R`` (``lu_factor_ex``) gives both ``R^-1 y`` and ``log det R``,
     as the dense-MNMF loss does; no kernel runs here. A 0-dim tensor on the
-    input's device.
+    input's device. ``flooring_fn`` chooses the route only: the model keeps
+    its projection at ``eps``.
     """
-    psd_impl, _ = _routes(X.dtype)
+    psd_impl, _ = _routes(X.dtype, flooring_fn=flooring_fn)
     Y_parts = split_bins(separate(X, W), 1, _shapes_of(T_parts))
     YRY = logdet_R = 0.0
     for Tp, Yp in zip(T_parts, Y_parts):

@@ -34,6 +34,7 @@ from typing import Callable, Iterable, Optional, Tuple
 import torch
 
 from ..linalg.eigh import gevd2
+from ..special.flooring import floor
 from ..utils.select_pair import sequential_pair_selector
 from . import kernels
 
@@ -93,47 +94,56 @@ def covariance(X: torch.Tensor, varphi: torch.Tensor) -> torch.Tensor:
     return kernels.weighted_covariance_plain(X, varphi)
 
 
-def ip1_update(W: torch.Tensor, U: torch.Tensor, eps: float = 1e-10) -> torch.Tensor:
-    """The sequential IP1 sweep of ``W (I, N, M)`` over ``U (I, N, M, M)``, routed by dtype and shape.
+def ip1_update(
+    W: torch.Tensor, U: torch.Tensor, eps: float = 1e-10, flooring_fn: Optional[Callable] = None
+) -> torch.Tensor:
+    """The sequential IP1 sweep of ``W (I, N, M)`` over ``U (I, N, M, M)``, routed by dtype, shape and floor.
 
     K1b (:func:`~ssspy_tpu_torch.ops.kernels.ip1_sweep`) for complex64 with
     ``N = M <= 17`` (:func:`~ssspy_tpu_torch.ops.kernels.ip1_sweep_takes`);
     :func:`~ssspy_tpu_torch.ops.kernels.ip1_sweep_plain` with its ``"lu"``
     solve (``solve_ex``) otherwise, the route the CPU classes meet the
     fixtures with. A batch ``W (B, I, N, M)``, ``U (B, I, N, M, M)`` is
-    folded into its bins, one sweep for all.
+    folded into its bins, one sweep for all. A ``flooring_fn`` (one that is
+    not ``max(., eps)``; the kernel floors with an ``eps``) takes the plain
+    sweep with the callable in place of ``max(., eps)``, on every device.
     """
     if W.dim() == 4:
-        return ip1_update(W.flatten(0, 1), U.flatten(0, 1), eps=eps).view(W.shape)
+        return ip1_update(W.flatten(0, 1), U.flatten(0, 1), eps=eps, flooring_fn=flooring_fn).view(W.shape)
     n_sources, n_channels = W.shape[-2:]
     if (
-        W.dtype == U.dtype == torch.complex64
+        flooring_fn is None
+        and W.dtype == U.dtype == torch.complex64
         and n_sources == n_channels
         and kernels.ip1_sweep_takes(n_channels)
     ):
         return kernels.ip1_sweep(W.contiguous(), U.contiguous(), eps=eps)
-    return kernels.ip1_sweep_plain(W, U, eps=eps)
+    return kernels.ip1_sweep_plain(W, U, eps=eps, flooring_fn=flooring_fn)
 
 
-def iss1_update(Y: torch.Tensor, varphi: torch.Tensor, eps: float = 1e-10) -> torch.Tensor:
-    """The sequential ISS1 sweep of ``Y (N, I, T)`` with weights ``(N, T)`` or ``(N, I, T)``, routed by dtype and shape.
+def iss1_update(
+    Y: torch.Tensor, varphi: torch.Tensor, eps: float = 1e-10, flooring_fn: Optional[Callable] = None
+) -> torch.Tensor:
+    """The sequential ISS1 sweep of ``Y (N, I, T)`` with weights ``(N, T)`` or ``(N, I, T)``, routed by dtype, shape and floor.
 
     K2 (:func:`~ssspy_tpu_torch.ops.kernels.iss1_sweep`) for complex64 ``Y``
     with float32 weights and ``N <= 16``
     (:func:`~ssspy_tpu_torch.ops.kernels.iss1_sweep_takes`);
     :func:`~ssspy_tpu_torch.ops.kernels.iss1_sweep_plain` otherwise. A
     batch ``Y (B, N, I, T)`` with weights ``(B, N, T)`` or ``(B, N, I, T)``
-    takes one sweep per utterance.
+    takes one sweep per utterance. A ``flooring_fn`` takes the plain sweep
+    with the callable, as :func:`ip1_update` does.
     """
     if Y.dim() == 4:
-        return torch.stack([iss1_update(Y[b], varphi[b], eps=eps) for b in range(Y.shape[0])])
+        return torch.stack([iss1_update(Y[b], varphi[b], eps=eps, flooring_fn=flooring_fn) for b in range(Y.shape[0])])
     if (
-        Y.dtype == torch.complex64
+        flooring_fn is None
+        and Y.dtype == torch.complex64
         and varphi.dtype == torch.float32
         and kernels.iss1_sweep_takes(Y.shape[0])
     ):
         return kernels.iss1_sweep(Y.contiguous(), varphi.contiguous(), eps=eps)
-    return kernels.iss1_sweep_plain(Y, varphi, eps=eps)
+    return kernels.iss1_sweep_plain(Y, varphi, eps=eps, flooring_fn=flooring_fn)
 
 
 def bin_norm(Y: torch.Tensor, bin_sum=None) -> torch.Tensor:
@@ -241,7 +251,12 @@ def _quad(h: torch.Tensor, G: torch.Tensor) -> torch.Tensor:
 
 
 def ip2_pair_update(
-    W: torch.Tensor, U_m: torch.Tensor, U_n: torch.Tensor, pair: Tuple[int, int], eps: float = 1e-10
+    W: torch.Tensor,
+    U_m: torch.Tensor,
+    U_n: torch.Tensor,
+    pair: Tuple[int, int],
+    eps: float = 1e-10,
+    flooring_fn: Optional[Callable] = None,
 ) -> torch.Tensor:
     """One IP2 pair update: the new rows ``m`` and ``n`` of ``W (I, N, M)``, as ``(I, 2, M)``.
 
@@ -254,7 +269,9 @@ def ip2_pair_update(
     are stored conjugated. A bin whose pencil is degenerate (``h^H G h > 0``
     fails for either row; NaN fails too) keeps its old rows. Any ``(m, n)``
     with ``m != n``. A batch ``W (B, I, N, M)`` with ``U_m``, ``U_n`` ``(B,
-    I, M, M)`` gives ``(B, I, 2, M)``.
+    I, M, M)`` gives ``(B, I, 2, M)``. ``flooring_fn`` replaces
+    ``max(., eps)`` on the norms, as ``update_by_ip2_one_pair`` floors them
+    (ssspy_tpu/bss/_update_spatial_model.py:146).
     """
     m, n = pair
     n_channels = W.shape[-1]
@@ -266,14 +283,18 @@ def ip2_pair_update(
     lo, hi = gevd2(G[0], G[1])
     h = torch.stack([hi, lo])  # (2, [B,] I, 2): h_m, h_n
     quad = _quad(h, G)  # (2, [B,] I)
-    h = h / torch.clamp(torch.sqrt(torch.clamp(quad, min=0.0)), min=eps)[..., None].to(h.dtype)
+    h = h / floor(torch.sqrt(torch.clamp(quad, min=0.0)), eps, flooring_fn)[..., None].to(h.dtype)
     rows = (P @ h[..., None])[..., 0].conj().movedim(0, -2)  # ([B,] I, 2, M)
     valid = ((quad[0] > 0) & (quad[1] > 0))[..., None, None]
     return torch.where(valid, rows, _pair_rows(W, pair, dim=-2))
 
 
 def ip2_update(
-    W: torch.Tensor, U: torch.Tensor, eps: float = 1e-10, pair_selector: Optional[PairSelector] = None
+    W: torch.Tensor,
+    U: torch.Tensor,
+    eps: float = 1e-10,
+    pair_selector: Optional[PairSelector] = None,
+    flooring_fn: Optional[Callable] = None,
 ) -> torch.Tensor:
     """The IP2 sweep of ``W (I, N, M)`` over fixed covariances ``U (I, N, M, M)``, one pair update per pair.
 
@@ -283,7 +304,7 @@ def ip2_update(
     """
     for pair in _pairs(W.shape[1], pair_selector):
         m, n = pair
-        W = _set_pair_rows(W, pair, ip2_pair_update(W, U[:, m], U[:, n], pair, eps=eps), dim=1)
+        W = _set_pair_rows(W, pair, ip2_pair_update(W, U[:, m], U[:, n], pair, eps=eps, flooring_fn=flooring_fn), dim=1)
     return W
 
 
@@ -294,6 +315,7 @@ def auxiva_ip2_step(
     pair_selector: Optional[PairSelector] = None,
     varphi_of: Optional[Callable[[torch.Tensor, Tuple[int, int]], torch.Tensor]] = None,
     bin_sum=None,
+    flooring_fn: Optional[Callable] = None,
 ) -> torch.Tensor:
     """One AuxIVA-IP2 iteration; returns the new demixing filters ``(I, N, M)``.
 
@@ -305,13 +327,15 @@ def auxiva_ip2_step(
     (splitc.py:1038-1072) with any ``pair_selector`` (sequential by
     default), as the JAX class's step (ssspy_tpu/bss/iva.py:955-968).
     Batched and ``bin_sum`` as the module describes: one call of the hook
-    per pair, the Laplace norm of the pair's rows.
+    per pair, the Laplace norm of the pair's rows. ``flooring_fn`` goes to
+    :func:`ip2_pair_update`.
     """
     for pair in _pairs(W.shape[-2], pair_selector):
         Y = separate(X, _pair_rows(W, pair, dim=-2))  # ([B,] 2, I, T)
         varphi = _laplace_varphi(Y, eps, bin_sum) if varphi_of is None else varphi_of(Y, pair)
         U = covariance(X, varphi)  # ([B,] I, 2, M, M)
-        W = _set_pair_rows(W, pair, ip2_pair_update(W, U[..., 0, :, :], U[..., 1, :, :], pair, eps=eps), dim=-2)
+        rows = ip2_pair_update(W, U[..., 0, :, :], U[..., 1, :, :], pair, eps=eps, flooring_fn=flooring_fn)
+        W = _set_pair_rows(W, pair, rows, dim=-2)
     return W
 
 
@@ -324,6 +348,7 @@ def iss2_sweep(
     eps: float = 1e-10,
     tiny: float = 1e-20,
     pair_selector: Optional[PairSelector] = None,
+    flooring_fn: Optional[Callable] = None,
 ) -> torch.Tensor:
     """The ISS2 sweep of ``Y (N, I, T)`` with weights ``(N, T)`` (IVA) or ``(N, I, T)`` (ILRMA).
 
@@ -338,6 +363,8 @@ def iss2_sweep(
     rows as they entered. Counterpart of ``splitc.iss2_sweep_sc``
     (splitc.py:1089ff; parity: ssspy/bss/_update_spatial_model.py:197-314)
     with any ``pair_selector``; no kernel, as in the JAX package.
+    ``flooring_fn`` replaces ``max(., eps)`` on the pair's norms, as
+    ``update_by_iss2`` floors them (ssspy_tpu/bss/_update_spatial_model.py:243).
     """
     n_sources, n_frames = Y.shape[0], Y.shape[-1]
     phi = varphi.to(Y.dtype)
@@ -353,8 +380,8 @@ def iss2_sweep(
         g11, g22 = g[..., 0], g[..., 1]
 
         det = g11 * g22 - (g12.real.square() + g12.imag.square())
-        floor = torch.full_like(det, tiny)
-        det = torch.where(det.abs() < tiny, torch.where(det < 0, -floor, floor), det)
+        tiny_det = torch.full_like(det, tiny)
+        det = torch.where(det.abs() < tiny, torch.where(det < 0, -tiny_det, tiny_det), det)
         f1, f2 = f[..., 0], f[..., 1]
         q = -torch.stack([g22 * f1 - g12 * f2, g11 * f2 - g12.conj() * f1], dim=-1) / det[..., None]
 
@@ -366,7 +393,7 @@ def iss2_sweep(
         G_pair = _pair_rows(G, pair, dim=0)
         lo, hi = gevd2(G_pair[0], G_pair[1])
         h = torch.stack([lo, hi])  # (2, I, 2): row m, row n
-        d = torch.clamp(torch.sqrt(torch.clamp(_quad(h, G_pair), min=0.0)), min=eps)
+        d = floor(torch.sqrt(torch.clamp(_quad(h, G_pair), min=0.0)), eps, flooring_fn)
         p = h / d[..., None].to(h.dtype)
 
         coef = _set_pair_rows(q, pair, p, dim=0).conj()  # (N, I, 2)

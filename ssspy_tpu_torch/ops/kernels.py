@@ -49,10 +49,11 @@ per operation does (``iva_steps.covariance``, ``ip1_update`` and
 
 import ctypes
 import functools
-from typing import Optional, Tuple
+from typing import Callable, Optional, Tuple
 
 import torch
 
+from ..special.flooring import floor
 from . import _build
 
 __all__ = [
@@ -337,7 +338,7 @@ def _gauss_jordan(M: torch.Tensor, tiny: float) -> torch.Tensor:
 
 
 def ip1_sweep_plain(
-    W: torch.Tensor, U: torch.Tensor, eps: float = 1e-10, solve_impl: str = "lu"
+    W: torch.Tensor, U: torch.Tensor, eps: float = 1e-10, solve_impl: str = "lu", flooring_fn: Optional[Callable] = None
 ) -> torch.Tensor:
     """Sequential IP1 sweep in plain PyTorch; returns the new ``W``.
 
@@ -348,6 +349,8 @@ def ip1_sweep_plain(
     which returns non-finite values on a singular system for the freeze to
     absorb where ``torch.linalg.solve`` would raise) or ``"gjnp"``
     (:func:`gauss_jordan_solve_nopivot`, the kernel's exact elimination).
+    ``flooring_fn`` replaces ``max(., eps)`` on the norm, as
+    ``update_by_ip1`` floors it (ssspy_tpu/bss/_update_spatial_model.py:75).
     """
     if solve_impl not in ("lu", "gjnp"):
         raise ValueError(f"unknown solve_impl {solve_impl!r}; expected 'lu' or 'gjnp'")
@@ -364,7 +367,7 @@ def ip1_sweep_plain(
             w = gauss_jordan_solve_nopivot(A, b)
         z = (U_n @ w[..., None])[..., 0]
         wUw = (w.real * z.real + w.imag * z.imag).sum(-1)
-        denom = torch.clamp(torch.sqrt(torch.clamp(wUw, min=0.0)), min=eps)
+        denom = floor(torch.sqrt(torch.clamp(wUw, min=0.0)), eps, flooring_fn)
         valid = (wUw > 0.0)[:, None]
         W[:, n] = torch.where(valid, w.conj() / denom[:, None], W[:, n])
     return W
@@ -444,7 +447,9 @@ ip1_sweep.launches = 0
 # ---- ISS1 sweep -------------------------------------------------------------
 
 
-def iss1_sweep_plain(Y: torch.Tensor, varphi: torch.Tensor, eps: float = 1e-10) -> torch.Tensor:
+def iss1_sweep_plain(
+    Y: torch.Tensor, varphi: torch.Tensor, eps: float = 1e-10, flooring_fn: Optional[Callable] = None
+) -> torch.Tensor:
     """Sequential ISS1 sweep in plain PyTorch; returns the new ``Y``.
 
     ``Y``: complex ``(N, I, T)``; ``varphi``: real ``(N, T)`` (IVA) or
@@ -453,13 +458,15 @@ def iss1_sweep_plain(Y: torch.Tensor, varphi: torch.Tensor, eps: float = 1e-10) 
     ``denom[m] = max(mean_t phi_m |y_n|^2, eps)``, ``v[n] = 1 - 1/sqrt(denom[n])``,
     then ``Y -= v y_n`` with the ``y_n`` of before the update; later sources
     see the updated ``Y``. The loop of splitc.py:376-398 on native complex.
+    ``flooring_fn`` replaces ``max(., eps)`` on ``denom``, as
+    ``update_by_iss1`` floors it (ssspy_tpu/bss/_update_spatial_model.py:181).
     """
     if varphi.dim() == 2:
         varphi = varphi[:, None, :]
     for n in range(Y.shape[0]):
         Y_n = Y[n]  # (I, T)
         num = torch.mean(varphi * (Y * Y_n.conj()), dim=-1)  # (N, I)
-        denom = torch.clamp(torch.mean(varphi * (Y_n.real**2 + Y_n.imag**2), dim=-1), min=eps)
+        denom = floor(torch.mean(varphi * (Y_n.real**2 + Y_n.imag**2), dim=-1), eps, flooring_fn)
         v = num / denom
         v[n] = 1 - 1 / torch.sqrt(denom[n])
         Y = Y - v[:, :, None] * Y_n

@@ -32,15 +32,22 @@ the same choices by backend (splitc.py:2974-2992):
   ``torch.linalg.eigh`` and ``gmean_impl="eigh2"``; the inverse and the
   sandwich are ``torch.linalg.inv_ex`` and ``matmul``, since the kernels
   take float32 only.
+
+A ``flooring_fn`` that is not ``max(., eps)`` replaces ``max(., eps)``
+wherever the JAX complex class floors with its callable: every PSD
+projection (``to_psd``, ssspy_tpu/bss/mnmf.py:213, :331, :349, :386,
+:395-399, :435) and the NMF updates (:356-374). It runs the eigh model in
+either dtype, unfused: K5's ridge ``eps I`` stands in for the projection
+``to_psd`` of the model, which the callable floors, so K5 does not launch.
 """
 
 import functools
-from typing import Optional, Tuple
+from typing import Callable, Optional, Tuple
 
 import torch
 
 from ..linalg.eig_free import chol_piv, tri_lower_inv
-from ..special.flooring import max_flooring
+from ..special.flooring import floor, max_flooring
 from ..special.psd import hermitize, spectral, to_psd
 from . import kernels, prox_steps
 from .ilrma_steps import reconstruct_nmf
@@ -62,12 +69,14 @@ F32_SPATIAL_REL = 1e-6
 GMEAN_IMPLS = ("chol", "eigh2")
 
 
-def _routes(dtype: torch.dtype, psd_impl: str = "auto", gmean_impl: str = "auto") -> Tuple[str, str]:
-    """``(psd_impl, gmean_impl)`` with ``"auto"`` resolved by dtype (see the module; IPSDTA's step takes the same)."""
+def _routes(
+    dtype: torch.dtype, psd_impl: str = "auto", gmean_impl: str = "auto", flooring_fn: Optional[Callable] = None
+) -> Tuple[str, str]:
+    """``(psd_impl, gmean_impl)`` with ``"auto"`` resolved by dtype and floor (see the module; IPSDTA's step takes the same)."""
     if dtype not in (torch.complex64, torch.complex128):
         raise ValueError(f"the step takes complex64 or complex128, got {dtype}")
     f32 = dtype == torch.complex64
-    psd_impl = ("ridge" if f32 else "eigh") if psd_impl == "auto" else psd_impl
+    psd_impl = ("ridge" if f32 and flooring_fn is None else "eigh") if psd_impl == "auto" else psd_impl
     gmean_impl = ("chol" if f32 else "eigh2") if gmean_impl == "auto" else gmean_impl
     if psd_impl not in PSD_IMPLS:
         raise ValueError(f"unknown psd_impl {psd_impl!r}; expected 'auto' or one of {PSD_IMPLS}")
@@ -76,29 +85,35 @@ def _routes(dtype: torch.dtype, psd_impl: str = "auto", gmean_impl: str = "auto"
     return psd_impl, gmean_impl
 
 
-def psd_project(A: torch.Tensor, eps: float, impl: str, rel: float = 0.0) -> torch.Tensor:
+def psd_project(
+    A: torch.Tensor, eps: float, impl: str, rel: float = 0.0, flooring_fn: Optional[Callable] = None
+) -> torch.Tensor:
     """PSD projection of Hermitian ``(..., m, m)`` (splitc.py:3150-3162).
 
     ``"eigh"`` floors the eigenvalues at ``max(eps, rel lamb_max)``
     (:func:`~ssspy_tpu_torch.special.psd.to_psd`; ``rel = 0`` is the JAX
-    step); ``"ridge"`` hermitizes and adds ``eps I``.
+    step), ``flooring_fn`` in place of ``max(., eps)`` where given;
+    ``"ridge"`` hermitizes and adds ``eps I``.
     """
     if impl == "eigh":
-        return to_psd(A, functools.partial(max_flooring, eps=eps), rel=rel)
+        return to_psd(A, functools.partial(max_flooring, eps=eps) if flooring_fn is None else flooring_fn, rel=rel)
     if impl == "ridge":
         return hermitize(A) + eps * torch.eye(A.shape[-1], dtype=A.dtype, device=A.device)
     raise ValueError(f"unknown psd_impl {impl!r}; expected one of {PSD_IMPLS}")
 
 
-def instant_covariance(X: torch.Tensor, eps: float = 1e-10, psd_impl: str = "auto") -> torch.Tensor:
+def instant_covariance(
+    X: torch.Tensor, eps: float = 1e-10, psd_impl: str = "auto", flooring_fn: Optional[Callable] = None
+) -> torch.Tensor:
     """``XX[i,t] = psd_project(x_it x_it^H)``, ``(I, T, M, M)`` from ``X (M, I, T)`` (splitc.py:2905-2918).
 
-    ``psd_impl`` as :func:`gauss_mnmf_step` resolves it; the rank-one outer
-    product is PSD by construction, so the ridge is its float32 route.
+    ``psd_impl`` and ``flooring_fn`` as :func:`gauss_mnmf_step` takes them;
+    the rank-one outer product is PSD by construction, so the ridge is its
+    float32 route.
     """
-    psd_impl, _ = _routes(X.dtype, psd_impl)
+    psd_impl, _ = _routes(X.dtype, psd_impl, flooring_fn=flooring_fn)
     XX = torch.einsum("pit,qit->itpq", X, X.conj())
-    return psd_project(XX, eps, psd_impl).contiguous()
+    return psd_project(XX, eps, psd_impl, flooring_fn=flooring_fn).contiguous()
 
 
 def _symmetrised(S: torch.Tensor) -> torch.Tensor:
@@ -171,7 +186,9 @@ def _inv_sandwich(R: torch.Tensor, C: torch.Tensor) -> Tuple[torch.Tensor, torch
     return R_inv, (R_inv @ C) @ R_inv
 
 
-def spatial_projection(G: torch.Tensor, eps: float, psd_impl: str) -> torch.Tensor:
+def spatial_projection(
+    G: torch.Tensor, eps: float, psd_impl: str, flooring_fn: Optional[Callable] = None
+) -> torch.Tensor:
     """The projection of the new spatial covariances: ``psd_impl`` in complex128, an eigenvalue floor in complex64.
 
     In complex64 the eigenvalues of ``G`` are floored at
@@ -184,10 +201,11 @@ def spatial_projection(G: torch.Tensor, eps: float, psd_impl: str) -> torch.Tens
     10 s mixture a floor relative to the top eigenvalue keeps the step
     finite closer to complex128 than a relative ridge, which lifts every
     eigenvalue (scripts/torch_mnmf_float32_floor.py; PERF.md, section 6).
+    ``flooring_fn`` takes the place of ``max(., eps)`` where given.
     """
     if G.dtype == torch.complex64:
-        return psd_project(G, eps, "eigh", rel=F32_SPATIAL_REL)
-    return psd_project(G, eps, psd_impl)
+        return psd_project(G, eps, "eigh", rel=F32_SPATIAL_REL, flooring_fn=flooring_fn)
+    return psd_project(G, eps, psd_impl, flooring_fn=flooring_fn)
 
 
 def _fused(dtype: torch.dtype, psd_impl: str, n_sources: int, m: int) -> bool:
@@ -208,6 +226,7 @@ def gauss_mnmf_step(
     gmean_impl: str = "auto",
     bin_mask: Optional[torch.Tensor] = None,
     bin_sum=None,
+    flooring_fn: Optional[Callable] = None,
 ):
     """One dense GaussMNMF iteration (``splitc.gauss_mnmf_step_sc``, splitc.py:2921-3124).
 
@@ -241,9 +260,14 @@ def gauss_mnmf_step(
     activation update's numerator and denominator, sums over bins, are
     summed over the bin group in one call, and with ``Z`` the latent
     update's in another. Returns ``(T, V, H)`` or ``(T, V, H, Z)``.
+
+    ``flooring_fn`` (not ``max(., eps)``) floors the NMF updates and every
+    PSD projection in place of ``max(., eps)``, on the unfused eigh model
+    (see the module).
     """
-    psd_impl, gmean_impl = _routes(XX.dtype, psd_impl, gmean_impl)
-    fused = _fused(XX.dtype, psd_impl, H.shape[-4], H.shape[-1])
+    psd_impl, gmean_impl = _routes(XX.dtype, psd_impl, gmean_impl, flooring_fn)
+    fused = flooring_fn is None and _fused(XX.dtype, psd_impl, H.shape[-4], H.shape[-1])
+    project = functools.partial(psd_project, eps=eps, impl=psd_impl, flooring_fn=flooring_fn)
     keep = None if bin_mask is None else bin_mask.to(H.device)
 
     def traces(T, V, Z, H):
@@ -251,7 +275,7 @@ def gauss_mnmf_step(
         if fused:
             num, denom = _model_traces(Lamb, H, XX, eps, outputs="traces")
         else:
-            R_inv, S = _inv_sandwich(psd_project(_model(Lamb, H), eps, psd_impl), XX)
+            R_inv, S = _inv_sandwich(project(_model(Lamb, H)), XX)
             num, denom = _trace_real(S, H), _trace_real(R_inv, H)
         if keep is not None:
             mask = keep[:, None]  # over (..., I, T)
@@ -268,7 +292,7 @@ def gauss_mnmf_step(
         n_, d_ = (torch.einsum("...nkt,...nit->...nik", V, x) for x in (num, denom))
     else:
         n_, d_ = (torch.einsum("...nk,...kt,...nit->...ik", Z, V, x) for x in (num, denom))
-    T_new = torch.clamp(T * torch.sqrt(n_ / d_), min=eps)
+    T_new = floor(T * torch.sqrt(n_ / d_), eps, flooring_fn)
     T = T_new if keep is None else torch.where(keep[:, None], T_new, T)  # padded basis rows frozen
 
     num, denom = traces(T, V, Z, H)
@@ -277,20 +301,21 @@ def gauss_mnmf_step(
     else:
         n_, d_ = (torch.einsum("...nk,...ik,...nit->...kt", Z, T, x) for x in (num, denom))
     n_, d_ = bin_sums(n_, d_)
-    V = torch.clamp(V * torch.sqrt(n_ / d_), min=eps)
+    V = floor(V * torch.sqrt(n_ / d_), eps, flooring_fn)
 
     # ---- spatial update H <- P^-1 # HQH (mnmf.py:970-1016) ----
     Lamb = reconstruct_nmf(T, V, Z).contiguous()
     if fused:
         P, Q = _model_traces(Lamb, H, XX, eps, outputs="sums")
     else:
-        R_inv, S = _inv_sandwich(psd_project(_model(Lamb, H), eps, psd_impl), XX)
+        R_inv, S = _inv_sandwich(project(_model(Lamb, H)), XX)
         Lc = Lamb.to(H.dtype)
         P = torch.einsum("...nit,...itpq->...nipq", Lc, R_inv)
         Q = torch.einsum("...nit,...itpq->...nipq", Lc, S)
-    P = psd_project(P, eps, psd_impl)
-    HQH = psd_project(H @ Q @ H, eps, psd_impl)
-    H_new = spatial_projection(gmean2(P, HQH, impl=gmean_impl), eps, psd_impl)
+    P = project(P)
+    HQH = project(H @ Q @ H)
+    G = gmean2(P, HQH, impl=gmean_impl)
+    H_new = spatial_projection(G, eps, psd_impl) if flooring_fn is None else spatial_projection(G, eps, psd_impl, flooring_fn)
     H = H_new if keep is None else torch.where(keep[:, None, None], H_new, H)  # padded covariances frozen
 
     # ---- unit-trace normalization (mnmf.py:391-414) ----
@@ -319,6 +344,7 @@ def gauss_mnmf_loss(
     Z: Optional[torch.Tensor] = None,
     eps: float = 1e-10,
     psd_impl: str = "auto",
+    flooring_fn: Optional[Callable] = None,
 ) -> torch.Tensor:
     """Negative log-likelihood ``sum_i mean_t [tr(R^-1 XX) + log det R]`` (splitc.py:4306-4331).
 
@@ -327,10 +353,10 @@ def gauss_mnmf_loss(
     instead of raising) gives both terms: ``lu_solve`` for the trace and
     the log-magnitudes of its pivots for the log-determinant, as the
     class's ``solve`` and ``slogdet`` (bss/mnmf.py:426-441). A 0-dim tensor
-    on the input's device.
+    on the input's device. ``flooring_fn`` as :func:`gauss_mnmf_step` takes it.
     """
-    psd_impl, _ = _routes(XX.dtype, psd_impl)
-    R = psd_project(_model(reconstruct_nmf(T, V, Z), H), eps, psd_impl)
+    psd_impl, _ = _routes(XX.dtype, psd_impl, flooring_fn=flooring_fn)
+    R = psd_project(_model(reconstruct_nmf(T, V, Z), H), eps, psd_impl, flooring_fn=flooring_fn)
     LU, pivots, _ = torch.linalg.lu_factor_ex(R)
     trace = torch.linalg.lu_solve(LU, pivots, XX).diagonal(dim1=-2, dim2=-1).real.sum(dim=-1)
     logdet = torch.log(LU.diagonal(dim1=-2, dim2=-1).abs()).sum(dim=-1)
@@ -338,20 +364,26 @@ def gauss_mnmf_loss(
 
 
 def wiener_separate(
-    X: torch.Tensor, Lamb: torch.Tensor, H: torch.Tensor, reference_id: int = 0, eps: Optional[float] = None
+    X: torch.Tensor,
+    Lamb: torch.Tensor,
+    H: torch.Tensor,
+    reference_id: int = 0,
+    eps: Optional[float] = None,
+    flooring_fn: Optional[Callable] = None,
 ) -> torch.Tensor:
     """Multichannel Wiener filter at the reference channel: ``Y (N, I, T)`` from ``X (M, I, T)``.
 
     ``y_n = [R_n^H R^-H x]_ref`` with ``R_n = Lamb_n H_n`` and ``R = sum_n
     R_n`` (fast.py:902-908), projected first with ``eps`` as the class does
     (bss/mnmf.py:322-334; the step's model for the dtype; ``eps=None``: not
-    projected, as the fast path).
+    projected, as the fast path; ``flooring_fn`` as :func:`gauss_mnmf_step`
+    takes it).
     The reference forms ``W_n = R^-1 R_n`` for every source, an
     ``(N, I, T, M, M)`` tensor; here one ``solve_ex`` of ``R^H z = x`` serves
     every source, and ``y_n = Lamb_n conj(H_n[:, ref]) . z``.
     """
     R = _model(Lamb, H)
     if eps is not None:
-        R = psd_project(R, eps, _routes(R.dtype)[0])
+        R = psd_project(R, eps, _routes(R.dtype, flooring_fn=flooring_fn)[0], flooring_fn=flooring_fn)
     z = torch.linalg.solve_ex(R.mH, X.permute(1, 2, 0)[..., None])[0][..., 0]  # (I, T, M)
     return Lamb.to(X.dtype) * torch.einsum("nip,itp->nit", H[..., :, reference_id].conj(), z)

@@ -1,6 +1,7 @@
 from .flooring import (
     EPS,
     F32_EPS,
+    add_flooring,
     choose_flooring_fn,
     dtype_eps,
     dtype_flooring,
@@ -10,10 +11,12 @@ from .flooring import (
     sweep_eps,
 )
 from .psd import to_psd
+from .softmax import logsumexp, softmax
 
 __all__ = [
     "EPS",
     "F32_EPS",
+    "add_flooring",
     "choose_flooring_fn",
     "dtype_eps",
     "dtype_flooring",
@@ -22,4 +25,6 @@ __all__ = [
     "resolve_flooring_spec",
     "sweep_eps",
     "to_psd",
+    "softmax",
+    "logsumexp",
 ]

@@ -8,7 +8,7 @@ function, mirroring the reference's safety model
 """
 
 import functools
-from typing import Any, Callable, Optional, Union
+from typing import Any, Callable, Optional, Tuple, Union
 
 import torch
 
@@ -24,11 +24,14 @@ __all__ = [
     "F32_EPS",
     "identity",
     "max_flooring",
+    "add_flooring",
     "dtype_eps",
     "dtype_flooring",
     "resolve_flooring_spec",
     "choose_flooring_fn",
     "sweep_eps",
+    "step_flooring",
+    "floor",
 ]
 
 
@@ -40,6 +43,11 @@ def identity(input):
 def max_flooring(input, eps: float = EPS):
     """Elementwise ``max(input, eps)``."""
     return torch.clamp(input, min=eps)
+
+
+def add_flooring(input, eps: float = EPS):
+    """Elementwise ``input + eps``."""
+    return input + eps
 
 
 def dtype_flooring(input, eps64: float = EPS, eps32: float = F32_EPS):
@@ -104,14 +112,15 @@ def choose_flooring_fn(
     return flooring_fn
 
 
-def sweep_eps(flooring_fn: Callable, dtype: torch.dtype) -> float:
-    """The ``eps`` of ``max(., eps)`` that ``flooring_fn`` applies.
+def sweep_eps(flooring_fn: Callable, dtype: torch.dtype) -> Optional[float]:
+    """The ``eps`` of ``max(., eps)`` that ``flooring_fn`` applies, or ``None`` where it is not max-type.
 
-    The IP1 and ISS1 sweep kernels floor their denominators with a
-    max-type eps (``update_by_ip1`` / ``update_by_iss1``'s ``flooring_fn``,
-    ssspy_tpu/bss/_update_spatial_model.py:46-79, :158-187), so a
-    separator's flooring function must be one of those; ``dtype`` is the
-    operand dtype that :func:`dtype_flooring` reads.
+    Max-type are ``dtype_flooring`` (``dtype`` is the operand dtype it
+    reads), ``max_flooring``, a ``functools.partial`` of it and
+    ``identity`` (``eps = 0``): the IP1 and ISS1 sweep kernels floor their
+    denominators with such an ``eps``
+    (ssspy_tpu/bss/_update_spatial_model.py:46-79, :158-187). Any other
+    callable gives ``None``, and the steps apply it on their plain routes.
     """
     if flooring_fn is dtype_flooring:
         return dtype_eps(dtype)
@@ -121,7 +130,27 @@ def sweep_eps(flooring_fn: Callable, dtype: torch.dtype) -> float:
         return EPS
     if flooring_fn is identity:
         return 0.0
-    raise NotImplementedError(
-        "the IP1 and ISS1 sweeps floor with max(., eps): flooring_fn must be "
-        "'dtype', 'f32', 'f64', None, max_flooring or a functools.partial of it"
-    )
+    return None
+
+
+def step_flooring(
+    flooring_fn: Callable, dtype: torch.dtype, eps: Optional[float] = None
+) -> Tuple[float, Optional[Callable]]:
+    """``(eps, floor)`` for a step: ``(its eps, None)`` for a max-type ``flooring_fn``, else ``(default, flooring_fn)``.
+
+    ``eps`` is the max-type eps when given (a class that reads it
+    otherwise, as the MNMF classes do), else :func:`sweep_eps`'s. For any
+    other callable the eps is ``dtype_eps(dtype)``, the floor of the places
+    where the JAX class floors with a constant and not with its
+    ``flooring_fn``, and the callable goes to the steps, which apply it
+    where the JAX class does (:func:`floor`).
+    """
+    max_eps = sweep_eps(flooring_fn, dtype)
+    if max_eps is None:
+        return dtype_eps(dtype), flooring_fn
+    return (max_eps if eps is None else eps), None
+
+
+def floor(input: torch.Tensor, eps: float, flooring_fn: Optional[Callable] = None) -> torch.Tensor:
+    """``max(input, eps)``; ``flooring_fn(input)`` in its place where a callable is given."""
+    return torch.clamp(input, min=eps) if flooring_fn is None else flooring_fn(input)

@@ -1120,3 +1120,119 @@ def test_gauss_mnmf_masked_fused_route_equals_its_plain_route(cuda_device, monke
         assert torch.isfinite(torch.view_as_real(f) if f.is_complex() else f).all()
         assert (f - p).abs().max() <= 2e-4 * p.abs().max()
     assert torch.all(fused[0][:, n_bins:] == 0) and torch.all(fused[2][:, n_bins:] == 0)
+
+
+# ---- the update_by_* spatial updates and a flooring_fn that is not max(., eps) -------------------------------------
+
+
+def _update_by_inputs(device, dtype=torch.complex64, seed=62):
+    """A 4-channel mixture's spectrogram, filters near the identity, its Laplace weights and weighted covariances."""
+    from ssspy_tpu_torch.ops import iva_steps
+
+    X = torch.from_numpy(_mixture_spectrogram(4, seed=seed)).to(device=device, dtype=dtype)
+    M, I, _ = X.shape
+    rng = np.random.default_rng(seed)
+    noise = rng.standard_normal((2, I, M, M))
+    W = (torch.eye(M, dtype=dtype) + 0.1 * torch.complex(*torch.from_numpy(noise)).to(dtype)).to(device)
+    Y = iva_steps.separate(X, W)
+    weight = (1 / torch.linalg.vector_norm(Y, dim=1).clamp(min=1e-10))[:, None, :]  # (N, 1, T)
+    U = K.weighted_covariance_plain(X, weight[:, 0])
+    return X, W, Y, weight, U
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("name", ["ip1", "iss1", "ipa", "ip2", "iss2"])
+def test_update_by_on_the_card_launches_its_kernels_and_equals_the_cpu(cuda_device, name):
+    """The default floor: in complex64 K1b (ip1), K2 (iss1), K1 + K7 + K6 (ipa, once a source), the output within the
+    kernel's gate of the same update on the CPU (IPA: its loss, as the paths hold it); no kernel (ip2, iss2) in
+    complex128 within 1e-6 of the CPU (in float32 one pair update moves by its summation order on a near-degenerate
+    pencil, as the IP2 and ISS2 paths do)."""
+    from ssspy_tpu_torch.bss import _update_spatial_model as usm
+    from ssspy_tpu_torch.ops.iva_steps import iva_laplace_loss
+
+    updates = {
+        "ip1": (lambda W, Y, w, U: usm.update_by_ip1(W, U), {"ip1_sweep": 1}),
+        "iss1": (lambda W, Y, w, U: usm.update_by_iss1(Y, w), {"iss1_sweep": 1}),
+        "ipa": (lambda W, Y, w, U: usm.update_by_ipa(Y, w), {"weighted_covariance": 1, "jacobi_eigh": 4,
+                                                              "ipa_congruence": 4}),
+        "ip2": (lambda W, Y, w, U: usm.update_by_ip2(W, U), {}),
+        "iss2": (lambda W, Y, w, U: usm.update_by_iss2(Y, w), {}),
+    }
+    update, expected = updates[name]
+    kernel_free = name in ("ip2", "iss2")
+    X, W, Y, weight, U = _update_by_inputs(cuda_device, torch.complex128 if kernel_free else torch.complex64)
+    before = _new_path_launches()
+    out = update(W, Y, weight, U)
+    launched = _launched(before)
+    assert {k: v for k, v in launched.items() if v} == expected
+    host = update(*(t.cpu() for t in (W, Y, weight, U)))
+    assert out.device.type == cuda_device.type and torch.isfinite(torch.view_as_real(out)).all()
+    if name == "ipa":
+        loss, loss_host = float(iva_laplace_loss(X, Y=out)), float(iva_laplace_loss(X.cpu(), Y=host))
+        assert abs(loss - loss_host) <= 3e-4 * abs(loss_host)
+    else:
+        assert (out.cpu() - host).abs().max() <= (1e-6 if kernel_free else 1e-4) * host.abs().max()
+
+
+@pytest.mark.cuda
+def test_update_by_with_a_callable_floor_takes_the_plain_sweeps_on_the_card(cuda_device):
+    """complex64 with ``v + 1e-6``: no K1b and no K2, and the CPU's result; update_by_ip1 with the default floor equals
+    ip1_update to the bit."""
+    from ssspy_tpu_torch.bss import _update_spatial_model as usm
+    from ssspy_tpu_torch.ops.iva_steps import ip1_update
+
+    def shifted(v):
+        return v + 1e-6
+
+    X, W, Y, weight, U = _update_by_inputs(cuda_device, seed=63)
+    before = _new_path_launches()
+    W_new = usm.update_by_ip1(W, U, flooring_fn=shifted)
+    Y_new = usm.update_by_iss1(Y, weight, flooring_fn=shifted)
+    assert all(count == 0 for count in _launched(before).values())
+    W_host = usm.update_by_ip1(W.cpu(), U.cpu(), flooring_fn=shifted)
+    Y_host = usm.update_by_iss1(Y.cpu(), weight.cpu(), flooring_fn=shifted)
+    assert (W_new.cpu() - W_host).abs().max() <= 1e-4 * W_host.abs().max()
+    assert (Y_new.cpu() - Y_host).abs().max() <= 1e-4 * Y_host.abs().max()
+    assert torch.equal(usm.update_by_ip1(W, U), ip1_update(W, U, eps=1e-10))
+
+
+FLOORING_FAMILIES = ("AuxLaplaceIVA-ISS2", "GaussILRMA-IP1", "AuxLaplaceFDICA-IP2", "GaussMNMF", "FastGaussMNMF-IP2",
+                     "GaussIPSDTA", "CACGMM")
+
+
+def _flooring_class(label, device):
+    from ssspy_tpu_torch import bss
+
+    def shifted(v):
+        return v + 1e-10
+
+    rng = {"rng": np.random.default_rng(64)}
+    family, _, algorithm = label.partition("-")
+    if family == "AuxLaplaceIVA":
+        return bss.AuxLaplaceIVA(spatial_algorithm=algorithm, flooring_fn=shifted, device=device)
+    if family == "GaussILRMA":
+        return bss.GaussILRMA(n_basis=2, spatial_algorithm=algorithm, flooring_fn=shifted, device=device, **rng)
+    if family == "AuxLaplaceFDICA":
+        return bss.AuxLaplaceFDICA(spatial_algorithm=algorithm, flooring_fn=shifted, device=device)
+    if family == "GaussMNMF":
+        return bss.GaussMNMF(n_basis=2, flooring_fn=shifted, device=device, **rng)
+    if family == "FastGaussMNMF":
+        return bss.FastGaussMNMF(n_basis=2, diagonalizer_algorithm=algorithm, flooring_fn=shifted, device=device, **rng)
+    if family == "GaussIPSDTA":
+        return bss.GaussIPSDTA(n_basis=2, n_blocks=8, flooring_fn=shifted, device=device, **rng)
+    return bss.CACGMM(flooring_fn=shifted, device=device, **rng)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("label", FLOORING_FAMILIES)
+def test_complex128_classes_with_a_callable_floor_on_the_card_equal_the_cpu(cuda_device, label):
+    """One class of each family with ``v + 1e-10`` in complex128: no kernel launches, the loss within 1e-6 of the CPU's."""
+    X = torch.from_numpy(_mixture_spectrogram(3, seed=65))
+    before = _new_path_launches()
+    card = _flooring_class(label, cuda_device)
+    Y = card(X, n_iter=5)
+    assert all(count == 0 for count in _launched(before).values())
+    host = _flooring_class(label, "cpu")
+    host(X, n_iter=5)
+    assert Y.device.type == cuda_device.type and Y.dtype == torch.complex128 and torch.isfinite(torch.view_as_real(Y)).all()
+    assert abs(card.loss[-1] - host.loss[-1]) <= 1e-6 * abs(host.loss[-1])

@@ -291,12 +291,6 @@ def test_unported_spatial_algorithms_raise(algorithm):
     assert _rel_err(Y_fast.numpy(), Y_fast_jax) <= 1e-3
 
 
-def test_flooring_without_a_max_eps_is_refused():
-    iva = _torch_class(flooring_fn=lambda x: x + 1e-6)
-    with pytest.raises(NotImplementedError, match="max"):
-        iva(torch.from_numpy(_spectrogram(seed=12)), n_iter=1)
-
-
 @pytest.mark.parametrize("scale_restoration", ["MDP", "projection_back"])
 def test_iss1_scale_restoration_matches_jax(scale_restoration):
     X = _spectrogram(seed=10)

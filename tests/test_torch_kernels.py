@@ -473,7 +473,8 @@ def test_import_pulls_in_no_jax():
         "ssspy_tpu_torch.ops.prox_steps, ssspy_tpu_torch.linalg.prox, ssspy_tpu_torch.ops.ipa_steps, "
         "ssspy_tpu_torch.linalg.lqpqm, ssspy_tpu_torch.special.psd, ssspy_tpu_torch.bss.mnmf, "
         "ssspy_tpu_torch.ops.mnmf_steps, ssspy_tpu_torch.ops.ipsdta_steps, ssspy_tpu_torch.bss.ipsdta, "
-        "ssspy_tpu_torch.parallel, ssspy_tpu_torch.parallel.collectives, ssspy_tpu_torch.parallel.dryrun\n"
+        "ssspy_tpu_torch.parallel, ssspy_tpu_torch.parallel.collectives, ssspy_tpu_torch.parallel.dryrun, "
+        "ssspy_tpu_torch.io, ssspy_tpu_torch.native, ssspy_tpu_torch.bss._update_spatial_model, ssspy_tpu_torch.linalg\n"
         "bad = sorted(m for m in sys.modules if m == 'jax' or m.startswith(('jax.', 'ssspy_tpu.')) "
         "or m == 'ssspy_tpu')\n"
         "assert not bad, bad\n"
