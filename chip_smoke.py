@@ -189,7 +189,24 @@ calls, on the default device:
   thread beside the card); AuxLaplaceIVA-IP1 at full width in complex64
   with ``v + 1e-6``, 20 iterations: K1 once an iteration and K1b never
   (the plain sweep), the loss falling; and the default floor, which still
-  launches K1b.
+  launches K1b;
+- checkpoint / resume (``[checkpoint]``, 5r): ``AuxLaplaceIVA("IP")``,
+  ``AuxLaplaceIVA("ISS1", scale_restoration=False)`` and
+  ``GaussILRMA("IP", n_basis=8)`` (k = 50), ``CACGMM`` at 8 sources (25)
+  and ``GaussIPSDTA`` (``n_basis=8``, 64 blocks: a basis of two parts; 10)
+  run k iterations, save a checkpoint (``utils.checkpoint``), and a fresh
+  instance resumes it for k more: its output and loss history must equal
+  an uninterrupted run of 2k to the bit, both halves must launch their
+  kernels (K1 and K1b, K2, K1 and K1b, K7, K3 and K7) exactly as often as
+  the iterations make them, and the file must hold exactly the class's
+  declared keywords (no unit input for cACGMM), in the JAX package's
+  layout;
+- the profiling helpers (``[profiling]``, 5s; ``utils.profiling``):
+  ``trace`` around 10 ``fast_auxiva`` IP1 steps writes a Chrome trace that
+  names K1's and K1b's kernels (up to three sessions, as a CUPTI session
+  may drop events), ``timed`` on the same call reads more than 0 s, and
+  ``compiled_stats`` on one step reads a peak of the card's memory above 0
+  and no FLOP count, since hand-written kernels launched.
 
 Each class there runs with the fast path's floor (``flooring_fn="f64"``
 where its floor differs) and must equal its fast path to the bit; each path
@@ -234,7 +251,8 @@ outputs are held against the same iterations run through the plain
 versions on the card. Last, it times each kernel against its plain
 version, its bound and (where one exists) the one PyTorch call that
 computes the same function, between CUDA events and (its own duration per
-launch) by ``torch.profiler``, beside the events its session saw of those
+launch) by ``torch.profiler`` (the readers ``profiled_us`` and ``profile``
+of ``ssspy_tpu_torch.utils.profiling``), beside the events its session saw of those
 launched (a CUPTI session may drop some), and each path's iterations per
 second and device time per iteration by ``torch.profiler``, read the
 same way (each session opens with a spin kernel, and the events seen are
@@ -373,9 +391,13 @@ from ssspy_tpu_torch.parallel import dryrun as parallel_dryrun
 from ssspy_tpu_torch.parallel.dryrun import CASES as PARALLEL_CASES, dryrun_multichip
 from ssspy_tpu_torch.special.psd import eigh_in_batches
 from ssspy_tpu_torch.transform import istft, stft
+from ssspy_tpu_torch.utils import profiling
+from ssspy_tpu_torch.utils.checkpoint import resume, save_checkpoint
 from ssspy_tpu_torch.utils.dataset import HOP, N_FFT, hard_speech_mixture, make_mixture, sample_speech_mixture
+# N_ITER (100: each path's iterations, chain's default) and N_TIMED (30: timed runs per measurement) come with the
+# readers of device time
+from ssspy_tpu_torch.utils.profiling import N_ITER, N_TIMED, chain, profile, profiled_us
 
-N_ITER = 100
 N_ITER_MODELS = 10  # TILRMA / GGDILRMA
 N_BASIS = 8  # bench.py:42
 FAST_EPS = 1e-10  # fast_auxiva / auxiva_ip1_step default
@@ -385,7 +407,6 @@ SWEEP_TOL = 1e-4
 ISS1_TOL = 1e-4  # 626 f32 terms summed in different orders, over 8 sequential updates
 LOSS_TOL = 1e-3
 MIN_SI_SDR_DB = 30.0
-N_TIMED = 30  # timed runs per measurement, after warm-up
 SILENT_BINS = (0, 128)
 SPIN_CYCLES = 20_000_000  # ~10 ms of device spin ahead of a "queued" timing
 LONG_SHAPE = (8, 16, 4000)  # (N, I, T) whose bin exceeds shared memory: the streamed K2
@@ -491,6 +512,8 @@ RANK_KERNEL_TOLS = {"weighted_covariance": WCOV_TOL, "ip1_sweep": SWEEP_TOL, "is
 ICA_FIXTURE_TOL = 1e-6  # tests/regression/test_regression.py:179-186
 WAV_SI_SDR_DB = 60.0  # a separated source through its 16-bit WAV file against itself in memory
 N_ITER_FLOORING = 20  # AuxLaplaceIVA-IP1 at full width with a flooring_fn that is not max(., eps)
+N_ITER_TRACE = 10  # fast_auxiva IP1 steps traced, timed (per call) by the profiling helpers
+TRACE_ATTEMPTS = 3  # trace sessions until one names K1's and K1b's kernels (a CUPTI session may drop events)
 REPO = os.path.dirname(os.path.abspath(__file__))
 
 # the card's peaks for the bound: NVIDIA H100 SXM data sheet, at 700 W
@@ -826,12 +849,6 @@ def fast_varphi(Y):
     return 1.0 / torch.clamp(torch.linalg.vector_norm(Y, dim=1), min=FAST_EPS)
 
 
-def chain(step, state, n_iter=N_ITER):
-    for _ in range(n_iter):
-        state = step(state)
-    return state
-
-
 def iterations_per_s(step, state, n_iter: int = N_ITER) -> float:
     """``n_iter`` chained steps between two CUDA events, after a warm-up chain of ``RATE_WARMUP`` steps."""
     chain(step, state, min(n_iter, RATE_WARMUP))
@@ -982,81 +999,6 @@ def eigh_errors(A, lamb, V, lamb_ref):
         float(((V * lamb[:, None, :]) @ V.transpose(-1, -2) - A).abs().max()) / scale,
         float((V.transpose(-1, -2) @ V - eye).abs().max()),
     )
-
-
-def profile(step, state, n_iter: int = 20, attempts: int = 3):
-    """Device microseconds per step by kernel name, device operations per step, the events seen and made, the
-    sessions taken, and the names whose events do not divide by the steps (``torch.profiler`` over ``n_iter``
-    chained steps): ``(per_kernel, ops, seen, made, sessions, uneven)``.
-
-    Read as :func:`profiled_us` reads one kernel, since a session's CUPTI trace may drop events (its first most
-    often, or all of them): each session opens with a spin kernel (``torch.cuda._sleep``, left out of the
-    sums); a name's launches a step are its events over the steps, rounded up, and its time a step is its mean
-    over the events seen times those launches; a session that saw fewer events than that makes is pooled with
-    another, up to ``attempts``. ``per_kernel`` is empty when no session saw an event. A name launched a
-    varying number of times a step cannot be told from one that lost events, so each name whose events are
-    not a whole number a step is also given in ``uneven`` as ``(events, steps, us)``, ``us`` its time a step as
-    seen, without the rounding up.
-    """
-    chain(step, state, 2)
-    torch.cuda.synchronize()
-    durations = {}
-    for attempt in range(1, attempts + 1):
-        with torch.profiler.profile(activities=[torch.profiler.ProfilerActivity.CUDA]) as prof:
-            torch.cuda._sleep(1000)
-            chain(step, state, n_iter)
-            torch.cuda.synchronize()
-        for event in prof.events():
-            if event.device_type == torch.autograd.DeviceType.CUDA and "spin_kernel" not in event.name:
-                durations.setdefault(event.name, []).append(event.time_range.elapsed_us())
-        per_step = {name: -(-len(us) // (attempt * n_iter)) for name, us in durations.items()}
-        seen, made = sum(map(len, durations.values())), attempt * n_iter * sum(per_step.values())
-        if seen == made and seen:
-            break
-    steps = attempt * n_iter
-    per_kernel = {name: k * statistics.fmean(durations[name]) for name, k in per_step.items()}
-    uneven = {name: (len(us), steps, sum(us) / steps) for name, us in durations.items() if len(us) % steps}
-    return per_kernel, sum(per_step.values()), seen, made, attempt, uneven
-
-
-def profiled_us(fn, kernel: str, n_runs: int = N_TIMED, attempts: int = 3):
-    """Device microseconds per call of ``fn`` spent in the kernels of ``kernel`` (``<kernel>_kernel*``, as named in
-    csrc/*.cu), by ``torch.profiler`` over sessions of ``n_runs`` calls, with the events seen and the launches
-    made: ``(us, seen, made)``.
-
-    Beside the CUDA-event time of :func:`median_ms`, which also holds the ~5 us that any launch reads between
-    two events, this is the kernel's own duration. A session's CUPTI trace may drop events, its first most
-    often, so a sum divided by the calls made would read low: each session opens with a spin kernel of
-    another name, and one that saw fewer launches than were made is followed by another, up to ``attempts``.
-    A call's launches of each kernel name are its events over the calls, rounded up, and the time is each
-    name's mean over the events seen, times its launches a call. ``us`` is None when no event was seen.
-    """
-
-    def session():
-        with torch.profiler.profile(activities=[torch.profiler.ProfilerActivity.CUDA]) as prof:
-            torch.cuda._sleep(1000)
-            for _ in range(n_runs):
-                fn()
-            torch.cuda.synchronize()
-        by_name = {}
-        for event in prof.events():
-            if event.device_type == torch.autograd.DeviceType.CUDA and f"{kernel}_kernel" in event.name:
-                by_name.setdefault(event.name, []).append(event.time_range.elapsed_us())
-        return by_name
-
-    fn()
-    torch.cuda.synchronize()
-    durations = {}
-    for attempt in range(1, attempts + 1):
-        for name, us in session().items():
-            durations.setdefault(name, []).extend(us)
-        per_call = {name: -(-len(us) // (attempt * n_runs)) for name, us in durations.items()}
-        seen, made = sum(map(len, durations.values())), attempt * n_runs * sum(per_call.values())
-        if seen == made and seen:
-            break
-    if not durations:
-        return None, 0, 0
-    return sum(k * statistics.fmean(durations[name]) for name, k in per_call.items()), seen, made
 
 
 def main() -> None:
@@ -3040,6 +2982,83 @@ def main() -> None:
     drive("AuxLaplaceIVA(IP1), default floor", lambda: iva_default(X, n_iter=2),
           {"weighted_covariance": 2, "ip1_sweep": 2}, totals, exact=True)
     say("route", path=repr("AuxLaplaceIVA(IP1), default floor"), ip1_update="kernel")
+
+    # ---- 5r. checkpoint / resume at full width: k iterations, a file, k more in a fresh instance, against 2k --------
+    laps("5r")
+    # (label, constructor, k, the launches of both halves together, the file's keywords besides the loss)
+    checkpoint_cases = (
+        ("AuxLaplaceIVA(IP)", lambda: AuxLaplaceIVA(spatial_algorithm="IP"), 50,
+         {"weighted_covariance": 100, "ip1_sweep": 100}, {"demix_filter"}),
+        ("AuxLaplaceIVA(ISS1), scale_restoration=False",
+         lambda: AuxLaplaceIVA(spatial_algorithm="ISS1", scale_restoration=False), 50, {"iss1_sweep": 100}, {"output"}),
+        ("GaussILRMA(IP), n_basis=8", lambda: GaussILRMA(n_basis=N_BASIS, spatial_algorithm="IP",
+                                                         rng=np.random.default_rng(0)), 50,
+         {"weighted_covariance": 100, "ip1_sweep": 100}, {"demix_filter", "basis", "activation"}),
+        # K7 twice an EM step and once a loss, once for the start's loss and once for each call's posterior
+        ("CACGMM, 8 sources", lambda: CACGMM(rng=np.random.default_rng(0)), 25, {"jacobi_eigh": 3 * 50 + 3},
+         {"mixing", "covariance"}),
+        # K3 three times a part, K7 once a part, each iteration; the basis is a tuple of two parts
+        ("GaussIPSDTA, n_basis=8, 64 blocks", lambda: GaussIPSDTA(n_basis=N_BASIS, n_blocks=IPSDTA_BLOCKS,
+                                                                  rng=np.random.default_rng(0)), 10,
+         {"gj_inverse": 6 * 20, "jacobi_eigh": 2 * 20}, {"demix_filter", "basis.0", "basis.1", "activation"}),
+    )
+    with tempfile.TemporaryDirectory() as checkpoint_dir:
+        for label, make, k, uses, keys in checkpoint_cases:
+            start = time.perf_counter()
+            path = os.path.join(checkpoint_dir, "state.npz")
+
+            def halves():
+                half = make()
+                half(X, n_iter=k)
+                save_checkpoint(path, half)
+                cont = make()
+                return cont, resume(cont, X, path, n_iter=k)
+
+            cont, Y_cont = drive(f"checkpoint, {label}", halves, uses, totals, exact=True)
+            full = make()
+            Y_full = full(X, n_iter=2 * k)
+            with np.load(path) as data:
+                file_keys = {key: data[key].dtype.name for key in sorted(data)}
+            same = bool(torch.equal(Y_cont, Y_full)) and cont.loss == full.loss
+            say("checkpoint", path=repr(label), shape=tuple(X.shape), k=k, keys=file_keys, bytes=os.path.getsize(path),
+                output_and_loss_equal=same, loss_last=full.loss[-1], seconds=f"{time.perf_counter() - start:.3f}")
+            check(set(file_keys) == keys | {"loss"}, f"checkpoint, {label}: the file holds {sorted(file_keys)}")
+            check(all_finite(Y_full) and len(cont.loss) == 2 * k + 1, f"checkpoint, {label}: output or loss history")
+            check(same, f"checkpoint, {label}: the resumed run differs from the uninterrupted one")
+
+    # ---- 5s. the profiling helpers on the main path: a trace, a timing and one call's measured cost ---------------
+    laps("5s")
+    for attempt in range(1, TRACE_ATTEMPTS + 1):
+        with tempfile.TemporaryDirectory() as trace_dir:
+
+            def traced():
+                with profiling.trace(trace_dir):
+                    torch.cuda._sleep(1000)  # a spin kernel first: a session most often drops its first event
+                    return fast_auxiva(X, n_iter=N_ITER_TRACE, algorithm="IP1")
+
+            drive("profiling.trace, fast_auxiva(IP1)", traced,
+                  {"weighted_covariance": N_ITER_TRACE, "ip1_sweep": N_ITER_TRACE}, totals, exact=True)
+            files = [os.path.join(trace_dir, name) for name in os.listdir(trace_dir) if name.endswith(".pt.trace.json")]
+            check(len(files) == 1, f"profiling.trace wrote {os.listdir(trace_dir)}")
+            with open(files[0]) as f:
+                text = f.read()
+        named = {name: text.count(f"{name}_kernel") for name in ("weighted_covariance", "ip1_sweep")}
+        say("profiling", helper=repr("trace"), attempt=attempt, bytes=len(text), kernel_name_mentions=named)
+        if all(named.values()):
+            break
+    check(text and all(named.values()), f"the trace names {named} after {attempt} sessions")
+    seconds, _ = drive("profiling.timed, fast_auxiva(IP1)",
+                       lambda: profiling.timed(fast_auxiva, X, n_iter=N_ITER_TRACE, algorithm="IP1"),
+                       {"weighted_covariance": 6 * N_ITER_TRACE, "ip1_sweep": 6 * N_ITER_TRACE}, totals, exact=True)
+    say("profiling", helper=repr("timed"), card=repr(card), steps=N_ITER_TRACE, seconds_per_call=seconds,
+        ms_per_step=seconds * 1e3 / N_ITER_TRACE)
+    check(seconds > 0, f"profiling.timed gave {seconds} s")
+    stats = drive("profiling.compiled_stats, fast_auxiva(IP1)",
+                  lambda: profiling.compiled_stats(fast_auxiva, X, n_iter=1, algorithm="IP1"),
+                  {"weighted_covariance": 1, "ip1_sweep": 1}, totals, exact=True)
+    say("profiling", helper=repr("compiled_stats"), card=repr(card), steps=1, **stats)
+    check(stats["peak_bytes"] and stats["peak_bytes"] > 0 and stats["flops"] is None,
+          f"compiled_stats on one step: {stats}")
 
     # ---- 6. times --------------------------------------------------------------
     laps("6")

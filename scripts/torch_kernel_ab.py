@@ -36,6 +36,10 @@ card, run both in one call, in turns:
 ``--only PREFIX`` times only the rows whose name starts with it (and
 skips the sweep checks and the ISS1 variants). Prints one JSON line per
 run, beside the card's name and power limit.
+
+``profiled_us`` is a copy of ``ssspy_tpu_torch.utils.profiling.profiled_us``
+(a CPU test holds the two equal): the script imports the package of the
+tree it times, and a tree from before that module has none.
 """
 
 import argparse

@@ -47,6 +47,7 @@ class ADMMBSSBase(ProxBSSBase):
     """
 
     _STATE_KEYS = ("auxiliary1", "auxiliary2", "dual1", "dual2")
+    warm_start_keys = {"W": "demix_filter", **{name: name for name in _STATE_KEYS}}  # not quad_inv, the input's
 
     def __repr__(self) -> str:
         keys = ["n_penalties", "scale_restoration", "record_loss"]

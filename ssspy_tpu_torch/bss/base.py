@@ -15,7 +15,7 @@ loop itself never waits for the device; with callbacks the loss is read
 every iteration, because the callbacks observe it.
 """
 
-from typing import Callable, List, Optional, Union
+from typing import Callable, Dict, List, Optional, Union
 
 import torch
 
@@ -89,7 +89,15 @@ class IterativeMethodBase:
     on the CPU, and without a card the default raises
     (:func:`ssspy_tpu_torch.utils.device.resolve_device`). The input and
     every warm-start tensor are moved there.
+
+    ``warm_start_keys`` maps each key of the state that a checkpoint keeps
+    to the ``__call__`` keyword that takes it back
+    (:mod:`ssspy_tpu_torch.utils.checkpoint`); keys it does not name, such
+    as the input and what ``_reset`` derives from it, are not kept. A class
+    that declares none cannot be checkpointed.
     """
+
+    warm_start_keys: Optional[Dict[str, str]] = None
 
     def __init__(
         self,
@@ -200,6 +208,8 @@ class SeparatorBase(IterativeMethodBase):
     (``demix_filter`` is ``None``; ISS, IPA). ``device`` as in
     :class:`IterativeMethodBase`.
     """
+
+    warm_start_keys = {"W": "demix_filter", "Y": "output"}
 
     def __init__(
         self,

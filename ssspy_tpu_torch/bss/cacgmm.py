@@ -224,6 +224,8 @@ class CACGMM(CACGMMBase):
 
     # ---- state plumbing ----------------------------------------------------
 
+    warm_start_keys = {"alpha": "mixing", "B": "covariance"}  # not Z, the unit input
+
     def init_state(self):
         return {"Z": self.unit_input, "alpha": self.mixing, "B": self.covariance}
 

@@ -32,6 +32,8 @@ __all__ = [
 class _ICABase(IterativeMethodBase):
     """What both ICA bases share: the input's shape and the demixing matrix's warm start."""
 
+    warm_start_keys = {"W": "demix_filter"}  # not FastICA's Z, the whitened input
+
     def __call__(self, input, n_iter: int = 100, initial_call: bool = True, **kwargs):
         self._bind_input(input)
         self._reset(**kwargs)

@@ -178,6 +178,8 @@ class ILRMABase(SeparatorBase):
 
     # ---- state plumbing ----------------------------------------------------
 
+    warm_start_keys = {**SeparatorBase.warm_start_keys, "T": "basis", "V": "activation", "Z": "latent"}
+
     def init_state(self):
         state = {"X": self.input, "T": self.basis, "V": self.activation}
         if self.partitioning:

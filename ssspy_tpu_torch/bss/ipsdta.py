@@ -96,7 +96,11 @@ class BlockDecompositionIPSDTABase(IPSDTABase):
     divide into ``n_blocks`` (``n_remains > 0``), a tuple of it and the
     remainder part ``(N, K, n_remains, J + 1, J + 1)``; ``activation`` is
     ``(N, K, T)``. Warm start through ``basis=``, ``activation=`` and
-    ``demix_filter=``. ``flooring_fn`` must floor with ``max(., eps)``; the
+    ``demix_filter=``. A start that is drawn is normalized (unit summed
+    trace, with ``source_normalization``); a warm start of both the basis
+    and the activation goes on as given, since each step normalizes, so
+    that a resumed run repeats the uninterrupted one to the bit (the JAX
+    class normalizes it again, which moves it by rounding). ``flooring_fn`` must floor with ``max(., eps)``; the
     step projects, floors and tests singular VCD updates with that ``eps``,
     1e-10 under ``"dtype"`` in either precision, as the JAX step takes it.
     """
@@ -162,8 +166,12 @@ class BlockDecompositionIPSDTABase(IPSDTABase):
         self._init_block_decomposition_psdtf()
 
     def _init_block_decomposition_psdtf(self) -> None:
-        """The PSDTF start (ssspy_tpu/bss/ipsdta.py:226-267): random where no warm start is set, then normalized."""
+        """The PSDTF start (ssspy_tpu/bss/ipsdta.py:226-267): random where no warm start is set.
+
+        Normalized unless both the basis and the activation were given (see the class).
+        """
         X = self.input
+        warm = hasattr(self, "basis") and hasattr(self, "activation")
         eps, floor = mnmf_flooring(self.flooring_fn)
         T_parts, V = random_psdtf(
             self.rng, self.n_sources, self.n_basis, self.n_frames, part_shapes(self.n_bins, self.n_blocks),
@@ -177,7 +185,7 @@ class BlockDecompositionIPSDTABase(IPSDTABase):
             ]
         if V is None:
             V = torch.as_tensor(self.activation, device=X.device).to(X.real.dtype).contiguous().clone()
-        if self.source_normalization:
+        if self.source_normalization and not warm:
             T_parts, V = normalize_psdtf(T_parts, V)
         self.basis, self.activation = self._basis_from_parts(T_parts), V
 
@@ -195,6 +203,8 @@ class BlockDecompositionIPSDTABase(IPSDTABase):
         self.basis = self._basis_from_parts(T_parts)
 
     # ---- state plumbing ----------------------------------------------------
+
+    warm_start_keys = {"W": "demix_filter", "T_parts": "basis", "V": "activation"}
 
     def init_state(self):
         return {

@@ -754,6 +754,8 @@ class AuxGaussIVA(AuxIVA):
             (self.n_sources, self.n_frames), dtype=self.input.real.dtype, device=self.input.device
         )
 
+    warm_start_keys = {**IVABase.warm_start_keys, "variance": "variance"}
+
     def init_state(self):
         return {**super().init_state(), "variance": self.variance}
 
@@ -878,6 +880,8 @@ class GradGaussIVA(GradIVA):
         self.variance = torch.ones(
             (self.n_sources, self.n_frames), dtype=self.input.real.dtype, device=self.input.device
         )
+
+    warm_start_keys = {**IVABase.warm_start_keys, "variance": "variance"}
 
     def init_state(self):
         return {**super().init_state(), "variance": self.variance}

@@ -190,6 +190,8 @@ class GaussMNMF(MNMF):
 
     # ---- state plumbing ----------------------------------------------------
 
+    warm_start_keys = {"T": "basis", "V": "activation", "H": "spatial", "Z": "latent"}
+
     def init_state(self):
         state = {"XX": self.instant_covariance, "T": self.basis, "V": self.activation, "H": self.spatial}
         if self.partitioning:
@@ -333,6 +335,8 @@ class FastGaussMNMF(FastMNMFBase):
         return (max(eps, F32_EPS) if self.input.dtype == torch.complex64 else eps), floor
 
     # ---- state plumbing ----------------------------------------------------
+
+    warm_start_keys = {"T": "basis", "V": "activation", "Q": "diagonalizer", "D": "spatial"}
 
     def init_state(self):
         return {"X": self.input, "T": self.basis, "V": self.activation, "Q": self.diagonalizer, "D": self.spatial}

@@ -36,6 +36,8 @@ class PDSBSSBase(ProxBSSBase):
             keys += ["reference_id"]
         return config_repr(self, "PDSBSS", keys)
 
+    warm_start_keys = {"W": "demix_filter", "dual": "dual"}
+
     def init_state(self):
         return {"X": self.input, "W": self.demix_filter, "dual": self.dual}
 

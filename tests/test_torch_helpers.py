@@ -42,7 +42,8 @@ MODULES = [
     ".bss.fdica", ".bss.hva", ".bss.ica", ".bss.ilrma", ".bss.ipsdta", ".bss.iva", ".bss.mnmf", ".bss.pdsbss",
     ".bss.proxbss", ".fast", ".io", ".linalg", ".linalg.eigh", ".linalg.lqpqm", ".linalg.prox", ".native",
     ".pipeline", ".special", ".special.flooring", ".special.psd", ".transform", ".transform.pca", ".transform.stft",
-    ".transform.whiten", ".utils", ".utils.dataset", ".utils.flooring", ".utils.select_pair",
+    ".transform.whiten", ".utils", ".utils.checkpoint", ".utils.dataset", ".utils.flooring", ".utils.profiling",
+    ".utils.select_pair",
 ]
 
 # JAX modules without a port module of the same path -> why
@@ -55,8 +56,6 @@ EXCLUDED_MODULES = {
     ".ops.splitc": "as .ops",
     ".parallel": "the jax.sharding mesh runners; the port's torch.distributed runners keep their own names",
     ".native.libssspy_native": "the compiled codec, not a Python module",
-    ".utils.checkpoint": "not ported yet (ROADMAP.md, Queue 1 item 3)",
-    ".utils.profiling": "not ported yet (ROADMAP.md, Queue 1 item 3)",
     **{
         f".linalg.{name}": "one function each; the port keeps them in linalg.matrix and linalg.lqpqm, exported from linalg"
         for name in ("_solve", "cubic", "inv", "mean", "polynomial", "quadratic", "sqrtm")

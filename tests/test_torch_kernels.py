@@ -474,7 +474,8 @@ def test_import_pulls_in_no_jax():
         "ssspy_tpu_torch.linalg.lqpqm, ssspy_tpu_torch.special.psd, ssspy_tpu_torch.bss.mnmf, "
         "ssspy_tpu_torch.ops.mnmf_steps, ssspy_tpu_torch.ops.ipsdta_steps, ssspy_tpu_torch.bss.ipsdta, "
         "ssspy_tpu_torch.parallel, ssspy_tpu_torch.parallel.collectives, ssspy_tpu_torch.parallel.dryrun, "
-        "ssspy_tpu_torch.io, ssspy_tpu_torch.native, ssspy_tpu_torch.bss._update_spatial_model, ssspy_tpu_torch.linalg\n"
+        "ssspy_tpu_torch.io, ssspy_tpu_torch.native, ssspy_tpu_torch.bss._update_spatial_model, ssspy_tpu_torch.linalg, "
+        "ssspy_tpu_torch.utils.checkpoint, ssspy_tpu_torch.utils.profiling\n"
         "bad = sorted(m for m in sys.modules if m == 'jax' or m.startswith(('jax.', 'ssspy_tpu.')) "
         "or m == 'ssspy_tpu')\n"
         "assert not bad, bad\n"
@@ -1019,8 +1020,23 @@ def _constant(path, name):
     return ast.literal_eval(node.value)
 
 
+# the readers of device time (chain, profile, profiled_us) live in the package; chip_smoke.py imports them
+PROFILING = "ssspy_tpu_torch/utils/profiling.py"
+
+
 def test_profiled_us_is_one_helper_in_both_scripts():
-    assert _function_source("chip_smoke.py", "profiled_us") == _function_source("scripts/torch_kernel_ab.py", "profiled_us")
+    """The A/B script keeps its own copy (it imports the package of another tree, which may predate the module)."""
+    assert _function_source(PROFILING, "profiled_us") == _function_source("scripts/torch_kernel_ab.py", "profiled_us")
+
+
+def test_chip_smoke_defines_no_copy_of_the_readers():
+    import ast
+
+    _, tree = _script_tree("chip_smoke.py")
+    defined = {n.name for n in tree.body if isinstance(n, ast.FunctionDef)}
+    assert not defined & {"chain", "profile", "profiled_us"}
+    imported = {(n.module, a.name) for n in tree.body if isinstance(n, ast.ImportFrom) for a in n.names}
+    assert {("ssspy_tpu_torch.utils.profiling", name) for name in ("chain", "profile", "profiled_us")} <= imported
 
 
 class _FakeProfiler:
@@ -1075,14 +1091,14 @@ class _FakeProfiler:
 def test_profiled_us_reads_the_events_its_session_saw(per_call, drops, expected):
     fake = _FakeProfiler(per_call, drops)
     namespace = {"torch": fake.torch(), "statistics": __import__("statistics"), "N_TIMED": 30}
-    exec(_function_source("chip_smoke.py", "profiled_us"), namespace)
+    exec(_function_source(PROFILING, "profiled_us"), namespace)
     assert namespace["profiled_us"](fake.call, "ssspy_sweep", n_runs=10) == expected
 
 
 class _FakeStepProfiler(_FakeProfiler):
-    """As :class:`_FakeProfiler`, for ``chip_smoke.profile``: each step makes one ``gemm`` event of 4 us and two
-    ``ssspy_sweep_kernel_k`` events (k + 1 us), and with ``alternate`` a ``reduce`` event of 6 us every other step;
-    the spin kernel is named as PyTorch names it."""
+    """As :class:`_FakeProfiler`, for ``utils.profiling.profile`` (chip_smoke's path profile): each step makes one
+    ``gemm`` event of 4 us and two ``ssspy_sweep_kernel_k`` events (k + 1 us), and with ``alternate`` a ``reduce``
+    event of 6 us every other step; the spin kernel is named as PyTorch names it."""
 
     def __init__(self, per_call, drops, alternate=False):
         super().__init__(per_call, drops)
@@ -1114,13 +1130,14 @@ class _FakeStepProfiler(_FakeProfiler):
     ],
 )
 def test_path_profile_reads_the_events_its_session_saw(drops, alternate, expected):
-    """chip_smoke's path profile: per kernel name its mean over the events seen times its launches a step, summed;
-    the spin kernel left out; the events seen beside those the steps make; sessions pooled until one is whole;
-    the names whose events do not divide by the steps given apart, with their time a step as seen."""
+    """The path profile (``utils.profiling.profile``, as chip_smoke reads it): per kernel name its mean over the
+    events seen times its launches a step, summed; the spin kernel left out; the events seen beside those the steps
+    make; sessions pooled until one is whole; the names whose events do not divide by the steps given apart, with
+    their time a step as seen."""
     fake = _FakeStepProfiler(2, drops, alternate)
     namespace = {"torch": fake.torch(), "statistics": __import__("statistics"), "N_ITER": 100}
-    exec(_function_source("chip_smoke.py", "chain"), namespace)
-    exec(_function_source("chip_smoke.py", "profile"), namespace)
+    exec(_function_source(PROFILING, "chain"), namespace)
+    exec(_function_source(PROFILING, "profile"), namespace)
 
     def step(state):
         fake.call()
