@@ -206,7 +206,19 @@ calls, on the default device:
   names K1's and K1b's kernels (up to three sessions, as a CUPTI session
   may drop events), ``timed`` on the same call reads more than 0 s, and
   ``compiled_stats`` on one step reads a peak of the card's memory above 0
-  and no FLOP count, since hand-written kernels launched.
+  and no FLOP count, since hand-written kernels launched;
+- the example scripts (``[examples]`` lines, 5t): every branch of each
+  script of ``examples/torch`` through its ``run``, in this process, at the
+  script's own mixture, keywords and iterations (``EXAMPLE_RUNS``): the
+  complex128 class branches launch no kernel; each kernel path launches its
+  kernels exactly as often as the table says and is held against the same
+  run through the plain versions (the SI-SDR gate; ``separate_fdica
+  --fast``'s 100 iterations and FasterIVA on their loss and a one-ulp
+  control, ``EXAMPLE_SENSITIVE``); ``batch_mesh`` with ``ranks=2`` runs
+  over two spawned gloo ranks sharing the card and is held against the
+  one-process run; each separated source goes through a 16-bit WAV file
+  (the scripts' ``save_wavs``) and back (``wavread``); each run prints its
+  SI-SDR improvement and seconds.
 
 Each class there runs with the fast path's floor (``flooring_fn="f64"``
 where its floor differs) and must equal its fast path to the bit; each path
@@ -258,7 +270,10 @@ second and device time per iteration by ``torch.profiler``, read the
 same way (each session opens with a spin kernel, and the events seen are
 printed beside those its steps make; kernel names whose events do not
 divide by the steps are listed apart, with the time read without
-rounding them up). Each phase's seconds are printed as it ends
+rounding them up). The rates and profiles read few steps (``N_ITER_RATE``,
+``N_ITER_PROFILE`` and the paths' own counts; ``PROFILE_ATTEMPTS``
+sessions at most), to leave the script's time to its gates. Each phase's
+seconds are printed as it ends
 (``[phase]`` lines, the numbered sections of ``main``; section 6 in three:
 the kernel times, the path rates, the profiles).
 
@@ -274,6 +289,7 @@ script's seconds. Imports nothing of JAX.
 
 import contextlib
 import functools
+import importlib
 import itertools
 import json
 import os
@@ -425,7 +441,7 @@ JACOBI_SIZES = (2, 3, 7, 16, 32)
 EIGH_SLICE = 4096  # matrices of the eigh model's batch held against the plain version, at each end
 N_ITER_MASKING_ADMM = 10
 N_ITER_IPA_CLASSES = 10
-N_ITER_IPA_PLAIN_RATE = 5  # the plain Jacobi eigh takes ~30 ms, eight times per IPA iteration (cut from 10 for time)
+N_ITER_IPA_PLAIN_RATE = 1  # the plain Jacobi eigh takes ~30 ms, eight times per IPA iteration
 IPA_TOL = 1e-5  # 8-term f32 complex sums, in another order on each side
 IPA_PERTURBATION = 1e-7  # relative noise on the control run's input: one f32 ulp
 # the SI-SDR gate against the plain twin holds where the control run keeps this much more than MIN_SI_SDR_DB
@@ -441,8 +457,8 @@ MNMF_EPS = 1e-10  # the dense-MNMF step's floor and ridge, class and fast path
 INV_SANDWICH_TOL = 1e-5  # the same elimination on both sides, sums in another order
 MODEL_TRACES_TOL = 2e-4  # relative to max, the JAX package's own tolerance for this pass (tests/ops/test_pallas_kernels.py:101-105)
 N_ITER_MNMF_EIGH = 10  # the eigh route: K7 on 160,882 matrices four times per iteration, its plain twin ~1 s each
-N_ITER_MNMF_PLAIN_RATE = 10  # the plain fused pass takes tens of ms, three times per iteration
-N_ITER_MNMF_EIGH_RATE = 2
+N_ITER_MNMF_PLAIN_RATE = 3  # the plain fused pass takes tens of ms, three times per iteration
+N_ITER_MNMF_EIGH_RATE = 1
 GJ_INVERSE_TOL = 1e-5  # the same elimination on both sides; fused multiply-adds round differently
 # beyond the timing shape's 4 and 5: every other m of the one-thread-per-system instance, K4's former
 # limit, the hard tier's 17, the kernel's limit; and batches that leave a block part-full
@@ -453,7 +469,7 @@ GJ_INVERSE_BATCHES = (1, 31, 33)
 WCOV_EDGES = ((8, 257, 1, 8), (8, 257, 129, 8), (8, 257, 1000, 8), (2, 9, 129, 2), (3, 9, 129, 5),
               (47, 3, 129, 1), (1, 5, 129, 93), (42, 3, 129, 9))
 N_ITER_IPSDTA = 20
-N_ITER_IPSDTA_PLAIN_RATE = 5
+N_ITER_IPSDTA_RATE, N_ITER_IPSDTA_PLAIN_RATE = 5, 1  # chained steps of IPSDTA's rates (a step ~10 ms, host-paced)
 IPSDTA_BLOCKS = 64  # scripts/tpu_bench.py:260-277: 63 blocks of 4 bins and one of 5
 IPSDTA_DOF = 1000  # TIPSDTA's dof, as the regression fixture takes it (tests/regression/test_regression.py:316-322)
 IPSDTA_EPS = 1e-10  # the IPSDTA step's floor and ridge, class and fast path
@@ -461,12 +477,17 @@ IPSDTA_EPS = 1e-10  # the IPSDTA step's floor and ridge, class and fast path
 HARD_N_FFT, HARD_HOP, HARD_BLOCKS, HARD_BASIS, HARD_ITER, HARD_SEED = 512, 256, 16, 2, 5, 29
 HARD_PIN_DB, HARD_PIN_TOL_DB = -11.41965, 0.1
 FAST_MNMF_CHANNELS, FAST_MNMF_BASIS = 4, 4  # bench.py:230-252: the first 4 channels, n_basis = 4
-N_ITER_CACGMM_PLAIN_RATE = 10  # the plain Jacobi eigh takes ~60 ms, twice per EM step
-N_ITER_FIXED_POINT_PLAIN_RATE = 10  # FastIVA and FasterIVA: the plain Jacobi eigh once (B = 257) or twice (and 2,056) a step
-N_ITER_PROX_PLAIN_RATE = 20  # the prox family's plain twins run at ~14 it/s (the plain Jacobi eigh once a step)
-N_ITER_PAIRWISE_RATE = 10  # IP2 and ISS2 launch ~1,400 device operations a step (~40 it/s, host-paced): rate and profile
-N_ITER_PROFILE = 5  # chained steps a profiler session traces; the host-paced paths take seconds a session to trace
-RATE_WARMUP = 2  # chained steps ahead of each timed chain of a path rate (the whole chain before: half the phase)
+N_ITER_CACGMM_PLAIN_RATE = 3  # the plain Jacobi eigh takes ~60 ms, twice per EM step
+N_ITER_FIXED_POINT_PLAIN_RATE = 3  # FastIVA and FasterIVA: the plain Jacobi eigh once (B = 257) or twice (and 2,056) a step
+N_ITER_PROX_PLAIN_RATE = 5  # the prox family's plain twins run at ~14 it/s (the plain Jacobi eigh once a step)
+N_ITER_PAIRWISE_RATE = 3  # IP2 and ISS2 launch ~1,400 device operations a step (~40 it/s, host-paced): rate and profile
+N_ITER_PROFILE = 2  # chained steps a profiler session traces; the host-paced paths take seconds a session to trace
+PROFILE_ATTEMPTS = 2  # profiler sessions a path profile pools at most (utils.profiling.profile's default: 3)
+RATE_WARMUP = 1  # chained steps ahead of each timed chain of a path rate
+# chained steps of a path rate, through the kernels and through the plain versions, where no path names its own: the
+# rates and profiles only measure (the gates hold the paths at N_ITER), so they read few steps
+N_ITER_RATE, N_ITER_PLAIN_RATE = 10, 5
+N_TIMED_PLAIN = 10  # timed runs of a kernel's plain version in the kernel times (the kernel's own: N_TIMED)
 # the hard tier of tests/test_hard_fidelity.py:67, :252-283 and :448-493 and its pins (tests/fidelity_pins.json)
 HARD_TIER_N_FFT, HARD_TIER_HOP = 4096, 1024
 HARD_CACGMM_ITER, HARD_CACGMM_SEED, HARD_CACGMM_PIN_DB, HARD_CACGMM_TOL_DB = 50, 3, -1.088889, 0.1
@@ -495,14 +516,14 @@ N_ITER_FDICA_HOLD = 10
 FDICA_CONTROL_MULTIPLE = 10.0
 # the free routes' chained steps for a rate and a profile: AuxIVA-IPA with secular_impl="solve" issues ~50,000 device
 # operations a step (~0.9 s, and a profiler session of 10 steps took ~95 s), FasterIVA's and FastIVA's ~3,000 and ~750
-N_ITER_FREE_RATE = {"AuxIVA-IPA solve": 1, "FasterIVA solve": 5, "FastIVA qdwh": 10}
-N_ITER_IPA_RATE = 20  # AuxIVA-IPA and GaussILRMA-IPA: chained steps a rate reads (cut from 100 for time)
+N_ITER_FREE_RATE = {"AuxIVA-IPA solve": 1, "FasterIVA solve": 2, "FastIVA qdwh": 3}
+N_ITER_IPA_RATE = 3  # AuxIVA-IPA and GaussILRMA-IPA: chained steps a rate reads (~4.4 ms a step, host-paced)
 N_PARALLEL_TIMED = 10  # chained AuxIVA-IP1 steps a device time of the batched step reads
 # the runners of the other families at full width: steps a run takes (the depth is cut for time; no gate is), the
 # chained steps a profile of their kernel time reads, and the relative error of a run over 2 gloo ranks against world
 # size 1
 N_ITER_RUNNERS = 5
-N_RUNNERS_TIMED = 5
+N_RUNNERS_TIMED = 2
 RUNNER_RANKS_TOL = 1e-4
 # the sharded runners' kernel calls against their plain versions, at the gates of phases 3-4g: relative to the
 # plain output's largest magnitude, 0 for bit for bit (K7 and K3 keep the plain version's bits)
@@ -515,6 +536,47 @@ N_ITER_FLOORING = 20  # AuxLaplaceIVA-IP1 at full width with a flooring_fn that 
 N_ITER_TRACE = 10  # fast_auxiva IP1 steps traced, timed (per call) by the profiling helpers
 TRACE_ATTEMPTS = 3  # trace sessions until one names K1's and K1b's kernels (a CUPTI session may drop events)
 REPO = os.path.dirname(os.path.abspath(__file__))
+EXAMPLES = os.path.join(REPO, "examples", "torch")
+# every branch of the example scripts (examples/torch), in-process through the script's run at its own mixture and
+# iterations: (script, keywords of run, the launches of each kernel). {} is a complex128 class branch (the plain
+# routes, no kernel); None is batch_mesh over spawned ranks, whose launches are the ranks' own (5n's dry run counts
+# them for this runner) and which is held against the one-process run
+EXAMPLE_RUNS = (
+    ("separate_auxiva", {}, {}),
+    ("separate_auxiva", {"fast": True}, {"weighted_covariance": 100, "ip1_sweep": 100}),
+    ("separate_f32_mode", {}, {"weighted_covariance": 200, "ip1_sweep": 200}),
+    ("separate_ilrma", {}, {}),
+    ("separate_ilrma", {"fast": True}, {"weighted_covariance": 100, "ip1_sweep": 100}),
+    ("separate_tilrma", {}, {"weighted_covariance": 50, "ip1_sweep": 50}),
+    ("separate_tilrma", {"ggd": True}, {"weighted_covariance": 50, "ip1_sweep": 50}),
+    ("separate_fdica", {}, {}),
+    ("separate_fdica", {"fast": True}, {"weighted_covariance": 100, "ip1_sweep": 100}),
+    ("separate_mnmf", {}, {}),
+    ("separate_mnmf", {"fast": True}, {"weighted_covariance": 100, "ip1_sweep": 100}),
+    ("separate_gauss_mnmf_dense", {}, {}),
+    ("separate_gauss_mnmf_dense", {"fast": True}, {"model_traces": 90, "jacobi_eigh": 60}),
+    ("separate_ipsdta", {}, {}),
+    ("separate_ipsdta", {"fast": True}, {"gj_inverse": 180, "jacobi_eigh": 60}),
+    ("separate_cacgmm", {}, {}),
+    ("separate_cacgmm", {"fast": True}, {"jacobi_eigh": 201}),
+    ("separate_prox_iva", {}, {"jacobi_eigh": 200}),
+    ("separate_prox_iva", {"admm": True}, {"jacobi_eigh": 200}),
+    ("separate_hva", {}, {}),
+    ("separate_hva", {"fast": True}, {"jacobi_eigh": 100}),
+    ("separate_fixed_point_iva", {}, {"jacobi_eigh": 51}),
+    ("separate_fixed_point_iva", {"faster": True}, {"weighted_covariance": 50, "jacobi_eigh": 101}),
+    ("separate_fixed_point_iva", {"use_class": True}, {}),
+    ("separate_fixed_point_iva", {"use_class": True, "faster": True}, {}),
+    ("batch_mesh", {}, {"weighted_covariance": 200, "ip1_sweep": 50}),
+    ("batch_mesh", {"ranks": 2}, None),
+)
+# the example paths that amplify rounding, held on their loss and a one-ulp control as 5k and 5l hold them: the step
+# of ssspy_tpu_torch.fast whose last call gives (input, filters), and the loss of those
+EXAMPLE_SENSITIVE = {
+    "separate_fdica fast": ("aux_laplace_fdica_ip1_step", fdica_steps.fdica_laplace_loss),
+    "separate_fixed_point_iva faster": ("faster_iva_step", fixed_point_iva_steps.fast_iva_laplace_loss),
+}
+WAV_ROUND_TRIP_TOL = 1e-4  # a peak-normalized source through a 16-bit WAV file (one step 3.1e-5)
 
 # the card's peaks for the bound: NVIDIA H100 SXM data sheet, at 700 W
 HBM_BYTES_PER_S = 3.35e12
@@ -940,6 +1002,24 @@ def recording(module, name: str, record):
     setattr(module, name, recorder)
     try:
         yield
+    finally:
+        setattr(module, name, inner)
+
+
+@contextlib.contextmanager
+def last_call(module, name: str):
+    """Keep the first argument and the result of the last call to ``module.name`` (a step in front of the kernels'
+    routers) in the list this yields; the wrappers behind it count as ever."""
+    inner, last = getattr(module, name), []
+
+    def keeper(*args, **kwargs):
+        out = inner(*args, **kwargs)
+        last[:] = [args[0], out]
+        return out
+
+    setattr(module, name, keeper)
+    try:
+        yield last
     finally:
         setattr(module, name, inner)
 
@@ -2769,8 +2849,8 @@ def main() -> None:
             check(all_finite(Y_b) and rel <= (SENSITIVE_LOSS_TOL if loss_only else LOSS_TOL)
                   and (loss_only or sdr >= MIN_SI_SDR_DB), f"{name} runner utterance {b}: loss {rel}, {sdr:.2f} dB")
         # the kernels' summed durations a step (profile: no event seen reads "not measured")
-        batch_kernels, _, batch_seen, batch_made, _, _ = profile(step_batch, state_batch, N_RUNNERS_TIMED)
-        one_kernels, _, one_seen, one_made, _, _ = profile(step_one, state_one, N_RUNNERS_TIMED)
+        batch_kernels, _, batch_seen, batch_made, _, _ = profile(step_batch, state_batch, N_RUNNERS_TIMED, PROFILE_ATTEMPTS)
+        one_kernels, _, one_seen, one_made, _, _ = profile(step_one, state_one, N_RUNNERS_TIMED, PROFILE_ATTEMPTS)
         say("parallel", runner=repr(name), card=repr(card),
             kernel_us_per_iter_per_utterance=sum(batch_kernels.values()) / 2 if batch_kernels else "not measured",
             fast_path_kernel_us_per_iter=sum(one_kernels.values()) if one_kernels else "not measured",
@@ -3060,6 +3140,95 @@ def main() -> None:
     check(stats["peak_bytes"] and stats["peak_bytes"] > 0 and stats["flops"] is None,
           f"compiled_stats on one step: {stats}")
 
+    # ---- 5t. the examples: every script of examples/torch through its run, at its own mixture and iterations --------
+    laps("5t")
+    # Each branch runs once on the card with exact launch counts (EXAMPLE_RUNS); each kernel path once more through
+    # the plain versions and is held against that twin (the SI-SDR gate; FDICA's 100 iterations and FasterIVA on
+    # their loss and a one-ulp control, EXAMPLE_SENSITIVE); batch_mesh over 2 spawned gloo ranks sharing the card
+    # against the one-process run. The separated sources go through 16-bit WAV files and back (wavread).
+    sys.path.insert(0, EXAMPLES)  # the scripts import _common; batch_mesh's spawned ranks import batch_mesh by name
+    common = importlib.import_module("_common")
+    from ssspy_tpu_torch import fast as fast_module
+
+    def improvement(y, images, mix):
+        """The report's SI-SDR improvement: separated (best permutation) less the mixture's, in dB."""
+        base = float(np.mean([common.si_sdr(mix[0], images[s, 0]) for s in range(images.shape[0])]))
+        return float(common.report(y, images, mix)) - base
+
+    batch_alone = None
+    with tempfile.TemporaryDirectory() as example_dir:
+        for name, kwargs, uses in EXAMPLE_RUNS:
+            script = importlib.import_module(name)
+            label = " ".join([name, *kwargs])
+            if name == "batch_mesh":
+                mixes, images = zip(*(common.make_mixture(**script.MIXTURE, seed=seed, cache_dir=example_dir)
+                                      for seed in script.SEEDS))
+                run = functools.partial(script.run, mixes, device=device, **kwargs)
+            else:
+                mix, images = common.make_mixture(**script.MIXTURE, cache_dir=example_dir)
+                run = functools.partial(script.run, mix, device=device, **kwargs)
+            step_name, loss_fn = EXAMPLE_SENSITIVE.get(label, (None, None))
+            start = time.perf_counter()
+            with (last_call(fast_module, step_name) if step_name else contextlib.nullcontext([])) as last:
+                y = drive(f"example {label}", run, uses or {}, totals, exact=True)
+            seconds = time.perf_counter() - start
+            check(np.isfinite(y).all(), f"{label}: non-finite output")
+            gains = ([improvement(y[b], images[b], mixes[b]) for b in range(len(mixes))] if name == "batch_mesh"
+                     else [improvement(y, images, mix)])
+            extra = {}
+            if uses:
+                # the same run through the plain versions, and the gate of a kernel path against it
+                with (last_call(fast_module, step_name) if step_name else contextlib.nullcontext([])) as last_plain:
+                    start = time.perf_counter()
+                    y_plain = run_plain(run)
+                    extra["plain_seconds"] = f"{time.perf_counter() - start:.3f}"
+                Y, Y_plain = torch.from_numpy(np.asarray(y)), torch.from_numpy(np.asarray(y_plain))
+                if name == "batch_mesh":
+                    Y, Y_plain = Y.flatten(0, 1), Y_plain.flatten(0, 1)
+                if step_name is None:
+                    hold_sdr(f"example {label}", Y, Y_plain)
+                else:
+                    loss, loss_plain = (float(loss_fn(*last)) for last in (last, last_plain))
+
+                    def perturbed_run(kwargs=kwargs, script=script, mix=mix):
+                        """The plain twin on the mixture times (1 + IPA_PERTURBATION noise): ``(y, loss)``."""
+                        noisy = mix * (1 + IPA_PERTURBATION * np.random.default_rng(0).standard_normal(mix.shape))
+                        with last_call(fast_module, step_name) as last_control:
+                            y_control = run_plain(functools.partial(script.run, noisy, device=device, **kwargs))
+                        return torch.from_numpy(np.asarray(y_control)), float(loss_fn(*last_control))
+
+                    if label == "separate_fdica fast" and min_si_sdr(Y, Y_plain) < MIN_SI_SDR_DB:
+                        # 5l's gate for FDICA's 100 iterations: the loss gap within FDICA_CONTROL_MULTIPLE x the control's
+                        Y_control, loss_control = perturbed_run()
+                        gap, gap_control = (abs(a - loss_plain) / abs(loss_plain) for a in (loss, loss_control))
+                        say("path vs plain", path=repr(f"example {label}"), loss=loss, plain_loss=loss_plain,
+                            loss_rel_diff=gap, min_si_sdr_db=min_si_sdr(Y, Y_plain), perturbed_input_loss=loss_control,
+                            perturbed_input_loss_rel_diff=gap_control,
+                            perturbed_input_min_si_sdr_db=min_si_sdr(Y_control, Y_plain),
+                            gate=repr(f"loss gap <= {FDICA_CONTROL_MULTIPLE} x the control's"))
+                        check(gap <= FDICA_CONTROL_MULTIPLE * gap_control,
+                              f"example {label}: loss gap {gap} to the plain twin against the control's {gap_control}")
+                    else:
+                        hold_sensitive(f"example {label}", Y, Y_plain, perturbed_run, loss, loss_plain)
+                if name == "batch_mesh":
+                    batch_alone = y
+            elif uses is None:
+                check(batch_alone is not None, "batch_mesh over ranks before the one-process run")
+                sdr = min_si_sdr(torch.from_numpy(y).flatten(0, 1), torch.from_numpy(batch_alone).flatten(0, 1))
+                say("path vs one process", path=repr(f"example {label}"), min_si_sdr_db=sdr)
+                check(sdr >= MIN_SI_SDR_DB, f"example {label}: {sdr:.2f} dB against the one-process run")
+            if name not in ("batch_mesh", "separate_f32_mode"):
+                # the scripts' WAV output, read back: one file per source, each of the mixture's length
+                paths = common.save_wavs(y, label.replace(" ", "_"), os.path.join(example_dir, "out"))
+                read = [wavread(path) for path in paths]
+                check(len(read) == y.shape[0] and all(rate == 16000 and data.shape == y.shape[1:] for data, rate in read),
+                      f"example {label}: WAVs read back as {[(data.shape, rate) for data, rate in read]}")
+                err = max(float(np.abs(data - y[n] / (np.abs(y[n]).max() + 1e-9)).max()) for n, (data, _) in enumerate(read))
+                check(err <= WAV_ROUND_TRIP_TOL, f"example {label}: WAV round trip off by {err}")
+                extra["wav_round_trip_max_abs_err"] = err
+            say("examples", script=repr(label), card=repr(card), seconds=f"{seconds:.3f}",
+                si_sdr_improvement_db=[round(g, 3) for g in gains], launches=uses, **extra)
+
     # ---- 6. times --------------------------------------------------------------
     laps("6")
     U_main = K.weighted_covariance(X, phi_scalar)
@@ -3227,15 +3396,15 @@ def main() -> None:
     for key, (weights, kernel_fn, plain_fn, library_fn, (bound, bound_by)) in timed.items():
         profiler_us, events_seen, events_made = profiled_us(kernel_fn, key.split()[0])
         ms = median_ms(kernel_fn, queued=True)
-        plain_ms = median_ms(plain_fn, queued=True) if plain_fn is not None else None
+        plain_ms = median_ms(plain_fn, queued=True, n_runs=N_TIMED_PLAIN) if plain_fn is not None else None
         call_ms = median_ms(kernel_fn, queued=False)
-        plain_call_ms = median_ms(plain_fn, queued=False) if plain_fn is not None else None
+        plain_call_ms = median_ms(plain_fn, queued=False, n_runs=N_TIMED_PLAIN) if plain_fn is not None else None
         library_ms = median_ms(library_fn, queued=True) if library_fn is not None else None
         timings[key] = {"ms": ms, "plain_ms": plain_ms, "bound_ms": bound, "bound_by": bound_by,
                         "library_ms": library_ms}
         say("time", kernel=repr(key), weights=repr(weights), card=repr(card), device_ms=ms,
             plain_device_ms=plain_ms, call_ms=call_ms, plain_call_ms=plain_call_ms, library_device_ms=library_ms,
-            bound_ms=bound, bound_by=bound_by, bound_share=bound / ms, runs=N_TIMED, stat="median",
+            bound_ms=bound, bound_by=bound_by, bound_share=bound / ms, runs=N_TIMED, plain_runs=N_TIMED_PLAIN, stat="median",
             profiler_us_per_launch=profiler_us, profiler_events=f"{events_seen}/{events_made}")
     # K5 as the step calls it: twice the traces alone, once the sums alone
     mode_ms = {outputs: median_ms(lambda: K.model_traces(Lamb_main, H_mnmf, XX_main, MNMF_EPS, outputs=outputs),
@@ -3323,23 +3492,23 @@ def main() -> None:
         "AuxIVA-IPA": (N_ITER_IPA_RATE, N_ITER_IPA_PLAIN_RATE),
         "GaussILRMA-IPA": (N_ITER_IPA_RATE, N_ITER_IPA_PLAIN_RATE),
         **{label: (n, n) for label, n in N_ITER_FREE_RATE.items()},
-        "PDSIVA": (N_ITER, N_ITER_PROX_PLAIN_RATE),
-        "HVA": (N_ITER, N_ITER_PROX_PLAIN_RATE),
-        "ADMMIVA": (N_ITER, N_ITER_PROX_PLAIN_RATE),
-        "GaussMNMF-dense": (N_ITER, N_ITER_MNMF_PLAIN_RATE),
+        "PDSIVA": (N_ITER_RATE, N_ITER_PROX_PLAIN_RATE),
+        "HVA": (N_ITER_RATE, N_ITER_PROX_PLAIN_RATE),
+        "ADMMIVA": (N_ITER_RATE, N_ITER_PROX_PLAIN_RATE),
+        "GaussMNMF-dense": (N_ITER_RATE, N_ITER_MNMF_PLAIN_RATE),
         "GaussMNMF-dense eigh": (N_ITER_MNMF_EIGH_RATE, N_ITER_MNMF_EIGH_RATE),
-        "GaussIPSDTA": (N_ITER_IPSDTA, N_ITER_IPSDTA_PLAIN_RATE),
-        "TIPSDTA": (N_ITER_IPSDTA, N_ITER_IPSDTA_PLAIN_RATE),
-        "cACGMM": (N_ITER, N_ITER_CACGMM_PLAIN_RATE),
-        "cACGMM K1 covariance": (N_ITER, N_ITER_CACGMM_PLAIN_RATE),
-        "FastIVA": (N_ITER, N_ITER_FIXED_POINT_PLAIN_RATE),
-        "FasterIVA": (N_ITER, N_ITER_FIXED_POINT_PLAIN_RATE),
+        "GaussIPSDTA": (N_ITER_IPSDTA_RATE, N_ITER_IPSDTA_PLAIN_RATE),
+        "TIPSDTA": (N_ITER_IPSDTA_RATE, N_ITER_IPSDTA_PLAIN_RATE),
+        "cACGMM": (N_ITER_RATE, N_ITER_CACGMM_PLAIN_RATE),
+        "cACGMM K1 covariance": (N_ITER_RATE, N_ITER_CACGMM_PLAIN_RATE),
+        "FastIVA": (N_ITER_RATE, N_ITER_FIXED_POINT_PLAIN_RATE),
+        "FasterIVA": (N_ITER_RATE, N_ITER_FIXED_POINT_PLAIN_RATE),
         **{label: (N_ITER_PAIRWISE_RATE, N_ITER_PAIRWISE_RATE) for label in (
             "AuxIVA-IP2", "AuxIVA-ISS2", "GaussILRMA-IP2", "GaussILRMA-ISS2", "FastGaussMNMF-IP2 4ch", "AuxFDICA-IP2")},
     }
     rates = {}
     for label, (step, state) in steps.items():
-        n_kernel, n_plain = n_steps.get(label, (N_ITER, N_ITER))
+        n_kernel, n_plain = n_steps.get(label, (N_ITER_RATE, N_ITER_PLAIN_RATE))
         with plain_versions():
             plain_a = iterations_per_s(step, state, n_plain)
         kernel_a, kernel_b = iterations_per_s(step, state, n_kernel), iterations_per_s(step, state, n_kernel)
@@ -3363,14 +3532,14 @@ def main() -> None:
             ipsdta_steps.vcd_sweep(W_p, RXX_p, eps=IPSDTA_EPS)
         return s
 
-    sweep_per_kernel, sweep_ops, sweep_seen, sweep_made, _, _ = profile(sweeps_only, None, 10)
+    sweep_per_kernel, sweep_ops, sweep_seen, sweep_made, _, _ = profile(sweeps_only, None, N_ITER_PROFILE, PROFILE_ATTEMPTS)
     sweep_us = sum(sweep_per_kernel.values())
 
     # where the device time of one iteration goes (torch.profiler)
     for label, (step, state) in steps.items():
         start = time.perf_counter()
-        n_profiled = min(N_ITER_PROFILE, n_steps.get(label, (N_ITER,))[0])
-        per_kernel, ops_per_iter, seen, made, sessions, uneven = profile(step, state, n_profiled)
+        n_profiled = min(N_ITER_PROFILE, n_steps.get(label, (N_ITER_RATE,))[0])
+        per_kernel, ops_per_iter, seen, made, sessions, uneven = profile(step, state, n_profiled, PROFILE_ATTEMPTS)
         profile_seconds = f"{time.perf_counter() - start:.1f}"
         device_us = sum(per_kernel.values())
         if not device_us:

@@ -355,12 +355,14 @@ class NaturalGradLaplaceFDICA(GradLaplaceFDICA, NaturalGradFDICA):
 class AuxLaplaceFDICA(AuxFDICA):
     """AuxFDICA with a Laplace prior (parity: ssspy/bss/fdica.py:1527-1667).
 
-    The weight per scalar is ``1 / flooring_fn(|y|)``, the fast paths' form
+    In complex64 the weight per scalar is ``1 / flooring_fn(|y|)``, the
+    fast paths' form
     (:func:`~ssspy_tpu_torch.ops.fdica_steps.scalar_laplace_varphi`): with
     the floor of ``fast_aux_fdica`` (``"dtype"`` in complex64, 1e-6) the
-    class runs its trajectory to the bit. A ``flooring_fn`` that is not
-    ``max(., eps)`` takes the JAX class's form ``2 / flooring_fn(2 |y|)``
-    (ssspy_tpu/bss/fdica.py:546-548), which differs from it there.
+    class runs its trajectory to the bit. In complex128, and with a
+    ``flooring_fn`` that is not ``max(., eps)``, it takes the JAX complex
+    class's form ``2 / flooring_fn(2 |y|)`` (ssspy_tpu/bss/fdica.py:546-548),
+    which differs from the other where ``|y|`` falls under the floor.
     """
 
     def __init__(
@@ -390,6 +392,6 @@ class AuxLaplaceFDICA(AuxFDICA):
         )
 
     def _varphi(self, Y: torch.Tensor) -> torch.Tensor:
-        if sweep_eps(self.flooring_fn, Y.dtype) is None:
+        if Y.dtype != torch.complex64 or sweep_eps(self.flooring_fn, Y.dtype) is None:
             return super()._varphi(Y)
         return 1.0 / self.flooring_fn(Y.abs())

@@ -18,6 +18,7 @@ diagonalizer update runs the weighted covariance K1 and the IP1 sweep K1b
 in complex64 and their plain versions in complex128.
 """
 
+import functools
 from typing import Callable, List, Optional, Tuple, Union
 
 import numpy as np
@@ -26,7 +27,7 @@ import torch
 from ..ops.fast_mnmf_steps import check_diagonalizer, fast_gauss_mnmf_loss, fast_gauss_mnmf_step, fast_mnmf_separate
 from ..ops.ilrma_steps import reconstruct_nmf
 from ..ops.mnmf_steps import _model, gauss_mnmf_loss, gauss_mnmf_step, instant_covariance, wiener_separate
-from ..special.flooring import EPS, F32_EPS, dtype_flooring, resolve_flooring_spec, step_flooring
+from ..special.flooring import EPS, F32_EPS, dtype_flooring, max_flooring, resolve_flooring_spec, step_flooring
 from ..utils.device import DEFAULT_DEVICE
 # re-exported, as the reference does
 from ._update_spatial_model import (  # noqa: F401
@@ -286,7 +287,9 @@ class FastGaussMNMF(FastMNMFBase):
     complex64 under ``"dtype"``, the float32 engine's floor; any other
     callable floors where the JAX complex class does), so that in
     complex64 the class equals :func:`ssspy_tpu_torch.fast.fast_gauss_mnmf`
-    from the same draws. ``separate`` is the Wiener filter in the
+    from the same draws. In complex128 the model ``Lamb D`` and the
+    diagonalizer's weights stay unfloored (``model_eps=0``), as the JAX
+    complex class and the reference take them. ``separate`` is the Wiener filter in the
     diagonalized space, on the device
     (:func:`~ssspy_tpu_torch.ops.fast_mnmf_steps.fast_mnmf_separate`).
     ``diagonalizer_algorithm="IP2"`` runs the IP2 pair updates over
@@ -334,6 +337,10 @@ class FastGaussMNMF(FastMNMFBase):
         eps, floor = step_flooring(self.flooring_fn, self.input.dtype)
         return (max(eps, F32_EPS) if self.input.dtype == torch.complex64 else eps), floor
 
+    def _model_eps(self, eps: float) -> float:
+        """The floor of the model ``Lamb D``: the step's ``eps`` in complex64, none in complex128 (the JAX complex class's)."""
+        return eps if self.input.dtype == torch.complex64 else 0.0
+
     # ---- state plumbing ----------------------------------------------------
 
     warm_start_keys = {"T": "basis", "V": "activation", "Q": "diagonalizer", "D": "spatial"}
@@ -349,26 +356,32 @@ class FastGaussMNMF(FastMNMFBase):
     def separate(self, input):
         """Wiener filter in the diagonalized space, reference channel row (parity: ssspy/bss/mnmf.py:1174-1217)."""
         X = torch.as_tensor(input, device=self.input.device)
-        return fast_mnmf_separate(X, self.basis, self.activation, self.diagonalizer, self.spatial,
-                                  reference_id=self.reference_id, flooring_fn=self._flooring()[1])
+        state = (X, self.basis, self.activation, self.diagonalizer, self.spatial)
+        eps, floor = self._flooring()
+        if self.input.dtype == torch.complex64:
+            return fast_mnmf_separate(*state, reference_id=self.reference_id, flooring_fn=floor)
+        # as the JAX complex class: the model unfloored, R projected with the class's floor, a max-type one too
+        # (ssspy_tpu/bss/mnmf.py:668-685)
+        return fast_mnmf_separate(*state, reference_id=self.reference_id, eps=0.0,
+                                  flooring_fn=floor or functools.partial(max_flooring, eps=eps))
 
     # ---- one iteration and the loss -------------------------------------------
 
     def make_step(self):
         (eps, floor), normalization, algorithm = self._flooring(), bool(self.normalization), self.diagonalizer_algorithm
-        pair_selector = self.pair_selector
+        pair_selector, model_eps = self.pair_selector, self._model_eps(eps)
 
         def step(state):
             Q, T, V, D = fast_gauss_mnmf_step(
                 state["X"], state["Q"], state["T"], state["V"], state["D"], eps=eps, normalization=normalization,
-                diagonalizer=algorithm, pair_selector=pair_selector, flooring_fn=floor,
+                diagonalizer=algorithm, pair_selector=pair_selector, flooring_fn=floor, model_eps=model_eps,
             )
             return {**state, "Q": Q, "T": T, "V": V, "D": D}
 
         return step
 
     def make_loss(self):
-        eps = self._flooring()[0]
+        eps = self._model_eps(self._flooring()[0])
 
         def loss(state):
             return fast_gauss_mnmf_loss(state["X"], state["Q"], state["T"], state["V"], state["D"], eps=eps)

@@ -85,6 +85,7 @@ def fast_gauss_mnmf_step(
     pair_selector=None,
     bin_sum=None,
     flooring_fn: Optional[Callable] = None,
+    model_eps: Optional[float] = None,
 ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor, torch.Tensor]:
     """One FastGaussMNMF iteration; returns ``(Q, T, V, D)``.
 
@@ -100,29 +101,33 @@ def fast_gauss_mnmf_step(
     Batched (IP1) and ``bin_sum`` as the module describes; with ``bin_sum``
     the mean is over the bins of the whole group, padded ones included, as
     the JAX runner takes it (parallel/__init__.py:732-736). ``flooring_fn``
-    as the module describes.
+    as the module describes. ``model_eps`` (``eps`` when None) floors the
+    model ``Lamb``, ``Lamb D`` and the covariances' weights: the JAX split-complex
+    step's ``eps``; ``0`` leaves them unfloored, as the JAX complex class and
+    the reference take them (ssspy_tpu/bss/mnmf.py:687-741).
     """
     check_diagonalizer(diagonalizer)
+    model_eps = eps if model_eps is None else model_eps
     if diagonalizer == "IP2" and X.dim() != 3:
         raise ValueError("the IP2 diagonalizer takes one utterance")
     Xb = X.transpose(-3, -2)  # (I, M, T)
     Db = D.transpose(-3, -2)  # (N, I, M)
 
     QX2 = _powers(Xb, Q)
-    _, LambD = _model(T, V, D, eps)
+    _, LambD = _model(T, V, D, model_eps)
     num, denom = _mm_terms(QX2, LambD, Db)
     T = floor(T * torch.sqrt(torch.einsum("...nkt,...nit->...nik", V, num) / torch.clamp(
         torch.einsum("...nkt,...nit->...nik", V, denom), min=1e-30)), eps, flooring_fn)
 
-    _, LambD = _model(T, V, D, eps)
+    _, LambD = _model(T, V, D, model_eps)
     num, denom = _mm_terms(QX2, LambD, Db)
     num, denom = torch.einsum("...nik,...nit->...nkt", T, num), torch.einsum("...nik,...nit->...nkt", T, denom)
     if bin_sum is not None:
         num, denom = bin_sum(num, denom)
     V = floor(V * torch.sqrt(num / torch.clamp(denom, min=1e-30)), eps, flooring_fn)
 
-    Lamb = torch.clamp(T @ V, min=eps)
-    varphi = 1 / torch.clamp(torch.einsum("...nit,...inm->...mit", Lamb, D), min=eps)  # (M, I, T)
+    Lamb = torch.clamp(T @ V, min=model_eps)
+    varphi = 1 / torch.clamp(torch.einsum("...nit,...inm->...mit", Lamb, D), min=model_eps)  # (M, I, T)
     U = covariance(X, varphi)
     if diagonalizer == "IP2":
         Q = ip2_update(Q, U, eps=eps, pair_selector=pair_selector, flooring_fn=flooring_fn)
@@ -130,7 +135,7 @@ def fast_gauss_mnmf_step(
         Q = ip1_update(Q, U, eps=eps, flooring_fn=flooring_fn)
 
     QX2 = _powers(Xb, Q)
-    Lamb, LambD = _model(T, V, D, eps)
+    Lamb, LambD = _model(T, V, D, model_eps)
     Lambb = Lamb.transpose(-3, -2)  # (I, N, T)
     num = torch.einsum("...int,...itm->...inm", Lambb, QX2 / LambD**2)
     denom = torch.einsum("...int,...itm->...inm", Lambb, 1 / LambD)

@@ -5,12 +5,15 @@ numpy-only copies of ``bench.make_mixture`` / ``bench.host_stft``
 ``ssspy_tpu.utils.dataset.download_sample_speech_data``'s synthetic
 mixture (the easy tier of tests/test_fast_fidelity.py) and of
 ``ssspy_tpu.utils.dataset.hard_speech_mixture`` with its helpers
-(ssspy_tpu/utils/dataset/__init__.py:17-67, :70-118, :133-282), without
-their file cache, so that the port and ``chip_smoke.py`` build these
-inputs without the JAX package.
+(ssspy_tpu/utils/dataset/__init__.py:17-67, :70-130, :133-282), so that
+the port and ``chip_smoke.py`` build these inputs without the JAX package.
+:func:`download_sample_speech_data` is the JAX function with its file
+cache (the same file names and ``.npz`` layout, so either package reads the
+other's cache); the other generators keep none.
 """
 
-from typing import Tuple
+import os
+from typing import Optional, Tuple
 
 import numpy as np
 
@@ -18,6 +21,7 @@ __all__ = [
     "make_mixture",
     "host_stft",
     "sample_speech_mixture",
+    "download_sample_speech_data",
     "hard_speech_mixture",
     "SAMPLE_RATE",
     "N_CHANNELS",
@@ -113,6 +117,40 @@ def sample_speech_mixture(
         rir = _synthetic_rir(rng, n_sources, n_taps)
         for ch in range(n_sources):
             images[src, ch] = np.convolve(sources[src], rir[ch])[:n_samples]
+    return images, sample_rate
+
+
+def download_sample_speech_data(
+    root: str = ".data",
+    n_sources: int = 3,
+    sisec2010_tag: str = "dev1_female3",
+    max_duration: float = 10.0,
+    conv: bool = True,
+    cache_dir: Optional[str] = None,
+    seed: int = 42,
+    sample_rate: int = 16000,
+) -> Tuple[np.ndarray, int]:
+    """:func:`sample_speech_mixture` behind the JAX package's file cache: ``(waveform_src_img, sample_rate)``.
+
+    The reference downloads SiSEC2010 speech and MIRD responses; like the
+    JAX package, this fetches nothing and synthesizes the mixture from
+    ``seed`` (``sisec2010_tag`` only names the cache file). The mixture is
+    kept as ``synth_v2_<tag>_<n>src_<duration>s_<conv|inst>_<seed>.npz``
+    under ``cache_dir`` (``root`` where it is None) and read back from
+    there, as ``ssspy_tpu.utils.dataset.download_sample_speech_data`` keeps
+    it, so either package reads the other's file.
+    """
+    cache_root = cache_dir or root
+    cache_path = os.path.join(
+        cache_root,
+        f"synth_v2_{sisec2010_tag}_{n_sources}src_{max_duration}s_{'conv' if conv else 'inst'}_{seed}.npz",
+    )
+    if os.path.exists(cache_path):
+        npz = np.load(cache_path)
+        return npz["waveform_src_img"], int(npz["sample_rate"])
+    images, sample_rate = sample_speech_mixture(n_sources, max_duration, conv, seed, sample_rate)
+    os.makedirs(cache_root, exist_ok=True)
+    np.savez(cache_path, waveform_src_img=images, sample_rate=sample_rate)
     return images, sample_rate
 
 

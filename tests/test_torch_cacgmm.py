@@ -331,7 +331,7 @@ def test_fast_cacgmm_matches_the_jax_fast_path():
 def test_fast_cacgmm_meets_the_fidelity_pin(tmp_path):
     """tests/test_fast_fidelity.py:462-484 on the port: within 0.1 dB of the pinned reference SI-SDR."""
     from ssspy_tpu.transform import stft
-    from ssspy_tpu.utils.dataset import download_sample_speech_data
+    from ssspy_tpu_torch.utils.dataset import download_sample_speech_data
     from tests.test_fast_fidelity import HOP, N_FFT, _quality
 
     images, _ = download_sample_speech_data(cache_dir=str(tmp_path), n_sources=2, max_duration=2.0, conv=True, seed=0)

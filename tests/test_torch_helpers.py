@@ -71,7 +71,6 @@ EXCLUDED = {
     ("*", "*_sc"): "split-complex ([real, imag] planes) functions of the TPU engine; the port carries native complex",
     ("", "ops"): "as the module .ops",
     ("", "parallel"): "as the module .parallel",
-    (".utils.dataset", "download_sample_speech_data"): "fetches audio over the network, which the port never reads",
 }
 # the update_by_* names the reference re-exports from the bss modules (ssspy/bss/*.py)
 REEXPORTS = {
